@@ -1,0 +1,20 @@
+"""cbf_tpu_torch — the PyTorch/CUDA port of :mod:`cbf_tpu`.
+
+The JAX package stays the reference; this package mirrors its module
+names so each counterpart is easy to find (``cbf_tpu/ops/pallas_knn.py`` ->
+``cbf_tpu_torch/ops/knn.py``, everything else by the same path). It imports
+torch and numpy only — never jax and nothing of ``cbf_tpu``.
+
+Slice 1 covers the swarm main path: consensus nominal, k-NN danger gating
+(hand-written CUDA kernels for Hopper in ``csrc/knn.cu``), the batched
+direction-deduped CBF filter with the exact 2-D QP solver, and the
+single-integrator update, driven over time by ``rollout.engine``. Knobs
+of later slices raise :class:`~cbf_tpu_torch.errors.OutOfSliceError`.
+
+Entry points run on the card unless the caller passes ``device="cpu"``
+(:func:`cbf_tpu_torch.scenarios.swarm.make`).
+"""
+
+from cbf_tpu_torch.errors import OutOfSliceError
+
+__all__ = ["OutOfSliceError"]

@@ -1,0 +1,357 @@
+"""k-NN danger gating: the hand-written Hopper kernels and their plain
+versions (counterpart: cbf_tpu/ops/pallas_knn.py).
+
+Kernels (CUDA C++ in ``cbf_tpu_torch/csrc/knn.cu``, built at first use by
+``nvcc`` for ``sm_90a`` into a directory keyed by the source hash and
+loaded through ctypes):
+
+- ``knn_fused`` replaces ``_knn_kernel`` (N <= MAX_N_FUSED);
+- ``knn_stream`` replaces ``_knn_kernel_blocked``/``_stream_step``
+  (N <= MAX_N_BLOCKED, or forced by ``kernel="streaming"``).
+
+Both compute the contract of :func:`knn_neighbors`; the source notes say
+how. A wrapper given a CUDA tensor launches its kernel or raises (also
+when the build fails); only a tensor on the CPU goes to the plain
+version. ``LAUNCHES[name]`` counts kernel launches, so a run can show it
+went through the kernels.
+
+Two contracts coexist and both are kept: the kernels compare
+``d^2 < r^2`` in float32 with r^2 formed from float32(radius) (the TPU
+kernels' ``_pad_coords``), while :func:`cbf_tpu_torch.rollout.gating.
+knn_gating` compares ``sqrt(d^2) < radius`` in the config dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import torch
+
+# The reference's bounds and tiles, same values. MAX_N_FUSED (the TPU's
+# VMEM bound) still picks fused vs streaming, so both packages route alike;
+# TILE/RTILE are the TPU kernels' row tiles and size nothing here; CTILE,
+# the TPU's column block, tiles the streaming plain version. The CUDA
+# kernels' own tiles and column split live in csrc/knn.cu alone.
+TILE = 128
+MAX_N_FUSED = 8192
+RTILE = 256
+CTILE = 512
+MAX_N_BLOCKED = 262144
+KNN_MAX_K = 16       # csrc/knn.cu kMaxK: k is a template parameter there
+
+LAUNCHES = {"knn_fused": 0, "knn_stream": 0}
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "knn.cu")
+BUILD_DIR = os.path.join(os.path.dirname(_SRC), "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_lib = None
+
+
+def _find_nvcc() -> str | None:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    return None
+
+
+def build_library() -> str:
+    """Compile ``csrc/knn.cu`` (once per source hash) and return the path
+    of the shared library. nvcc's output, including ``-Xptxas -v``'s
+    register and shared-memory report, is kept beside it as ``.log``."""
+    with open(_SRC, "rb") as fh:
+        src = fh.read()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    so_path = os.path.join(BUILD_DIR, f"knn-{key[:16]}.so")
+    if os.path.exists(so_path):
+        return so_path
+    nvcc = _find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (PATH or $CUDA_HOME/bin): the k-NN kernels are "
+            "built from cbf_tpu_torch/csrc/knn.cu with the CUDA toolkit; "
+            "run on the CPU with device='cpu' instead")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so_path}.tmp{os.getpid()}"
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, _SRC],
+                          capture_output=True, text=True, check=False)
+    with open(so_path[:-3] + ".log", "w", encoding="utf-8") as fh:
+        fh.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {_SRC}:\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, so_path)    # atomic: no reader sees a partial file
+    return so_path
+
+
+def build_log() -> str:
+    """nvcc's report for the current source (builds first if needed)."""
+    with open(build_library()[:-3] + ".log", encoding="utf-8") as fh:
+        return fh.read()
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build_library())
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.knn_fused_launch.argtypes = [p, i, f, i, p, p, p, p, p]
+        lib.knn_fused_launch.restype = i
+        lib.knn_stream_plan.argtypes = [i, p, p]
+        lib.knn_stream_plan.restype = i
+        lib.knn_stream_launch.argtypes = [p, i, f, i, i, p, p, p, p,
+                                          p, p, p, p, p]
+        lib.knn_stream_launch.restype = i
+        lib.knn_max_k.restype = i
+        if lib.knn_max_k() != KNN_MAX_K:
+            raise RuntimeError(f"knn.cu kMaxK={lib.knn_max_k()} disagrees "
+                               f"with KNN_MAX_K={KNN_MAX_K}")
+        _lib = lib
+    return _lib
+
+
+def _radius_sq(radius) -> float:
+    """r^2 formed in float32 from float32(radius), as the TPU kernels'
+    ``_pad_coords`` does (pallas_knn.py:90)."""
+    r = np.float32(float(radius))
+    return float(r * r)
+
+
+def _check_launch(name: str, x, k: int, max_n: int) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} launches on a CUDA tensor, got {x.device}")
+    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 2:
+        raise ValueError(f"{name} takes (N, 2) float32 positions, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} takes a contiguous tensor")
+    if not 1 <= x.shape[0] <= max_n:
+        raise ValueError(f"{name} takes 1 <= N <= {max_n}, got {x.shape[0]}")
+    if not 1 <= k <= KNN_MAX_K:
+        raise ValueError(f"{name} takes 1 <= k <= {KNN_MAX_K}, got {k}")
+
+
+def _outputs(n: int, k: int, device):
+    return (torch.empty((n, k), dtype=torch.int32, device=device),
+            torch.empty((n, k), dtype=torch.float32, device=device),
+            torch.empty((n,), dtype=torch.float32, device=device),
+            torch.empty((n,), dtype=torch.int32, device=device))
+
+
+def _raise_on(name: str, code: int) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {code}")
+
+
+def knn_fused(x, radius, k: int):
+    """Launch ``knn_fused`` on (N, 2) float32 CUDA positions. Returns
+    (idx, dist, nearest, count) — see :func:`knn_neighbors`."""
+    _check_launch("knn_fused", x, k, MAX_N_FUSED)
+    lib = _library()
+    n = x.shape[0]
+    idx, dist, nearest, count = _outputs(n, k, x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.knn_fused_launch(
+            x.data_ptr(), n, _radius_sq(radius), k, idx.data_ptr(),
+            dist.data_ptr(), nearest.data_ptr(), count.data_ptr(), stream)
+    _raise_on("knn_fused", code)
+    LAUNCHES["knn_fused"] += 1
+    return idx, dist, nearest, count
+
+
+def stream_plan(n: int, device) -> tuple[int, int]:
+    """(cols_per_split, splits): the column ranges ``knn_stream`` splits N
+    columns into on ``device``, as csrc/knn.cu chooses them."""
+    lib = _library()
+    cols, splits = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        _raise_on("knn_stream plan", lib.knn_stream_plan(
+            n, ctypes.byref(cols), ctypes.byref(splits)))
+    return cols.value, splits.value
+
+
+def knn_stream(x, radius, k: int):
+    """Launch ``knn_stream`` (partials + merge) on (N, 2) float32 CUDA
+    positions. Same contract as :func:`knn_fused`."""
+    _check_launch("knn_stream", x, k, MAX_N_BLOCKED)
+    lib = _library()
+    n = x.shape[0]
+    _, splits = stream_plan(n, x.device)
+    idx, dist, nearest, count = _outputs(n, k, x.device)
+    part_d2 = torch.empty((n, splits, k), dtype=torch.float32,
+                          device=x.device)
+    part_idx = torch.empty((n, splits, k), dtype=torch.int32,
+                           device=x.device)
+    part_near = torch.empty((n, splits), dtype=torch.float32,
+                            device=x.device)
+    part_cnt = torch.empty((n, splits), dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.knn_stream_launch(
+            x.data_ptr(), n, _radius_sq(radius), k, splits,
+            part_d2.data_ptr(), part_idx.data_ptr(), part_near.data_ptr(),
+            part_cnt.data_ptr(), idx.data_ptr(), dist.data_ptr(),
+            nearest.data_ptr(), count.data_ptr(), stream)
+    _raise_on("knn_stream", code)
+    LAUNCHES["knn_stream"] += 1
+    return idx, dist, nearest, count
+
+
+# -- plain versions ---------------------------------------------------------
+
+def _pair_d2(xr, xc):
+    """(R, C) float32 squared distances, difference form, each operation
+    rounded on its own (no FMA) — bit-equal to the kernels' pair_d2."""
+    dx = xr[:, None, 0] - xc[None, :, 0]
+    dy = xr[:, None, 1] - xc[None, :, 1]
+    return dx * dx + dy * dy
+
+
+def _sqrt_rn(d2):
+    """Correctly rounded float32 sqrt (the kernels' __fsqrt_rn): taken in
+    float64 and rounded once to float32, which is exact rounding for
+    sqrt (53 >= 2*24 + 2 bits). PyTorch's vectorized CPU sqrt can be an
+    ulp off."""
+    return torch.sqrt(d2.to(torch.float64)).to(torch.float32)
+
+
+def _select_k(key, k: int, ids=None):
+    """k first-minimizer passes over ``key`` (R, C): (ids (R, k) int32,
+    keys (R, k)); ``ids`` maps columns to reported ids (default the column
+    itself). Empty slots (key +inf) report id 0 — the TPU kernels'
+    convention."""
+    key = key.clone()
+    out_i, out_d = [], []
+    for _ in range(k):
+        m, j = torch.min(key, dim=1)       # first minimizer on ties
+        sel = j if ids is None else torch.gather(ids, 1, j[:, None])[:, 0]
+        out_i.append(torch.where(torch.isfinite(m), sel.to(torch.int32), 0))
+        out_d.append(m)
+        key.scatter_(1, j[:, None], torch.inf)
+    return torch.stack(out_i, dim=1), torch.stack(out_d, dim=1)
+
+
+def knn_neighbors_plain(x, radius, k: int):
+    """Plain PyTorch version of ``knn_fused``: the (N, N) slab and k
+    first-minimizer passes, as ``_knn_kernel`` does per tile."""
+    x = x.to(torch.float32)
+    n = x.shape[0]
+    r2 = torch.tensor(_radius_sq(radius), dtype=torch.float32,
+                      device=x.device)
+    d2 = _pair_d2(x, x)
+    is_self = torch.eye(n, dtype=torch.bool, device=x.device)
+    nearest = _sqrt_rn(torch.amin(torch.where(is_self, torch.inf, d2),
+                                  dim=1))
+    eligible = (d2 < r2) & (d2 > 0.0)
+    count = torch.sum(eligible, dim=1, dtype=torch.int32)
+    idx, key = _select_k(torch.where(eligible, d2, torch.inf), k)
+    return idx, _sqrt_rn(key), nearest, count
+
+
+def knn_neighbors_blocked_plain(x, radius, k: int):
+    """Plain PyTorch version of ``knn_stream``, in the streaming kernel's
+    shape: CTILE column blocks pass by, each folds nearest and count, and
+    its block-local top-k merges with the running squared top-k by an
+    exact 2k-wide merge whose ties go to the first (running) slot."""
+    x = x.to(torch.float32)
+    n = x.shape[0]
+    dev = x.device
+    r2 = torch.tensor(_radius_sq(radius), dtype=torch.float32, device=dev)
+    rows = torch.arange(n, device=dev)
+    run_i = torch.zeros((n, k), dtype=torch.int32, device=dev)
+    run_d2 = torch.full((n, k), torch.inf, dtype=torch.float32, device=dev)
+    near = torch.full((n,), torch.inf, dtype=torch.float32, device=dev)
+    count = torch.zeros((n,), dtype=torch.int32, device=dev)
+    for c0 in range(0, n, CTILE):
+        cols = torch.arange(c0, min(n, c0 + CTILE), device=dev)
+        d2 = _pair_d2(x, x[c0:c0 + CTILE])
+        is_self = cols[None, :] == rows[:, None]
+        near = torch.minimum(near, torch.amin(
+            torch.where(is_self, torch.inf, d2), dim=1))
+        eligible = (d2 < r2) & (d2 > 0.0)
+        count = count + torch.sum(eligible, dim=1, dtype=torch.int32)
+        col_ids = cols.to(torch.int32)[None, :].expand(n, -1)
+        bk_i, bk_d2 = _select_k(torch.where(eligible, d2, torch.inf), k,
+                                ids=col_ids)
+        run_i, run_d2 = _select_k(torch.cat([run_d2, bk_d2], dim=1), k,
+                                  ids=torch.cat([run_i, bk_i], dim=1))
+    return run_i, _sqrt_rn(run_d2), _sqrt_rn(near), count
+
+
+# -- entries ----------------------------------------------------------------
+
+def knn_neighbors(x, radius, k: int):
+    """Fused k-NN danger gating over (N, 2) positions (cast to float32).
+
+    Returns (idx (N, k) int32 — 0 on empty slots, dist (N, k) float32 —
+    +inf on empty slots, nearest (N,) float32 — nearest-any distance,
+    count (N,) int32 — in-radius candidates including any beyond k).
+    A CUDA tensor launches ``knn_fused``; a CPU tensor runs the plain
+    version."""
+    x = x.to(torch.float32).contiguous()
+    if x.device.type == "cpu":
+        return knn_neighbors_plain(x, radius, k)
+    return knn_fused(x, radius, k)
+
+
+def knn_neighbors_blocked(x, radius, k: int):
+    """Streaming-kernel form of :func:`knn_neighbors`, same contract."""
+    x = x.to(torch.float32).contiguous()
+    if x.device.type == "cpu":
+        return knn_neighbors_blocked_plain(x, radius, k)
+    return knn_stream(x, radius, k)
+
+
+def supported(n: int) -> bool:
+    """Whether the kernel contract applies: N within the streaming
+    kernel's bound. On the CPU the same contract runs as plain torch, so
+    the device does not enter the decision (the JAX package's ``auto``
+    takes its jnp path off-TPU instead)."""
+    return n <= MAX_N_BLOCKED
+
+
+def uses_fused(n: int, kernel: str = "auto") -> bool:
+    """The fused-vs-streaming routing decision of :func:`_kernel_dispatch`."""
+    if kernel not in ("auto", "streaming"):
+        raise ValueError(f"kernel must be auto|streaming, got {kernel!r}")
+    return n <= MAX_N_FUSED and kernel != "streaming"
+
+
+def _kernel_dispatch(x, radius, k: int, kernel: str = "auto"):
+    """Fused-vs-streaming dispatch — the one routing decision.
+    ``kernel="streaming"`` forces the streaming kernel below the fused
+    bound."""
+    fn = knn_neighbors if uses_fused(x.shape[0], kernel) \
+        else knn_neighbors_blocked
+    return fn(x, radius, k)
+
+
+def _gating_epilogue(states4, idx, dist, count, k: int):
+    """(obs, mask, dropped) from a kernel selection."""
+    mask = torch.isfinite(dist)
+    obs = states4[idx.to(torch.int64)]
+    dropped = torch.clamp(count - k, min=0)
+    return obs, mask, dropped
+
+
+def knn_gating_pallas(states4, radius, k: int, *, kernel: str = "auto"):
+    """Drop-in for :func:`cbf_tpu_torch.rollout.gating.knn_gating` (all-row
+    self-exclusion form) plus the nearest-any metric, through the kernels.
+
+    Args: states4 (N, 4). Returns (obs (N, k, 4), mask (N, k),
+    nearest_all (N,), dropped (N,) int32 — in-radius candidates beyond the
+    k slots; callers surface it as StepOutputs.gating_dropped_count)."""
+    idx, dist, nearest, count = _kernel_dispatch(states4[:, :2], radius, k,
+                                                 kernel)
+    obs, mask, dropped = _gating_epilogue(states4, idx, dist, count, k)
+    return obs, mask, nearest, dropped

@@ -1,0 +1,565 @@
+"""Scaling scenario: N-agent rendezvous with pairwise-collision CBFs
+(counterpart: cbf_tpu/scenarios/swarm.py).
+
+The benchmark ladder's flagship (BASELINE.md: 4096 agents, 10k steps;
+north-star metric agent-QP-steps/s). Every agent runs the reference CBF-QP
+filter gated on its k nearest in-radius neighbours, and the swarm
+rendezvous to a packed disk around its centroid. Velocity slots carry the
+actual (previous filtered) velocities, and the single-integrator update
+applies the filtered command directly.
+
+This slice ports the main path: single-integrator dynamics, continuous or
+discrete barrier rows, no obstacles, certificate or runtime assurance.
+Config fields of later slices are kept (a JAX ``Config`` carries across
+one to one) and raise :class:`~cbf_tpu_torch.errors.OutOfSliceError`
+when set. ``gating="pallas"``/``"streaming"`` name the hand-written CUDA
+kernels (:mod:`cbf_tpu_torch.ops.knn`).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from cbf_tpu_torch.core.filter import CBFParams, safe_controls
+from cbf_tpu_torch.errors import (SLICE_2, SLICE_3, SLICE_DIFF, SLICE_SERVE,
+                                  OutOfSliceError)
+from cbf_tpu_torch.ops import knn
+from cbf_tpu_torch.ops.pairwise import pairwise_distances
+from cbf_tpu_torch.rollout.engine import StepOutputs, rollout
+from cbf_tpu_torch.rollout.gating import knn_gating
+from cbf_tpu_torch.utils.math import l2_cap
+from cbf_tpu_torch.utils.profiling import annotate
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """Every field of the JAX ``Config``, same names, defaults and string
+    values; see cbf_tpu/scenarios/swarm.py for each field's rationale.
+    ``dtype`` is a torch dtype."""
+    n: int = 256
+    steps: int = 1000
+    k_neighbors: int = 8
+    safety_distance: float = 0.4      # gating radius, wider than dmin
+    consensus_gain: float = 1.0
+    pack_spacing: float = 0.14
+    dt: float = 0.033
+    speed_limit: float = 0.2          # L2 cap on the nominal, pre-filter
+    max_speed: float = 15.0
+    dyn_scale: float = 0.1
+    seed: int = 0
+    record_trajectory: bool = False
+    n_obstacles: int = 0
+    obstacle_orbit_frac: float = 0.6
+    obstacle_omega: float = 0.5
+    barrier: str = "auto"
+    relax_cap: float | None = 0.05
+    dynamics: str = "single"
+    n_double: int = 0
+    accel_limit: float = 1.0
+    vel_tracking_tau: float = 0.2
+    projection_distance: float = 0.05
+    certificate: bool = False
+    certificate_pairs: int | None = None
+    certificate_backend: str = "auto"
+    certificate_k: int = 16
+    certificate_rebuild_skin: float = 0.0
+    certificate_iters: int | None = None
+    certificate_cg_iters: int | None = None
+    certificate_warm_start: bool = False
+    certificate_tol: float | None = None
+    certificate_check_every: int | None = None
+    certificate_fused: bool = False
+    certificate_partition: str = "auto"
+    sep_gain: float = 1.0
+    sep_target: float = 0.25
+    # "auto": the kernel contract up to knn.MAX_N_BLOCKED (fused kernel to
+    # MAX_N_FUSED, streaming beyond), else the dense path; "pallas" and
+    # "streaming" force the kernels (streaming below the fused bound);
+    # "jnp" the dense sort-based path; "banded" is not ported yet.
+    gating: str = "auto"
+    gating_window_blocks: int | None = None
+    gating_rebuild_skin: float = 0.0
+    spawn: str = "grid"
+    goal: str = "rendezvous"
+    obstacle_layout: str = "orbit"
+    dtype: torch.dtype = torch.float32
+    spawn_half_width_override: float | None = None
+    arena_half_override: float | None = None
+    rta: bool = False
+    rta_recover_steps: int = 10
+    rta_residual_gate: float = 1e-4
+    rta_deficit_gate: float = 0.15
+    rta_boost_budget: int = 128
+
+    @property
+    def spawn_half_width(self) -> float:
+        # Spawn box grows with sqrt(N): grid spacing ~0.4 m > the 0.2 m
+        # danger radius, outside the packing radius.
+        if self.spawn_half_width_override is not None:
+            return float(self.spawn_half_width_override)
+        return max(1.5, 0.2 * float(np.sqrt(self.n)))
+
+    @property
+    def pack_radius(self) -> float:
+        return self.pack_spacing * float(np.sqrt(self.n))
+
+
+class State(NamedTuple):
+    x: torch.Tensor                  # (N, 2) positions
+    v: torch.Tensor                  # (N, 2) last applied velocities
+    theta: torch.Tensor | tuple = ()            # unicycle only (slice 2)
+    gating_cache: tuple = ()                    # Verlet cache (slice 2)
+    certificate_cache: tuple = ()               # slice 3
+    certificate_solver_state: tuple = ()        # slice 3
+    rta: tuple = ()                             # slice 2
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card. Without one, raise and tell the caller to
+    pass ``device="cpu"`` — never carry on on the CPU unasked."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is present; the port runs on the card by "
+            "default — pass device='cpu' to run on the CPU")
+    return dev
+
+
+def spawn_layout(cfg: Config) -> tuple[np.ndarray, float]:
+    """Host-side un-jittered spawn layout: ((N, 2) base positions, jitter
+    spacing). Every layout keeps base spacing >= 0.4 m with jitter <=
+    0.25*spacing, so the worst post-jitter gap stays >= 0.2 m."""
+    n, half = cfg.n, cfg.spawn_half_width
+    if cfg.spawn == "grid":
+        side = int(np.ceil(np.sqrt(n)))
+        lin = np.linspace(-half, half, side)
+        gx, gy = np.meshgrid(lin, lin)
+        grid = np.stack([gx.ravel(), gy.ravel()], axis=1)[:n]
+        return grid, 2 * half / max(side - 1, 1)
+    if cfg.spawn == "ring":
+        radius = max(half, 0.4 * n / (2 * np.pi))
+        th = 2 * np.pi * np.arange(n) / n
+        ring = radius * np.stack([np.cos(th), np.sin(th)], axis=1)
+        return ring, 2 * np.pi * radius / n
+    if cfg.spawn == "clusters":
+        m = int(np.ceil(n / 4))
+        side = max(int(np.ceil(np.sqrt(m))), 1)
+        extent = 0.2 * (side - 1)
+        c = max(0.55 * half, extent + 0.4)
+        lin = 0.4 * (np.arange(side) - (side - 1) / 2.0)
+        gx, gy = np.meshgrid(lin, lin)
+        sub = np.stack([gx.ravel(), gy.ravel()], axis=1)
+        centers = np.array([[c, c], [-c, c], [-c, -c], [c, -c]])
+        rows = [sub[i // 4] + centers[i % 4] for i in range(n)]
+        return np.stack(rows, axis=0), 0.4
+    if cfg.spawn == "corridor":
+        lanes = max(int(np.ceil(np.sqrt(n))), 1)
+        j = np.arange(n)
+        x = -half - 0.4 * (j // lanes)
+        y = 0.4 * (j % lanes - (lanes - 1) / 2.0)
+        return np.stack([x, y], axis=1), 0.4
+    raise ValueError(
+        f"spawn must be grid|ring|clusters|corridor, got {cfg.spawn!r}")
+
+
+def goal_layout(cfg: Config) -> np.ndarray | None:
+    """Host-side (N, 2) per-agent goals, or None for the default
+    rendezvous (closed-loop centroid consensus)."""
+    n, half = cfg.n, cfg.spawn_half_width
+    if cfg.goal == "rendezvous":
+        return None
+    if cfg.goal == "coverage":
+        side = int(np.ceil(np.sqrt(n)))
+        lin = np.linspace(-half, half, side)
+        gx, gy = np.meshgrid(lin, lin)
+        return np.stack([gx.ravel(), gy.ravel()], axis=1)[:n]
+    if cfg.goal == "formation":
+        radius = max(1.0, 0.3 * n / (2 * np.pi))
+        th = 2 * np.pi * np.arange(n) / n
+        return radius * np.stack([np.cos(th), np.sin(th)], axis=1)
+    if cfg.goal == "corridor":
+        lanes = max(int(np.ceil(np.sqrt(n))), 1)
+        j = np.arange(n)
+        x = half + 0.4 * (j // lanes)
+        y = 0.4 * (j % lanes - (lanes - 1) / 2.0)
+        return np.stack([x, y], axis=1)
+    raise ValueError(
+        f"goal must be rendezvous|coverage|corridor|formation, "
+        f"got {cfg.goal!r}")
+
+
+def spawn_positions(cfg: Config, seed: int, *, device=None):
+    """Seeded collision-free (N, 2) start: :func:`spawn_layout` plus a
+    float32 jitter of up to 0.25x the layout spacing, drawn on the CPU
+    from a ``torch.Generator`` seeded with ``seed`` (so every device gets
+    the same spawn). The stream differs from the JAX package's threefry
+    one; tests carry a JAX state across with :mod:`cbf_tpu_torch.convert`
+    instead."""
+    grid, spacing = spawn_layout(cfg)
+    gen = torch.Generator().manual_seed(int(seed))
+    lo = np.float32(-0.25 * spacing)
+    hi = np.float32(0.25 * spacing)
+    u = torch.rand((cfg.n, 2), generator=gen, dtype=torch.float32)
+    jitter = u * float(hi - lo) + float(lo)
+    x0 = torch.as_tensor(grid, dtype=cfg.dtype) + jitter.to(cfg.dtype)
+    return x0.to(resolve_device(device))
+
+
+def initial_state(cfg: Config, *, device=None) -> State:
+    x0 = spawn_positions(cfg, cfg.seed, device=device)
+    return State(x=x0, v=torch.zeros_like(x0))
+
+
+def certificate_backend(cfg: Config) -> str:
+    """Resolve Config.certificate_backend ("auto" -> dense to n=128,
+    sparse beyond)."""
+    if cfg.certificate_backend == "auto":
+        return "dense" if cfg.n <= 128 else "sparse"
+    return cfg.certificate_backend
+
+
+# Robotarium wheel limits (cbf_tpu/sim/robotarium.py SimParams): radius
+# 0.016 m at 12.5 rad/s bounds unicycle speed.
+_WHEEL_VMAX = 0.016 * 12.5
+
+
+def validate_config(cfg: Config) -> None:
+    """Raise ValueError on invalid knob combinations — the JAX package's
+    checks, unchanged. (Valid knobs this slice does not port raise
+    OutOfSliceError when a step is built.)"""
+    if cfg.dynamics not in ("single", "double", "unicycle", "mixed"):
+        raise ValueError(f"dynamics must be single|double|unicycle|mixed, "
+                         f"got {cfg.dynamics!r}")
+    if cfg.n_double and cfg.dynamics != "mixed":
+        raise ValueError(f'n_double={cfg.n_double} needs dynamics="mixed" '
+                         f"(got {cfg.dynamics!r})")
+    if cfg.dynamics == "mixed" and not 0 < cfg.n_double <= cfg.n:
+        raise ValueError(
+            f'dynamics="mixed" needs 0 < n_double <= n, got '
+            f"n_double={cfg.n_double} with n={cfg.n} (use "
+            f'dynamics="single" for a homogeneous swarm)')
+    if cfg.spawn not in ("grid", "ring", "clusters", "corridor"):
+        raise ValueError(
+            f"spawn must be grid|ring|clusters|corridor, got {cfg.spawn!r}")
+    if cfg.goal not in ("rendezvous", "coverage", "corridor", "formation"):
+        raise ValueError(f"goal must be rendezvous|coverage|corridor|"
+                         f"formation, got {cfg.goal!r}")
+    if cfg.obstacle_layout not in ("orbit", "static", "scatter"):
+        raise ValueError(f"obstacle_layout must be orbit|static|scatter, "
+                         f"got {cfg.obstacle_layout!r}")
+    if cfg.obstacle_layout != "orbit" and not cfg.n_obstacles:
+        raise ValueError(f"obstacle_layout={cfg.obstacle_layout!r} needs "
+                         "n_obstacles > 0")
+    if cfg.certificate and cfg.dynamics in ("double", "mixed"):
+        raise ValueError("certificate=True filters VELOCITY commands; "
+                         "double/mixed modes output accelerations — the "
+                         "combination is not meaningful")
+    if cfg.certificate and cfg.n_obstacles:
+        raise ValueError("certificate=True with moving obstacles is "
+                         "rejected: the joint certificate is obstacle-blind")
+    if cfg.certificate and cfg.certificate_backend not in ("auto", "dense",
+                                                           "sparse"):
+        raise ValueError(f"certificate_backend must be auto|dense|sparse, "
+                         f"got {cfg.certificate_backend!r}")
+    if cfg.certificate and cfg.certificate_partition not in ("auto",
+                                                             "replicate"):
+        raise ValueError(f"certificate_partition must be auto|replicate, "
+                         f"got {cfg.certificate_partition!r}")
+    sparse_only = {
+        "certificate_rebuild_skin": bool(cfg.certificate_rebuild_skin),
+        "certificate_iters/certificate_cg_iters": (
+            cfg.certificate_iters is not None
+            or cfg.certificate_cg_iters is not None),
+        "certificate_warm_start/certificate_tol": (
+            cfg.certificate_warm_start or cfg.certificate_tol is not None),
+        "certificate_fused": cfg.certificate_fused,
+    }
+    if cfg.certificate_rebuild_skin < 0:
+        raise ValueError("certificate_rebuild_skin must be >= 0")
+    for knob, on in sparse_only.items():
+        if not on:
+            continue
+        if not cfg.certificate:
+            raise ValueError(f"{knob} needs certificate=True")
+        if certificate_backend(cfg) != "sparse":
+            raise ValueError(
+                f"{knob} applies to the SPARSE certificate backend; the "
+                f"resolved backend here is {certificate_backend(cfg)!r} — "
+                "set certificate_backend='sparse'")
+    if cfg.certificate_tol is not None and cfg.certificate_tol <= 0:
+        raise ValueError(
+            f"certificate_tol must be > 0, got {cfg.certificate_tol}")
+    if cfg.certificate_check_every is not None:
+        if cfg.certificate_tol is None:
+            raise ValueError("certificate_check_every tunes the ADAPTIVE "
+                             "budget — set certificate_tol too")
+        if cfg.certificate_check_every < 1:
+            raise ValueError(f"certificate_check_every must be >= 1, got "
+                             f"{cfg.certificate_check_every}")
+    if (cfg.certificate and cfg.certificate_pairs is not None
+            and certificate_backend(cfg) == "sparse"):
+        raise ValueError("certificate_pairs tunes the DENSE backend; the "
+                         "resolved backend here is sparse — set "
+                         "certificate_k instead")
+    if cfg.certificate:
+        side = 2 * (cfg.arena_half_override
+                    if cfg.arena_half_override is not None
+                    else 1.5 * cfg.spawn_half_width)
+        if side * side < 2.0 * cfg.n * 0.12 * 0.12:
+            raise ValueError(
+                f"certificate boundary box ({side:.2f} m square) cannot "
+                f"contain n={cfg.n} agents at the certified 0.12 m spacing")
+    if cfg.dynamics == "unicycle":
+        if not cfg.projection_distance > 0:
+            raise ValueError(f"unicycle dynamics needs projection_distance "
+                             f"> 0, got {cfg.projection_distance}")
+        if cfg.speed_limit > _WHEEL_VMAX + 1e-9:
+            raise ValueError(
+                f"unicycle speed_limit {cfg.speed_limit} exceeds the "
+                f"wheel-realizable max {_WHEEL_VMAX:.3f}")
+    if cfg.rta:
+        if cfg.rta_recover_steps < 1:
+            raise ValueError(f"rta_recover_steps must be >= 1, got "
+                             f"{cfg.rta_recover_steps}")
+        if not cfg.rta_residual_gate > 0:
+            raise ValueError(f"rta_residual_gate must be > 0, got "
+                             f"{cfg.rta_residual_gate}")
+        if not cfg.rta_deficit_gate > 0:
+            raise ValueError(f"rta_deficit_gate must be > 0, got "
+                             f"{cfg.rta_deficit_gate}")
+        if cfg.rta_boost_budget < 1:
+            raise ValueError(f"rta_boost_budget must be >= 1, got "
+                             f"{cfg.rta_boost_budget}")
+    if cfg.barrier not in ("auto", "continuous", "discrete"):
+        raise ValueError(
+            f"barrier must be auto|continuous|discrete, got {cfg.barrier!r}")
+    if cfg.dynamics in ("double", "mixed"):
+        if cfg.barrier == "continuous":
+            raise ValueError(
+                f"dynamics={cfg.dynamics!r} uses exact discrete-time rows; "
+                'barrier="continuous" is not meaningful for it')
+        if not (cfg.accel_limit > 0 and cfg.vel_tracking_tau > 0):
+            raise ValueError(
+                f"{cfg.dynamics} dynamics needs accel_limit > 0 and "
+                f"vel_tracking_tau > 0, got {cfg.accel_limit}, "
+                f"{cfg.vel_tracking_tau}")
+
+
+def _require_single(cfg: Config, what: str) -> None:
+    if cfg.dynamics != "single":
+        raise OutOfSliceError(f"{what} for dynamics={cfg.dynamics!r}",
+                              SLICE_2)
+
+
+def reject_out_of_slice(cfg: Config, *, unroll_relax: int = 0,
+                        active=None) -> None:
+    """Raise OutOfSliceError for every valid knob this slice does not
+    port — never ignore one silently."""
+    _require_single(cfg, "the swarm step")
+    later = [
+        (cfg.n_obstacles > 0, f"Config.n_obstacles={cfg.n_obstacles}",
+         SLICE_2),
+        (cfg.certificate, "Config.certificate=True", SLICE_3),
+        (cfg.rta, "Config.rta=True", SLICE_2),
+        (cfg.gating_rebuild_skin > 0,
+         f"Config.gating_rebuild_skin={cfg.gating_rebuild_skin}", SLICE_2),
+        (cfg.gating == "banded", 'Config.gating="banded"', SLICE_2),
+        (unroll_relax > 0, f"unroll_relax={unroll_relax} on the step",
+         SLICE_DIFF),
+        (active is not None, "the serving layer's active mask",
+         SLICE_SERVE),
+    ]
+    for hit, what, slice_name in later:
+        if hit:
+            raise OutOfSliceError(what, slice_name)
+
+
+def barrier_dynamics(cfg: Config, dtype, validate: bool = True, *,
+                     device=None):
+    """(f, g, discrete) for the configured barrier discretization.
+    "continuous": the reference's rows (f = 0, g = dyn_scale * I on the
+    position slots); "discrete": f = dt * (pos <- vel), g = dt * I — the
+    exact discrete-time CBF condition h_{k+1} >= (1-gamma) h_k. "auto" =
+    discrete when obstacles are present, else continuous."""
+    if validate:
+        validate_config(cfg)
+    _require_single(cfg, "barrier_dynamics")
+    dev = resolve_device(device)
+    discrete = (cfg.n_obstacles > 0 if cfg.barrier == "auto"
+                else cfg.barrier == "discrete")
+    scale = cfg.dt if discrete else cfg.dyn_scale
+    g = scale * torch.tensor([[1, 0], [0, 1], [0, 0], [0, 0]], dtype=dtype,
+                             device=dev)
+    if discrete:
+        f = cfg.dt * torch.tensor([[0, 0, 1, 0], [0, 0, 0, 1],
+                                   [0, 0, 0, 0], [0, 0, 0, 0]], dtype=dtype,
+                                  device=dev)
+    else:
+        f = cfg.dyn_scale * torch.zeros((4, 4), dtype=dtype, device=dev)
+    return f, g, discrete
+
+
+def default_cbf(cfg: Config) -> CBFParams:
+    """Single mode — k = 0: the position-only barrier h = |dx|+|dy| - dmin.
+    At crowd scale the reference's k = 1 approach-velocity term feeds the
+    evasive outputs back into the next step's h; with k = 0 h contracts
+    geometrically to 0 and never crosses it."""
+    _require_single(cfg, "default_cbf")
+    return CBFParams(max_speed=cfg.max_speed, k=0.0)
+
+
+def complete_nominal(cfg: Config, u0, x, v, obs_slab, mask):
+    """Finish the nominal after gating; single mode: the L2 speed cap."""
+    _require_single(cfg, "complete_nominal")
+    return l2_cap(u0, cfg.speed_limit)
+
+
+def relax_tiers(cfg: Config, mask, priority):
+    """(priority_mask, relax_cap); single mode keeps obstacle rows (when
+    present) as the priority tier with agent rows capped at
+    ``relax_cap``."""
+    _require_single(cfg, "relax_tiers")
+    return priority, (cfg.relax_cap if cfg.n_obstacles else None)
+
+
+def integrate(cfg: Config, x, v, u):
+    """(x_new, v_new): the reference's first-order update in single
+    mode."""
+    _require_single(cfg, "integrate")
+    return x + cfg.dt * u, u
+
+
+def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
+                unroll_relax: int = 0, device=None):
+    """The scenario step factory — :func:`make` without the initial
+    state. ``step(state, t) -> (state, StepOutputs)`` on ``device``.
+    ``active`` (the serving layer's padded-bucket mask) is not ported."""
+    dev = resolve_device(device)
+    validate_config(cfg)
+    if cfg.gating not in ("auto", "pallas", "jnp", "banded", "streaming"):
+        raise ValueError(f"gating must be auto|pallas|jnp|banded|streaming, "
+                         f"got {cfg.gating!r}")
+    if cfg.gating_rebuild_skin < 0:
+        raise ValueError(f"gating_rebuild_skin must be >= 0, got "
+                         f"{cfg.gating_rebuild_skin}")
+    reject_out_of_slice(cfg, unroll_relax=unroll_relax, active=active)
+    dt_ = cfg.dtype
+    f, g, discrete = barrier_dynamics(cfg, dt_, validate=False, device=dev)
+    goals_np = goal_layout(cfg)
+    goals_c = (None if goals_np is None
+               else torch.as_tensor(goals_np, dtype=dt_, device=dev))
+    if cbf is None:
+        cbf = default_cbf(cfg)
+    K = cfg.k_neighbors
+    # "streaming" forces the streaming kernel below the fused bound.
+    kernel = "streaming" if cfg.gating == "streaming" else "auto"
+    use_kernel = (knn.supported(cfg.n) if cfg.gating == "auto"
+                  else cfg.gating in ("pallas", "streaming"))
+    if not use_kernel:
+        all_rows = torch.ones(cfg.n, dtype=torch.bool, device=dev)
+        self_inf = torch.where(
+            torch.eye(cfg.n, dtype=torch.bool, device=dev),
+            torch.inf, 0.0).to(dt_)
+
+    def step(state: State, t):
+        x = state.x                                            # (N, 2)
+        with annotate("consensus"):
+            if goals_c is not None:
+                u0 = cfg.consensus_gain * (goals_c - x)
+            else:
+                centroid = torch.mean(x, dim=0)
+                to_c = centroid[None] - x                      # (N, 2)
+                d_c = torch.linalg.norm(to_c, dim=1, keepdim=True)
+                # Pull toward the centroid only outside the packing disk.
+                pull = torch.clamp(d_c - cfg.pack_radius, min=0.0)
+                u0 = (cfg.consensus_gain * pull * to_c
+                      / torch.clamp(d_c, min=1e-9))
+        # Discrete rows zero the agents' velocity slots (u is the unknown
+        # the row solves for); continuous rows carry actual velocities.
+        vslots = torch.zeros_like(state.v) if discrete else state.v
+        states4 = torch.cat([x, vslots], dim=1)                # (N, 4)
+
+        with annotate("gating"):
+            if use_kernel:
+                # Distances + k-NN + nearest-any metric in one kernel
+                # (knn_fused, or knn_stream beyond the fused bound or when
+                # forced).
+                obs_slab, mask, nearest, dropped = knn.knn_gating_pallas(
+                    states4, cfg.safety_distance, K, kernel=kernel)
+                min_dist = torch.amin(nearest)
+            else:
+                # Dense path: one distance matrix feeds both the gating and
+                # the min-distance metric.
+                dist = pairwise_distances(x)                   # (N, N)
+                obs_slab, mask, dropped = knn_gating(
+                    states4, states4, cfg.safety_distance, K,
+                    exclude_self_row=all_rows, dist=dist, with_dropped=True)
+                min_dist = torch.amin(dist + self_inf)
+
+        u0 = complete_nominal(cfg, u0, x, state.v, obs_slab, mask)
+
+        with annotate("filter"):
+            priority, cap = relax_tiers(cfg, mask, None)
+            u_safe, info = safe_controls(
+                states4, obs_slab, mask, f, g, u0, cbf,
+                priority_mask=priority, relax_cap=cap)
+            engaged = torch.any(mask, dim=1)
+            u = torch.where(engaged[:, None], u_safe, u0)
+
+        with annotate("integrate"):
+            x_new, v_new = integrate(cfg, x, state.v, u)
+
+        out = StepOutputs(
+            min_pairwise_distance=min_dist,
+            filter_active_count=torch.sum(engaged, dtype=torch.int32),
+            infeasible_count=torch.sum(~info.feasible & engaged,
+                                       dtype=torch.int32),
+            max_relax_rounds=torch.amax(info.relax_rounds),
+            trajectory=x if cfg.record_trajectory else (),
+            gating_dropped_count=torch.sum(dropped, dtype=torch.int32),
+        )
+        return state._replace(x=x_new, v=v_new), out
+
+    return step
+
+
+def make(cfg: Config = Config(), cbf: CBFParams | None = None, *,
+         unroll_relax: int = 0, device=None):
+    """(initial State, step) on ``device`` (None = the card; without one
+    this raises — pass ``device="cpu"`` for the CPU)."""
+    step = _build_step(cfg, cbf, unroll_relax=unroll_relax, device=device)
+    return initial_state(cfg, device=device), step
+
+
+def run(cfg: Config = Config(), *, device=None, **kw):
+    state0, step = make(cfg, device=device, **kw)
+    return rollout(step, state0, cfg.steps)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Run the default swarm scenario and print a summary.")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the card)")
+    args = parser.parse_args(argv)
+    cfg = Config()
+    final, outs = run(cfg, device=args.device)
+    md = outs.min_pairwise_distance.cpu().numpy()
+    spread = float(torch.amax(torch.linalg.norm(
+        final.x - torch.mean(final.x, dim=0), dim=1)))
+    print(f"swarm: N={cfg.n}, {cfg.steps} steps, K={cfg.k_neighbors}")
+    print(f"  min pairwise distance over run: {md.min():.4f} m")
+    print(f"  final max spread from centroid: {spread:.4f} m")
+    print(f"  infeasible agent-steps: "
+          f"{int(outs.infeasible_count.sum())}")
+    print(f"  k-NN dropped neighbor-steps: "
+          f"{int(outs.gating_dropped_count.sum())}")
+
+
+if __name__ == "__main__":
+    main()
