@@ -12,7 +12,7 @@ from typing import NamedTuple
 import torch
 
 from cbf_tpu_torch.core.barrier import assemble_qp, assemble_qp_dedup
-from cbf_tpu_torch.errors import SLICE_2, OutOfSliceError
+from cbf_tpu_torch.errors import SLICE_A5, OutOfSliceError
 from cbf_tpu_torch.solvers.exact2d import solve_qp_2d, solve_qp_2d_batch
 
 
@@ -93,7 +93,7 @@ def safe_controls(robot_states, obs_states, obs_mask, f, g, u0,
     """
     if f.dim() == 3:
         raise OutOfSliceError("per-agent dynamics (f of shape (N, 4, 4), "
-                              "the mixed-dynamics filter path)", SLICE_2)
+                              "the mixed-dynamics filter path)", SLICE_A5)
     kw = dict(dmin=params.dmin, k=params.k, gamma=params.gamma,
               max_speed=params.max_speed, reference_layout=reference_layout,
               vel_box_rows=vel_box_rows, priority_mask=priority_mask,

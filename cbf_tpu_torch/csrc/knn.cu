@@ -1,7 +1,9 @@
 // k-NN danger gating kernels for Hopper (sm_90a), bound through a plain C
 // interface (ctypes; cbf_tpu_torch/ops/knn.py builds and loads this file).
 //
-// Contract (both kernels, = cbf_tpu/ops/pallas_knn.py knn_neighbors):
+// Contract (knn_fused and knn_stream, = cbf_tpu/ops/pallas_knn.py
+// knn_neighbors; knn_banded computes it over y-sorted rows and a window of
+// columns per row block, see its note):
 //   in : x (N, 2) float32 row-major, r2 = float32(radius)^2, k <= kMaxK
 //   out: idx (N, k) int32 — the k nearest in-radius neighbours, nearest
 //        first, ties to the lower column index, 0 on empty slots;
@@ -35,6 +37,8 @@ namespace {
 constexpr int kMaxK = 16;      // must match ops/knn.py KNN_MAX_K
 constexpr int kThreads = 128;  // stream kernels: rows per block
 constexpr int kCtile = 512;    // stream kernels: columns staged per step
+constexpr int kRtile = 256;    // banded: rows sharing one window (RTILE)
+static_assert(kRtile % kThreads == 0, "a block's rows share one window");
 constexpr int kFusedRows = 32;  // fused: query rows per block (one warp)
 constexpr int kFusedSegs = 8;   // fused: column segments, one warp each
 constexpr int kFusedThreads = kFusedRows * kFusedSegs;
@@ -211,20 +215,21 @@ __global__ void __launch_bounds__(kFusedThreads)
 // squared partials then meet in a second kernel that merges them range by
 // range: later ranges hold higher columns, and the insertion puts equal
 // keys after earlier ones, so ties land on the lower column index exactly
-// as the TPU merge's first-slot rule does. S is chosen here (stream_plan)
+// as the TPU merge's first-slot rule does. S is chosen here (split_plan)
 // to put ~4 blocks per SM on the card whatever N is; the partials cost
 // 8*k bytes per (row, range) of device memory, ~0.3 MB per range at
 // N = 4096, k = 8.
+//
+// Columns [c0, c1) (block-uniform) stream through shared memory in kCtile
+// tiles; each live thread folds them into its row's running top-k, and
+// writes its (row, range) partial.
 template <int K>
-__global__ void __launch_bounds__(kThreads) knn_stream_partial_kernel(
-    const float* __restrict__ x, int n, float r2, int cols_per_split,
+__device__ __forceinline__ void scan_range_to_partial(
+    const float* __restrict__ x, int n, float r2, int c0, int c1, int s,
     int splits, float* __restrict__ part_d2, int* __restrict__ part_idx,
     float* __restrict__ part_near, int* __restrict__ part_cnt) {
   __shared__ float2 tile[kCtile];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int s = blockIdx.y;
-  const int c0 = s * cols_per_split;
-  const int c1 = min(n, c0 + cols_per_split);
   const bool live = i < n;
   const float px = live ? x[2 * i] : 0.0f;
   const float py = live ? x[2 * i + 1] : 0.0f;
@@ -256,6 +261,49 @@ __global__ void __launch_bounds__(kThreads) knn_stream_partial_kernel(
   part_cnt[row] = cnt;
 }
 
+template <int K>
+__global__ void __launch_bounds__(kThreads) knn_stream_partial_kernel(
+    const float* __restrict__ x, int n, float r2, int cols_per_split,
+    int splits, float* __restrict__ part_d2, int* __restrict__ part_idx,
+    float* __restrict__ part_near, int* __restrict__ part_cnt) {
+  const int c0 = blockIdx.y * cols_per_split;
+  scan_range_to_partial<K>(x, n, r2, c0, min(n, c0 + cols_per_split),
+                           blockIdx.y, splits, part_d2, part_idx, part_near,
+                           part_cnt);
+}
+
+// knn_banded — replaces cbf_tpu/ops/pallas_knn.py:_knn_kernel_banded (the
+// banded use of _stream_step). The caller sorts the rows by y, so each
+// 256-row block's in-radius candidates lie in one contiguous window of
+// sorted columns, [starts[block], starts[block] + window), which the
+// caller finds with searchsorted (ops/knn.py). The TPU gathered every
+// window ahead of the kernel (XLA dynamic_slice), only because
+// scalar-prefetch index maps hung Mosaic; here a block reads its own
+// window start from device memory and streams the window straight from
+// the sorted coordinates, so no (row blocks, window) copy exists. It is
+// knn_stream with the column range cut to the window: the window is split
+// into S ranges of whole tiles (split_plan over the window's tiles), each
+// range scanned in order into a partial, and the same merge kernel folds
+// the ranges in order — ties keep the lower sorted column, as
+// _stream_step's running-slot rule does. Self is excluded by sorted index
+// and columns past n (the TPU's padding) are never read. Work is
+// O(N * window): at N = 65536 and a 4-tile window, 134 M pairs, ~8 f32
+// operations each, which bounds it by operations (~0.03 ms at the non-FMA
+// issue rate) as the other two kernels are.
+template <int K>
+__global__ void __launch_bounds__(kThreads) knn_banded_partial_kernel(
+    const float* __restrict__ xs, int n, float r2,
+    const int* __restrict__ starts, int window, int cols_per_split,
+    int splits, float* __restrict__ part_d2, int* __restrict__ part_idx,
+    float* __restrict__ part_near, int* __restrict__ part_cnt) {
+  const int start = starts[blockIdx.x * kThreads / kRtile];
+  const int c0 = start + blockIdx.y * cols_per_split;
+  const int c1 = min(min(n, start + window), c0 + cols_per_split);
+  scan_range_to_partial<K>(xs, n, r2, c0, c1, blockIdx.y, splits, part_d2,
+                           part_idx, part_near, part_cnt);
+}
+
+// Folds the (N, S, k) partials of knn_stream or knn_banded range by range.
 template <int K>
 __global__ void __launch_bounds__(kThreads) knn_stream_merge_kernel(
     int n, int splits, const float* __restrict__ part_d2,
@@ -302,10 +350,12 @@ cudaError_t launch_fused(const float* x, int n, float r2, int* idx,
   return cudaGetLastError();
 }
 
-// knn_stream's column split on the current device: S ranges of whole
-// kCtile tiles, as many as put ~4 blocks on each SM (at least one range,
-// at most one per tile).
-cudaError_t stream_plan(int n, int* cols_per_split, int* splits) {
+// A column split on the current device: S ranges of whole kCtile tiles
+// out of ``col_tiles``, as many as put ~4 blocks on each SM (at least one
+// range, at most one per tile). knn_stream splits all N columns, knn_banded
+// each row block's window.
+cudaError_t split_plan(int n, int col_tiles, int* cols_per_split,
+                       int* splits) {
   int dev = 0;
   int sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -313,13 +363,30 @@ cudaError_t stream_plan(int n, int* cols_per_split, int* splits) {
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   const int row_blocks = (n + kThreads - 1) / kThreads;
-  const int col_tiles = (n + kCtile - 1) / kCtile;
   const int want =
       std::min(col_tiles, std::max(1, (4 * sms + row_blocks - 1) / row_blocks));
   const int tiles_per_split = (col_tiles + want - 1) / want;
   *cols_per_split = tiles_per_split * kCtile;
   *splits = (col_tiles + tiles_per_split - 1) / tiles_per_split;
   return cudaSuccess;
+}
+
+cudaError_t stream_plan(int n, int* cols_per_split, int* splits) {
+  return split_plan(n, (n + kCtile - 1) / kCtile, cols_per_split, splits);
+}
+
+template <int K>
+cudaError_t launch_merge(int n, int splits, const float* part_d2,
+                         const int* part_idx, const float* part_near,
+                         const int* part_cnt, int* idx, float* dist,
+                         float* nearest, int* count, cudaStream_t stream) {
+  const cudaError_t e = cudaGetLastError();  // the partial launch
+  if (e != cudaSuccess) return e;
+  knn_stream_merge_kernel<K><<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                               stream>>>(n, splits, part_d2, part_idx,
+                                         part_near, part_cnt, idx, dist,
+                                         nearest, count);
+  return cudaGetLastError();
 }
 
 // ``splits`` is the range count the caller sized the partials for; it must
@@ -331,7 +398,7 @@ cudaError_t launch_stream(const float* x, int n, float r2, int splits,
                           float* nearest, int* count, cudaStream_t stream) {
   int cols_per_split = 0;
   int planned = 0;
-  cudaError_t e = stream_plan(n, &cols_per_split, &planned);
+  const cudaError_t e = stream_plan(n, &cols_per_split, &planned);
   if (e != cudaSuccess) return e;
   if (planned != splits) return cudaErrorInvalidValue;
   const int row_blocks = (n + kThreads - 1) / kThreads;
@@ -339,12 +406,29 @@ cudaError_t launch_stream(const float* x, int n, float r2, int splits,
                                  stream>>>(x, n, r2, cols_per_split, splits,
                                            part_d2, part_idx, part_near,
                                            part_cnt);
-  e = cudaGetLastError();
+  return launch_merge<K>(n, splits, part_d2, part_idx, part_near, part_cnt,
+                         idx, dist, nearest, count, stream);
+}
+
+// ``w`` window tiles per 256-row block; ``splits`` as for launch_stream.
+template <int K>
+cudaError_t launch_banded(const float* xs, int n, float r2,
+                          const int* starts, int w, int splits,
+                          float* part_d2, int* part_idx, float* part_near,
+                          int* part_cnt, int* idx, float* dist,
+                          float* nearest, int* count, cudaStream_t stream) {
+  int cols_per_split = 0;
+  int planned = 0;
+  const cudaError_t e = split_plan(n, w, &cols_per_split, &planned);
   if (e != cudaSuccess) return e;
-  knn_stream_merge_kernel<K><<<row_blocks, kThreads, 0, stream>>>(
-      n, splits, part_d2, part_idx, part_near, part_cnt, idx, dist, nearest,
-      count);
-  return cudaGetLastError();
+  if (planned != splits) return cudaErrorInvalidValue;
+  const int row_blocks = (n + kThreads - 1) / kThreads;
+  knn_banded_partial_kernel<K><<<dim3(row_blocks, splits), kThreads, 0,
+                                 stream>>>(xs, n, r2, starts, w * kCtile,
+                                           cols_per_split, splits, part_d2,
+                                           part_idx, part_near, part_cnt);
+  return launch_merge<K>(n, splits, part_d2, part_idx, part_near, part_cnt,
+                         idx, dist, nearest, count, stream);
 }
 
 }  // namespace
@@ -391,6 +475,35 @@ int knn_stream_launch(const float* x, int n, float r2, int k, int splits,
       return cudaErrorInvalidValue;
   }
 #undef KNN_STREAM_CASE
+}
+
+// knn_banded's window split for N rows and a ``w``-tile window on the
+// current device; the caller sizes the (N, splits, k) partials from it.
+int knn_banded_plan(int n, int w, int* cols_per_split, int* splits) {
+  if (w < 1) return cudaErrorInvalidValue;
+  return split_plan(n, w, cols_per_split, splits);
+}
+
+// xs (N, 2) float32 in y-sorted order; starts int32, one per 256-row block
+// of the padded rows: the first sorted column of the block's window of
+// w * 512 columns. Outputs are in sorted order, column ids sorted indices.
+int knn_banded_launch(const float* xs, int n, float r2, int k,
+                      const int* starts, int w, int splits, float* part_d2,
+                      int* part_idx, float* part_near, int* part_cnt,
+                      int* idx, float* dist, float* nearest, int* count,
+                      void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define KNN_BANDED_CASE(KV)                                                   \
+  case KV:                                                                    \
+    return launch_banded<KV>(xs, n, r2, starts, w, splits, part_d2, part_idx, \
+                             part_near, part_cnt, idx, dist, nearest, count,  \
+                             st);
+  switch (k) {
+    KNN_K_CASES(KNN_BANDED_CASE)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef KNN_BANDED_CASE
 }
 
 int knn_max_k() { return kMaxK; }

@@ -16,8 +16,9 @@ class OutOfSliceError(NotImplementedError):
         self.slice_name = slice_name
 
 
-SLICE_2 = "slice 2 (Queue A5: rest of the swarm step)"
-SLICE_3 = "slice 3 (Queue A6: joint certificate)"
+SLICE_A5 = ("a later slice (Queue A5: double/unicycle/mixed dynamics, the "
+            "mixed filter path, the Verlet cache, RTA)")
+SLICE_CERT = "the joint-certificate slice (Queue A6)"
 SLICE_DIFF = "the differentiable-path slice (Queue A8)"
 SLICE_DURABLE = "the durability and observability slice (Queue A9)"
 SLICE_SERVE = "the serving slice (Queue A11)"

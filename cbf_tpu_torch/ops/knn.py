@@ -7,10 +7,13 @@ loaded through ctypes):
 
 - ``knn_fused`` replaces ``_knn_kernel`` (N <= MAX_N_FUSED);
 - ``knn_stream`` replaces ``_knn_kernel_blocked``/``_stream_step``
-  (N <= MAX_N_BLOCKED, or forced by ``kernel="streaming"``).
+  (N <= MAX_N_BLOCKED, or forced by ``kernel="streaming"``);
+- ``knn_banded`` replaces ``_knn_kernel_banded`` (``gating="banded"``):
+  the same contract over y-sorted rows, each 256-row block scanning only
+  its window of sorted columns (:func:`knn_neighbors_banded`).
 
-Both compute the contract of :func:`knn_neighbors`; the source notes say
-how. A wrapper given a CUDA tensor launches its kernel or raises (also
+All three compute the contract of :func:`knn_neighbors` (the banded one
+within its windows); the source notes say how. A wrapper given a CUDA tensor launches its kernel or raises (also
 when the build fails); only a tensor on the CPU goes to the plain
 version. ``LAUNCHES[name]`` counts kernel launches, so a run can show it
 went through the kernels.
@@ -36,15 +39,18 @@ import torch
 # VMEM bound) still picks fused vs streaming, so both packages route alike;
 # TILE/RTILE are the TPU kernels' row tiles and size nothing here; CTILE,
 # the TPU's column block, tiles the streaming plain version. The CUDA
-# kernels' own tiles and column split live in csrc/knn.cu alone.
+# kernels' own tiles and column split live in csrc/knn.cu alone. The banded
+# form's windows are defined per RTILE block of the sorted order and in
+# CTILE units, whatever tiles the kernel uses.
 TILE = 128
 MAX_N_FUSED = 8192
 RTILE = 256
 CTILE = 512
 MAX_N_BLOCKED = 262144
 KNN_MAX_K = 16       # csrc/knn.cu kMaxK: k is a template parameter there
+_FAR = 1.0e6         # padding coordinate (pallas_knn._pad_coords)
 
-LAUNCHES = {"knn_fused": 0, "knn_stream": 0}
+LAUNCHES = {"knn_fused": 0, "knn_stream": 0, "knn_banded": 0}
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "knn.cu")
@@ -111,6 +117,11 @@ def _library():
         lib.knn_stream_launch.argtypes = [p, i, f, i, i, p, p, p, p,
                                           p, p, p, p, p]
         lib.knn_stream_launch.restype = i
+        lib.knn_banded_plan.argtypes = [i, i, p, p]
+        lib.knn_banded_plan.restype = i
+        lib.knn_banded_launch.argtypes = [p, i, f, i, p, i, i, p, p, p, p,
+                                          p, p, p, p, p]
+        lib.knn_banded_launch.restype = i
         lib.knn_max_k.restype = i
         if lib.knn_max_k() != KNN_MAX_K:
             raise RuntimeError(f"knn.cu kMaxK={lib.knn_max_k()} disagrees "
@@ -126,11 +137,13 @@ def _radius_sq(radius) -> float:
     return float(r * r)
 
 
-def _check_launch(name: str, x, k: int, max_n: int) -> None:
+def _check_launch(name: str, x, k: int, max_n: int,
+                  dtypes=(torch.float32,)) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name} launches on a CUDA tensor, got {x.device}")
-    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 2:
-        raise ValueError(f"{name} takes (N, 2) float32 positions, got "
+    if x.dtype not in dtypes or x.dim() != 2 or x.shape[1] != 2:
+        kinds = "/".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise ValueError(f"{name} takes (N, 2) {kinds} positions, got "
                          f"{tuple(x.shape)} {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{name} takes a contiguous tensor")
@@ -145,6 +158,15 @@ def _outputs(n: int, k: int, device):
             torch.empty((n, k), dtype=torch.float32, device=device),
             torch.empty((n,), dtype=torch.float32, device=device),
             torch.empty((n,), dtype=torch.int32, device=device))
+
+
+def _partials(n: int, splits: int, k: int, device):
+    """(N, S, k) squared-distance and index partials plus (N, S) nearest
+    and count partials of a split column scan."""
+    return (torch.empty((n, splits, k), dtype=torch.float32, device=device),
+            torch.empty((n, splits, k), dtype=torch.int32, device=device),
+            torch.empty((n, splits), dtype=torch.float32, device=device),
+            torch.empty((n, splits), dtype=torch.int32, device=device))
 
 
 def _raise_on(name: str, code: int) -> None:
@@ -169,15 +191,21 @@ def knn_fused(x, radius, k: int):
     return idx, dist, nearest, count
 
 
+def _plan(name: str, device, *args) -> tuple[int, int]:
+    """(cols_per_split, splits) from csrc/knn.cu's ``<name>_plan`` on
+    ``device``."""
+    plan = getattr(_library(), f"{name}_plan")
+    cols, splits = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        _raise_on(f"{name} plan", plan(*args, ctypes.byref(cols),
+                                       ctypes.byref(splits)))
+    return cols.value, splits.value
+
+
 def stream_plan(n: int, device) -> tuple[int, int]:
     """(cols_per_split, splits): the column ranges ``knn_stream`` splits N
     columns into on ``device``, as csrc/knn.cu chooses them."""
-    lib = _library()
-    cols, splits = ctypes.c_int(), ctypes.c_int()
-    with torch.cuda.device(device):
-        _raise_on("knn_stream plan", lib.knn_stream_plan(
-            n, ctypes.byref(cols), ctypes.byref(splits)))
-    return cols.value, splits.value
+    return _plan("knn_stream", device, n)
 
 
 def knn_stream(x, radius, k: int):
@@ -187,24 +215,110 @@ def knn_stream(x, radius, k: int):
     lib = _library()
     n = x.shape[0]
     _, splits = stream_plan(n, x.device)
-    idx, dist, nearest, count = _outputs(n, k, x.device)
-    part_d2 = torch.empty((n, splits, k), dtype=torch.float32,
-                          device=x.device)
-    part_idx = torch.empty((n, splits, k), dtype=torch.int32,
-                           device=x.device)
-    part_near = torch.empty((n, splits), dtype=torch.float32,
-                            device=x.device)
-    part_cnt = torch.empty((n, splits), dtype=torch.int32, device=x.device)
+    outs = _outputs(n, k, x.device)
+    parts = _partials(n, splits, k, x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.knn_stream_launch(
             x.data_ptr(), n, _radius_sq(radius), k, splits,
-            part_d2.data_ptr(), part_idx.data_ptr(), part_near.data_ptr(),
-            part_cnt.data_ptr(), idx.data_ptr(), dist.data_ptr(),
-            nearest.data_ptr(), count.data_ptr(), stream)
+            *(t.data_ptr() for t in parts + outs), stream)
     _raise_on("knn_stream", code)
     LAUNCHES["knn_stream"] += 1
-    return idx, dist, nearest, count
+    return outs
+
+
+def _band_pad(n: int) -> int:
+    """Rows padded to whole RTILE and CTILE blocks (``_pad_coords``)."""
+    blk = max(RTILE, CTILE)
+    return max(blk, -(-n // blk) * blk)
+
+
+def band_setup(x, radius, window_blocks: int):
+    """The banded form's host-issued prologue (pallas_knn.py:347-368), in
+    the reference's order and dtypes: rows sorted by y in the input dtype
+    (stable, as ``jnp.argsort``), cast to float32; per RTILE block of the
+    sorted order the window start (left ``searchsorted`` of the block's
+    first y minus the radius, clipped to ``[0, n_pad - w*CTILE]``, element
+    units) and the overflow flag (the right ``searchsorted`` of its last y
+    plus the radius lies past the window).
+
+    Returns (order (N,) int64, xs (N, 2) float32 sorted, starts
+    (n_pad // RTILE,) int32, block_overflow (n_pad // RTILE,) bool, w —
+    window blocks, clipped to the padded column count)."""
+    if window_blocks < 1:
+        raise ValueError(f"window_blocks must be >= 1, got {window_blocks}")
+    n = x.shape[0]
+    n_pad = _band_pad(n)
+    w = int(min(window_blocks, n_pad // CTILE))
+    wlen = w * CTILE
+    order = torch.argsort(x[:, 1], stable=True)
+    xs = x[order].to(torch.float32).contiguous()
+    ys = torch.full((n_pad,), 2.0 * _FAR, dtype=torch.float32,
+                    device=x.device)
+    ys[:n] = xs[:, 1]
+    r = float(np.float32(radius))        # the f32 radius, as jnp's weak cast
+    row0 = torch.arange(0, n_pad, RTILE, device=x.device)
+    lo = torch.searchsorted(ys[:n], ys[row0] - r)
+    starts = torch.clamp(lo, 0, n_pad - wlen).to(torch.int32)
+    row_end = torch.clamp(row0 + RTILE, max=n) - 1
+    hi = torch.searchsorted(ys[:n], ys[row_end] + r, right=True)
+    return order, xs, starts, hi > starts + wlen, w
+
+
+def band_unsort(order, block_overflow, idx_s, dist_s, near_s, cnt_s):
+    """Sorted-order results back to agent order (pallas_knn.py:403-409):
+    rows through the inverse permutation, neighbour ids through the sort
+    order — so an empty slot reports ``order[0]``. Returns (idx, dist,
+    nearest, overflow, count)."""
+    n = order.shape[0]
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(n, device=order.device)
+    idx = order[idx_s.to(torch.int64)][inv].to(torch.int32)
+    overflow = torch.repeat_interleave(block_overflow, RTILE)[:n][inv]
+    return idx, dist_s[inv], near_s[inv], overflow, cnt_s[inv]
+
+
+def band_plan(n: int, w: int, device) -> tuple[int, int]:
+    """(cols_per_split, splits): the ranges ``knn_banded`` splits each
+    ``w``-block window into on ``device``, as csrc/knn.cu chooses them."""
+    return _plan("knn_banded", device, n, w)
+
+
+def knn_banded_sorted(xs, starts, radius, k: int, w: int):
+    """Launch ``knn_banded`` (window partials + merge) on y-sorted
+    float32 CUDA positions and their window starts (:func:`band_setup`).
+    Returns (idx, dist, nearest, count) in sorted order, ids sorted
+    indices."""
+    _check_launch("knn_banded", xs, k, MAX_N_BLOCKED)
+    lib = _library()
+    n = xs.shape[0]
+    if (starts.dtype != torch.int32 or starts.device != xs.device
+            or tuple(starts.shape) != (_band_pad(n) // RTILE,)):
+        raise ValueError("knn_banded takes int32 window starts, one per "
+                         "RTILE block of the padded rows, on xs's device")
+    _, splits = band_plan(n, w, xs.device)
+    outs = _outputs(n, k, xs.device)
+    parts = _partials(n, splits, k, xs.device)
+    with torch.cuda.device(xs.device):
+        stream = torch.cuda.current_stream(xs.device).cuda_stream
+        code = lib.knn_banded_launch(
+            xs.data_ptr(), n, _radius_sq(radius), k, starts.data_ptr(), w,
+            splits, *(t.data_ptr() for t in parts + outs), stream)
+    _raise_on("knn_banded", code)
+    LAUNCHES["knn_banded"] += 1
+    return outs
+
+
+def knn_banded(x, radius, k: int, *, window_blocks: int):
+    """:func:`knn_neighbors_banded` through the ``knn_banded`` kernel:
+    the sort, window search and unsort in PyTorch around one launch on
+    (N, 2) float32 or float64 CUDA positions."""
+    _check_launch("knn_banded", x, k, MAX_N_BLOCKED,
+                  dtypes=(torch.float32, torch.float64))
+    order, xs, starts, block_overflow, w = band_setup(x, radius,
+                                                      window_blocks)
+    return band_unsort(order, block_overflow,
+                       *knn_banded_sorted(xs, starts, radius, k, w))
 
 
 # -- plain versions ---------------------------------------------------------
@@ -288,6 +402,49 @@ def knn_neighbors_blocked_plain(x, radius, k: int):
     return run_i, _sqrt_rn(run_d2), _sqrt_rn(near), count
 
 
+def knn_neighbors_banded_plain(x, radius, k: int, *, window_blocks: int):
+    """Plain PyTorch version of ``knn_banded``, in the streaming kernel's
+    shape: the same sort and windows (:func:`band_setup`); per sorted row,
+    its block's W CTILE column blocks pass by in order, each folding
+    nearest and count, its block-local top-k merged with the running one
+    by the exact 2k merge (ties to the running slot); the same mapping
+    back (:func:`band_unsort`)."""
+    order, xs, starts, block_overflow, w = band_setup(x, radius,
+                                                      window_blocks)
+    n = xs.shape[0]
+    dev = xs.device
+    n_pad = starts.shape[0] * RTILE
+    xp = torch.empty((n_pad, 2), dtype=torch.float32, device=dev)
+    xp[:, 0], xp[:, 1] = _FAR, 2.0 * _FAR
+    xp[:n] = xs
+    r2 = torch.tensor(_radius_sq(radius), dtype=torch.float32, device=dev)
+    rows = torch.arange(n, device=dev)
+    row_start = starts.to(torch.int64)[rows // RTILE]
+    lanes = torch.arange(CTILE, device=dev)
+    run_i = torch.zeros((n, k), dtype=torch.int32, device=dev)
+    run_d2 = torch.full((n, k), torch.inf, dtype=torch.float32, device=dev)
+    near = torch.full((n,), torch.inf, dtype=torch.float32, device=dev)
+    count = torch.zeros((n,), dtype=torch.int32, device=dev)
+    for j in range(w):
+        cols = row_start[:, None] + j * CTILE + lanes[None, :]   # (N, CTILE)
+        xc = xp[cols]
+        dx = xs[:, None, 0] - xc[..., 0]
+        dy = xs[:, None, 1] - xc[..., 1]
+        d2 = dx * dx + dy * dy
+        in_range = cols < n
+        near = torch.minimum(near, torch.amin(
+            torch.where((cols == rows[:, None]) | ~in_range, torch.inf, d2),
+            dim=1))
+        eligible = (d2 < r2) & (d2 > 0.0) & in_range
+        count = count + torch.sum(eligible, dim=1, dtype=torch.int32)
+        bk_i, bk_d2 = _select_k(torch.where(eligible, d2, torch.inf), k,
+                                ids=cols.to(torch.int32))
+        run_i, run_d2 = _select_k(torch.cat([run_d2, bk_d2], dim=1), k,
+                                  ids=torch.cat([run_i, bk_i], dim=1))
+    return band_unsort(order, block_overflow, run_i, _sqrt_rn(run_d2),
+                       _sqrt_rn(near), count)
+
+
 # -- entries ----------------------------------------------------------------
 
 def knn_neighbors(x, radius, k: int):
@@ -310,6 +467,22 @@ def knn_neighbors_blocked(x, radius, k: int):
     if x.device.type == "cpu":
         return knn_neighbors_blocked_plain(x, radius, k)
     return knn_stream(x, radius, k)
+
+
+def knn_neighbors_banded(x, radius, k: int, *, window_blocks: int):
+    """O(N·W) y-sorted banded k-NN gating over (N, 2) positions (the
+    sort runs in their dtype, the distances in float32).
+
+    Returns (idx (N, k) int32 — ``order[0]`` on empty slots, dist (N, k),
+    nearest (N,) — window-local, exact up to the radius, overflow (N,)
+    bool — the row's block needed more than its window, count (N,) int32
+    — in-radius candidates seen in the window). A CUDA tensor launches
+    ``knn_banded``; a CPU tensor runs the plain version."""
+    x = x.contiguous()
+    if x.device.type == "cpu":
+        return knn_neighbors_banded_plain(x, radius, k,
+                                          window_blocks=window_blocks)
+    return knn_banded(x, radius, k, window_blocks=window_blocks)
 
 
 def supported(n: int) -> bool:
@@ -355,3 +528,14 @@ def knn_gating_pallas(states4, radius, k: int, *, kernel: str = "auto"):
                                                  kernel)
     obs, mask, dropped = _gating_epilogue(states4, idx, dist, count, k)
     return obs, mask, nearest, dropped
+
+
+def knn_gating_banded(states4, radius, k: int, *, window_blocks: int):
+    """Banded (O(N·W)) form of :func:`knn_gating_pallas`. Returns (obs
+    (N, k, 4), mask (N, k), nearest_all (N,), overflow (N,) bool — rows
+    whose y-band exceeded the window, dropped (N,) int32 — window-local
+    in-radius candidates beyond the k slots)."""
+    idx, dist, nearest, overflow, count = knn_neighbors_banded(
+        states4[:, :2], radius, k, window_blocks=window_blocks)
+    obs, mask, dropped = _gating_epilogue(states4, idx, dist, count, k)
+    return obs, mask, nearest, overflow, dropped

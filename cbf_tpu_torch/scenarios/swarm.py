@@ -8,12 +8,13 @@ rendezvous to a packed disk around its centroid. Velocity slots carry the
 actual (previous filtered) velocities, and the single-integrator update
 applies the filtered command directly.
 
-This slice ports the main path: single-integrator dynamics, continuous or
-discrete barrier rows, no obstacles, certificate or runtime assurance.
-Config fields of later slices are kept (a JAX ``Config`` carries across
-one to one) and raise :class:`~cbf_tpu_torch.errors.OutOfSliceError`
-when set. ``gating="pallas"``/``"streaming"`` name the hand-written CUDA
-kernels (:mod:`cbf_tpu_torch.ops.knn`).
+The port covers single-integrator dynamics with continuous or discrete
+barrier rows, the obstacle field (closed-form ring or scatter, exact
+priority rows, spawn stand-off repair) and every gating backend;
+``gating="pallas"``/``"streaming"``/``"banded"`` name the hand-written
+CUDA kernels (:mod:`cbf_tpu_torch.ops.knn`). Config fields of later
+slices are kept (a JAX ``Config`` carries across one to one) and raise
+:class:`~cbf_tpu_torch.errors.OutOfSliceError` when set.
 """
 
 from __future__ import annotations
@@ -26,8 +27,8 @@ import numpy as np
 import torch
 
 from cbf_tpu_torch.core.filter import CBFParams, safe_controls
-from cbf_tpu_torch.errors import (SLICE_2, SLICE_3, SLICE_DIFF, SLICE_SERVE,
-                                  OutOfSliceError)
+from cbf_tpu_torch.errors import (SLICE_A5, SLICE_CERT, SLICE_DIFF,
+                                  SLICE_SERVE, OutOfSliceError)
 from cbf_tpu_torch.ops import knn
 from cbf_tpu_torch.ops.pairwise import pairwise_distances
 from cbf_tpu_torch.rollout.engine import StepOutputs, rollout
@@ -80,7 +81,8 @@ class Config:
     # "auto": the kernel contract up to knn.MAX_N_BLOCKED (fused kernel to
     # MAX_N_FUSED, streaming beyond), else the dense path; "pallas" and
     # "streaming" force the kernels (streaming below the fused bound);
-    # "jnp" the dense sort-based path; "banded" is not ported yet.
+    # "jnp" the dense sort-based path; "banded" the O(N*W) y-sorted kernel
+    # (window: gating_window_blocks, else banded_window_blocks' rule).
     gating: str = "auto"
     gating_window_blocks: int | None = None
     gating_rebuild_skin: float = 0.0
@@ -112,11 +114,11 @@ class Config:
 class State(NamedTuple):
     x: torch.Tensor                  # (N, 2) positions
     v: torch.Tensor                  # (N, 2) last applied velocities
-    theta: torch.Tensor | tuple = ()            # unicycle only (slice 2)
-    gating_cache: tuple = ()                    # Verlet cache (slice 2)
-    certificate_cache: tuple = ()               # slice 3
-    certificate_solver_state: tuple = ()        # slice 3
-    rta: tuple = ()                             # slice 2
+    theta: torch.Tensor | tuple = ()            # unicycle (Queue A5)
+    gating_cache: tuple = ()                    # Verlet cache (Queue A5)
+    certificate_cache: tuple = ()               # Queue A6
+    certificate_solver_state: tuple = ()        # Queue A6
+    rta: tuple = ()                             # Queue A5
 
 
 def resolve_device(device=None) -> torch.device:
@@ -210,8 +212,138 @@ def spawn_positions(cfg: Config, seed: int, *, device=None):
     return x0.to(resolve_device(device))
 
 
+def _orbit_ring(cfg: Config, t):
+    """The closed-form obstacle field law for ``cfg.obstacle_layout`` at
+    step ``t`` (a 0-dim tensor in the working dtype; the arithmetic
+    follows the reference's grouping of Python-float products, so each
+    product is rounded where JAX rounds it). "orbit" is the rotating ring,
+    "static" that ring frozen at t=0, "scatter" a seed-free golden-angle
+    spiral through the packing disk; the last two have zero velocity.
+    Returns (pos (M, 2), vel (M, 2))."""
+    M = cfg.n_obstacles
+    k = torch.arange(M, dtype=t.dtype, device=t.device)
+    if cfg.obstacle_layout == "scatter":
+        r = (cfg.obstacle_orbit_frac * cfg.pack_radius
+             * torch.sqrt((k + 0.5) / M))
+        ang = (k + 0.5) * 2.39996322972865332  # golden angle (rad)
+        pos = torch.stack([r * torch.cos(ang), r * torch.sin(ang)], dim=1)
+        return pos, torch.zeros_like(pos)
+    phases = k * (2 * np.pi / M)
+    r = cfg.obstacle_orbit_frac * cfg.pack_radius
+    if cfg.obstacle_layout == "static":
+        pos = r * torch.stack([torch.cos(phases), torch.sin(phases)], dim=1)
+        return pos, torch.zeros_like(pos)
+    ang = phases + cfg.obstacle_omega * cfg.dt * t
+    pos = r * torch.stack([torch.cos(ang), torch.sin(ang)], dim=1)
+    vel = (cfg.obstacle_omega * r
+           * torch.stack([-torch.sin(ang), torch.cos(ang)], dim=1))
+    return pos, vel
+
+
+def obstacle_states_at(cfg: Config, t, dtype, *, device=None):
+    """(M, 4) obstacle rows [x y vx vy] at step ``t``, computed on the host
+    in ``dtype`` (a dozen closed-form rows: no device work, and the card
+    and the CPU see the same obstacles) and copied to ``device`` without
+    waiting for the device's queue."""
+    pos, vel = _orbit_ring(cfg, torch.tensor(float(t), dtype=dtype))
+    rows = torch.cat([pos, vel], dim=1)
+    return rows.to(resolve_device(device), non_blocking=True)
+
+
+def obstacle_positions_at(cfg: Config, t: float) -> np.ndarray:
+    """Host-side (M, 2) float64 obstacle positions at step ``t``."""
+    pos, _ = _orbit_ring(cfg, torch.tensor(float(t), dtype=torch.float64))
+    return pos.numpy()
+
+
+def lane_dodge(x, obstacles4, safety_distance):
+    """Sideways-out-of-the-lane nominal bias and the (N, M) agent-obstacle
+    distances it is derived from: each agent inside an obstacle's gating
+    radius is pushed to whichever side of the obstacle's travel lane it
+    already is, so a fast obstacle empties its lane instead of squeezing
+    the crowd along it. Returns (dodge (N, 2), d_o (N, M))."""
+    rel = x[:, None, :] - obstacles4[None, :, :2]          # (N, M, 2)
+    d_o = torch.linalg.norm(rel, dim=-1)                   # (N, M)
+    ov = obstacles4[:, 2:]
+    lane = ov / torch.clamp(torch.linalg.norm(ov, dim=1, keepdim=True),
+                            min=1e-9)
+    perp = torch.stack([-lane[:, 1], lane[:, 0]], dim=1)   # (M, 2)
+    side = torch.sign(torch.sum(rel * perp[None], dim=-1) + 1e-9)
+    w = torch.clamp(safety_distance - d_o, min=0.0)        # (N, M)
+    dodge = torch.sum((w * side)[..., None] * perp[None], dim=1)
+    return dodge, d_o
+
+
+def attach_obstacle_rows(obs_slab, mask, obstacles4, d_o, safety_distance):
+    """Append the exact obstacle slab to a k-NN agent slab: obstacles never
+    go through k-NN truncation, and they are the PRIORITY rows of the
+    tiered relaxation (a boxed-in agent yields inter-agent spacing before
+    obstacle clearance).
+
+    Args: obs_slab (N, K, 4), mask (N, K), obstacles4 (M, 4), d_o (N, M)
+    (from :func:`lane_dodge`). Returns (obs_slab (N, K+M, 4), mask
+    (N, K+M), priority (N, K+M))."""
+    n = obs_slab.shape[0]
+    ob_mask = d_o < safety_distance
+    ob_slab = obstacles4[None].expand((n,) + tuple(obstacles4.shape))
+    priority = torch.cat([torch.zeros_like(mask), torch.ones_like(ob_mask)],
+                         dim=1)
+    return (torch.cat([obs_slab, ob_slab], dim=1),
+            torch.cat([mask, ob_mask], dim=1), priority)
+
+
+# Rows per slice of clear_obstacle_spawn's pairwise repair: bounds its
+# (rows, N, 2) temporaries; each row's sum is the same whatever the slice.
+_REPAIR_ROWS = 2048
+
+
+def clear_obstacle_spawn(cfg: Config, x0):
+    """Push spawned agents radially off their nearest obstacle to at least
+    a 0.25 m stand-off. The monotone radius map r -> 0.25 + 0.6 r keeps
+    same-disk agents in radial order (a projection onto the 0.25 circle
+    would stack them); 20 rounds of symmetric pairwise repair (each
+    too-close pair moves apart by half its deficit) interleaved with the
+    push, then a last repair, settle every pair above 0.25 m. No-op
+    without obstacles."""
+    if not cfg.n_obstacles:
+        return x0
+    n = x0.shape[0]
+    opos = torch.as_tensor(obstacle_positions_at(cfg, 0.0), dtype=x0.dtype,
+                           device=x0.device)
+    rows = torch.arange(n, device=x0.device)
+
+    def obstacle_push(x):
+        diff = x[:, None, :] - opos[None, :, :]                # (N, M, 2)
+        d = torch.linalg.norm(diff, dim=-1)
+        j = torch.argmin(d, dim=1)
+        dn = d[rows, j]
+        dirn = diff[rows, j] / torch.clamp(dn, min=1e-6)[:, None]
+        r_new = 0.25 + 0.6 * dn
+        return x + torch.where(dn < 0.25, r_new - dn, 0.0)[:, None] * dirn
+
+    def pairwise_repair(x):
+        push = torch.empty_like(x)
+        for r0 in range(0, n, _REPAIR_ROWS):
+            r1 = min(n, r0 + _REPAIR_ROWS)
+            diff = x[r0:r1, None, :] - x[None, :, :]           # (R, N, 2)
+            d = torch.linalg.norm(diff, dim=-1)
+            d[rows[:r1 - r0], rows[r0:r1]] += 1e9
+            deficit = torch.clamp(0.25 - d, min=0.0) / 2.0
+            push[r0:r1] = torch.sum(
+                deficit[..., None] * diff
+                / torch.clamp(d, min=1e-6)[..., None], dim=1)
+        return x + push
+
+    x0 = obstacle_push(x0)
+    for _ in range(20):
+        x0 = pairwise_repair(x0)
+        x0 = obstacle_push(x0)
+    return pairwise_repair(x0)
+
+
 def initial_state(cfg: Config, *, device=None) -> State:
-    x0 = spawn_positions(cfg, cfg.seed, device=device)
+    x0 = clear_obstacle_spawn(cfg, spawn_positions(cfg, cfg.seed,
+                                                   device=device))
     return State(x=x0, v=torch.zeros_like(x0))
 
 
@@ -353,7 +485,7 @@ def validate_config(cfg: Config) -> None:
 def _require_single(cfg: Config, what: str) -> None:
     if cfg.dynamics != "single":
         raise OutOfSliceError(f"{what} for dynamics={cfg.dynamics!r}",
-                              SLICE_2)
+                              SLICE_A5)
 
 
 def reject_out_of_slice(cfg: Config, *, unroll_relax: int = 0,
@@ -362,13 +494,10 @@ def reject_out_of_slice(cfg: Config, *, unroll_relax: int = 0,
     port — never ignore one silently."""
     _require_single(cfg, "the swarm step")
     later = [
-        (cfg.n_obstacles > 0, f"Config.n_obstacles={cfg.n_obstacles}",
-         SLICE_2),
-        (cfg.certificate, "Config.certificate=True", SLICE_3),
-        (cfg.rta, "Config.rta=True", SLICE_2),
+        (cfg.certificate, "Config.certificate=True", SLICE_CERT),
+        (cfg.rta, "Config.rta=True", SLICE_A5),
         (cfg.gating_rebuild_skin > 0,
-         f"Config.gating_rebuild_skin={cfg.gating_rebuild_skin}", SLICE_2),
-        (cfg.gating == "banded", 'Config.gating="banded"', SLICE_2),
+         f"Config.gating_rebuild_skin={cfg.gating_rebuild_skin}", SLICE_A5),
         (unroll_relax > 0, f"unroll_relax={unroll_relax} on the step",
          SLICE_DIFF),
         (active is not None, "the serving layer's active mask",
@@ -427,6 +556,18 @@ def relax_tiers(cfg: Config, mask, priority):
     return priority, (cfg.relax_cap if cfg.n_obstacles else None)
 
 
+def banded_window_blocks(cfg: Config) -> int:
+    """``gating="banded"``'s window in CTILE column blocks:
+    ``gating_window_blocks``, else the density rule at the packed (densest)
+    state — agents whose y lies within +-safety_distance of a 256-row band
+    of the y-sorted order, the packed disk's density assumed uniform."""
+    if cfg.gating_window_blocks is not None:
+        return cfg.gating_window_blocks
+    band = cfg.n * 2.0 * cfg.safety_distance / max(2.0 * cfg.pack_radius,
+                                                   1e-6)
+    return int(np.ceil((band + 2 * knn.RTILE) / knn.CTILE)) + 1
+
+
 def integrate(cfg: Config, x, v, u):
     """(x_new, v_new): the reference's first-order update in single
     mode."""
@@ -447,6 +588,12 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
     if cfg.gating_rebuild_skin < 0:
         raise ValueError(f"gating_rebuild_skin must be >= 0, got "
                          f"{cfg.gating_rebuild_skin}")
+    use_banded = cfg.gating == "banded"
+    if cfg.gating_rebuild_skin and cfg.gating in ("banded", "streaming"):
+        raise ValueError(
+            "gating_rebuild_skin requires the pallas/jnp gating backends "
+            "(the banded kernel's window bookkeeping has no cached form, "
+            "and the cache's rebuild search keeps the auto kernel choice)")
     reject_out_of_slice(cfg, unroll_relax=unroll_relax, active=active)
     dt_ = cfg.dtype
     f, g, discrete = barrier_dynamics(cfg, dt_, validate=False, device=dev)
@@ -456,11 +603,14 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
     if cbf is None:
         cbf = default_cbf(cfg)
     K = cfg.k_neighbors
+    M = cfg.n_obstacles
     # "streaming" forces the streaming kernel below the fused bound.
     kernel = "streaming" if cfg.gating == "streaming" else "auto"
     use_kernel = (knn.supported(cfg.n) if cfg.gating == "auto"
                   else cfg.gating in ("pallas", "streaming"))
-    if not use_kernel:
+    if use_banded:
+        window_blocks = banded_window_blocks(cfg)
+    elif not use_kernel:
         all_rows = torch.ones(cfg.n, dtype=torch.bool, device=dev)
         self_inf = torch.where(
             torch.eye(cfg.n, dtype=torch.bool, device=dev),
@@ -479,13 +629,26 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
                 pull = torch.clamp(d_c - cfg.pack_radius, min=0.0)
                 u0 = (cfg.consensus_gain * pull * to_c
                       / torch.clamp(d_c, min=1e-9))
+            if M:
+                obstacles4 = obstacle_states_at(cfg, t, dt_, device=dev)
+                dodge, d_o = lane_dodge(x, obstacles4, cfg.safety_distance)
+                u0 = u0 + 2.0 * dodge
         # Discrete rows zero the agents' velocity slots (u is the unknown
         # the row solves for); continuous rows carry actual velocities.
         vslots = torch.zeros_like(state.v) if discrete else state.v
         states4 = torch.cat([x, vslots], dim=1)                # (N, 4)
 
+        overflow_count = ()
         with annotate("gating"):
-            if use_kernel:
+            if use_banded:
+                # O(N*W) y-sorted banded kernel; window overflow (possibly
+                # missed neighbours) is surfaced, never swallowed.
+                obs_slab, mask, nearest, overflow, dropped = \
+                    knn.knn_gating_banded(states4, cfg.safety_distance, K,
+                                          window_blocks=window_blocks)
+                min_dist = torch.amin(nearest)
+                overflow_count = torch.sum(overflow, dtype=torch.int32)
+            elif use_kernel:
                 # Distances + k-NN + nearest-any metric in one kernel
                 # (knn_fused, or knn_stream beyond the fused bound or when
                 # forced).
@@ -503,8 +666,14 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
 
         u0 = complete_nominal(cfg, u0, x, state.v, obs_slab, mask)
 
+        priority = None
+        if M:
+            obs_slab, mask, priority = attach_obstacle_rows(
+                obs_slab, mask, obstacles4, d_o, cfg.safety_distance)
+            min_dist = torch.minimum(min_dist, torch.amin(d_o))
+
         with annotate("filter"):
-            priority, cap = relax_tiers(cfg, mask, None)
+            priority, cap = relax_tiers(cfg, mask, priority)
             u_safe, info = safe_controls(
                 states4, obs_slab, mask, f, g, u0, cbf,
                 priority_mask=priority, relax_cap=cap)
@@ -521,6 +690,7 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
                                        dtype=torch.int32),
             max_relax_rounds=torch.amax(info.relax_rounds),
             trajectory=x if cfg.record_trajectory else (),
+            gating_overflow_count=overflow_count,
             gating_dropped_count=torch.sum(dropped, dtype=torch.int32),
         )
         return state._replace(x=x_new, v=v_new), out

@@ -11,10 +11,13 @@ Phases (each raises, and the script exits non-zero, on any failure):
    and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card —
    ``knn_fused`` at N in {256, 4096, 5000}, ``knn_stream`` at N in
-   {4096 (forced), 16384, 20000}, k=8, radius 0.4, seeded spawn positions,
+   {4096 (forced), 16384, 20000}, ``knn_banded`` at N in {4096, 65536}
+   with the main path's windows, k=8, radius 0.4, seeded spawn positions,
    and the same spawns packed 4x closer (every row then holds more than k
    in-radius candidates, the top-k's overflow branch) — every output must
-   be equal;
+   be equal; ``knn_banded`` also on a thin band with a one-block window
+   (the overflow flag must be raised), and at N=65536 against
+   ``knn_stream`` on the filled slots;
 3. drive the main path — ``swarm.make(Config(n=4096))``, ``gating="auto"``,
    500 steps through ``rollout`` — and check one ``knn_fused`` launch per
    step, the separation floor and zero infeasible QPs;
@@ -26,7 +29,21 @@ Phases (each raises, and the script exits non-zero, on any failure):
    tolerance, the per-step counts equal;
 6. time each kernel at its main-path shape (median of single launches)
    beside its bound and its plain version; a short profile of the
-   main-path step.
+   main-path step and of the banded step;
+7. the banded path at full width — ``Config(n=65536, gating="banded")``,
+   200 steps: one ``knn_banded`` launch per step and none of the others,
+   the separation floor, zero infeasible QPs, the window overflow count
+   printed; ``knn_banded`` held against its plain version on the final
+   state;
+8. the obstacle field at the north-star N=4096, 12 obstacles, banded
+   gating, 300 steps: the "scatter" field above the floor with zero
+   infeasible QPs, the default "orbit" ring with zero infeasible QPs (its
+   min distance printed: the reference itself dips below the floor there,
+   the ring outruns the agents ~13x), and 20 steps of the orbit run on
+   the card and on the CPU with positions and min distances within a
+   stated tolerance and every count equal.
+
+Phases 7 and 8 run before phase 6, which times their kernel.
 
 Stdout ends with the ``{"kernels": [...]}`` line, the main path's
 agent-QP-steps/s, the card line, and, last, the result line
@@ -59,6 +76,9 @@ K, RADIUS = 8, 0.4
 FLOOR = 0.2 / math.sqrt(2.0) - 1e-4   # L1 barrier's Euclidean floor
 MAIN_N, MAIN_STEPS = 4096, 500
 STREAM_N, STREAM_STEPS = 16384, 50
+BANDED_N, BANDED_STEPS = 65536, 200
+OBST_N, OBST_M, OBST_STEPS = 4096, 12, 300
+THIN_N = 4096   # phase 2's thin band: 8 blocks of rows in one 1e-3 m band
 CROSS_STEPS = 20
 # Card vs CPU after CROSS_STEPS steps: positions reach ~13 m, where a
 # float32 ulp is ~1e-6, and the two devices reduce the centroid mean in
@@ -106,17 +126,20 @@ def cuda_ms(fn, reps: int, warmup: int) -> tuple[float, float]:
     return single[reps // 2], start.elapsed_time(end) / reps
 
 
-def compare(kernel_fn, plain_fn, x) -> tuple[float, int]:
-    """Kernel vs plain on the same card input: all four outputs must be
-    equal. Returns the max abs difference of the float outputs (finite
-    entries; 0.0 when equal) and the rows holding more than k in-radius
-    candidates (the top-k's overflow branch)."""
+def compare(kernel_fn, plain_fn, x, **kw) -> tuple[float, list]:
+    """Kernel vs plain on the same card input: every output (four, or five
+    with the banded overflow flag) must be equal. Returns the max abs
+    difference of the float outputs (finite entries; 0.0 when equal) and
+    the outputs."""
     import torch
 
-    got, want = kernel_fn(x, RADIUS, K), plain_fn(x, RADIUS, K)
+    got, want = kernel_fn(x, RADIUS, K, **kw), plain_fn(x, RADIUS, K, **kw)
     torch.cuda.synchronize()
+    names = (("idx", "dist", "nearest", "count") if len(want) == 4
+             else ("idx", "dist", "nearest", "overflow", "count"))
+    check(len(got) == len(want), "output count")
     err = 0.0
-    for name, a, b in zip(("idx", "dist", "nearest", "count"), got, want):
+    for name, a, b in zip(names, got, want):
         check(a.shape == b.shape and a.dtype == b.dtype,
               f"{name}: {tuple(a.shape)} {a.dtype} vs {tuple(b.shape)} "
               f"{b.dtype}")
@@ -127,7 +150,7 @@ def compare(kernel_fn, plain_fn, x) -> tuple[float, int]:
                 err = max(err, float(torch.amax(torch.abs(a[fin] - b[fin]))))
         check(torch.equal(a, b), f"{name} differs from the plain version at "
               f"N={x.shape[0]}")
-    return err, int((want[3] > K).sum())
+    return err, want
 
 
 def drive(swarm, rollout, knn, cfg):
@@ -148,7 +171,9 @@ def drive(swarm, rollout, knn, cfg):
     return state0, final, outs, launches, wall
 
 
-def check_run(label, cfg, final, outs):
+def check_run(label, cfg, final, outs, floor=FLOOR):
+    """Shapes, finiteness, zero infeasible agent-steps and (unless
+    ``floor`` is None) the separation floor. Returns the min distance."""
     import torch
 
     md = outs.min_pairwise_distance
@@ -158,12 +183,49 @@ def check_run(label, cfg, final, outs):
           and bool(torch.isfinite(final.v).all()), f"{label}: non-finite")
     md_min = float(md.min())
     infeasible = int(outs.infeasible_count.sum())
-    check(md_min >= FLOOR, f"{label}: min distance {md_min} < {FLOOR}")
+    if floor is not None:
+        check(md_min >= floor, f"{label}: min distance {md_min} < {floor}")
     check(infeasible == 0, f"{label}: {infeasible} infeasible agent-steps")
-    print(f"{label}: min distance {md_min:.6f} (floor {FLOOR:.5f}), "
-          f"infeasible 0, filter-active mean "
+    overflow = ("" if isinstance(outs.gating_overflow_count, tuple) else
+                f", window overflow {int(outs.gating_overflow_count.sum())}")
+    print(f"{label}: min distance {md_min:.6f} "
+          f"({'floor %.5f' % floor if floor is not None else 'not held'}), "
+          f"infeasible 0, max relax rounds "
+          f"{float(outs.max_relax_rounds.max()):.0f}, filter-active mean "
           f"{float(outs.filter_active_count.float().mean()):.1f}, "
-          f"dropped {int(outs.gating_dropped_count.sum())}")
+          f"dropped {int(outs.gating_dropped_count.sum())}{overflow}")
+    return md_min
+
+
+def cross_check(swarm, rollout, cfg, state0, label):
+    """``cfg.steps`` steps from ``state0`` on the card and on the CPU
+    (plain versions there): positions and min distances within
+    CROSS_X_ATOL/CROSS_MD_ATOL, every count equal."""
+    import torch
+
+    _, step_gpu = swarm.make(cfg)
+    _, step_cpu = swarm.make(cfg, device="cpu")
+    fg, og = rollout(step_gpu, state0, cfg.steps)
+    fc, oc = rollout(step_cpu, swarm.State(x=state0.x.cpu(),
+                                           v=state0.v.cpu()), cfg.steps)
+    dx = float(torch.amax(torch.abs(fg.x.cpu() - fc.x)))
+    dmd = float(torch.amax(torch.abs(og.min_pairwise_distance.cpu()
+                                     - oc.min_pairwise_distance)))
+    print(f"{label}: card vs CPU over {cfg.steps} steps at N={cfg.n}: "
+          f"max |dx| {dx:.3e} (atol {CROSS_X_ATOL}), max |d min-dist| "
+          f"{dmd:.3e} (atol {CROSS_MD_ATOL})")
+    check(dx <= CROSS_X_ATOL and dmd <= CROSS_MD_ATOL,
+          f"{label}: card and CPU trajectories part beyond tolerance")
+    for field in ("filter_active_count", "infeasible_count",
+                  "gating_dropped_count", "gating_overflow_count"):
+        a, b = getattr(og, field), getattr(oc, field)
+        if isinstance(a, tuple):
+            check(b == (), f"{field}: reported on one device only")
+            continue
+        a = a.cpu()
+        print(f"  {field} per step, card vs CPU: sums {int(a.sum())} / "
+              f"{int(b.sum())}")
+        check(torch.equal(a, b), f"{field} differs between card and CPU")
 
 
 def profile_step(step, state, steps: int) -> dict:
@@ -255,17 +317,29 @@ def main() -> int:
         return x.to(torch.float32).contiguous()
 
     plains = {"knn_fused": knn.knn_neighbors_plain,
-              "knn_stream": knn.knn_neighbors_blocked_plain}
-    errs = {"knn_fused": {}, "knn_stream": {}}   # N -> max abs err
-    compared = {"knn_fused": {}, "knn_stream": {}}   # N -> input labels
+              "knn_stream": knn.knn_neighbors_blocked_plain,
+              "knn_banded": knn.knn_neighbors_banded_plain}
+    errs = {name: {} for name in plains}       # N -> max abs err
+    compared = {name: {} for name in plains}   # N -> input labels
 
-    def hold(name, label, x):
+    def window(n):   # the main path's window for N agents
+        return swarm.banded_window_blocks(swarm.Config(n=n))
+
+    def hold(name, label, x, w=None):
         n = x.shape[0]
-        err, over = compare(getattr(knn, name), plains[name], x)
+        kw = {} if w is None else {"window_blocks": w}
+        err, outs = compare(getattr(knn, name), plains[name], x, **kw)
         errs[name][n] = max(errs[name].get(n, 0.0), err)
         compared[name].setdefault(n, []).append(label)
-        plan = (" (column ranges %d x %d)" % knn.stream_plan(n, x.device)
-                if name == "knn_stream" else "")
+        over = int((outs[-1] > K).sum())
+        plan = ""
+        if name == "knn_stream":
+            plan = " (column ranges %d x %d)" % knn.stream_plan(n, x.device)
+        elif name == "knn_banded":
+            w_eff = knn.band_setup(x, RADIUS, w)[4]
+            plan = (f" (window {w_eff} blocks, ranges %d x %d; overflow rows "
+                    f"{int(outs[3].sum())})" % knn.band_plan(n, w_eff,
+                                                              x.device))
         print(f"  {name} N={n} {label}: equal, max_abs_err {err}, rows with "
               f"count > k: {over}{plan}")
         return over
@@ -279,15 +353,41 @@ def main() -> int:
         check(hold("knn_stream", "packed", spawn(n) * PACK) == n,
               f"packed N={n}: a row holds <= k candidates")
     compare(knn.knn_stream, knn.knn_neighbors_plain, spawn(4096))
+    for n in (OBST_N, BANDED_N):
+        hold("knn_banded", "spawn", spawn(n), window(n))
+        check(hold("knn_banded", "packed", spawn(n) * PACK, window(n)) == n,
+              f"packed N={n}: a row holds <= k candidates")
+    gen = torch.Generator().manual_seed(0)
+    thin = torch.stack([torch.rand(THIN_N, generator=gen) - 0.5,
+                        torch.rand(THIN_N, generator=gen) * 1e-3], 1)
+    thin = thin.cuda().contiguous()
+    hold("knn_banded", "thin band, 1-block window", thin, 1)
+    check(bool(compare(knn.knn_banded, plains["knn_banded"], thin,
+                       window_blocks=1)[1][3].any()),
+          "thin band: the window overflow is not flagged")
+    x65 = spawn(BANDED_N)
+    idx_b, dist_b, near_b, ovf_b, cnt_b = knn.knn_banded(
+        x65, RADIUS, K, window_blocks=window(BANDED_N))
+    idx_s, dist_s, near_s, cnt_s = knn.knn_stream(x65, RADIUS, K)
+    filled = torch.isfinite(dist_s)
+    close = near_s <= RADIUS
+    check(not bool(ovf_b.any()) and torch.equal(cnt_b, cnt_s)
+          and torch.equal(filled, torch.isfinite(dist_b))
+          and torch.equal(idx_b[filled], idx_s[filled])
+          and torch.equal(dist_b[filled], dist_s[filled])
+          and torch.equal(near_b[close], near_s[close]),
+          f"knn_banded and knn_stream differ at N={BANDED_N} on the spawn")
     print("phase 2: knn_fused equal at N=256/4096/5000, knn_stream equal at "
           "N=4096/16384/20000 (and to the fused plain version at 4096), "
-          "spawned and packed")
+          f"knn_banded equal at N={OBST_N}/{BANDED_N}, spawned and packed, "
+          "and on the thin band (overflow flagged); knn_banded = knn_stream "
+          f"on the filled slots at N={BANDED_N} ({int(filled.sum())} slots)")
 
     # 3. main path, fused kernel
     cfg = swarm.Config(n=MAIN_N, steps=MAIN_STEPS)
     state0, final, outs, launches, wall = drive(swarm, rollout, knn, cfg)
-    check(launches == {"knn_fused": MAIN_STEPS, "knn_stream": 0},
-          f"main path launches {launches}")
+    check(launches == {"knn_fused": MAIN_STEPS, "knn_stream": 0,
+                       "knn_banded": 0}, f"main path launches {launches}")
     check_run(f"phase 3: N={MAIN_N} x {MAIN_STEPS} steps", cfg, final, outs)
     qps = MAIN_N * MAIN_STEPS / wall
     fused_launches = launches["knn_fused"]
@@ -296,7 +396,8 @@ def main() -> int:
     cfg_s = swarm.Config(n=STREAM_N, steps=STREAM_STEPS)
     state0_s, final_s, outs_s, launches_s, wall_s = drive(
         swarm, rollout, knn, cfg_s)
-    check(launches_s == {"knn_fused": 0, "knn_stream": STREAM_STEPS},
+    check(launches_s == {"knn_fused": 0, "knn_stream": STREAM_STEPS,
+                         "knn_banded": 0},
           f"streaming path launches {launches_s}")
     check_run(f"phase 4: N={STREAM_N} x {STREAM_STEPS} steps", cfg_s,
               final_s, outs_s)
@@ -310,56 +411,98 @@ def main() -> int:
           "states of phases 3 and 4")
 
     # 5. card vs CPU from the same initial state
-    cfg_c = swarm.Config(n=MAIN_N, steps=CROSS_STEPS)
-    _, step_gpu = swarm.make(cfg_c)
-    _, step_cpu = swarm.make(cfg_c, device="cpu")
-    fg, og = rollout(step_gpu, state0, CROSS_STEPS)
-    fc, oc = rollout(step_cpu, swarm.State(x=state0.x.cpu(),
-                                           v=state0.v.cpu()), CROSS_STEPS)
-    dx = float(torch.amax(torch.abs(fg.x.cpu() - fc.x)))
-    dmd = float(torch.amax(torch.abs(og.min_pairwise_distance.cpu()
-                                     - oc.min_pairwise_distance)))
-    print(f"phase 5: card vs CPU over {CROSS_STEPS} steps at N={MAIN_N}: "
-          f"max |dx| {dx:.3e} (atol {CROSS_X_ATOL}), max |d min-dist| "
-          f"{dmd:.3e} (atol {CROSS_MD_ATOL})")
-    check(dx <= CROSS_X_ATOL and dmd <= CROSS_MD_ATOL,
-          "card and CPU trajectories part beyond tolerance")
-    for field in ("filter_active_count", "infeasible_count",
-                  "gating_dropped_count"):
-        a, b = getattr(og, field).cpu(), getattr(oc, field)
-        print(f"  {field} per step, card vs CPU: sums {int(a.sum())} / "
-              f"{int(b.sum())}")
-        check(torch.equal(a, b), f"{field} differs between card and CPU")
+    cross_check(swarm, rollout, swarm.Config(n=MAIN_N, steps=CROSS_STEPS),
+                state0, "phase 5")
+
+    # 7. the banded path at full width
+    cfg_b = swarm.Config(n=BANDED_N, steps=BANDED_STEPS, gating="banded")
+    w_b = swarm.banded_window_blocks(cfg_b)
+    state0_b, final_b, outs_b, launches_b, wall_b = drive(
+        swarm, rollout, knn, cfg_b)
+    check(launches_b == {"knn_fused": 0, "knn_stream": 0,
+                         "knn_banded": BANDED_STEPS},
+          f"banded path launches {launches_b}")
+    check_run(f"phase 7: N={BANDED_N} x {BANDED_STEPS} steps, banded "
+              f"(window {w_b} blocks)", cfg_b, final_b, outs_b)
+    banded_launches = launches_b["knn_banded"]
+    hold("knn_banded", "phase 7 final state", final_b.x.float().contiguous(),
+         w_b)
+    print("phase 7: knn_banded equal to its plain version on the final "
+          "state (window overflow flags included)")
+
+    # 8. the obstacle field at N=4096 on the banded path
+    obst = {}
+    for layout in ("scatter", "orbit"):
+        cfg_o = swarm.Config(n=OBST_N, steps=OBST_STEPS, n_obstacles=OBST_M,
+                             obstacle_layout=layout, gating="banded")
+        state0_o, final_o, outs_o, launches_o, wall_o = drive(
+            swarm, rollout, knn, cfg_o)
+        check(launches_o == {"knn_fused": 0, "knn_stream": 0,
+                             "knn_banded": OBST_STEPS},
+              f"obstacle path launches {launches_o}")
+        obst[layout] = (state0_o, check_run(
+            f"phase 8: N={OBST_N}, {OBST_M} obstacles ({layout}) x "
+            f"{OBST_STEPS} steps, banded", cfg_o, final_o, outs_o,
+            floor=FLOOR if layout == "scatter" else None), wall_o)
+    cross_check(swarm, rollout, swarm.Config(
+        n=OBST_N, steps=CROSS_STEPS, n_obstacles=OBST_M, gating="banded"),
+        obst["orbit"][0], "phase 8 (orbit)")
 
     # 6. timings at the main-path shapes
     rows = []
-    for name, fn, plain, x, launches_n, src_line in (
+    x_b = state0_b.x.to(torch.float32).contiguous()
+    for name, fn, plain, x, launches_n, src_line, kw in (
             ("knn_fused", knn.knn_fused, knn.knn_neighbors_plain,
              state0.x.to(torch.float32).contiguous(), fused_launches,
-             "cbf_tpu/ops/pallas_knn.py:94"),
+             "cbf_tpu/ops/pallas_knn.py:94", {}),
             ("knn_stream", knn.knn_stream, knn.knn_neighbors_blocked_plain,
              state0_s.x.to(torch.float32).contiguous(), stream_launches,
-             "cbf_tpu/ops/pallas_knn.py:184")):
+             "cbf_tpu/ops/pallas_knn.py:184", {}),
+            ("knn_banded", knn.knn_banded, knn.knn_neighbors_banded_plain,
+             x_b, banded_launches, "cbf_tpu/ops/pallas_knn.py:309",
+             {"window_blocks": w_b})):
         n = x.shape[0]
-        count = fn(x, RADIUS, K)[3]
-        ops = OPS_PER_PAIR * n * n + K * int(count.sum())
-        nbytes = 8 * n + n * K * 8 + n * 8
+        out = fn(x, RADIUS, K, **kw)
+        count = out[-1]
+        if name == "knn_banded":
+            # Pairs in the windows (N_pad x W x CTILE); outputs add the
+            # overflow flag; the windows' starts are read once.
+            n_pad = -(-n // knn.CTILE) * knn.CTILE
+            w = min(w_b, n_pad // knn.CTILE)
+            pairs = n_pad * w * knn.CTILE
+            nbytes = 8 * n + 4 * (n_pad // knn.RTILE) + n * (K * 8 + 9)
+        else:
+            pairs = n * n
+            nbytes = 8 * n + n * K * 8 + n * 8
+        ops = OPS_PER_PAIR * pairs + K * int(count.sum())
         t_ops = ops / PEAK_F32_ISSUE_PER_S
         t_bytes = nbytes / PEAK_BYTES_PER_S
-        ms, ms_b2b = cuda_ms(lambda: fn(x, RADIUS, K), reps=200, warmup=10)
-        rows.append({
+        ms, ms_b2b = cuda_ms(lambda: fn(x, RADIUS, K, **kw), reps=200,
+                             warmup=10)
+        row = {
             "name": name, "route": "cuda",
             "source": "cbf_tpu_torch/csrc/knn.cu",
             "replaces": src_line, "launches": launches_n,
             "max_abs_err": errs[name][n], "equal": True, "n": n,
             "compared_at_n": compared[name][n],
             "ms": ms, "ms_mean_back_to_back": ms_b2b,
-            "plain_ms": cuda_ms(lambda: plain(x, RADIUS, K), reps=10,
+            "plain_ms": cuda_ms(lambda: plain(x, RADIUS, K, **kw), reps=10,
                                 warmup=2)[0],
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
-        })
+        }
+        if name == "knn_banded":
+            # The launch alone, on the sorted inputs the wrapper makes:
+            # the rest of ``ms`` is the sort, searches and unsort.
+            _, xs, starts, _, w_eff = knn.band_setup(x, RADIUS, w_b)
+            row["window_blocks"] = w_eff
+            row["overflow_rows"] = int(out[3].sum())
+            row["kernel_only_ms"], row["kernel_only_ms_back_to_back"] = \
+                cuda_ms(lambda: knn.knn_banded_sorted(xs, starts, RADIUS, K,
+                                                      w_eff),
+                        reps=200, warmup=10)
+        rows.append(row)
     x4096 = state0.x.to(torch.float32).contiguous()
     stream_small = cuda_ms(lambda: knn.knn_stream(x4096, RADIUS, K),
                            reps=200, warmup=10)
@@ -368,13 +511,22 @@ def main() -> int:
           f"{stream_small[1]:.4f} ms")
     prof = profile_step(swarm.make(swarm.Config(n=MAIN_N))[1], state0, 20)
     print("phase 6: main-path step profile " + json.dumps(prof))
+    prof_b = profile_step(swarm.make(cfg_b)[1], state0_b, 20)
+    print(f"phase 6: banded step profile (N={BANDED_N}) "
+          + json.dumps(prof_b))
     print(f"elapsed {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(f"main path N={MAIN_N}, {MAIN_STEPS} steps: "
           f"{qps:.1f} agent-QP-steps/s ({wall:.3f} s wall); "
           f"N={STREAM_N}, {STREAM_STEPS} steps: "
           f"{STREAM_N * STREAM_STEPS / wall_s:.1f} agent-QP-steps/s; "
-          f"card {card}")
+          f"N={BANDED_N} banded, {BANDED_STEPS} steps: "
+          f"{BANDED_N * BANDED_STEPS / wall_b:.1f} agent-QP-steps/s; "
+          f"N={OBST_N} with {OBST_M} obstacles, {OBST_STEPS} steps: "
+          + ", ".join(f"{lay} {OBST_N * OBST_STEPS / w:.1f} "
+                      f"(min distance {md:.6f})"
+                      for lay, (_, md, w) in obst.items())
+          + f" agent-QP-steps/s; card {card}")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -329,7 +329,7 @@ def test_per_agent_dynamics_path_is_out_of_slice():
     (states, obs, mask, u0, _) = _batch(np.random.default_rng(12), N=4)
     f3 = np.broadcast_to(FX, (4, 4, 4))
     g3 = np.broadcast_to(GX, (4, 4, 2))
-    with pytest.raises(OutOfSliceError, match="slice 2"):
+    with pytest.raises(OutOfSliceError, match="Queue A5"):
         tfil.safe_controls(_t(states, np.float32), _t(obs, np.float32),
                            _t(mask, bool), _t(f3, np.float32),
                            _t(g3, np.float32), _t(u0, np.float32))

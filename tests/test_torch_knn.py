@@ -161,18 +161,24 @@ def test_kernel_fused_name_is_rejected():
         knn.knn_gating_pallas(x, 0.4, 8, kernel="fused")
 
 
-@pytest.mark.parametrize("entry", ["knn_neighbors", "knn_neighbors_blocked"])
-def test_non_cpu_tensor_never_falls_back(entry, monkeypatch):
+@pytest.mark.parametrize("entry,kw", [
+    ("knn_neighbors", {}), ("knn_neighbors_blocked", {}),
+    ("knn_neighbors_banded", {"window_blocks": 2}),
+    ("knn_gating_banded", {"window_blocks": 2})])
+def test_non_cpu_tensor_never_falls_back(entry, kw, monkeypatch):
     """Only a CPU tensor may take the plain version: any other device goes
     to the kernel wrapper, which launches or raises."""
     def boom(*_a, **_k):
         raise AssertionError("fell back to the plain version")
 
-    monkeypatch.setattr(knn, "knn_neighbors_plain", boom)
-    monkeypatch.setattr(knn, "knn_neighbors_blocked_plain", boom)
+    for plain in ("knn_neighbors_plain", "knn_neighbors_blocked_plain",
+                  "knn_neighbors_banded_plain"):
+        monkeypatch.setattr(knn, plain, boom)
     before = dict(knn.LAUNCHES)
+    width = 4 if entry == "knn_gating_banded" else 2
     with pytest.raises(ValueError, match="CUDA tensor"):
-        getattr(knn, entry)(torch.zeros((64, 2), device="meta"), 0.4, 8)
+        getattr(knn, entry)(torch.zeros((64, width), device="meta"), 0.4, 8,
+                            **kw)
     assert knn.LAUNCHES == before
 
 
@@ -186,6 +192,9 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
         knn.build_library()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         knn._library()
+    # The banded window plan asks the same library: no plan without it.
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        knn.band_plan(4096, 3, torch.device("cpu"))
 
 
 @pytest.mark.parametrize("shape,dtype,k,match", [
@@ -198,9 +207,18 @@ def test_wrapper_checks_inputs(shape, dtype, k, match):
     x = torch.zeros(shape, dtype=dtype, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
         knn.knn_fused(x, 0.4, k)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        knn.knn_banded(x, 0.4, k, window_blocks=2)
     # The same checks past the device one (device check bypassed).
     with pytest.raises(ValueError, match=match):
         knn._check_launch("knn_fused", _FakeCuda(x), k, knn.MAX_N_FUSED)
+    # knn_banded's sorted-input launch takes float32 alone; its entry also
+    # takes float64 (the sort runs in the input dtype, then the cast).
+    with pytest.raises(ValueError, match=match):
+        knn._check_launch("knn_banded", _FakeCuda(x), k, knn.MAX_N_BLOCKED)
+    if dtype == torch.float64 and match == "positions":
+        knn._check_launch("knn_banded", _FakeCuda(x), k, knn.MAX_N_BLOCKED,
+                          dtypes=(torch.float32, torch.float64))
 
 
 class _FakeCuda:

@@ -149,14 +149,12 @@ def test_make_without_card_needs_device_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("override,make_kw,slice_name", [
-    ({"dynamics": "double"}, {}, "slice 2"),
-    ({"dynamics": "unicycle"}, {}, "slice 2"),
-    ({"dynamics": "mixed", "n_double": 4}, {}, "slice 2"),
-    ({"n_obstacles": 4}, {}, "slice 2"),
-    ({"certificate": True}, {}, "slice 3"),
-    ({"rta": True}, {}, "slice 2"),
-    ({"gating_rebuild_skin": 0.1}, {}, "slice 2"),
-    ({"gating": "banded"}, {}, "slice 2"),
+    ({"dynamics": "double"}, {}, "Queue A5"),
+    ({"dynamics": "unicycle"}, {}, "Queue A5"),
+    ({"dynamics": "mixed", "n_double": 4}, {}, "Queue A5"),
+    ({"certificate": True}, {}, "Queue A6"),
+    ({"rta": True}, {}, "Queue A5"),
+    ({"gating_rebuild_skin": 0.1}, {}, "Queue A5"),
     ({}, {"unroll_relax": 2}, "Queue A8"),
 ])
 def test_out_of_slice_knobs_raise(override, make_kw, slice_name):
