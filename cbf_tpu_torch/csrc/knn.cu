@@ -28,6 +28,7 @@
 // the running top-k in registers.
 
 #include <algorithm>
+#include <cstdint>
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -39,10 +40,20 @@ constexpr int kThreads = 128;  // stream kernels: rows per block
 constexpr int kCtile = 512;    // stream kernels: columns staged per step
 constexpr int kRtile = 256;    // banded: rows sharing one window (RTILE)
 static_assert(kRtile % kThreads == 0, "a block's rows share one window");
-constexpr int kFusedRows = 32;  // fused: query rows per block (one warp)
-constexpr int kFusedSegs = 8;   // fused: column segments, one warp each
-constexpr int kFusedThreads = kFusedRows * kFusedSegs;
+constexpr int kBandBlock = kRtile > kCtile ? kRtile : kCtile;  // row padding
 constexpr int kUnroll = 4;      // columns whose d^2 are formed together
+constexpr int kFusedR = 4;      // fused: rows per warp, held in registers
+constexpr int kFusedHalves = 2; // fused: column halves per row group
+constexpr int kFusedWarps = 8;  // fused: warps per block
+constexpr int kFusedGroups = kFusedWarps / kFusedHalves;  // row groups
+constexpr int kFusedBlockRows = kFusedGroups * kFusedR;
+constexpr int kFusedStages = 4; // fused: cp.async groups per column half
+constexpr int kFusedUnroll = 2; // fused: 32-column steps loaded together
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kInfBits = 0x7f800000u;  // +inf; d^2 >= +0 orders as bits
+static_assert(32 % kFusedR == 0, "a warp's rows share one 32-column step");
+static_assert(kFusedHalves == 2 && 2 * kMaxK <= 32,
+              "the half merge holds one candidate per lane");
 
 __device__ __forceinline__ float pair_d2(float px, float py, float qx,
                                          float qy) {
@@ -139,69 +150,295 @@ __device__ __forceinline__ void write_row(int i, const float (&bd)[K],
   count_out[i] = count;
 }
 
+// -- knn_fused ---------------------------------------------------------------
+//
 // knn_fused — replaces cbf_tpu/ops/pallas_knn.py:_knn_kernel.
 // The TPU kernel forms a (128, N) d^2 slab per tile in VMEM and runs k
-// masked min-passes over it. Here nothing is materialized: a block owns
-// 32 query rows and stages all N coordinates in shared memory (8 bytes
-// each, 64 KB at N = 8192, hence the opt-in above 48 KB). Its 8 warps
-// split the columns into 8 contiguous segments; each thread scans its
-// row's segment once, in increasing column order, keeping nearest, count
-// and the top-k in registers (one pass instead of the TPU's k + 2). The
-// segment partials meet in shared memory and the first warp merges them
-// in segment order, so ties still land on the lower column. The column
-// split is what feeds the card: at N = 4096 a thread-per-row layout gives
-// 32 blocks of 4 warps (100 of 132 SMs idle, one warp per scheduler, no
-// latency hidden); this one gives 128 blocks of 8 warps, each scanning
-// N/8 columns. The ragged last block masks itself; no padding.
+// masked min-passes over it. Here nothing is materialized. A warp owns
+// kFusedR (4) query rows, held in registers alike in all its lanes, and
+// one half of the columns; lane l takes the columns l, l + 32, ... of that
+// half, so one shared-memory load feeds four independent pair_d2 chains
+// and the warp's 32 loads are 32 neighbouring float2 (no broadcast, no
+// bank conflict). Each lane keeps nearest, count and a top-k per row in
+// registers, its columns arriving in increasing order. Most pairs are out
+// of radius: their step is the four d^2, four fminf and one compare of the
+// four rows' minimum; only a column within radius of some row enters the
+// insertion branch. The self column of the warp's rows lies in one
+// 32-column step, the only step that tests column == row.
+//
+// The top-k order is lexicographic in (d^2, column): ties to the lower
+// column, the TPU's first-minimizer rule. So the lanes' lists meet by k
+// warp minima of that key (two redux.sync each, the winner pops its head),
+// and the two halves' lists then by k more, with one candidate per lane;
+// the scan order across lanes and halves does not matter.
+//
+// Occupancy: a block holds 4 row groups x 2 halves = 8 warps and 16 rows,
+// so N = 4096 launches 256 blocks, 2048 warps, ~16 per SM (~4 per
+// scheduler) on the 132 SMs, each with 4-row ILP. The block stages all N
+// coordinates (8 bytes each, 64 KB at N = 8192, the opt-in above 48 KB)
+// with cp.async in kFusedStages groups, each holding the next piece of
+// both halves, and scans piece g as soon as group g has landed. Columns
+// past N read as +inf: never eligible, never nearest.
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most ``pending`` committed groups are still in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+static_assert(kFusedStages <= 4, "cp_async_wait covers 4 groups");
+
+// Copy columns [c0, c1) of x to pts (c0 even): 16-byte column pairs when x
+// is 16-byte aligned, else single columns.
+__device__ __forceinline__ void stage_columns(float2* pts, const float* x,
+                                              int c0, int c1, bool aligned16) {
+  if (c1 <= c0) return;
+  if (aligned16) {
+    for (int p = c0 / 2 + threadIdx.x; p < c1 / 2; p += blockDim.x)
+      cp_async16(pts + 2 * p, x + 4 * p);
+    if ((c1 & 1) && threadIdx.x == 0) cp_async8(pts + c1 - 1, x + 2 * (c1 - 1));
+  } else {
+    for (int j = c0 + threadIdx.x; j < c1; j += blockDim.x)
+      cp_async8(pts + j, x + 2 * j);
+  }
+}
+
+// One column j against the warp's kFusedR rows i0 + r. kSelf: the step
+// that holds the rows' own columns, the only one that must skip self.
+template <int K, bool kSelf>
+__device__ __forceinline__ void fused_step(
+    float2 q, int j, int i0, const float (&px)[kFusedR],
+    const float (&py)[kFusedR], float r2, float (&bd)[kFusedR][K],
+    int (&bi)[kFusedR][K], float (&near)[kFusedR], int (&cnt)[kFusedR]) {
+  float d[kFusedR];
+#pragma unroll
+  for (int r = 0; r < kFusedR; ++r) d[r] = pair_d2(px[r], py[r], q.x, q.y);
+#pragma unroll
+  for (int r = 0; r < kFusedR; ++r)
+    if (!kSelf || j != i0 + r) near[r] = fminf(near[r], d[r]);
+  float m = d[0];
+#pragma unroll
+  for (int r = 1; r < kFusedR; ++r) m = fminf(m, d[r]);
+  if (m < r2) {  // rare: the column is within radius of some row
+#pragma unroll
+    for (int r = 0; r < kFusedR; ++r) {
+      if (d[r] < r2 && d[r] > 0.0f) {
+        ++cnt[r];
+        if (d[r] < bd[r][K - 1]) topk_insert<K>(bd[r], bi[r], d[r], j);
+      }
+    }
+  }
+}
+
+// Steps [s0, s1) of 32 columns each (lane's column 32 t + lane), the self
+// step t_self split out; kFusedUnroll steps' loads issued together.
 template <int K>
-__global__ void __launch_bounds__(kFusedThreads)
+__device__ __forceinline__ void fused_run(
+    const float2* pts, int s0, int s1, int lane, int i0,
+    const float (&px)[kFusedR], const float (&py)[kFusedR], float r2,
+    float (&bd)[kFusedR][K], int (&bi)[kFusedR][K], float (&near)[kFusedR],
+    int (&cnt)[kFusedR]) {
+  int t = s0;
+  for (; t + kFusedUnroll <= s1; t += kFusedUnroll) {
+    float2 q[kFusedUnroll];
+#pragma unroll
+    for (int u = 0; u < kFusedUnroll; ++u) q[u] = pts[32 * (t + u) + lane];
+#pragma unroll
+    for (int u = 0; u < kFusedUnroll; ++u)
+      fused_step<K, false>(q[u], 32 * (t + u) + lane, i0, px, py, r2, bd, bi,
+                           near, cnt);
+  }
+  for (; t < s1; ++t)
+    fused_step<K, false>(pts[32 * t + lane], 32 * t + lane, i0, px, py, r2,
+                         bd, bi, near, cnt);
+}
+
+template <int K>
+__device__ __forceinline__ void fused_scan(
+    const float2* pts, int s0, int s1, int t_self, int lane, int i0,
+    const float (&px)[kFusedR], const float (&py)[kFusedR], float r2,
+    float (&bd)[kFusedR][K], int (&bi)[kFusedR][K], float (&near)[kFusedR],
+    int (&cnt)[kFusedR]) {
+  fused_run<K>(pts, s0, min(s1, max(s0, t_self)), lane, i0, px, py, r2, bd,
+               bi, near, cnt);
+  if (t_self >= s0 && t_self < s1)
+    fused_step<K, true>(pts[32 * t_self + lane], 32 * t_self + lane, i0, px,
+                        py, r2, bd, bi, near, cnt);
+  fused_run<K>(pts, min(s1, max(s0, t_self + 1)), s1, lane, i0, px, py, r2,
+               bd, bi, near, cnt);
+}
+
+// The warp's k smallest (d^2, column) keys, one candidate list per lane
+// (sorted; +inf marks the end). Lane t receives slot t (+inf/0 if empty).
+template <int K>
+__device__ __forceinline__ void warp_topk(float (&bd)[K], int (&bi)[K],
+                                          int lane, float& out_d,
+                                          int& out_i) {
+  out_d = CUDART_INF_F;
+  out_i = 0;
+  for (int t = 0; t < K; ++t) {
+    const unsigned hb = __float_as_uint(bd[0]);
+    const unsigned m = __reduce_min_sync(kFull, hb);
+    if (m == kInfBits) break;  // every list is empty
+    const unsigned c = __reduce_min_sync(
+        kFull, hb == m ? static_cast<unsigned>(bi[0]) : kFull);
+    if (lane == t) {
+      out_d = __uint_as_float(m);
+      out_i = static_cast<int>(c);
+    }
+    if (hb == m && static_cast<unsigned>(bi[0]) == c) {  // this lane won
+#pragma unroll
+      for (int s = 0; s + 1 < K; ++s) {
+        bd[s] = bd[s + 1];
+        bi[s] = bi[s + 1];
+      }
+      bd[K - 1] = CUDART_INF_F;
+      bi[K - 1] = 0;
+    }
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(kFusedWarps * 32)
     knn_fused_kernel(const float* __restrict__ x, int n, float r2,
-                     int* __restrict__ idx, float* __restrict__ dist,
-                     float* __restrict__ nearest, int* __restrict__ count) {
-  extern __shared__ float2 pts[];  // n coordinates, then the partials
-  float* part_d = reinterpret_cast<float*>(pts + n);  // [K][threads]
-  int* part_i = reinterpret_cast<int*>(part_d + K * kFusedThreads);
-  float* part_near = reinterpret_cast<float*>(part_i + K * kFusedThreads);
-  int* part_cnt = reinterpret_cast<int*>(part_near + kFusedThreads);
-  for (int j = threadIdx.x; j < n; j += blockDim.x)
-    pts[j] = make_float2(x[2 * j], x[2 * j + 1]);
-  __syncthreads();
-  const int r = threadIdx.x % kFusedRows;
-  const int seg = threadIdx.x / kFusedRows;
-  const int i = blockIdx.x * kFusedRows + r;
-  const int seg_len = (n + kFusedSegs - 1) / kFusedSegs;
-  const int c0 = min(n, seg * seg_len);
-  const int c1 = min(n, c0 + seg_len);
-  float bd[K];
-  int bi[K];
+                     int aligned16, int* __restrict__ idx,
+                     float* __restrict__ dist, float* __restrict__ nearest,
+                     int* __restrict__ count) {
+  // 32 * steps columns, then the second half's merge slots.
+  extern __shared__ __align__(16) float2 pts[];
+  const int steps = (n + 31) / 32;
+  constexpr int kSlots = kFusedGroups * kFusedR;
+  float* hm_d = reinterpret_cast<float*>(pts + 32 * steps);  // [slot][K]
+  int* hm_i = reinterpret_cast<int*>(hm_d + kSlots * K);
+  float* hm_near = reinterpret_cast<float*>(hm_i + kSlots * K);
+  int* hm_cnt = reinterpret_cast<int*>(hm_near + kSlots);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int group = warp % kFusedGroups;
+  const int half = warp / kFusedGroups;
+  const int half_steps = (steps + 1) / 2;
+  const int piece = (half_steps + kFusedStages - 1) / kFusedStages;
+
+  for (int j = n + threadIdx.x; j < 32 * steps; j += blockDim.x)
+    pts[j] = make_float2(CUDART_INF_F, CUDART_INF_F);
+  for (int g = 0; g < kFusedStages; ++g) {
+    for (int h = 0; h < kFusedHalves; ++h) {
+      const int h0 = h * half_steps;
+      const int h1 = h == 0 ? half_steps : steps;
+      stage_columns(pts, x, min(n, 32 * min(h1, h0 + g * piece)),
+                    min(n, 32 * min(h1, h0 + (g + 1) * piece)),
+                    aligned16 != 0);
+    }
+    cp_async_commit();
+  }
+
+  const int i0 = (blockIdx.x * kFusedGroups + group) * kFusedR;
+  float px[kFusedR], py[kFusedR], near[kFusedR];
+  int cnt[kFusedR];
+  float bd[kFusedR][K];
+  int bi[kFusedR][K];
 #pragma unroll
-  for (int s = 0; s < K; ++s) {
-    bd[s] = CUDART_INF_F;
-    bi[s] = 0;
-  }
-  float near = CUDART_INF_F;
-  int cnt = 0;
-  if (i < n) {
-    const float2 p = pts[i];
-    scan_columns<K>(pts + c0, c1 - c0, c0, i, p.x, p.y, r2, bd, bi, near,
-                    cnt);
-  }
+  for (int r = 0; r < kFusedR; ++r) {
+    const int i = min(i0 + r, n - 1);  // rows past n: computed, never written
+    px[r] = x[2 * i];
+    py[r] = x[2 * i + 1];
+    near[r] = CUDART_INF_F;
+    cnt[r] = 0;
 #pragma unroll
-  for (int s = 0; s < K; ++s) {
-    part_d[s * kFusedThreads + threadIdx.x] = bd[s];
-    part_i[s * kFusedThreads + threadIdx.x] = bi[s];
+    for (int s = 0; s < K; ++s) {
+      bd[r][s] = CUDART_INF_F;
+      bi[r][s] = 0;
+    }
   }
-  part_near[threadIdx.x] = near;
-  part_cnt[threadIdx.x] = cnt;
+  const int h0 = half * half_steps;
+  const int h1 = half == 0 ? half_steps : steps;
+  for (int g = 0; g < kFusedStages; ++g) {
+    cp_async_wait(kFusedStages - 1 - g);
+    __syncthreads();  // group g of every thread, and the +inf tail, landed
+    fused_scan<K>(pts, min(h1, h0 + g * piece), min(h1, h0 + (g + 1) * piece),
+                  i0 / 32, lane, i0, px, py, r2, bd, bi, near, cnt);
+  }
+
+  float md[kFusedR];
+  int mi[kFusedR], c_tot[kFusedR];
+  unsigned nb[kFusedR];
+#pragma unroll
+  for (int r = 0; r < kFusedR; ++r) {
+    c_tot[r] = __reduce_add_sync(kFull, cnt[r]);
+    nb[r] = __reduce_min_sync(kFull, __float_as_uint(near[r]));
+    warp_topk<K>(bd[r], bi[r], lane, md[r], mi[r]);
+  }
+  const int slot = group * kFusedR;
+  if (half == 1) {
+#pragma unroll
+    for (int r = 0; r < kFusedR; ++r) {
+      if (lane < K) {
+        hm_d[(slot + r) * K + lane] = md[r];
+        hm_i[(slot + r) * K + lane] = mi[r];
+      }
+      if (lane == 0) {
+        hm_near[slot + r] = __uint_as_float(nb[r]);
+        hm_cnt[slot + r] = c_tot[r];
+      }
+    }
+  }
   __syncthreads();
-  if (seg != 0 || i >= n) return;
-  for (int g = 1; g < kFusedSegs; ++g) {
-    const int t = g * kFusedRows + r;
-    near = fminf(near, part_near[t]);
-    cnt += part_cnt[t];
-    merge_partial<K>(bd, bi, part_d + t, part_i + t, kFusedThreads);
+  if (half == 1) return;
+#pragma unroll
+  for (int r = 0; r < kFusedR; ++r) {
+    // Lanes [0, K) hold this half's slots, lanes [K, 2K) the other's.
+    float cd = md[r];
+    int ci = mi[r];
+    if (lane >= K && lane < 2 * K) {
+      cd = hm_d[(slot + r) * K + lane - K];
+      ci = hm_i[(slot + r) * K + lane - K];
+    }
+    float od = CUDART_INF_F;
+    int oi = 0;
+    for (int t = 0; t < K; ++t) {
+      const unsigned hb = __float_as_uint(cd);
+      const unsigned m = __reduce_min_sync(kFull, hb);
+      if (m == kInfBits) break;
+      const unsigned c = __reduce_min_sync(
+          kFull, hb == m ? static_cast<unsigned>(ci) : kFull);
+      if (lane == t) {
+        od = __uint_as_float(m);
+        oi = static_cast<int>(c);
+      }
+      if (hb == m && static_cast<unsigned>(ci) == c) cd = CUDART_INF_F;
+    }
+    const int i = i0 + r;
+    if (i >= n) continue;
+    if (lane < K) {
+      idx[i * K + lane] = oi;
+      dist[i * K + lane] = __fsqrt_rn(od);
+    }
+    if (lane == 0) {
+      nearest[i] = __fsqrt_rn(fminf(__uint_as_float(nb[r]), hm_near[slot + r]));
+      count[i] = c_tot[r] + hm_cnt[slot + r];
+    }
   }
-  write_row<K>(i, bd, bi, near, cnt, idx, dist, nearest, count);
 }
 
 // knn_stream — replaces cbf_tpu/ops/pallas_knn.py:_knn_kernel_blocked /
@@ -273,23 +510,32 @@ __global__ void __launch_bounds__(kThreads) knn_stream_partial_kernel(
 }
 
 // knn_banded — replaces cbf_tpu/ops/pallas_knn.py:_knn_kernel_banded (the
-// banded use of _stream_step). The caller sorts the rows by y, so each
-// 256-row block's in-radius candidates lie in one contiguous window of
-// sorted columns, [starts[block], starts[block] + window), which the
-// caller finds with searchsorted (ops/knn.py). The TPU gathered every
-// window ahead of the kernel (XLA dynamic_slice), only because
-// scalar-prefetch index maps hung Mosaic; here a block reads its own
-// window start from device memory and streams the window straight from
-// the sorted coordinates, so no (row blocks, window) copy exists. It is
-// knn_stream with the column range cut to the window: the window is split
-// into S ranges of whole tiles (split_plan over the window's tiles), each
-// range scanned in order into a partial, and the same merge kernel folds
-// the ranges in order — ties keep the lower sorted column, as
-// _stream_step's running-slot rule does. Self is excluded by sorted index
-// and columns past n (the TPU's padding) are never read. Work is
-// O(N * window): at N = 65536 and a 4-tile window, 134 M pairs, ~8 f32
-// operations each, which bounds it by operations (~0.03 ms at the non-FMA
-// issue rate) as the other two kernels are.
+// banded use of _stream_step). The caller sorts the rows by y (the one
+// library op left on this path, torch.argsort, as the TPU's XLA sort sits
+// outside its kernel), so each 256-row block's in-radius candidates lie in
+// one contiguous window of sorted columns, [starts[block], starts[block] +
+// window). The whole call is then three launches:
+//
+// 1. knn_band_prologue_kernel: one block per 256-row block gathers its rows
+//    to float32 in sorted order and finds the block's window start and
+//    overflow flag (below);
+// 2. knn_banded_partial_kernel: knn_stream with the column range cut to the
+//    window. The TPU gathered every window ahead of the kernel (XLA
+//    dynamic_slice), only because scalar-prefetch index maps hung Mosaic;
+//    here a block reads its own window start from device memory and
+//    streams the window straight from the sorted coordinates. The window is
+//    split into S ranges of whole tiles (split_plan over the window's
+//    tiles), each range scanned in order into a partial. Self is excluded
+//    by sorted index and columns past n (the TPU's padding) are never read;
+// 3. knn_banded_merge_kernel: the stream merge, folding the ranges in order
+//    (ties keep the lower sorted column, as _stream_step's running-slot rule
+//    does), then writing sorted row i straight to agent order[i], its ids
+//    mapped through order — the unsort the TPU did with an inverse
+//    permutation and gathers.
+//
+// Work is O(N * window): at N = 65536 and a 4-tile window, 134 M pairs,
+// ~8 f32 operations each, which bounds it by operations (~0.03 ms at the
+// non-FMA issue rate) as the other two kernels are.
 template <int K>
 __global__ void __launch_bounds__(kThreads) knn_banded_partial_kernel(
     const float* __restrict__ xs, int n, float r2,
@@ -303,7 +549,102 @@ __global__ void __launch_bounds__(kThreads) knn_banded_partial_kernel(
                            part_idx, part_near, part_cnt);
 }
 
-// Folds the (N, S, k) partials of knn_stream or knn_banded range by range.
+// The y of sorted row ``row`` as the window search sees it: float32 of the
+// input's y, or the padding rows' 2e6 (pallas_knn._pad_coords).
+template <typename T>
+__device__ __forceinline__ float sorted_y(const T* x, const long long* order,
+                                          int n, int row) {
+  return row < n ? static_cast<float>(x[2 * order[row] + 1]) : 2.0e6f;
+}
+
+// torch.searchsorted over the sorted float32 ys[0, n), by one warp: the
+// count of ys below v (left side), or at or below v (kRight). Each round
+// the 32 lanes probe evenly spaced rows of [lo, hi); the probes that hold
+// form a prefix, which narrows the range ~32x, so N = 65536 takes 4 rounds
+// of two dependent loads (order, then x) instead of 17.
+template <typename T, bool kRight>
+__device__ __forceinline__ int warp_search(const T* x, const long long* order,
+                                           int n, float v, int lane) {
+  int lo = 0;
+  int hi = n;  // the answer lies in [lo, hi]
+  while (hi > lo) {
+    const int stride = (hi - lo + 31) / 32;
+    const int p = lo + lane * stride;
+    bool below = false;
+    if (p < hi) {
+      const float y = sorted_y(x, order, n, p);
+      below = kRight ? y <= v : y < v;
+    }
+    const int t = __popc(__ballot_sync(kFull, below));
+    if (t == 0) break;  // ys[lo] is not below: the answer is lo
+    hi = min(hi, lo + t * stride);  // the first probe that did not hold
+    lo += (t - 1) * stride + 1;     // past the last probe that did
+  }
+  return lo;
+}
+
+// band_setup's window search (ops/knn.py), per 256-row block b of the
+// padded sorted order: lo = searchsorted(ys[:n], ys[row0] - r), hi =
+// searchsorted(ys[:n], ys[row_end] + r, right), each +- one float32
+// rounding; starts[b] = clamp(lo, 0, n_pad - wlen); block_overflow[b] =
+// hi > starts[b] + wlen. Warps 0 and 1 search lo and hi side by side while
+// all 256 threads gather the block's rows.
+template <typename T>
+__global__ void __launch_bounds__(kRtile) knn_band_prologue_kernel(
+    const T* __restrict__ x, const long long* __restrict__ order, int n,
+    int n_pad, int wlen, float r, float* __restrict__ xs,
+    int* __restrict__ starts, bool* __restrict__ block_overflow) {
+  __shared__ int lo_hi[2];
+  const int row0 = blockIdx.x * kRtile;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int i = row0 + threadIdx.x;
+  if (i < n) {
+    const long long o = order[i];
+    xs[2 * i] = static_cast<float>(x[2 * o]);
+    xs[2 * i + 1] = static_cast<float>(x[2 * o + 1]);
+  }
+  if (warp == 0) {
+    const float v = __fsub_rn(sorted_y(x, order, n, row0), r);
+    const int lo = warp_search<T, false>(x, order, n, v, lane);
+    if (lane == 0) lo_hi[0] = lo;
+  } else if (warp == 1) {
+    const int row_end = min(row0 + kRtile, n) - 1;
+    const float v = __fadd_rn(sorted_y(x, order, n, row_end), r);
+    const int hi = warp_search<T, true>(x, order, n, v, lane);
+    if (lane == 0) lo_hi[1] = hi;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int start = min(max(lo_hi[0], 0), n_pad - wlen);
+    starts[blockIdx.x] = start;
+    block_overflow[blockIdx.x] = lo_hi[1] > start + wlen;
+  }
+}
+
+// Row i's (N, S, k) partials folded range by range.
+template <int K>
+__device__ __forceinline__ void fold_partials(
+    int i, int splits, const float* __restrict__ part_d2,
+    const int* __restrict__ part_idx, const float* __restrict__ part_near,
+    const int* __restrict__ part_cnt, float (&bd)[K], int (&bi)[K],
+    float& near, int& cnt) {
+#pragma unroll
+  for (int t = 0; t < K; ++t) {
+    bd[t] = CUDART_INF_F;
+    bi[t] = 0;
+  }
+  near = CUDART_INF_F;
+  cnt = 0;
+  for (int s = 0; s < splits; ++s) {
+    const size_t row = static_cast<size_t>(i) * splits + s;
+    near = fminf(near, part_near[row]);
+    cnt += part_cnt[row];
+    merge_partial<K>(bd, bi, part_d2 + row * K, part_idx + row * K, 1);
+  }
+}
+
+// Merges knn_stream's partials, or knn_banded's in sorted order.
 template <int K>
 __global__ void __launch_bounds__(kThreads) knn_stream_merge_kernel(
     int n, int splits, const float* __restrict__ part_d2,
@@ -315,38 +656,62 @@ __global__ void __launch_bounds__(kThreads) knn_stream_merge_kernel(
   if (i >= n) return;
   float bd[K];
   int bi[K];
-#pragma unroll
-  for (int t = 0; t < K; ++t) {
-    bd[t] = CUDART_INF_F;
-    bi[t] = 0;
-  }
-  float near = CUDART_INF_F;
-  int cnt = 0;
-  for (int s = 0; s < splits; ++s) {
-    const size_t row = static_cast<size_t>(i) * splits + s;
-    near = fminf(near, part_near[row]);
-    cnt += part_cnt[row];
-    merge_partial<K>(bd, bi, part_d2 + row * K, part_idx + row * K, 1);
-  }
+  float near;
+  int cnt;
+  fold_partials<K>(i, splits, part_d2, part_idx, part_near, part_cnt, bd, bi,
+                   near, cnt);
   write_row<K>(i, bd, bi, near, cnt, idx, dist, nearest, count);
+}
+
+// Merges knn_banded's partials of sorted row i and writes them to agent
+// a = order[i]: ids through order (an empty slot's 0 becomes order[0]),
+// the row block's overflow flag beside them.
+template <int K>
+__global__ void __launch_bounds__(kThreads) knn_banded_merge_kernel(
+    int n, int splits, const float* __restrict__ part_d2,
+    const int* __restrict__ part_idx, const float* __restrict__ part_near,
+    const int* __restrict__ part_cnt, const long long* __restrict__ order,
+    const bool* __restrict__ block_overflow, int* __restrict__ idx,
+    float* __restrict__ dist, float* __restrict__ nearest,
+    bool* __restrict__ overflow, int* __restrict__ count) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float bd[K];
+  int bi[K];
+  float near;
+  int cnt;
+  fold_partials<K>(i, splits, part_d2, part_idx, part_near, part_cnt, bd, bi,
+                   near, cnt);
+  const long long a = order[i];
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    idx[a * K + s] = static_cast<int>(order[bi[s]]);
+    dist[a * K + s] = __fsqrt_rn(bd[s]);
+  }
+  nearest[a] = __fsqrt_rn(near);
+  count[a] = cnt;
+  overflow[a] = block_overflow[i / kRtile];
 }
 
 template <int K>
 cudaError_t launch_fused(const float* x, int n, float r2, int* idx,
                          float* dist, float* nearest, int* count,
                          cudaStream_t stream) {
-  const size_t smem = sizeof(float2) * static_cast<size_t>(n) +
-                      kFusedThreads * (K * (sizeof(float) + sizeof(int)) +
-                                       sizeof(float) + sizeof(int));
+  const size_t steps = (static_cast<size_t>(n) + 31) / 32;
+  const size_t smem = sizeof(float2) * 32 * steps +
+                      kFusedGroups * kFusedR *
+                          (K * (sizeof(float) + sizeof(int)) + sizeof(float) +
+                           sizeof(int));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         knn_fused_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  const int blocks = (n + kFusedRows - 1) / kFusedRows;
-  knn_fused_kernel<K><<<blocks, kFusedThreads, smem, stream>>>(
-      x, n, r2, idx, dist, nearest, count);
+  const int blocks = (n + kFusedBlockRows - 1) / kFusedBlockRows;
+  const int aligned16 = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  knn_fused_kernel<K><<<blocks, kFusedWarps * 32, smem, stream>>>(
+      x, n, r2, aligned16, idx, dist, nearest, count);
   return cudaGetLastError();
 }
 
@@ -412,11 +777,11 @@ cudaError_t launch_stream(const float* x, int n, float r2, int splits,
 
 // ``w`` window tiles per 256-row block; ``splits`` as for launch_stream.
 template <int K>
-cudaError_t launch_banded(const float* xs, int n, float r2,
-                          const int* starts, int w, int splits,
-                          float* part_d2, int* part_idx, float* part_near,
-                          int* part_cnt, int* idx, float* dist,
-                          float* nearest, int* count, cudaStream_t stream) {
+cudaError_t launch_banded_partials(const float* xs, int n, float r2,
+                                   const int* starts, int w, int splits,
+                                   float* part_d2, int* part_idx,
+                                   float* part_near, int* part_cnt,
+                                   cudaStream_t stream) {
   int cols_per_split = 0;
   int planned = 0;
   const cudaError_t e = split_plan(n, w, &cols_per_split, &planned);
@@ -427,8 +792,67 @@ cudaError_t launch_banded(const float* xs, int n, float r2,
                                  stream>>>(xs, n, r2, starts, w * kCtile,
                                            cols_per_split, splits, part_d2,
                                            part_idx, part_near, part_cnt);
+  return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch_banded(const float* xs, int n, float r2,
+                          const int* starts, int w, int splits,
+                          float* part_d2, int* part_idx, float* part_near,
+                          int* part_cnt, int* idx, float* dist,
+                          float* nearest, int* count, cudaStream_t stream) {
+  const cudaError_t e =
+      launch_banded_partials<K>(xs, n, r2, starts, w, splits, part_d2,
+                                part_idx, part_near, part_cnt, stream);
+  if (e != cudaSuccess) return e;
   return launch_merge<K>(n, splits, part_d2, part_idx, part_near, part_cnt,
                          idx, dist, nearest, count, stream);
+}
+
+// Rows padded to whole RTILE and CTILE blocks (ops/knn.py _band_pad).
+int band_pad(int n) {
+  return std::max(kBandBlock, (n + kBandBlock - 1) / kBandBlock * kBandBlock);
+}
+
+cudaError_t launch_band_prologue(const void* x, int x_f64,
+                                 const long long* order, int n, int w,
+                                 float r, float* xs, int* starts,
+                                 bool* block_overflow, cudaStream_t stream) {
+  const int n_pad = band_pad(n);
+  if (n < 1 || w < 1 || w * kCtile > n_pad) return cudaErrorInvalidValue;
+  if (x_f64) {
+    knn_band_prologue_kernel<double><<<n_pad / kRtile, kRtile, 0, stream>>>(
+        static_cast<const double*>(x), order, n, n_pad, w * kCtile, r, xs,
+        starts, block_overflow);
+  } else {
+    knn_band_prologue_kernel<float><<<n_pad / kRtile, kRtile, 0, stream>>>(
+        static_cast<const float*>(x), order, n, n_pad, w * kCtile, r, xs,
+        starts, block_overflow);
+  }
+  return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch_banded_agents(const void* x, int x_f64,
+                                 const long long* order, int n, float r,
+                                 float r2, int w, int splits, float* xs,
+                                 int* starts, bool* block_overflow,
+                                 float* part_d2, int* part_idx,
+                                 float* part_near, int* part_cnt, int* idx,
+                                 float* dist, float* nearest, bool* overflow,
+                                 int* count, cudaStream_t stream) {
+  cudaError_t e = launch_band_prologue(x, x_f64, order, n, w, r, xs, starts,
+                                       block_overflow, stream);
+  if (e != cudaSuccess) return e;
+  e = launch_banded_partials<K>(xs, n, r2, starts, w, splits, part_d2,
+                                part_idx, part_near, part_cnt, stream);
+  if (e != cudaSuccess) return e;
+  knn_banded_merge_kernel<K><<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                               stream>>>(n, splits, part_d2, part_idx,
+                                         part_near, part_cnt, order,
+                                         block_overflow, idx, dist, nearest,
+                                         overflow, count);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -504,6 +928,43 @@ int knn_banded_launch(const float* xs, int n, float r2, int k,
       return cudaErrorInvalidValue;
   }
 #undef KNN_BANDED_CASE
+}
+
+// x (N, 2) float32 (x_f64 = 0) or float64 (1), order the stable y-sort of
+// its rows (int64). Writes band_setup's xs (N, 2) float32 in sorted
+// order, and per 256-row block of the padded rows the window start
+// (int32) and overflow flag (bool) for a w-tile window.
+int knn_band_prologue_launch(const void* x, int x_f64, const long long* order,
+                             int n, int w, float r, float* xs, int* starts,
+                             bool* block_overflow, void* stream) {
+  return launch_band_prologue(x, x_f64, order, n, w, r, xs, starts,
+                              block_overflow, static_cast<cudaStream_t>(stream));
+}
+
+// The whole banded call after the sort: prologue, window partials and the
+// merge into agent order (idx, dist, nearest, overflow, count). xs, starts
+// and block_overflow are the prologue's scratch, as for
+// knn_band_prologue_launch; splits as for knn_banded_launch.
+int knn_banded_agents_launch(const void* x, int x_f64, const long long* order,
+                             int n, float r, float r2, int k, int w,
+                             int splits, float* xs, int* starts,
+                             bool* block_overflow, float* part_d2,
+                             int* part_idx, float* part_near, int* part_cnt,
+                             int* idx, float* dist, float* nearest,
+                             bool* overflow, int* count, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define KNN_AGENTS_CASE(KV)                                                   \
+  case KV:                                                                    \
+    return launch_banded_agents<KV>(x, x_f64, order, n, r, r2, w, splits, xs, \
+                                    starts, block_overflow, part_d2,          \
+                                    part_idx, part_near, part_cnt, idx, dist, \
+                                    nearest, overflow, count, st);
+  switch (k) {
+    KNN_K_CASES(KNN_AGENTS_CASE)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef KNN_AGENTS_CASE
 }
 
 int knn_max_k() { return kMaxK; }

@@ -10,7 +10,10 @@ loaded through ctypes):
   (N <= MAX_N_BLOCKED, or forced by ``kernel="streaming"``);
 - ``knn_banded`` replaces ``_knn_kernel_banded`` (``gating="banded"``):
   the same contract over y-sorted rows, each 256-row block scanning only
-  its window of sorted columns (:func:`knn_neighbors_banded`).
+  its window of sorted columns (:func:`knn_neighbors_banded`). After the
+  y-sort (``torch.argsort``) the call is three launches: a prologue
+  (gather, cast, window search), the window partials, and a merge that
+  writes each sorted row to its agent.
 
 All three compute the contract of :func:`knn_neighbors` (the banded one
 within its windows); the source notes say how. A wrapper given a CUDA tensor launches its kernel or raises (also
@@ -122,6 +125,12 @@ def _library():
         lib.knn_banded_launch.argtypes = [p, i, f, i, p, i, i, p, p, p, p,
                                           p, p, p, p, p]
         lib.knn_banded_launch.restype = i
+        lib.knn_band_prologue_launch.argtypes = [p, i, p, i, i, f, p, p, p, p]
+        lib.knn_band_prologue_launch.restype = i
+        lib.knn_banded_agents_launch.argtypes = [p, i, p, i, f, f, i, i, i,
+                                                 p, p, p, p, p, p, p,
+                                                 p, p, p, p, p, p]
+        lib.knn_banded_agents_launch.restype = i
         lib.knn_max_k.restype = i
         if lib.knn_max_k() != KNN_MAX_K:
             raise RuntimeError(f"knn.cu kMaxK={lib.knn_max_k()} disagrees "
@@ -137,7 +146,12 @@ def _radius_sq(radius) -> float:
     return float(r * r)
 
 
-def _check_launch(name: str, x, k: int, max_n: int,
+def _radius_f32(radius) -> float:
+    """float32(radius), as JAX's weak-typed scalar meets float32 ys."""
+    return float(np.float32(radius))
+
+
+def _check_launch(name: str, x, k: int | None, max_n: int,
                   dtypes=(torch.float32,)) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name} launches on a CUDA tensor, got {x.device}")
@@ -149,7 +163,7 @@ def _check_launch(name: str, x, k: int, max_n: int,
         raise ValueError(f"{name} takes a contiguous tensor")
     if not 1 <= x.shape[0] <= max_n:
         raise ValueError(f"{name} takes 1 <= N <= {max_n}, got {x.shape[0]}")
-    if not 1 <= k <= KNN_MAX_K:
+    if k is not None and not 1 <= k <= KNN_MAX_K:
         raise ValueError(f"{name} takes 1 <= k <= {KNN_MAX_K}, got {k}")
 
 
@@ -169,6 +183,11 @@ def _partials(n: int, splits: int, k: int, device):
             torch.empty((n, splits), dtype=torch.int32, device=device))
 
 
+def _stream_ptr(device) -> int:
+    """PyTorch's current stream on ``device``: every launch goes there."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def _raise_on(name: str, code: int) -> None:
     if code != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {code}")
@@ -182,24 +201,31 @@ def knn_fused(x, radius, k: int):
     n = x.shape[0]
     idx, dist, nearest, count = _outputs(n, k, x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.knn_fused_launch(
             x.data_ptr(), n, _radius_sq(radius), k, idx.data_ptr(),
-            dist.data_ptr(), nearest.data_ptr(), count.data_ptr(), stream)
+            dist.data_ptr(), nearest.data_ptr(), count.data_ptr(),
+            _stream_ptr(x.device))
     _raise_on("knn_fused", code)
     LAUNCHES["knn_fused"] += 1
     return idx, dist, nearest, count
 
 
+_plans: dict = {}
+
+
 def _plan(name: str, device, *args) -> tuple[int, int]:
     """(cols_per_split, splits) from csrc/knn.cu's ``<name>_plan`` on
-    ``device``."""
-    plan = getattr(_library(), f"{name}_plan")
-    cols, splits = ctypes.c_int(), ctypes.c_int()
-    with torch.cuda.device(device):
-        _raise_on(f"{name} plan", plan(*args, ctypes.byref(cols),
-                                       ctypes.byref(splits)))
-    return cols.value, splits.value
+    ``device``, asked once per (name, device, args): the split depends on
+    nothing else. The library is loaded (or its build raises) first."""
+    lib = _library()
+    key = (name, torch.device(device), args)
+    if key not in _plans:
+        cols, splits = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(device):
+            _raise_on(f"{name} plan", getattr(lib, f"{name}_plan")(
+                *args, ctypes.byref(cols), ctypes.byref(splits)))
+        _plans[key] = (cols.value, splits.value)
+    return _plans[key]
 
 
 def stream_plan(n: int, device) -> tuple[int, int]:
@@ -218,10 +244,9 @@ def knn_stream(x, radius, k: int):
     outs = _outputs(n, k, x.device)
     parts = _partials(n, splits, k, x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.knn_stream_launch(
             x.data_ptr(), n, _radius_sq(radius), k, splits,
-            *(t.data_ptr() for t in parts + outs), stream)
+            *(t.data_ptr() for t in parts + outs), _stream_ptr(x.device))
     _raise_on("knn_stream", code)
     LAUNCHES["knn_stream"] += 1
     return outs
@@ -233,11 +258,20 @@ def _band_pad(n: int) -> int:
     return max(blk, -(-n // blk) * blk)
 
 
+def _band_window(n: int, window_blocks: int) -> tuple[int, int]:
+    """(n_pad, w): the padded rows and the window in CTILE blocks, clipped
+    to the padded column count."""
+    if window_blocks < 1:
+        raise ValueError(f"window_blocks must be >= 1, got {window_blocks}")
+    n_pad = _band_pad(n)
+    return n_pad, int(min(window_blocks, n_pad // CTILE))
+
+
 def band_setup(x, radius, window_blocks: int):
-    """The banded form's host-issued prologue (pallas_knn.py:347-368), in
-    the reference's order and dtypes: rows sorted by y in the input dtype
-    (stable, as ``jnp.argsort``), cast to float32; per RTILE block of the
-    sorted order the window start (left ``searchsorted`` of the block's
+    """The banded form's prologue as PyTorch ops (pallas_knn.py:347-368),
+    in the reference's order and dtypes: rows sorted by y in the input
+    dtype (stable, as ``jnp.argsort``), cast to float32; per RTILE block of
+    the sorted order the window start (left ``searchsorted`` of the block's
     first y minus the radius, clipped to ``[0, n_pad - w*CTILE]``, element
     units) and the overflow flag (the right ``searchsorted`` of its last y
     plus the radius lies past the window).
@@ -245,18 +279,15 @@ def band_setup(x, radius, window_blocks: int):
     Returns (order (N,) int64, xs (N, 2) float32 sorted, starts
     (n_pad // RTILE,) int32, block_overflow (n_pad // RTILE,) bool, w —
     window blocks, clipped to the padded column count)."""
-    if window_blocks < 1:
-        raise ValueError(f"window_blocks must be >= 1, got {window_blocks}")
     n = x.shape[0]
-    n_pad = _band_pad(n)
-    w = int(min(window_blocks, n_pad // CTILE))
+    n_pad, w = _band_window(n, window_blocks)
     wlen = w * CTILE
     order = torch.argsort(x[:, 1], stable=True)
     xs = x[order].to(torch.float32).contiguous()
     ys = torch.full((n_pad,), 2.0 * _FAR, dtype=torch.float32,
                     device=x.device)
     ys[:n] = xs[:, 1]
-    r = float(np.float32(radius))        # the f32 radius, as jnp's weak cast
+    r = _radius_f32(radius)
     row0 = torch.arange(0, n_pad, RTILE, device=x.device)
     lo = torch.searchsorted(ys[:n], ys[row0] - r)
     starts = torch.clamp(lo, 0, n_pad - wlen).to(torch.int32)
@@ -284,11 +315,44 @@ def band_plan(n: int, w: int, device) -> tuple[int, int]:
     return _plan("knn_banded", device, n, w)
 
 
+def _band_buffers(x, n_pad: int):
+    """The y-sort of ``x``'s rows (stable, in their dtype) and the buffers
+    the prologue kernel fills: (order, xs, starts, block_overflow)."""
+    dev = x.device
+    return (torch.argsort(x[:, 1], stable=True),
+            torch.empty((x.shape[0], 2), dtype=torch.float32, device=dev),
+            torch.empty((n_pad // RTILE,), dtype=torch.int32, device=dev),
+            torch.empty((n_pad // RTILE,), dtype=torch.bool, device=dev))
+
+
+def band_prologue(x, radius, window_blocks: int):
+    """Launch ``knn_banded``'s prologue kernel alone on (N, 2) float32 or
+    float64 CUDA positions: the y-sort, then one launch that gathers the
+    sorted rows to float32 and finds each RTILE block's window start and
+    overflow flag. Returns :func:`band_setup`'s 5-tuple, bit for bit (its
+    plain model in the kernel's form: :func:`band_prologue_plain`)."""
+    _check_launch("band_prologue", x, None, MAX_N_BLOCKED,
+                  dtypes=(torch.float32, torch.float64))
+    lib = _library()
+    n = x.shape[0]
+    n_pad, w = _band_window(n, window_blocks)
+    dev = x.device
+    order, xs, starts, block_overflow = _band_buffers(x, n_pad)
+    with torch.cuda.device(dev):
+        code = lib.knn_band_prologue_launch(
+            x.data_ptr(), int(x.dtype == torch.float64), order.data_ptr(), n,
+            w, _radius_f32(radius), xs.data_ptr(), starts.data_ptr(),
+            block_overflow.data_ptr(), _stream_ptr(dev))
+    _raise_on("band_prologue", code)
+    LAUNCHES["knn_banded"] += 1
+    return order, xs, starts, block_overflow, w
+
+
 def knn_banded_sorted(xs, starts, radius, k: int, w: int):
-    """Launch ``knn_banded`` (window partials + merge) on y-sorted
-    float32 CUDA positions and their window starts (:func:`band_setup`).
-    Returns (idx, dist, nearest, count) in sorted order, ids sorted
-    indices."""
+    """Launch ``knn_banded``'s window partials and the sorted-order merge
+    on y-sorted float32 CUDA positions and their window starts
+    (:func:`band_setup`). Returns (idx, dist, nearest, count) in sorted
+    order, ids sorted indices (plain: :func:`knn_banded_sorted_plain`)."""
     _check_launch("knn_banded", xs, k, MAX_N_BLOCKED)
     lib = _library()
     n = xs.shape[0]
@@ -300,25 +364,42 @@ def knn_banded_sorted(xs, starts, radius, k: int, w: int):
     outs = _outputs(n, k, xs.device)
     parts = _partials(n, splits, k, xs.device)
     with torch.cuda.device(xs.device):
-        stream = torch.cuda.current_stream(xs.device).cuda_stream
         code = lib.knn_banded_launch(
             xs.data_ptr(), n, _radius_sq(radius), k, starts.data_ptr(), w,
-            splits, *(t.data_ptr() for t in parts + outs), stream)
+            splits, *(t.data_ptr() for t in parts + outs),
+            _stream_ptr(xs.device))
     _raise_on("knn_banded", code)
     LAUNCHES["knn_banded"] += 1
     return outs
 
 
 def knn_banded(x, radius, k: int, *, window_blocks: int):
-    """:func:`knn_neighbors_banded` through the ``knn_banded`` kernel:
-    the sort, window search and unsort in PyTorch around one launch on
-    (N, 2) float32 or float64 CUDA positions."""
+    """:func:`knn_neighbors_banded` through the ``knn_banded`` kernels on
+    (N, 2) float32 or float64 CUDA positions: the y-sort, then one call
+    into csrc/knn.cu that launches the prologue, the window partials and
+    the merge into agent order — no PyTorch op after the sort."""
     _check_launch("knn_banded", x, k, MAX_N_BLOCKED,
                   dtypes=(torch.float32, torch.float64))
-    order, xs, starts, block_overflow, w = band_setup(x, radius,
-                                                      window_blocks)
-    return band_unsort(order, block_overflow,
-                       *knn_banded_sorted(xs, starts, radius, k, w))
+    lib = _library()
+    n = x.shape[0]
+    n_pad, w = _band_window(n, window_blocks)
+    dev = x.device
+    _, splits = band_plan(n, w, dev)
+    order, xs, starts, block_overflow = _band_buffers(x, n_pad)
+    parts = _partials(n, splits, k, dev)
+    idx, dist, nearest, count = _outputs(n, k, dev)
+    overflow = torch.empty((n,), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.knn_banded_agents_launch(
+            x.data_ptr(), int(x.dtype == torch.float64), order.data_ptr(), n,
+            _radius_f32(radius), _radius_sq(radius), k, w, splits,
+            xs.data_ptr(), starts.data_ptr(), block_overflow.data_ptr(),
+            *(t.data_ptr() for t in parts), idx.data_ptr(), dist.data_ptr(),
+            nearest.data_ptr(), overflow.data_ptr(), count.data_ptr(),
+            _stream_ptr(dev))
+    _raise_on("knn_banded", code)
+    LAUNCHES["knn_banded"] += 1
+    return idx, dist, nearest, overflow, count
 
 
 # -- plain versions ---------------------------------------------------------
@@ -402,15 +483,13 @@ def knn_neighbors_blocked_plain(x, radius, k: int):
     return run_i, _sqrt_rn(run_d2), _sqrt_rn(near), count
 
 
-def knn_neighbors_banded_plain(x, radius, k: int, *, window_blocks: int):
-    """Plain PyTorch version of ``knn_banded``, in the streaming kernel's
-    shape: the same sort and windows (:func:`band_setup`); per sorted row,
-    its block's W CTILE column blocks pass by in order, each folding
-    nearest and count, its block-local top-k merged with the running one
-    by the exact 2k merge (ties to the running slot); the same mapping
-    back (:func:`band_unsort`)."""
-    order, xs, starts, block_overflow, w = band_setup(x, radius,
-                                                      window_blocks)
+def knn_banded_sorted_plain(xs, starts, radius, k: int, w: int):
+    """Plain PyTorch version of :func:`knn_banded_sorted`, in the
+    streaming kernel's shape: per sorted row, its block's W CTILE column
+    blocks pass by in order, each folding nearest and count, its
+    block-local top-k merged with the running one by the exact 2k merge
+    (ties to the running slot). Returns (idx, dist, nearest, count) in
+    sorted order, ids sorted indices."""
     n = xs.shape[0]
     dev = xs.device
     n_pad = starts.shape[0] * RTILE
@@ -441,8 +520,91 @@ def knn_neighbors_banded_plain(x, radius, k: int, *, window_blocks: int):
                                 ids=cols.to(torch.int32))
         run_i, run_d2 = _select_k(torch.cat([run_d2, bk_d2], dim=1), k,
                                   ids=torch.cat([run_i, bk_i], dim=1))
-    return band_unsort(order, block_overflow, run_i, _sqrt_rn(run_d2),
-                       _sqrt_rn(near), count)
+    return run_i, _sqrt_rn(run_d2), _sqrt_rn(near), count
+
+
+def knn_neighbors_banded_plain(x, radius, k: int, *, window_blocks: int):
+    """Plain PyTorch version of ``knn_banded``: the sort and windows of
+    :func:`band_setup`, the window scan of :func:`knn_banded_sorted_plain`,
+    and the mapping back of :func:`band_unsort`."""
+    order, xs, starts, block_overflow, w = band_setup(x, radius,
+                                                      window_blocks)
+    return band_unsort(order, block_overflow,
+                       *knn_banded_sorted_plain(xs, starts, radius, k, w))
+
+
+def _warp_search_model(y_at, n: int, v, right: bool):
+    """The prologue kernel's ``warp_search`` for a batch of blocks: per
+    query v, the count of the sorted float32 ys[0, n) below v (at or below
+    with ``right``) — ``torch.searchsorted``'s answer — found by rounds of
+    32 evenly spaced probes, of which those that hold form a prefix.
+    ``y_at(rows)`` reads ys through the sort order, as the kernel does."""
+    lo = torch.zeros(v.shape, dtype=torch.int64, device=v.device)
+    hi = torch.full(v.shape, n, dtype=torch.int64, device=v.device)
+    lanes = torch.arange(32, device=v.device)
+    while bool((hi > lo).any()):
+        live = hi > lo
+        stride = (hi - lo + 31) // 32
+        p = lo[:, None] + lanes[None, :] * stride[:, None]
+        probe = p < hi[:, None]
+        y = y_at(torch.where(probe, p, 0))
+        below = probe & ((y <= v[:, None]) if right else (y < v[:, None]))
+        t = below.sum(dim=1)
+        done = live & (t == 0)
+        step = live & (t > 0)
+        hi = torch.where(done, lo,
+                         torch.where(step, torch.minimum(hi, lo + t * stride),
+                                     hi))
+        lo = torch.where(step, lo + (t - 1) * stride + 1, lo)
+    return lo
+
+
+def band_prologue_plain(x, radius, window_blocks: int):
+    """Plain model of the prologue kernel (:func:`band_prologue`), in its
+    form: the stable y-sort; the sorted rows gathered and cast; per RTILE
+    block, the y of its first and last row read through the sort order
+    (2e6 for padding rows), each moved by the float32 radius in one
+    rounding, and :func:`_warp_search_model` for the window start (clamped)
+    and the overflow flag. No padded ys array is formed. Returns
+    :func:`band_setup`'s 5-tuple, which it equals bit for bit."""
+    n = x.shape[0]
+    n_pad, w = _band_window(n, window_blocks)
+    wlen = w * CTILE
+    dev = x.device
+    order = torch.argsort(x[:, 1], stable=True)
+    xs = x[order].to(torch.float32)
+
+    def y_at(rows):
+        return x[order[rows], 1].to(torch.float32)
+
+    r = _radius_f32(radius)
+    row0 = torch.arange(0, n_pad, RTILE, device=dev)
+    y0 = torch.where(row0 < n, y_at(torch.clamp(row0, max=n - 1)),
+                     torch.tensor(2.0 * _FAR, dtype=torch.float32,
+                                  device=dev))
+    row_end = torch.clamp(row0 + RTILE, max=n) - 1
+    lo = _warp_search_model(y_at, n, y0 - r, right=False)
+    hi = _warp_search_model(y_at, n, y_at(row_end) + r, right=True)
+    starts = torch.clamp(lo, 0, n_pad - wlen).to(torch.int32)
+    return order, xs, starts, hi > starts.to(torch.int64) + wlen, w
+
+
+def band_scatter_plain(order, block_overflow, idx_s, dist_s, near_s, cnt_s):
+    """Plain model of ``knn_banded``'s merge epilogue, in its form: sorted
+    row i written straight to agent ``order[i]``, its ids mapped through
+    ``order`` (an empty slot's 0 becomes ``order[0]``), the overflow flag
+    of its RTILE block beside them. Equals :func:`band_unsort` bit for
+    bit. Returns (idx, dist, nearest, overflow, count)."""
+    n = order.shape[0]
+
+    def put(src):
+        out = torch.empty_like(src)
+        out[order] = src
+        return out
+
+    rows = torch.arange(n, device=order.device)
+    return (put(order[idx_s.to(torch.int64)].to(torch.int32)), put(dist_s),
+            put(near_s), put(block_overflow[rows // RTILE]), put(cnt_s))
 
 
 # -- entries ----------------------------------------------------------------

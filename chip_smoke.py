@@ -10,14 +10,18 @@ Phases (each raises, and the script exits non-zero, on any failure):
 1. build the k-NN kernels from ``cbf_tpu_torch/csrc/knn.cu`` with nvcc
    and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card —
-   ``knn_fused`` at N in {256, 4096, 5000}, ``knn_stream`` at N in
+   ``knn_fused`` at N in {1, 37, 256, 4096, 5000, 8192} and on rows 8
+   bytes off a 16-byte boundary, ``knn_stream`` at N in
    {4096 (forced), 16384, 20000}, ``knn_banded`` at N in {4096, 65536}
    with the main path's windows, k=8, radius 0.4, seeded spawn positions,
    and the same spawns packed 4x closer (every row then holds more than k
    in-radius candidates, the top-k's overflow branch) — every output must
    be equal; ``knn_banded`` also on a thin band with a one-block window
-   (the overflow flag must be raised), and at N=65536 against
-   ``knn_stream`` on the filled slots;
+   (the overflow flag must be raised), on float64 input, and at N=65536
+   against ``knn_stream`` on the filled slots; and ``knn_banded``'s
+   prologue kernel alone (``band_prologue``: sort order, sorted float32
+   rows, window starts, overflow flags) equal to ``band_setup``'s PyTorch
+   ops on every one of those inputs;
 3. drive the main path — ``swarm.make(Config(n=4096))``, ``gating="auto"``,
    500 steps through ``rollout`` — and check one ``knn_fused`` launch per
    step, the separation floor and zero infeasible QPs;
@@ -28,7 +32,9 @@ Phases (each raises, and the script exits non-zero, on any failure):
    (plain version there): positions and min distances within a stated
    tolerance, the per-step counts equal;
 6. time each kernel at its main-path shape (median of single launches)
-   beside its bound and its plain version; a short profile of the
+   beside its bound and its plain version — ``knn_banded`` as the whole
+   wrapper, as its sorted-input launch alone and as its prologue alone,
+   with the device ops one call issues (profiler); a short profile of the
    main-path step and of the banded step;
 7. the banded path at full width — ``Config(n=65536, gating="banded")``,
    200 steps: one ``knn_banded`` launch per step and none of the others,
@@ -228,6 +234,66 @@ def cross_check(swarm, rollout, cfg, state0, label):
         check(torch.equal(a, b), f"{field} differs between card and CPU")
 
 
+def device_profile(fn, calls: int = 50) -> dict:
+    """What one call of ``fn`` does on the device, from torch.profiler's
+    CUDA activity over ``calls`` calls: device ops (kernels, copies and
+    fills alike) and their distinct names, their summed device time, and
+    the part of it spent in this repo's kernels (names with ``knn_``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = [ev for ev in prof.events() if ev.device_type == cuda
+           and not getattr(ev, "is_user_annotation", False)]
+
+    def ms(keep):
+        return sum(ev.time_range.end - ev.time_range.start
+                   for ev in evs if keep(ev.name)) / 1e3 / calls
+
+    return {"device_ops_per_call": len(evs) / calls,
+            "device_ms": ms(lambda name: True) if evs else "not measured",
+            "kernel_device_ms": (ms(lambda name: "knn_" in name) if evs
+                                 else "not measured"),
+            "device_op_names": sorted({ev.name[:80] for ev in evs})}
+
+
+def time_call(fn) -> dict:
+    """A wrapper call's times: the median of single calls and the
+    back-to-back mean (both on CUDA events, the host's issue included),
+    and its device profile."""
+    ms, ms_b2b = cuda_ms(fn, reps=200, warmup=10)
+    return {"ms": ms, "ms_mean_back_to_back": ms_b2b, **device_profile(fn)}
+
+
+def time_only(knn, swarm, card: str) -> int:
+    """``--time-only``: each kernel wrapper timed at its main-path shape on
+    the seed-0 spawn, nothing else — so two checkouts (``--root``) can be
+    compared in turns within one machine."""
+    import torch
+
+    out = {}
+    for name, n in (("knn_fused", MAIN_N), ("knn_stream", STREAM_N),
+                    ("knn_banded", BANDED_N)):
+        cfg = swarm.Config(n=n)
+        x = swarm.spawn_positions(cfg, 0, device="cuda").to(
+            torch.float32).contiguous()
+        kw = ({"window_blocks": swarm.banded_window_blocks(cfg)}
+              if name == "knn_banded" else {})
+        fn = getattr(knn, name)
+        out[name] = {"n": n, **time_call(lambda: fn(x, RADIUS, K, **kw))}
+        out[name].pop("device_op_names")
+    print(json.dumps({"time_only": out, "package": knn.__file__,
+                      "card": card}))
+    return 0
+
+
 def profile_step(step, state, steps: int) -> dict:
     """Where a main-path step's time goes, over ``steps`` steps under
     torch.profiler: per phase (consensus/gating/filter/integrate) the host
@@ -278,15 +344,30 @@ def profile_step(step, state, steps: int) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--time-only", action="store_true",
+                    help="only time the kernel wrappers (no checks, no "
+                    "result line)")
+    ap.add_argument("--root", default=None,
+                    help="import cbf_tpu_torch from this checkout instead")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.root is not None:
+        sys.path.insert(0, args.root)
     from cbf_tpu_torch.ops import knn
     from cbf_tpu_torch.rollout.engine import rollout
     from cbf_tpu_torch.scenarios import swarm
+
+    if args.time_only:
+        knn.build_library()
+        return time_only(knn, swarm, card_line())
 
     # Full float32 everywhere: the port has no matrix product on the main
     # path, and these pin PyTorch's defaults for anything else.
@@ -306,10 +387,12 @@ def main() -> int:
     kernel = None
     for line in knn.build_log().splitlines():
         if "Compiling entry function" in line:
-            kernel = line.split("'")[1] if "ILi8E" in line else None
-        elif kernel and "registers" in line:
-            print(f"  k=8 {kernel}: {line.split(':', 1)[1].strip()}")
-            kernel = None
+            name = line.split("'")[1]
+            kernel = name if "ILi8E" in name or "prologue" in name else None
+        elif kernel and ("registers" in line or "stack frame" in line):
+            print(f"  {kernel}: {line.split(':', 1)[-1].strip()}")
+            if "registers" in line:
+                kernel = None
 
     # 2. kernels vs plain versions on the card
     def spawn(n):
@@ -344,27 +427,58 @@ def main() -> int:
               f"count > k: {over}{plan}")
         return over
 
-    for n in (256, 4096, 5000):
+    def hold_prologue(label, x, w):
+        got = knn.band_prologue(x, RADIUS, w)
+        want = knn.band_setup(x, RADIUS, w)
+        torch.cuda.synchronize()
+        for part, a, b in zip(("order", "xs", "starts", "block_overflow"),
+                              got[:4], want[:4]):
+            check(a.dtype == b.dtype and a.shape == b.shape
+                  and torch.equal(a, b), f"band_prologue {part} differs from "
+                  f"band_setup at N={x.shape[0]} ({label})")
+        check(got[4] == want[4], "band_prologue window")
+        print(f"  band_prologue N={x.shape[0]} {label}: equal to band_setup "
+              f"(window {got[4]} blocks, {int(got[3].sum())} of "
+              f"{got[3].shape[0]} row blocks overflow)")
+
+    for n in (256, 4096, 5000, knn.MAX_N_FUSED):
         hold("knn_fused", "spawn", spawn(n))
         check(hold("knn_fused", "packed", spawn(n) * PACK) == n,
               f"packed N={n}: a row holds <= k candidates")
+    for n in (1, 37):
+        hold("knn_fused", "spawn", spawn(n))
+    # Rows 8 bytes off a 16-byte boundary: the staging takes 8-byte copies.
+    hold("knn_fused", "spawn, 8-byte aligned", spawn(MAIN_N + 1)[1:])
     for n in (4096, 16384, 20000):
         hold("knn_stream", "spawn", spawn(n))
         check(hold("knn_stream", "packed", spawn(n) * PACK) == n,
               f"packed N={n}: a row holds <= k candidates")
     compare(knn.knn_stream, knn.knn_neighbors_plain, spawn(4096))
+    gen = torch.Generator().manual_seed(0)
     for n in (OBST_N, BANDED_N):
         hold("knn_banded", "spawn", spawn(n), window(n))
         check(hold("knn_banded", "packed", spawn(n) * PACK, window(n)) == n,
               f"packed N={n}: a row holds <= k candidates")
-    gen = torch.Generator().manual_seed(0)
+        # float64 rows a few float32 ulps apart: the sort sees them apart,
+        # the cast may round neighbours onto one float32.
+        x64 = (spawn(n).double() + 1e-7 * torch.rand(
+            (n, 2), generator=gen, dtype=torch.float64).cuda()).contiguous()
+        hold("knn_banded", "spawn float64", x64, window(n))
+        for label, x in (("spawn", spawn(n)), ("packed", spawn(n) * PACK),
+                         ("spawn float64", x64)):
+            hold_prologue(label, x.contiguous(), window(n))
     thin = torch.stack([torch.rand(THIN_N, generator=gen) - 0.5,
                         torch.rand(THIN_N, generator=gen) * 1e-3], 1)
     thin = thin.cuda().contiguous()
     hold("knn_banded", "thin band, 1-block window", thin, 1)
+    hold_prologue("thin band, 1-block window", thin, 1)
     check(bool(compare(knn.knn_banded, plains["knn_banded"], thin,
                        window_blocks=1)[1][3].any()),
           "thin band: the window overflow is not flagged")
+    thin_big = torch.stack([torch.rand(BANDED_N, generator=gen) - 0.5,
+                            torch.rand(BANDED_N, generator=gen) * 1e-2], 1)
+    hold_prologue("thin band, 1-block window", thin_big.cuda().contiguous(),
+                  1)
     x65 = spawn(BANDED_N)
     idx_b, dist_b, near_b, ovf_b, cnt_b = knn.knn_banded(
         x65, RADIUS, K, window_blocks=window(BANDED_N))
@@ -377,10 +491,12 @@ def main() -> int:
           and torch.equal(dist_b[filled], dist_s[filled])
           and torch.equal(near_b[close], near_s[close]),
           f"knn_banded and knn_stream differ at N={BANDED_N} on the spawn")
-    print("phase 2: knn_fused equal at N=256/4096/5000, knn_stream equal at "
+    print("phase 2: knn_fused equal at N=1/37/256/4096/5000/8192 (and on "
+          "8-byte-aligned rows), knn_stream equal at "
           "N=4096/16384/20000 (and to the fused plain version at 4096), "
-          f"knn_banded equal at N={OBST_N}/{BANDED_N}, spawned and packed, "
-          "and on the thin band (overflow flagged); knn_banded = knn_stream "
+          f"knn_banded equal at N={OBST_N}/{BANDED_N}, spawned, packed and "
+          "float64, and on the thin band (overflow flagged); band_prologue "
+          "equal to band_setup on all of those; knn_banded = knn_stream "
           f"on the filled slots at N={BANDED_N} ({int(filled.sum())} slots)")
 
     # 3. main path, fused kernel
@@ -477,15 +593,14 @@ def main() -> int:
         ops = OPS_PER_PAIR * pairs + K * int(count.sum())
         t_ops = ops / PEAK_F32_ISSUE_PER_S
         t_bytes = nbytes / PEAK_BYTES_PER_S
-        ms, ms_b2b = cuda_ms(lambda: fn(x, RADIUS, K, **kw), reps=200,
-                             warmup=10)
+        timed = time_call(lambda: fn(x, RADIUS, K, **kw))
+        names = timed.pop("device_op_names")
         row = {
             "name": name, "route": "cuda",
             "source": "cbf_tpu_torch/csrc/knn.cu",
             "replaces": src_line, "launches": launches_n,
             "max_abs_err": errs[name][n], "equal": True, "n": n,
-            "compared_at_n": compared[name][n],
-            "ms": ms, "ms_mean_back_to_back": ms_b2b,
+            "compared_at_n": compared[name][n], **timed,
             "plain_ms": cuda_ms(lambda: plain(x, RADIUS, K, **kw), reps=10,
                                 warmup=2)[0],
             "bound_ms": max(t_ops, t_bytes) * 1e3,
@@ -493,8 +608,10 @@ def main() -> int:
             "library_ms": None,
         }
         if name == "knn_banded":
-            # The launch alone, on the sorted inputs the wrapper makes:
-            # the rest of ``ms`` is the sort, searches and unsort.
+            # The partials and merge alone, on the sorted inputs the
+            # prologue makes (the earlier single-launch design's scope),
+            # the prologue alone (sort included), and what one wrapper
+            # call issues on the device.
             _, xs, starts, _, w_eff = knn.band_setup(x, RADIUS, w_b)
             row["window_blocks"] = w_eff
             row["overflow_rows"] = int(out[3].sum())
@@ -502,6 +619,17 @@ def main() -> int:
                 cuda_ms(lambda: knn.knn_banded_sorted(xs, starts, RADIUS, K,
                                                       w_eff),
                         reps=200, warmup=10)
+            row["kernel_only_device_ms"] = device_profile(
+                lambda: knn.knn_banded_sorted(xs, starts, RADIUS, K, w_eff)
+            )["kernel_device_ms"]
+            row["prologue_ms"], row["prologue_ms_back_to_back"] = cuda_ms(
+                lambda: knn.band_prologue(x, RADIUS, w_b), reps=200,
+                warmup=10)
+            prologue = device_profile(lambda: knn.band_prologue(x, RADIUS,
+                                                                w_b))
+            row["prologue_device_ms"] = prologue["device_ms"]
+            row["prologue_kernel_device_ms"] = prologue["kernel_device_ms"]
+            row["device_op_names"] = names
         rows.append(row)
     x4096 = state0.x.to(torch.float32).contiguous()
     stream_small = cuda_ms(lambda: knn.knn_stream(x4096, RADIUS, K),
@@ -535,4 +663,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
