@@ -28,6 +28,7 @@
 // the running top-k in registers.
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -36,8 +37,8 @@
 namespace {
 
 constexpr int kMaxK = 16;      // must match ops/knn.py KNN_MAX_K
-constexpr int kThreads = 128;  // stream kernels: rows per block
-constexpr int kCtile = 512;    // stream kernels: columns staged per step
+constexpr int kThreads = 128;  // banded partials, merges: rows per block
+constexpr int kCtile = 512;    // banded partials: columns staged per step
 constexpr int kRtile = 256;    // banded: rows sharing one window (RTILE)
 static_assert(kRtile % kThreads == 0, "a block's rows share one window");
 constexpr int kBandBlock = kRtile > kCtile ? kRtile : kCtile;  // row padding
@@ -49,6 +50,14 @@ constexpr int kFusedGroups = kFusedWarps / kFusedHalves;  // row groups
 constexpr int kFusedBlockRows = kFusedGroups * kFusedR;
 constexpr int kFusedStages = 4; // fused: cp.async groups per column half
 constexpr int kFusedUnroll = 2; // fused: 32-column steps loaded together
+constexpr int kStreamPiece = 32;  // stream: 32-column steps per half per stage
+constexpr int kStreamStages = 2;  // stream: ring stages in shared memory
+// stream: ranges are whole units of columns, so every range starts on a
+// column that is a multiple of 4 (the self step) and even (16-byte pairs).
+constexpr int kStreamUnit = 512;
+constexpr int kPlanK = 8;       // stream: the k whose residency sizes the
+                                // plan (the swarm's Config.k_neighbors)
+constexpr double kWaveFill = 0.9;  // stream: least acceptable last-wave fill
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kInfBits = 0x7f800000u;  // +inf; d^2 >= +0 orders as bits
 static_assert(32 % kFusedR == 0, "a warp's rows share one 32-column step");
@@ -207,7 +216,8 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
     default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
   }
 }
-static_assert(kFusedStages <= 4, "cp_async_wait covers 4 groups");
+static_assert(kFusedStages <= 4 && kStreamStages >= 2 && kStreamStages <= 5,
+              "cp_async_wait covers 4 groups");
 
 // Copy columns [c0, c1) of x to pts (c0 even): 16-byte column pairs when x
 // is 16-byte aligned, else single columns.
@@ -251,11 +261,13 @@ __device__ __forceinline__ void fused_step(
   }
 }
 
-// Steps [s0, s1) of 32 columns each (lane's column 32 t + lane), the self
-// step t_self split out; kFusedUnroll steps' loads issued together.
+// Steps [s0, s1) of 32 columns each: step t is pts[32 t, 32 t + 32), lane's
+// column col0 + 32 t + lane; the self step t_self split out; kFusedUnroll
+// steps' loads issued together. knn_fused passes all N columns and col0 0,
+// knn_stream one ring stage and the column of its first slot.
 template <int K>
 __device__ __forceinline__ void fused_run(
-    const float2* pts, int s0, int s1, int lane, int i0,
+    const float2* pts, int col0, int s0, int s1, int lane, int i0,
     const float (&px)[kFusedR], const float (&py)[kFusedR], float r2,
     float (&bd)[kFusedR][K], int (&bi)[kFusedR][K], float (&near)[kFusedR],
     int (&cnt)[kFusedR]) {
@@ -266,27 +278,27 @@ __device__ __forceinline__ void fused_run(
     for (int u = 0; u < kFusedUnroll; ++u) q[u] = pts[32 * (t + u) + lane];
 #pragma unroll
     for (int u = 0; u < kFusedUnroll; ++u)
-      fused_step<K, false>(q[u], 32 * (t + u) + lane, i0, px, py, r2, bd, bi,
-                           near, cnt);
+      fused_step<K, false>(q[u], col0 + 32 * (t + u) + lane, i0, px, py, r2,
+                           bd, bi, near, cnt);
   }
   for (; t < s1; ++t)
-    fused_step<K, false>(pts[32 * t + lane], 32 * t + lane, i0, px, py, r2,
-                         bd, bi, near, cnt);
+    fused_step<K, false>(pts[32 * t + lane], col0 + 32 * t + lane, i0, px,
+                         py, r2, bd, bi, near, cnt);
 }
 
 template <int K>
 __device__ __forceinline__ void fused_scan(
-    const float2* pts, int s0, int s1, int t_self, int lane, int i0,
+    const float2* pts, int col0, int s0, int s1, int t_self, int lane, int i0,
     const float (&px)[kFusedR], const float (&py)[kFusedR], float r2,
     float (&bd)[kFusedR][K], int (&bi)[kFusedR][K], float (&near)[kFusedR],
     int (&cnt)[kFusedR]) {
-  fused_run<K>(pts, s0, min(s1, max(s0, t_self)), lane, i0, px, py, r2, bd,
-               bi, near, cnt);
-  if (t_self >= s0 && t_self < s1)
-    fused_step<K, true>(pts[32 * t_self + lane], 32 * t_self + lane, i0, px,
-                        py, r2, bd, bi, near, cnt);
-  fused_run<K>(pts, min(s1, max(s0, t_self + 1)), s1, lane, i0, px, py, r2,
+  fused_run<K>(pts, col0, s0, min(s1, max(s0, t_self)), lane, i0, px, py, r2,
                bd, bi, near, cnt);
+  if (t_self >= s0 && t_self < s1)
+    fused_step<K, true>(pts[32 * t_self + lane], col0 + 32 * t_self + lane,
+                        i0, px, py, r2, bd, bi, near, cnt);
+  fused_run<K>(pts, col0, min(s1, max(s0, t_self + 1)), s1, lane, i0, px, py,
+               r2, bd, bi, near, cnt);
 }
 
 // The warp's k smallest (d^2, column) keys, one candidate list per lane
@@ -319,6 +331,127 @@ __device__ __forceinline__ void warp_topk(float (&bd)[K], int (&bi)[K],
   }
 }
 
+// The warp's kFusedR rows i0 + r (rows past n: row n - 1's coordinates,
+// computed and never written) and their empty running state.
+template <int K>
+__device__ __forceinline__ void load_rows(
+    const float* __restrict__ x, int n, int i0, float (&px)[kFusedR],
+    float (&py)[kFusedR], float (&bd)[kFusedR][K], int (&bi)[kFusedR][K],
+    float (&near)[kFusedR], int (&cnt)[kFusedR]) {
+#pragma unroll
+  for (int r = 0; r < kFusedR; ++r) {
+    const int i = min(i0 + r, n - 1);
+    px[r] = x[2 * i];
+    py[r] = x[2 * i + 1];
+    near[r] = CUDART_INF_F;
+    cnt[r] = 0;
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      bd[r][s] = CUDART_INF_F;
+      bi[r][s] = 0;
+    }
+  }
+}
+
+// Merge slots of the block's second half: per row slot (kFusedGroups x
+// kFusedR of them) its k keys and ids, its nearest d^2 and count.
+template <int K>
+struct HalfMerge {
+  static constexpr int kSlots = kFusedGroups * kFusedR;
+  float d[kSlots * K];
+  int i[kSlots * K];
+  float near[kSlots];
+  int cnt[kSlots];
+};
+
+// The end of a scan over one block's columns: each warp's lane lists meet
+// by k warp minima, then half 1's row lists reach half 0's through shared
+// memory (hm) and meet them by k more, one candidate per lane. Half 0 gets
+// true, lane t < K holding slot t of row r's list in (od[r], oi[r]), every
+// lane the row's nearest d^2 (nd[r]) and count (nc[r]); half 1 gets false
+// and has nothing left to write.
+template <int K>
+__device__ __forceinline__ bool merge_block_lists(
+    int half, int group, int lane, float (&bd)[kFusedR][K],
+    int (&bi)[kFusedR][K], const float (&near)[kFusedR],
+    const int (&cnt)[kFusedR], HalfMerge<K>* hm, float (&od)[kFusedR],
+    int (&oi)[kFusedR], float (&nd)[kFusedR], int (&nc)[kFusedR]) {
+  float md[kFusedR];
+  int mi[kFusedR], c_tot[kFusedR];
+  unsigned nb[kFusedR];
+#pragma unroll
+  for (int r = 0; r < kFusedR; ++r) {
+    c_tot[r] = __reduce_add_sync(kFull, cnt[r]);
+    nb[r] = __reduce_min_sync(kFull, __float_as_uint(near[r]));
+    warp_topk<K>(bd[r], bi[r], lane, md[r], mi[r]);
+  }
+  const int slot = group * kFusedR;
+  if (half == 1) {
+#pragma unroll
+    for (int r = 0; r < kFusedR; ++r) {
+      if (lane < K) {
+        hm->d[(slot + r) * K + lane] = md[r];
+        hm->i[(slot + r) * K + lane] = mi[r];
+      }
+      if (lane == 0) {
+        hm->near[slot + r] = __uint_as_float(nb[r]);
+        hm->cnt[slot + r] = c_tot[r];
+      }
+    }
+  }
+  __syncthreads();
+  if (half == 1) return false;
+#pragma unroll
+  for (int r = 0; r < kFusedR; ++r) {
+    // Lanes [0, K) hold this half's slots, lanes [K, 2K) the other's.
+    float cd = md[r];
+    int ci = mi[r];
+    if (lane >= K && lane < 2 * K) {
+      cd = hm->d[(slot + r) * K + lane - K];
+      ci = hm->i[(slot + r) * K + lane - K];
+    }
+    od[r] = CUDART_INF_F;
+    oi[r] = 0;
+    for (int t = 0; t < K; ++t) {
+      const unsigned hb = __float_as_uint(cd);
+      const unsigned m = __reduce_min_sync(kFull, hb);
+      if (m == kInfBits) break;
+      const unsigned c = __reduce_min_sync(
+          kFull, hb == m ? static_cast<unsigned>(ci) : kFull);
+      if (lane == t) {
+        od[r] = __uint_as_float(m);
+        oi[r] = static_cast<int>(c);
+      }
+      if (hb == m && static_cast<unsigned>(ci) == c) cd = CUDART_INF_F;
+    }
+    nd[r] = fminf(__uint_as_float(nb[r]), hm->near[slot + r]);
+    nc[r] = c_tot[r] + hm->cnt[slot + r];
+  }
+  return true;
+}
+
+// Row r of half 0's merged lists as the kernels' outputs (rows < n only).
+template <int K>
+__device__ __forceinline__ void write_merged_rows(
+    int i0, int n, int lane, const float (&od)[kFusedR],
+    const int (&oi)[kFusedR], const float (&nd)[kFusedR],
+    const int (&nc)[kFusedR], int* __restrict__ idx, float* __restrict__ dist,
+    float* __restrict__ nearest, int* __restrict__ count) {
+#pragma unroll
+  for (int r = 0; r < kFusedR; ++r) {
+    const int i = i0 + r;
+    if (i >= n) continue;
+    if (lane < K) {
+      idx[i * K + lane] = oi[r];
+      dist[i * K + lane] = __fsqrt_rn(od[r]);
+    }
+    if (lane == 0) {
+      nearest[i] = __fsqrt_rn(nd[r]);
+      count[i] = nc[r];
+    }
+  }
+}
+
 template <int K>
 __global__ void __launch_bounds__(kFusedWarps * 32)
     knn_fused_kernel(const float* __restrict__ x, int n, float r2,
@@ -328,11 +461,7 @@ __global__ void __launch_bounds__(kFusedWarps * 32)
   // 32 * steps columns, then the second half's merge slots.
   extern __shared__ __align__(16) float2 pts[];
   const int steps = (n + 31) / 32;
-  constexpr int kSlots = kFusedGroups * kFusedR;
-  float* hm_d = reinterpret_cast<float*>(pts + 32 * steps);  // [slot][K]
-  int* hm_i = reinterpret_cast<int*>(hm_d + kSlots * K);
-  float* hm_near = reinterpret_cast<float*>(hm_i + kSlots * K);
-  int* hm_cnt = reinterpret_cast<int*>(hm_near + kSlots);
+  HalfMerge<K>* hm = reinterpret_cast<HalfMerge<K>*>(pts + 32 * steps);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int group = warp % kFusedGroups;
@@ -358,108 +487,203 @@ __global__ void __launch_bounds__(kFusedWarps * 32)
   int cnt[kFusedR];
   float bd[kFusedR][K];
   int bi[kFusedR][K];
-#pragma unroll
-  for (int r = 0; r < kFusedR; ++r) {
-    const int i = min(i0 + r, n - 1);  // rows past n: computed, never written
-    px[r] = x[2 * i];
-    py[r] = x[2 * i + 1];
-    near[r] = CUDART_INF_F;
-    cnt[r] = 0;
-#pragma unroll
-    for (int s = 0; s < K; ++s) {
-      bd[r][s] = CUDART_INF_F;
-      bi[r][s] = 0;
-    }
-  }
+  load_rows<K>(x, n, i0, px, py, bd, bi, near, cnt);
   const int h0 = half * half_steps;
   const int h1 = half == 0 ? half_steps : steps;
   for (int g = 0; g < kFusedStages; ++g) {
     cp_async_wait(kFusedStages - 1 - g);
     __syncthreads();  // group g of every thread, and the +inf tail, landed
-    fused_scan<K>(pts, min(h1, h0 + g * piece), min(h1, h0 + (g + 1) * piece),
-                  i0 / 32, lane, i0, px, py, r2, bd, bi, near, cnt);
+    fused_scan<K>(pts, 0, min(h1, h0 + g * piece),
+                  min(h1, h0 + (g + 1) * piece), i0 / 32, lane, i0, px, py,
+                  r2, bd, bi, near, cnt);
   }
 
-  float md[kFusedR];
-  int mi[kFusedR], c_tot[kFusedR];
-  unsigned nb[kFusedR];
-#pragma unroll
-  for (int r = 0; r < kFusedR; ++r) {
-    c_tot[r] = __reduce_add_sync(kFull, cnt[r]);
-    nb[r] = __reduce_min_sync(kFull, __float_as_uint(near[r]));
-    warp_topk<K>(bd[r], bi[r], lane, md[r], mi[r]);
-  }
-  const int slot = group * kFusedR;
-  if (half == 1) {
-#pragma unroll
-    for (int r = 0; r < kFusedR; ++r) {
-      if (lane < K) {
-        hm_d[(slot + r) * K + lane] = md[r];
-        hm_i[(slot + r) * K + lane] = mi[r];
-      }
-      if (lane == 0) {
-        hm_near[slot + r] = __uint_as_float(nb[r]);
-        hm_cnt[slot + r] = c_tot[r];
-      }
-    }
-  }
-  __syncthreads();
-  if (half == 1) return;
-#pragma unroll
-  for (int r = 0; r < kFusedR; ++r) {
-    // Lanes [0, K) hold this half's slots, lanes [K, 2K) the other's.
-    float cd = md[r];
-    int ci = mi[r];
-    if (lane >= K && lane < 2 * K) {
-      cd = hm_d[(slot + r) * K + lane - K];
-      ci = hm_i[(slot + r) * K + lane - K];
-    }
-    float od = CUDART_INF_F;
-    int oi = 0;
-    for (int t = 0; t < K; ++t) {
-      const unsigned hb = __float_as_uint(cd);
-      const unsigned m = __reduce_min_sync(kFull, hb);
-      if (m == kInfBits) break;
-      const unsigned c = __reduce_min_sync(
-          kFull, hb == m ? static_cast<unsigned>(ci) : kFull);
-      if (lane == t) {
-        od = __uint_as_float(m);
-        oi = static_cast<int>(c);
-      }
-      if (hb == m && static_cast<unsigned>(ci) == c) cd = CUDART_INF_F;
-    }
-    const int i = i0 + r;
-    if (i >= n) continue;
-    if (lane < K) {
-      idx[i * K + lane] = oi;
-      dist[i * K + lane] = __fsqrt_rn(od);
-    }
-    if (lane == 0) {
-      nearest[i] = __fsqrt_rn(fminf(__uint_as_float(nb[r]), hm_near[slot + r]));
-      count[i] = c_tot[r] + hm_cnt[slot + r];
-    }
-  }
+  float od[kFusedR], nd[kFusedR];
+  int oi[kFusedR], nc[kFusedR];
+  if (merge_block_lists<K>(half, group, lane, bd, bi, near, cnt, hm, od, oi,
+                           nd, nc))
+    write_merged_rows<K>(i0, n, lane, od, oi, nd, nc, idx, dist, nearest,
+                         count);
 }
 
 // knn_stream — replaces cbf_tpu/ops/pallas_knn.py:_knn_kernel_blocked /
 // _stream_step. The TPU kernel carries a running top-k from one column
 // block to the next along a sequential grid axis; Hopper blocks run in no
-// order, so that carry cannot cross blocks. Design: split the columns
-// into S contiguous ranges (a whole number of CTILE tiles each), one block
-// per (row block, range). Inside a block the CTILE tiles stream through
-// shared memory and each thread keeps its row's running top-k in
-// registers (the TPU's carry, now a loop inside the block). The (N, S, k)
-// squared partials then meet in a second kernel that merges them range by
-// range: later ranges hold higher columns, and the insertion puts equal
-// keys after earlier ones, so ties land on the lower column index exactly
-// as the TPU merge's first-slot rule does. S is chosen here (split_plan)
-// to put ~4 blocks per SM on the card whatever N is; the partials cost
-// 8*k bytes per (row, range) of device memory, ~0.3 MB per range at
-// N = 4096, k = 8.
+// order, so that carry cannot cross blocks. The columns are split into S
+// contiguous ranges, one block per (16-row block, range); the (N, S, k)
+// squared partials then meet in knn_stream_merge_kernel, which folds them
+// range by range: later ranges hold higher columns and the insertion puts
+// equal keys after earlier ones, so ties land on the lower column index, as
+// the TPU merge's first-slot rule does. Where the plan yields one range
+// (S = 1) the partial kernel writes the outputs itself (__fsqrt_rn) and
+// the merge is not launched.
 //
-// Columns [c0, c1) (block-uniform) stream through shared memory in kCtile
-// tiles; each live thread folds them into its row's running top-k, and
-// writes its (row, range) partial.
+// What bounds it: operations. At N = 16384 it is 268 M ordered pairs, ~8
+// f32 operations each, ~0.064 ms at the non-FMA issue rate; the outputs
+// are 1.2 MB. Inside a block it is knn_fused's register-tiled scan over a
+// column range instead of all N columns, which answers the three things the
+// one-row-per-thread scan (scan_range_to_partial, kept for knn_banded) lost
+// its time to:
+// - one d^2 chain per shared load: a warp owns kFusedR (4) rows in
+//   registers, and lane l takes columns l + 32 t of its half of the range,
+//   so one conflict-free load feeds four independent d^2 chains (~8 issued
+//   instructions per pair against ~11);
+// - a top-k test after every pair: an out-of-radius step is four d^2, four
+//   fminf and one compare of the four rows' minimum, and only the warp's own
+//   32-column step tests column == row;
+// - staging with no overlap: a ring of kStreamStages (2) cp.async stages
+//   in shared memory, each a piece of kStreamPiece (32) steps of both
+//   halves (32 KB in all, whatever N is: MAX_N_BLOCKED's 2 MB of
+//   coordinates fit in no SM). Each half stages and scans its own slots: a
+//   warp scans stage g while stage g + 1 is in flight, and one named
+//   barrier of the half's 4 warps per stage both publishes it and frees
+//   the slot the next copy overwrites. Per-stage work (the barrier, the
+//   copies, the scan's set-up) is paid once per kStreamPiece steps, which
+//   is why the stages are this large and the halves sync apart: both
+//   measured faster on the H100 than 8-step stages under one block-wide
+//   __syncthreads. Columns at or past the range's end (or N) read as +inf:
+//   never eligible, never nearest.
+// A block is 8 warps: 4 row groups x 2 column halves of its range. Each
+// lane keeps its columns' top-k in increasing column order, so its list is
+// lexicographic in (d^2, column); the lane lists meet by k warp minima of
+// that key and the halves by k more (merge_block_lists, as knn_fused), and
+// lanes < k write the row's range partial, coalesced. Every block reads its
+// range's coordinates from L2: (N / 16) x N x 8 bytes in all, 128 MB per
+// call at N = 16384, which the ring keeps off the critical path.
+//
+// The plan (stream_plan): S is the smallest range count whose grid of
+// (N / 16) x S blocks fills its last wave of resident blocks (from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor on the k = kPlanK
+// instance) to kWaveFill or more; ranges are whole kStreamUnit columns.
+// At N >= 4096 that is one range on an H100 (1024 blocks at N = 16384,
+// 3.9 waves of 2 x 132), so the main path launches the partial kernel
+// alone; below it, ranges split the columns until the card is filled.
+
+// Stage g of one half's ring, by that half's own kHalfThreads threads:
+// steps g P .. g P + P - 1 (P = kStreamPiece) of the half (range steps
+// [h0, h0 + h_steps)) to dst[32 p + l], column c0 + 32 (h0 + g P + p) + l
+// (c0 even). A thread copies every kHalfThreads-th 16-byte column pair;
+// only a range's last step takes the column-by-column path, where columns
+// at or past c1 read +inf. Steps past the half's end are left alone (never
+// scanned). Kept this lean because it runs once per stage in every thread.
+constexpr int kHalfThreads = kFusedGroups * 32;
+__device__ __forceinline__ void stage_piece(
+    float2* dst, const float* __restrict__ x, int c0, int c1, int h0,
+    int h_steps, int g, bool aligned16) {
+  for (int p = threadIdx.x % kHalfThreads; p < kStreamPiece * 16;
+       p += kHalfThreads) {
+    const int t = g * kStreamPiece + p / 16;  // the pair's half step
+    if (t >= h_steps) break;
+    const int c = c0 + 32 * (h0 + t) + 2 * (p % 16);
+    if (aligned16 && c + 1 < c1) {
+      cp_async16(dst + 2 * p, x + 2 * c);
+      continue;
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (c + u < c1) {
+        cp_async8(dst + 2 * p + u, x + 2 * (c + u));
+      } else {
+        dst[2 * p + u] = make_float2(CUDART_INF_F, CUDART_INF_F);
+      }
+    }
+  }
+}
+
+// The halves stage and scan their own ring slots, so each syncs only its
+// own kHalfThreads threads (named barrier 1 + half; 0 is __syncthreads).
+__device__ __forceinline__ void half_sync(int half) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + half), "r"(kHalfThreads)
+               : "memory");
+}
+
+// One block: rows [16 bx, 16 bx + 16) against range s = by, columns
+// [c0, c1). S = 1 writes the outputs; S > 1 the (row, range) partials.
+template <int K>
+__global__ void __launch_bounds__(kFusedWarps * 32) knn_stream_partial_kernel(
+    const float* __restrict__ x, int n, float r2, int cols_per_split,
+    int splits, int aligned16, float* __restrict__ part_d2,
+    int* __restrict__ part_idx, float* __restrict__ part_near,
+    int* __restrict__ part_cnt, int* __restrict__ idx,
+    float* __restrict__ dist, float* __restrict__ nearest,
+    int* __restrict__ count) {
+  __shared__ __align__(16) float2
+      ring[kStreamStages][kFusedHalves][kStreamPiece * 32];
+  __shared__ HalfMerge<K> hm;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int group = warp % kFusedGroups;
+  const int half = warp / kFusedGroups;
+  const int s = blockIdx.y;
+  const int c0 = s * cols_per_split;
+  const int c1 = min(n, c0 + cols_per_split);
+  const int steps = (c1 - c0 + 31) / 32;
+  const int half_steps = (steps + 1) / 2;
+  const int h0 = half * half_steps;  // this half's first range step
+  const int h_steps = (half == 0 ? half_steps : steps) - h0;
+  const int pieces = (h_steps + kStreamPiece - 1) / kStreamPiece;
+  const bool a16 = aligned16 != 0;
+  for (int g = 0; g + 1 < kStreamStages; ++g) {
+    if (g < pieces)
+      stage_piece(ring[g][half], x, c0, c1, h0, h_steps, g, a16);
+    cp_async_commit();  // empty groups too: the wait counts stay uniform
+  }
+
+  const int i0 = (blockIdx.x * kFusedGroups + group) * kFusedR;
+  float px[kFusedR], py[kFusedR], near[kFusedR];
+  int cnt[kFusedR];
+  float bd[kFusedR][K];
+  int bi[kFusedR][K];
+  load_rows<K>(x, n, i0, px, py, bd, bi, near, cnt);
+  // The half step that holds the rows' own columns: i0 and c0 are multiples
+  // of 4, so the four lie in one 32-column step. Far below 0 if none does.
+  const int t_self = i0 >= c0 && i0 < c1 ? (i0 - c0) / 32 - h0 : -(1 << 30);
+  for (int g = 0; g < pieces; ++g) {
+    cp_async_wait(kStreamStages - 2);
+    // Stage g landed for each thread of the half, and each of its warps is
+    // done with stage g - 1, whose slot the next copy takes.
+    half_sync(half);
+    const int next = g + kStreamStages - 1;
+    if (next < pieces)
+      stage_piece(ring[next % kStreamStages][half], x, c0, c1, h0, h_steps,
+                  next, a16);
+    cp_async_commit();
+    const int base = g * kStreamPiece;
+    fused_scan<K>(ring[g % kStreamStages][half], c0 + 32 * (h0 + base), 0,
+                  min(kStreamPiece, h_steps - base), t_self - base, lane, i0,
+                  px, py, r2, bd, bi, near, cnt);
+  }
+
+  float od[kFusedR], nd[kFusedR];
+  int oi[kFusedR], nc[kFusedR];
+  if (!merge_block_lists<K>(half, group, lane, bd, bi, near, cnt, &hm, od,
+                            oi, nd, nc))
+    return;
+  if (splits == 1) {
+    write_merged_rows<K>(i0, n, lane, od, oi, nd, nc, idx, dist, nearest,
+                         count);
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < kFusedR; ++r) {
+    const int i = i0 + r;
+    if (i >= n) continue;
+    const size_t row = static_cast<size_t>(i) * splits + s;
+    if (lane < K) {
+      part_d2[row * K + lane] = od[r];
+      part_idx[row * K + lane] = oi[r];
+    }
+    if (lane == 0) {
+      part_near[row] = nd[r];
+      part_cnt[row] = nc[r];
+    }
+  }
+}
+
+// knn_banded's window partials (below), one row per thread: columns
+// [c0, c1) (block-uniform) stream through shared memory in kCtile tiles;
+// each live thread folds them into its row's running top-k, and writes
+// its (row, range) partial.
 template <int K>
 __device__ __forceinline__ void scan_range_to_partial(
     const float* __restrict__ x, int n, float r2, int c0, int c1, int s,
@@ -498,17 +722,6 @@ __device__ __forceinline__ void scan_range_to_partial(
   part_cnt[row] = cnt;
 }
 
-template <int K>
-__global__ void __launch_bounds__(kThreads) knn_stream_partial_kernel(
-    const float* __restrict__ x, int n, float r2, int cols_per_split,
-    int splits, float* __restrict__ part_d2, int* __restrict__ part_idx,
-    float* __restrict__ part_near, int* __restrict__ part_cnt) {
-  const int c0 = blockIdx.y * cols_per_split;
-  scan_range_to_partial<K>(x, n, r2, c0, min(n, c0 + cols_per_split),
-                           blockIdx.y, splits, part_d2, part_idx, part_near,
-                           part_cnt);
-}
-
 // knn_banded — replaces cbf_tpu/ops/pallas_knn.py:_knn_kernel_banded (the
 // banded use of _stream_step). The caller sorts the rows by y (the one
 // library op left on this path, torch.argsort, as the TPU's XLA sort sits
@@ -519,8 +732,9 @@ __global__ void __launch_bounds__(kThreads) knn_stream_partial_kernel(
 // 1. knn_band_prologue_kernel: one block per 256-row block gathers its rows
 //    to float32 in sorted order and finds the block's window start and
 //    overflow flag (below);
-// 2. knn_banded_partial_kernel: knn_stream with the column range cut to the
-//    window. The TPU gathered every window ahead of the kernel (XLA
+// 2. knn_banded_partial_kernel: the one-row-per-thread range scan
+//    (scan_range_to_partial) with the column range cut to the window, 128
+//    rows per block. The TPU gathered every window ahead of the kernel (XLA
 //    dynamic_slice), only because scalar-prefetch index maps hung Mosaic;
 //    here a block reads its own window start from device memory and
 //    streams the window straight from the sorted coordinates. The window is
@@ -698,10 +912,7 @@ cudaError_t launch_fused(const float* x, int n, float r2, int* idx,
                          float* dist, float* nearest, int* count,
                          cudaStream_t stream) {
   const size_t steps = (static_cast<size_t>(n) + 31) / 32;
-  const size_t smem = sizeof(float2) * 32 * steps +
-                      kFusedGroups * kFusedR *
-                          (K * (sizeof(float) + sizeof(int)) + sizeof(float) +
-                           sizeof(int));
+  const size_t smem = sizeof(float2) * 32 * steps + sizeof(HalfMerge<K>);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         knn_fused_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -715,10 +926,9 @@ cudaError_t launch_fused(const float* x, int n, float r2, int* idx,
   return cudaGetLastError();
 }
 
-// A column split on the current device: S ranges of whole kCtile tiles
-// out of ``col_tiles``, as many as put ~4 blocks on each SM (at least one
-// range, at most one per tile). knn_stream splits all N columns, knn_banded
-// each row block's window.
+// knn_banded's window split on the current device: S ranges of whole
+// kCtile tiles out of ``col_tiles``, as many as put ~4 blocks of kThreads
+// rows on each SM (at least one range, at most one per tile).
 cudaError_t split_plan(int n, int col_tiles, int* cols_per_split,
                        int* splits) {
   int dev = 0;
@@ -736,8 +946,56 @@ cudaError_t split_plan(int n, int col_tiles, int* cols_per_split,
   return cudaSuccess;
 }
 
+// Resident knn_stream blocks on the current device, all SMs together: SMs x
+// the k = kPlanK instance's blocks per SM. Asked once per device.
+cudaError_t stream_slots(long long* slots) {
+  constexpr int kMaxDevices = 64;
+  static long long cached[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && cached[dev] > 0) {
+    *slots = cached[dev];
+    return cudaSuccess;
+  }
+  int sms = 0;
+  int per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, knn_stream_partial_kernel<kPlanK>, kFusedWarps * 32, 0);
+  if (e != cudaSuccess) return e;
+  *slots = static_cast<long long>(sms) * std::max(1, per_sm);
+  if (dev < kMaxDevices) cached[dev] = *slots;
+  return cudaSuccess;
+}
+
+// knn_stream's column split: the fewest ranges of whole kStreamUnit columns
+// whose grid fills its last wave of resident blocks to kWaveFill (else the
+// best-filled split), at least one range, at most one per unit.
 cudaError_t stream_plan(int n, int* cols_per_split, int* splits) {
-  return split_plan(n, (n + kCtile - 1) / kCtile, cols_per_split, splits);
+  if (n < 1) return cudaErrorInvalidValue;
+  long long slots = 0;
+  const cudaError_t e = stream_slots(&slots);
+  if (e != cudaSuccess) return e;
+  const long long row_blocks = (n + kFusedBlockRows - 1) / kFusedBlockRows;
+  const int units = (n + kStreamUnit - 1) / kStreamUnit;
+  int best = units;  // units per range
+  double best_fill = -1.0;
+  for (int want = 1; want <= units; ++want) {
+    const int per = (units + want - 1) / want;
+    if ((units + per - 1) / per != want) continue;  // not a split of its own
+    const double waves = static_cast<double>(row_blocks * want) / slots;
+    const double fill = waves / std::ceil(waves);
+    if (fill > best_fill) {
+      best_fill = fill;
+      best = per;
+    }
+    if (fill >= kWaveFill) break;
+  }
+  *cols_per_split = best * kStreamUnit;
+  *splits = (units + best - 1) / best;
+  return cudaSuccess;
 }
 
 template <int K>
@@ -755,7 +1013,7 @@ cudaError_t launch_merge(int n, int splits, const float* part_d2,
 }
 
 // ``splits`` is the range count the caller sized the partials for; it must
-// be the plan's.
+// be the plan's. With one range the partials are not used (may be null).
 template <int K>
 cudaError_t launch_stream(const float* x, int n, float r2, int splits,
                           float* part_d2, int* part_idx, float* part_near,
@@ -766,11 +1024,13 @@ cudaError_t launch_stream(const float* x, int n, float r2, int splits,
   const cudaError_t e = stream_plan(n, &cols_per_split, &planned);
   if (e != cudaSuccess) return e;
   if (planned != splits) return cudaErrorInvalidValue;
-  const int row_blocks = (n + kThreads - 1) / kThreads;
-  knn_stream_partial_kernel<K><<<dim3(row_blocks, splits), kThreads, 0,
-                                 stream>>>(x, n, r2, cols_per_split, splits,
-                                           part_d2, part_idx, part_near,
-                                           part_cnt);
+  const int row_blocks = (n + kFusedBlockRows - 1) / kFusedBlockRows;
+  const int aligned16 = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  knn_stream_partial_kernel<K><<<dim3(row_blocks, splits), kFusedWarps * 32,
+                                 0, stream>>>(
+      x, n, r2, cols_per_split, splits, aligned16, part_d2, part_idx,
+      part_near, part_cnt, idx, dist, nearest, count);
+  if (splits == 1) return cudaGetLastError();
   return launch_merge<K>(n, splits, part_d2, part_idx, part_near, part_cnt,
                          idx, dist, nearest, count, stream);
 }

@@ -7,7 +7,13 @@ loaded through ctypes):
 
 - ``knn_fused`` replaces ``_knn_kernel`` (N <= MAX_N_FUSED);
 - ``knn_stream`` replaces ``_knn_kernel_blocked``/``_stream_step``
-  (N <= MAX_N_BLOCKED, or forced by ``kernel="streaming"``);
+  (N <= MAX_N_BLOCKED, or forced by ``kernel="streaming"``): the columns
+  split into ranges (:func:`stream_plan`), each range scanned into a
+  per-row partial, the partials folded by a merge launch — or, with one
+  range, the outputs written by the scan itself. Plain models of the two
+  steps: :func:`stream_partials_plain` (with :func:`_warp_lists_model`,
+  the range's lists as the kernel's warps form them) and
+  :func:`stream_merge_plain`;
 - ``knn_banded`` replaces ``_knn_kernel_banded`` (``gating="banded"``):
   the same contract over y-sorted rows, each 256-row block scanning only
   its window of sorted columns (:func:`knn_neighbors_banded`). After the
@@ -235,18 +241,20 @@ def stream_plan(n: int, device) -> tuple[int, int]:
 
 
 def knn_stream(x, radius, k: int):
-    """Launch ``knn_stream`` (partials + merge) on (N, 2) float32 CUDA
-    positions. Same contract as :func:`knn_fused`."""
+    """Launch ``knn_stream`` (range partials + merge, or one range written
+    straight to the outputs) on (N, 2) float32 CUDA positions. Same
+    contract as :func:`knn_fused`."""
     _check_launch("knn_stream", x, k, MAX_N_BLOCKED)
     lib = _library()
     n = x.shape[0]
     _, splits = stream_plan(n, x.device)
     outs = _outputs(n, k, x.device)
-    parts = _partials(n, splits, k, x.device)
+    parts = _partials(n, splits, k, x.device) if splits > 1 else ()
+    part_ptrs = [t.data_ptr() for t in parts] or [None] * 4
     with torch.cuda.device(x.device):
         code = lib.knn_stream_launch(
-            x.data_ptr(), n, _radius_sq(radius), k, splits,
-            *(t.data_ptr() for t in parts + outs), _stream_ptr(x.device))
+            x.data_ptr(), n, _radius_sq(radius), k, splits, *part_ptrs,
+            *(t.data_ptr() for t in outs), _stream_ptr(x.device))
     _raise_on("knn_stream", code)
     LAUNCHES["knn_stream"] += 1
     return outs
@@ -481,6 +489,147 @@ def knn_neighbors_blocked_plain(x, radius, k: int):
         run_i, run_d2 = _select_k(torch.cat([run_d2, bk_d2], dim=1), k,
                                   ids=torch.cat([run_i, bk_i], dim=1))
     return run_i, _sqrt_rn(run_d2), _sqrt_rn(near), count
+
+
+def _ranges(n: int, cols_per_split: int, splits: int):
+    """The column ranges [c0, c1) of a split: S contiguous ranges of
+    ``cols_per_split`` columns, the last cut at N."""
+    if cols_per_split < 1 or splits != -(-n // cols_per_split):
+        raise ValueError(f"{splits} ranges of {cols_per_split} columns do "
+                         f"not split {n} columns")
+    return [(c0, min(n, c0 + cols_per_split))
+            for c0 in range(0, n, cols_per_split)]
+
+
+def stream_partials_plain(x, radius, k: int, cols_per_split: int,
+                          splits: int):
+    """Plain model of ``knn_stream``'s range partials: per row and column
+    range, the k lexicographically smallest (d^2, column) in-radius keys
+    (+inf / 0 on empty slots), the nearest d^2 with self excluded and the
+    in-radius count. Returns (d2 (N, S, k) float32, idx (N, S, k) int32,
+    near (N, S) float32, count (N, S) int32)."""
+    x = x.to(torch.float32)
+    n = x.shape[0]
+    r2 = torch.tensor(_radius_sq(radius), dtype=torch.float32,
+                      device=x.device)
+    rows = torch.arange(n, device=x.device)
+    parts = ([], [], [], [])
+    for c0, c1 in _ranges(n, cols_per_split, splits):
+        cols = torch.arange(c0, c1, device=x.device)
+        d2 = _pair_d2(x, x[c0:c1])
+        near = torch.amin(torch.where(cols[None, :] == rows[:, None],
+                                      torch.inf, d2), dim=1)
+        eligible = (d2 < r2) & (d2 > 0.0)
+        ids, keys = _select_k(torch.where(eligible, d2, torch.inf), k,
+                              ids=cols.to(torch.int32)[None, :].expand(n, -1))
+        for out, part in zip(parts, (keys, ids, near, torch.sum(
+                eligible, dim=1, dtype=torch.int32))):
+            out.append(part)
+    return tuple(torch.stack(p, dim=1) for p in parts)
+
+
+def _insert_sorted(bd, bi, d, j):
+    """``topk_insert`` over a batch of sorted lists (..., k): d goes in
+    front of the first strictly larger key (after every equal one), the
+    tail shifts down and the last entry drops; no change where no key is
+    larger."""
+    k = bd.shape[-1]
+    pos = torch.sum(bd <= d[..., None], dim=-1, keepdim=True)
+    slots = torch.arange(k, device=bd.device)
+    prev_d = torch.cat([bd[..., :1], bd[..., :-1]], dim=-1)
+    prev_i = torch.cat([bi[..., :1], bi[..., :-1]], dim=-1)
+    bd = torch.where(slots < pos, bd, torch.where(slots == pos, d[..., None],
+                                                  prev_d))
+    bi = torch.where(slots < pos, bi, torch.where(slots == pos, j[..., None],
+                                                  prev_i))
+    return bd, bi
+
+
+def _lex_minima(ld, li, k: int):
+    """``warp_topk`` over a batch: lists (..., L, m), each sorted, meet by k
+    rounds of the lexicographic (d^2, column) minimum of their heads, the
+    winner popping its head. Returns (..., k) keys and ids, (+inf, 0) once
+    every list is empty."""
+    pad = torch.full(ld.shape[:-1] + (1,), torch.inf, dtype=ld.dtype,
+                     device=ld.device)
+    ld = torch.cat([ld, pad], dim=-1)
+    li = torch.cat([li, torch.zeros_like(pad, dtype=li.dtype)], dim=-1)
+    head = torch.zeros(ld.shape[:-1] + (1,), dtype=torch.int64,
+                       device=ld.device)
+    big = torch.iinfo(li.dtype).max
+    out_d, out_i = [], []
+    for _ in range(k):
+        hd = torch.gather(ld, -1, head)[..., 0]
+        hi = torch.gather(li, -1, head)[..., 0]
+        m = torch.amin(hd, dim=-1)
+        c = torch.amin(torch.where(hd == m[..., None], hi, big), dim=-1)
+        live = torch.isfinite(m)
+        out_d.append(m)
+        out_i.append(torch.where(live, c, 0))
+        won = (hd == m[..., None]) & (hi == c[..., None]) & live[..., None]
+        head = head + won[..., None].to(torch.int64)
+    return torch.stack(out_d, dim=-1), torch.stack(out_i, dim=-1)
+
+
+def _warp_lists_model(x, radius, k: int, c0: int, c1: int):
+    """One range's partial as ``knn_stream``'s warps form it, for every
+    row: the range's 32-column steps split into two halves (the first
+    ceil(steps / 2) steps, then the rest); lane l of a half takes the
+    columns c0 + 32 t + l of its steps in increasing order (columns at or
+    past c1 read +inf coordinates) into a sorted k-list by insertion; each
+    half's 32 lane lists meet by k lexicographic minima, then the two
+    halves' k-lists by k more. Returns (d2 (N, k), idx (N, k) int32,
+    near (N,), count (N,) int32), equal to :func:`stream_partials_plain`'s
+    slice for the range."""
+    x = x.to(torch.float32)
+    n, dev = x.shape[0], x.device
+    r2 = torch.tensor(_radius_sq(radius), dtype=torch.float32, device=dev)
+    rows = torch.arange(n, device=dev)
+    lanes = torch.arange(32, device=dev)
+    steps = -(-(c1 - c0) // 32)
+    half_steps = -(-steps // 2)
+    near = torch.full((n,), torch.inf, dtype=torch.float32, device=dev)
+    count = torch.zeros((n,), dtype=torch.int32, device=dev)
+    halves = []
+    for t0, t1 in ((0, half_steps), (half_steps, steps)):
+        bd = torch.full((n, 32, k), torch.inf, dtype=torch.float32,
+                        device=dev)
+        bi = torch.zeros((n, 32, k), dtype=torch.int32, device=dev)
+        for t in range(t0, t1):
+            cols = c0 + 32 * t + lanes
+            live = cols < c1
+            xc = torch.where(live[:, None], x[torch.clamp(cols, max=n - 1)],
+                             torch.inf)
+            d2 = _pair_d2(x, xc)                                  # (N, 32)
+            near = torch.minimum(near, torch.amin(torch.where(
+                cols[None, :] == rows[:, None], torch.inf, d2), dim=1))
+            eligible = (d2 < r2) & (d2 > 0.0)
+            count = count + torch.sum(eligible, dim=1, dtype=torch.int32)
+            bd, bi = _insert_sorted(
+                bd, bi, torch.where(eligible, d2, torch.inf),
+                cols.to(torch.int32)[None, :].expand(n, -1))
+        halves.append(_lex_minima(bd, bi, k))
+    od, oi = _lex_minima(torch.cat([h[0] for h in halves], 1)[..., None],
+                         torch.cat([h[1] for h in halves], 1)[..., None], k)
+    return od, oi, near, count
+
+
+def stream_merge_plain(part_d2, part_idx, part_near, part_cnt):
+    """Plain model of ``knn_stream``'s merge (``fold_partials``): per row,
+    the ranges' sorted partials folded in range order into a running
+    k-list by insertion after equal keys (ties keep the lower column), the
+    nearest d^2 by min and the counts by sum. Returns (idx, dist, nearest,
+    count) as :func:`knn_neighbors_blocked_plain` does."""
+    n, splits, k = part_d2.shape
+    bd = torch.full((n, k), torch.inf, dtype=torch.float32,
+                    device=part_d2.device)
+    bi = torch.zeros((n, k), dtype=torch.int32, device=part_d2.device)
+    for s in range(splits):
+        for t in range(k):
+            bd, bi = _insert_sorted(bd, bi, part_d2[:, s, t],
+                                    part_idx[:, s, t])
+    return (bi, _sqrt_rn(bd), _sqrt_rn(torch.amin(part_near, dim=1)),
+            torch.sum(part_cnt, dim=1, dtype=torch.int32))
 
 
 def knn_banded_sorted_plain(xs, starts, radius, k: int, w: int):

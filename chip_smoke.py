@@ -7,12 +7,16 @@ toolkit:
 
 Phases (each raises, and the script exits non-zero, on any failure):
 
-1. build the k-NN kernels from ``cbf_tpu_torch/csrc/knn.cu`` with nvcc
-   and print the card's name and power limit;
+1. build the k-NN kernels from ``cbf_tpu_torch/csrc/knn.cu`` with nvcc,
+   print the registers and spills of the k=8 kernels and of the k=16
+   ``knn_stream`` scan, and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card —
    ``knn_fused`` at N in {1, 37, 256, 4096, 5000, 8192} and on rows 8
-   bytes off a 16-byte boundary, ``knn_stream`` at N in
-   {4096 (forced), 16384, 20000}, ``knn_banded`` at N in {4096, 65536}
+   bytes off a 16-byte boundary, ``knn_stream`` at N in {1, 37, 1000,
+   2000, 4096 (forced), 16384, 20000, 65536} (1000 and 2000 split into
+   several column ranges, so the merge launch is held too; the others
+   scan one range), on rows 8 bytes off a 16-byte boundary and at k=1 and
+   k=16 (N=20000), ``knn_banded`` at N in {4096, 65536}
    with the main path's windows, k=8, radius 0.4, seeded spawn positions,
    and the same spawns packed 4x closer (every row then holds more than k
    in-radius candidates, the top-k's overflow branch) — every output must
@@ -32,7 +36,9 @@ Phases (each raises, and the script exits non-zero, on any failure):
    (plain version there): positions and min distances within a stated
    tolerance, the per-step counts equal;
 6. time each kernel at its main-path shape (median of single launches)
-   beside its bound and its plain version — ``knn_banded`` as the whole
+   beside its bound and its plain version — ``knn_stream`` with its
+   column plan and the scan's and the merge's device times apart,
+   ``knn_banded`` as the whole
    wrapper, as its sorted-input launch alone and as its prologue alone,
    with the device ops one call issues (profiler); a short profile of the
    main-path step and of the banded step;
@@ -132,14 +138,14 @@ def cuda_ms(fn, reps: int, warmup: int) -> tuple[float, float]:
     return single[reps // 2], start.elapsed_time(end) / reps
 
 
-def compare(kernel_fn, plain_fn, x, **kw) -> tuple[float, list]:
+def compare(kernel_fn, plain_fn, x, k=K, **kw) -> tuple[float, list]:
     """Kernel vs plain on the same card input: every output (four, or five
     with the banded overflow flag) must be equal. Returns the max abs
     difference of the float outputs (finite entries; 0.0 when equal) and
     the outputs."""
     import torch
 
-    got, want = kernel_fn(x, RADIUS, K, **kw), plain_fn(x, RADIUS, K, **kw)
+    got, want = kernel_fn(x, RADIUS, k, **kw), plain_fn(x, RADIUS, k, **kw)
     torch.cuda.synchronize()
     names = (("idx", "dist", "nearest", "count") if len(want) == 4
              else ("idx", "dist", "nearest", "overflow", "count"))
@@ -238,7 +244,8 @@ def device_profile(fn, calls: int = 50) -> dict:
     """What one call of ``fn`` does on the device, from torch.profiler's
     CUDA activity over ``calls`` calls: device ops (kernels, copies and
     fills alike) and their distinct names, their summed device time, and
-    the part of it spent in this repo's kernels (names with ``knn_``)."""
+    the part of it spent in this repo's kernels (names with ``knn_``), in
+    all and per kernel (the name up to its template arguments)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -257,10 +264,17 @@ def device_profile(fn, calls: int = 50) -> dict:
         return sum(ev.time_range.end - ev.time_range.start
                    for ev in evs if keep(ev.name)) / 1e3 / calls
 
+    def short(name):   # "void (anonymous namespace)::knn_x<8>(...)": knn_x
+        return name[name.index("knn_"):].split("<")[0].split("(")[0]
+
+    kernels = sorted({short(ev.name) for ev in evs if "knn_" in ev.name})
     return {"device_ops_per_call": len(evs) / calls,
             "device_ms": ms(lambda name: True) if evs else "not measured",
             "kernel_device_ms": (ms(lambda name: "knn_" in name) if evs
                                  else "not measured"),
+            "kernel_device_ms_by_name": {
+                kname: ms(lambda name, kname=kname: "knn_" in name
+                          and short(name) == kname) for kname in kernels},
             "device_op_names": sorted({ev.name[:80] for ev in evs})}
 
 
@@ -289,6 +303,8 @@ def time_only(knn, swarm, card: str) -> int:
         fn = getattr(knn, name)
         out[name] = {"n": n, **time_call(lambda: fn(x, RADIUS, K, **kw))}
         out[name].pop("device_op_names")
+        if name == "knn_stream":
+            out[name]["plan"] = knn.stream_plan(n, x.device)
     print(json.dumps({"time_only": out, "package": knn.__file__,
                       "card": card}))
     return 0
@@ -388,7 +404,9 @@ def main(argv: list[str]) -> int:
     for line in knn.build_log().splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            kernel = name if "ILi8E" in name or "prologue" in name else None
+            shown = ("ILi8E" in name or "prologue" in name
+                     or ("stream_partial" in name and "ILi16E" in name))
+            kernel = name if shown else None
         elif kernel and ("registers" in line or "stack frame" in line):
             print(f"  {kernel}: {line.split(':', 1)[-1].strip()}")
             if "registers" in line:
@@ -408,13 +426,14 @@ def main(argv: list[str]) -> int:
     def window(n):   # the main path's window for N agents
         return swarm.banded_window_blocks(swarm.Config(n=n))
 
-    def hold(name, label, x, w=None):
+    def hold(name, label, x, w=None, k=K):
         n = x.shape[0]
         kw = {} if w is None else {"window_blocks": w}
-        err, outs = compare(getattr(knn, name), plains[name], x, **kw)
+        err, outs = compare(getattr(knn, name), plains[name], x, k=k, **kw)
         errs[name][n] = max(errs[name].get(n, 0.0), err)
-        compared[name].setdefault(n, []).append(label)
-        over = int((outs[-1] > K).sum())
+        compared[name].setdefault(n, []).append(
+            label if k == K else f"{label}, k={k}")
+        over = int((outs[-1] > k).sum())
         plan = ""
         if name == "knn_stream":
             plan = " (column ranges %d x %d)" % knn.stream_plan(n, x.device)
@@ -423,8 +442,8 @@ def main(argv: list[str]) -> int:
             plan = (f" (window {w_eff} blocks, ranges %d x %d; overflow rows "
                     f"{int(outs[3].sum())})" % knn.band_plan(n, w_eff,
                                                               x.device))
-        print(f"  {name} N={n} {label}: equal, max_abs_err {err}, rows with "
-              f"count > k: {over}{plan}")
+        print(f"  {name} N={n} k={k} {label}: equal, max_abs_err {err}, rows "
+              f"with count > k: {over}{plan}")
         return over
 
     def hold_prologue(label, x, w):
@@ -449,10 +468,17 @@ def main(argv: list[str]) -> int:
         hold("knn_fused", "spawn", spawn(n))
     # Rows 8 bytes off a 16-byte boundary: the staging takes 8-byte copies.
     hold("knn_fused", "spawn, 8-byte aligned", spawn(MAIN_N + 1)[1:])
-    for n in (4096, 16384, 20000):
+    for n in (1, 37, 1000, 2000, 4096, 16384, 20000, BANDED_N):
         hold("knn_stream", "spawn", spawn(n))
-        check(hold("knn_stream", "packed", spawn(n) * PACK) == n,
+        over = hold("knn_stream", "packed", spawn(n) * PACK)
+        check(n < 4096 or over == n,
               f"packed N={n}: a row holds <= k candidates")
+    check(any(knn.stream_plan(n, "cuda")[1] > 1 for n in (1000, 2000)),
+          "no phase-2 input splits the columns: the merge launch is not held")
+    hold("knn_stream", "spawn, 8-byte aligned", spawn(20001)[1:])
+    for k in (1, 16):
+        hold("knn_stream", "spawn", spawn(20000), k=k)
+        hold("knn_stream", "packed", spawn(20000) * PACK, k=k)
     compare(knn.knn_stream, knn.knn_neighbors_plain, spawn(4096))
     gen = torch.Generator().manual_seed(0)
     for n in (OBST_N, BANDED_N):
@@ -492,8 +518,9 @@ def main(argv: list[str]) -> int:
           and torch.equal(near_b[close], near_s[close]),
           f"knn_banded and knn_stream differ at N={BANDED_N} on the spawn")
     print("phase 2: knn_fused equal at N=1/37/256/4096/5000/8192 (and on "
-          "8-byte-aligned rows), knn_stream equal at "
-          "N=4096/16384/20000 (and to the fused plain version at 4096), "
+          "8-byte-aligned rows), knn_stream equal at N=1/37/1000/2000/4096/"
+          f"16384/20000/{BANDED_N} (and on 8-byte-aligned rows, at k=1 and "
+          "k=16, and to the fused plain version at 4096), "
           f"knn_banded equal at N={OBST_N}/{BANDED_N}, spawned, packed and "
           "float64, and on the thin band (overflow flagged); band_prologue "
           "equal to band_setup on all of those; knn_banded = knn_stream "
@@ -607,6 +634,17 @@ def main(argv: list[str]) -> int:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
         }
+        if name == "knn_stream":
+            # The column plan, and the scan's and the merge's device times
+            # apart (no merge is launched when the plan is one range).
+            by_name = timed["kernel_device_ms_by_name"]
+            row["cols_per_split"], row["splits"] = knn.stream_plan(n,
+                                                                   x.device)
+            row["partial_device_ms"] = by_name.get(
+                "knn_stream_partial_kernel", "not measured")
+            row["merge_device_ms"] = by_name.get(
+                "knn_stream_merge_kernel",
+                "not launched" if row["splits"] == 1 else "not measured")
         if name == "knn_banded":
             # The partials and merge alone, on the sorted inputs the
             # prologue makes (the earlier single-launch design's scope),
@@ -634,9 +672,12 @@ def main(argv: list[str]) -> int:
     x4096 = state0.x.to(torch.float32).contiguous()
     stream_small = cuda_ms(lambda: knn.knn_stream(x4096, RADIUS, K),
                            reps=200, warmup=10)
+    stream_small_dev = device_profile(
+        lambda: knn.knn_stream(x4096, RADIUS, K))["kernel_device_ms"]
     print(f"phase 6: knn_stream at N={MAIN_N} (the gating='streaming' "
-          f"shape): median {stream_small[0]:.4f} ms, back to back "
-          f"{stream_small[1]:.4f} ms")
+          f"shape, column ranges %d x %d): median {stream_small[0]:.4f} ms, "
+          f"back to back {stream_small[1]:.4f} ms, device "
+          f"{stream_small_dev} ms" % knn.stream_plan(MAIN_N, x4096.device))
     prof = profile_step(swarm.make(swarm.Config(n=MAIN_N))[1], state0, 20)
     print("phase 6: main-path step profile " + json.dumps(prof))
     prof_b = profile_step(swarm.make(cfg_b)[1], state0_b, 20)
