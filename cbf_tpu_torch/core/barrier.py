@@ -12,11 +12,35 @@ and no TF32 path on the card — is involved.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 # RHS for masked (inactive) constraint rows: never binds for a 0-row and
 # stays exact in float32.
 MASKED_ROW_RHS = 1e6
+
+
+class _Rows(NamedTuple):
+    """The fixed row data: the 8 box-row directions (reference layout),
+    the 4 sign classes and the 4 deduped box directions."""
+    box_rows: torch.Tensor
+    signs: torch.Tensor
+    box_dirs: torch.Tensor
+
+
+@functools.lru_cache(maxsize=None)
+def _constants(dtype: torch.dtype, device: torch.device) -> _Rows:
+    """Built once per (dtype, device) and kept: a host-to-device copy in
+    the step would not survive graph capture."""
+    def rows(values):
+        return torch.tensor(values, dtype=dtype, device=device)
+    return _Rows(
+        rows([[1.0, 0.0], [0.0, 1.0], [-1.0, 0.0], [0.0, -1.0],
+              [1.0, 0.0], [-1.0, 0.0], [0.0, 1.0], [0.0, -1.0]]),
+        rows([[1.0, 1.0], [1.0, -1.0], [-1.0, 1.0], [-1.0, -1.0]]),
+        rows([[1.0, 0.0], [0.0, 1.0], [-1.0, 0.0], [0.0, -1.0]]))
 
 
 def _signs(d):
@@ -74,10 +98,8 @@ def box_rows(robot_state, u0, max_speed, *, reference_layout: bool = True,
     else:
         vx = vy = torch.zeros_like(u0[..., 0])
     u0x, u0y = u0[..., 0], u0[..., 1]
-    G = torch.tensor([[1.0, 0.0], [0.0, 1.0], [-1.0, 0.0], [0.0, -1.0],
-                      [1.0, 0.0], [-1.0, 0.0], [0.0, 1.0], [0.0, -1.0]],
-                     dtype=dtype, device=u0.device)
-    G = G.expand(tuple(u0.shape[:-1]) + (8, 2))
+    G = _constants(dtype, u0.device).box_rows.expand(
+        tuple(u0.shape[:-1]) + (8, 2))
     if reference_layout:
         S = [ms - u0x, ms + u0x, ms - u0y, ms + u0y]
     else:
@@ -117,8 +139,8 @@ def assemble_qp_dedup(robot_states, obs_states, obs_mask, f, g, u0, *, dmin,
 
     u_vec = g[0] + k * g[2]                                    # (2,)
     w_vec = g[1] + k * g[3]
-    signs = torch.tensor([[1.0, 1.0], [1.0, -1.0], [-1.0, 1.0],
-                          [-1.0, -1.0]], dtype=dtype, device=dev)
+    consts = _constants(dtype, dev)
+    signs = consts.signs
     A_dir = -(signs[:, 0:1] * u_vec[None] + signs[:, 1:2] * w_vec[None])
     A_cbf = A_dir[None].expand(N, 4, 2)
 
@@ -145,8 +167,7 @@ def assemble_qp_dedup(robot_states, obs_states, obs_mask, f, g, u0, *, dmin,
     else:
         vx = vy = torch.zeros((N,), dtype=dtype, device=dev)
     u0x, u0y = u0[:, 0], u0[:, 1]
-    A_box = torch.tensor([[1, 0], [0, 1], [-1, 0], [0, -1]], dtype=dtype,
-                         device=dev)[None].expand(N, 4, 2)
+    A_box = consts.box_dirs[None].expand(N, 4, 2)
     if reference_layout:
         b_box = torch.stack(
             [torch.minimum(ms - u0x, ms - vx - u0x),

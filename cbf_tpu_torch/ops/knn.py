@@ -25,7 +25,10 @@ All three compute the contract of :func:`knn_neighbors` (the banded one
 within its windows); the source notes say how. A wrapper given a CUDA tensor launches its kernel or raises (also
 when the build fails); only a tensor on the CPU goes to the plain
 version. ``LAUNCHES[name]`` counts kernel launches, so a run can show it
-went through the kernels.
+went through the kernels: a wrapper adds one where it launches; under CUDA
+graph capture, where nothing launches, the compiled rollout takes back
+what the wrappers added and adds it again at every replay
+(:mod:`cbf_tpu_torch.rollout.engine`).
 
 Two contracts coexist and both are kept: the kernels compare
 ``d^2 < r^2`` in float32 with r^2 formed from float32(radius) (the TPU
@@ -449,8 +452,8 @@ def knn_neighbors_plain(x, radius, k: int):
     first-minimizer passes, as ``_knn_kernel`` does per tile."""
     x = x.to(torch.float32)
     n = x.shape[0]
-    r2 = torch.tensor(_radius_sq(radius), dtype=torch.float32,
-                      device=x.device)
+    r2 = torch.full((), _radius_sq(radius), dtype=torch.float32,
+                    device=x.device)
     d2 = _pair_d2(x, x)
     is_self = torch.eye(n, dtype=torch.bool, device=x.device)
     nearest = _sqrt_rn(torch.amin(torch.where(is_self, torch.inf, d2),
@@ -469,7 +472,7 @@ def knn_neighbors_blocked_plain(x, radius, k: int):
     x = x.to(torch.float32)
     n = x.shape[0]
     dev = x.device
-    r2 = torch.tensor(_radius_sq(radius), dtype=torch.float32, device=dev)
+    r2 = torch.full((), _radius_sq(radius), dtype=torch.float32, device=dev)
     rows = torch.arange(n, device=dev)
     run_i = torch.zeros((n, k), dtype=torch.int32, device=dev)
     run_d2 = torch.full((n, k), torch.inf, dtype=torch.float32, device=dev)
@@ -510,8 +513,8 @@ def stream_partials_plain(x, radius, k: int, cols_per_split: int,
     near (N, S) float32, count (N, S) int32)."""
     x = x.to(torch.float32)
     n = x.shape[0]
-    r2 = torch.tensor(_radius_sq(radius), dtype=torch.float32,
-                      device=x.device)
+    r2 = torch.full((), _radius_sq(radius), dtype=torch.float32,
+                    device=x.device)
     rows = torch.arange(n, device=x.device)
     parts = ([], [], [], [])
     for c0, c1 in _ranges(n, cols_per_split, splits):
@@ -583,7 +586,7 @@ def _warp_lists_model(x, radius, k: int, c0: int, c1: int):
     slice for the range."""
     x = x.to(torch.float32)
     n, dev = x.shape[0], x.device
-    r2 = torch.tensor(_radius_sq(radius), dtype=torch.float32, device=dev)
+    r2 = torch.full((), _radius_sq(radius), dtype=torch.float32, device=dev)
     rows = torch.arange(n, device=dev)
     lanes = torch.arange(32, device=dev)
     steps = -(-(c1 - c0) // 32)
@@ -645,7 +648,7 @@ def knn_banded_sorted_plain(xs, starts, radius, k: int, w: int):
     xp = torch.empty((n_pad, 2), dtype=torch.float32, device=dev)
     xp[:, 0], xp[:, 1] = _FAR, 2.0 * _FAR
     xp[:n] = xs
-    r2 = torch.tensor(_radius_sq(radius), dtype=torch.float32, device=dev)
+    r2 = torch.full((), _radius_sq(radius), dtype=torch.float32, device=dev)
     rows = torch.arange(n, device=dev)
     row_start = starts.to(torch.int64)[rows // RTILE]
     lanes = torch.arange(CTILE, device=dev)

@@ -240,14 +240,26 @@ def _orbit_ring(cfg: Config, t):
     return pos, vel
 
 
+def _host_obstacle_rows(cfg: Config, t, dtype):
+    pos, vel = _orbit_ring(cfg, torch.tensor(float(t), dtype=dtype))
+    return torch.cat([pos, vel], dim=1)
+
+
 def obstacle_states_at(cfg: Config, t, dtype, *, device=None):
     """(M, 4) obstacle rows [x y vx vy] at step ``t``, computed on the host
     in ``dtype`` (a dozen closed-form rows: no device work, and the card
     and the CPU see the same obstacles) and copied to ``device`` without
     waiting for the device's queue."""
-    pos, vel = _orbit_ring(cfg, torch.tensor(float(t), dtype=dtype))
-    rows = torch.cat([pos, vel], dim=1)
-    return rows.to(resolve_device(device), non_blocking=True)
+    return _host_obstacle_rows(cfg, t, dtype).to(resolve_device(device),
+                                                 non_blocking=True)
+
+
+def obstacle_table(cfg: Config, t0: int, n: int, dtype):
+    """(n, M, 4) host rows of steps t0..t0+n-1, each row computed as
+    :func:`obstacle_states_at` computes it, so a step that gathers its row
+    from this table sees the same bits as one that asks per step."""
+    return torch.stack([_host_obstacle_rows(cfg, t, dtype)
+                        for t in range(t0, t0 + n)])
 
 
 def obstacle_positions_at(cfg: Config, t: float) -> np.ndarray:
@@ -575,10 +587,28 @@ def integrate(cfg: Config, x, v, u):
     return x + cfg.dt * u, u
 
 
+# Guarded relax rounds per step in the compiled rollout, beyond which a
+# chunk is redone with the eager relax loop. Chosen from the per-step relax
+# rounds measured on an H100 at N=4096 (PERF.md §5): without obstacles, or
+# with the static scatter field, no step needed more than one round; the
+# orbiting ring needed up to 12. Each round costs a projection on every
+# step, so the ring alone gets the deep guard.
+RELAX_ROUNDS = 1
+RELAX_ROUNDS_ORBIT = 12
+
+
 def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
                 unroll_relax: int = 0, device=None):
     """The scenario step factory — :func:`make` without the initial
-    state. ``step(state, t) -> (state, StepOutputs)`` on ``device``.
+    state. ``step(state, t, inputs=None) -> (state, StepOutputs)`` on
+    ``device``; ``t`` is an int or a 0-dim integer tensor.
+
+    For the compiled rollout the step carries ``relax_rounds`` (the
+    guarded relax rounds to capture) and, with obstacles, the hook
+    ``host_inputs(t0, n)``: the (n, M, 4) obstacle rows of steps
+    t0..t0+n-1 on the host. The rollout copies them to the device before
+    it replays and hands each step its row as ``inputs``; without
+    ``inputs`` the step computes the row itself from ``t``, on the host.
     ``active`` (the serving layer's padded-bucket mask) is not ported."""
     dev = resolve_device(device)
     validate_config(cfg)
@@ -616,7 +646,7 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
             torch.eye(cfg.n, dtype=torch.bool, device=dev),
             torch.inf, 0.0).to(dt_)
 
-    def step(state: State, t):
+    def step(state: State, t, inputs=None):
         x = state.x                                            # (N, 2)
         with annotate("consensus"):
             if goals_c is not None:
@@ -630,7 +660,8 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
                 u0 = (cfg.consensus_gain * pull * to_c
                       / torch.clamp(d_c, min=1e-9))
             if M:
-                obstacles4 = obstacle_states_at(cfg, t, dt_, device=dev)
+                obstacles4 = (obstacle_states_at(cfg, t, dt_, device=dev)
+                              if inputs is None else inputs)
                 dodge, d_o = lane_dodge(x, obstacles4, cfg.safety_distance)
                 u0 = u0 + 2.0 * dodge
         # Discrete rows zero the agents' velocity slots (u is the unknown
@@ -695,6 +726,11 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
         )
         return state._replace(x=x_new, v=v_new), out
 
+    step.relax_rounds = (RELAX_ROUNDS_ORBIT
+                         if M and cfg.obstacle_layout == "orbit"
+                         else RELAX_ROUNDS)
+    if M:
+        step.host_inputs = lambda t0, n: obstacle_table(cfg, t0, n, dt_)
     return step
 
 

@@ -11,11 +11,18 @@ triggers the reference's recovery (cbf.py:78-87): +1 on every relaxable
 row's RHS per round, bounded by ``max_relax``, the count reported.
 
 The relax loop's condition is a scalar read on the host: one device sync
-per round, and one per call in the all-feasible common case.
+per round, and one per call in the all-feasible common case. Inside
+:func:`guarded_relax` (the compiled rollout's step, which a CUDA graph
+captures) the batch solver runs a fixed number of rounds on the device
+instead and raises a device flag where the loop would have gone on
+(:func:`relax_guarded`); the rollout then redoes that stretch eagerly.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -34,51 +41,80 @@ def _feas_tol(dtype) -> float:
     return 1e-6 if dtype == torch.float64 else 1e-4
 
 
-def _pairs(m: int, device):
+@functools.lru_cache(maxsize=None)
+def _pairs(m: int, device: torch.device):
+    """(I, J) pair indices of M rows on ``device``, built once per (M,
+    device): a host-to-device copy in the step would not survive graph
+    capture."""
     I, J = np.triu_indices(m, k=1)
     return (torch.as_tensor(I, dtype=torch.int64, device=device),
             torch.as_tensor(J, dtype=torch.int64, device=device))
 
 
-def _project_batch_lanes(A, b, tol, I, J):
-    """Enumeration projection, agents-last layout.
+class _Geometry(NamedTuple):
+    """What the enumeration needs of A alone (agents-last layout): the
+    same for every relax round, so a round recomputes only what depends
+    on b."""
+    I: torch.Tensor
+    J: torch.Tensor
+    row_ok: torch.Tensor         # (M, N) row is not padding
+    safe_n2: torch.Tensor        # (M, N) |a|^2, 1 on padding rows
+    ai: torch.Tensor             # (P, 2, N) pair rows
+    aj: torch.Tensor
+    safe_det: torch.Tensor       # (P, N)
+    gii: torch.Tensor            # (P, N) Gram entries
+    gjj: torch.Tensor
+    gij: torch.Tensor
+    safe_detG: torch.Tensor
+    pair_ok: torch.Tensor        # (P, N) both rows and both dets usable
+    origin: torch.Tensor         # (1, 2, N) the origin candidate
+    origin_ok: torch.Tensor      # (1, N) its dual sign (always True)
 
-    Args: A (M, 2, N), b (M, N); I, J pair indices. Returns
-    (x (2, N), valid_found (N,), viol (N,)): the exact minimizer where a
-    valid candidate exists, else the least-violating candidate."""
+
+def _geometry(A, I, J) -> _Geometry:
+    """:class:`_Geometry` of A (M, 2, N) with pair indices I, J."""
     N = A.shape[2]
     norms2 = torch.sum(A * A, dim=1)                      # (M, N)
     row_ok = norms2 > 1e-12
-    safe_n2 = torch.where(row_ok, norms2, 1.0)
-
-    # Single-row candidates.
-    x_single = A * (b / safe_n2)[:, None, :]              # (M, 2, N)
-    dual_single = row_ok & (b <= tol)
-
-    # Pair candidates.
     ai, aj = A[I], A[J]                                   # (P, 2, N)
-    bi, bj = b[I], b[J]
     det = ai[:, 0] * aj[:, 1] - ai[:, 1] * aj[:, 0]
     det_ok = torch.abs(det) > 1e-10
-    safe_det = torch.where(det_ok, det, 1.0)
-    x_pair = torch.stack(
-        [(aj[:, 1] * bi - ai[:, 1] * bj) / safe_det,
-         (ai[:, 0] * bj - aj[:, 0] * bi) / safe_det], dim=1)   # (P, 2, N)
     gii, gjj = norms2[I], norms2[J]
     gij = torch.sum(ai * aj, dim=1)
     detG = gii * gjj - gij * gij
     detG_ok = torch.abs(detG) > 1e-20
-    safe_detG = torch.where(detG_ok, detG, 1.0)
-    lam_i = (-bi * gjj + bj * gij) / safe_detG
-    lam_j = (-bj * gii + bi * gij) / safe_detG
-    dual_pair = (det_ok & detG_ok & row_ok[I] & row_ok[J]
-                 & (lam_i >= -tol) & (lam_j >= -tol))
+    return _Geometry(
+        I, J, row_ok, torch.where(row_ok, norms2, 1.0), ai, aj,
+        torch.where(det_ok, det, 1.0), gii, gjj, gij,
+        torch.where(detG_ok, detG, 1.0),
+        det_ok & detG_ok & row_ok[I] & row_ok[J],
+        torch.zeros((1, 2, N), dtype=A.dtype, device=A.device),
+        torch.ones((1, N), dtype=torch.bool, device=A.device))
 
-    X = torch.cat([torch.zeros((1, 2, N), dtype=A.dtype, device=A.device),
-                   x_single, x_pair], dim=0)              # (C, 2, N)
-    dual_ok = torch.cat([torch.ones((1, N), dtype=torch.bool,
-                                    device=A.device),
-                         dual_single, dual_pair], dim=0)  # (C, N)
+
+def _project(geo: _Geometry, A, b, tol):
+    """Enumeration projection, agents-last layout, of A (M, 2, N) — whose
+    :class:`_Geometry` is ``geo`` — and b (M, N). Returns (x (2, N),
+    valid_found (N,), viol (N,)): the exact minimizer where a valid
+    candidate exists, else the least-violating candidate."""
+    N = A.shape[2]
+    # Single-row candidates.
+    x_single = A * (b / geo.safe_n2)[:, None, :]          # (M, 2, N)
+    dual_single = geo.row_ok & (b <= tol)
+
+    # Pair candidates.
+    ai, aj = geo.ai, geo.aj
+    bi, bj = b[geo.I], b[geo.J]
+    x_pair = torch.stack(
+        [(aj[:, 1] * bi - ai[:, 1] * bj) / geo.safe_det,
+         (ai[:, 0] * bj - aj[:, 0] * bi) / geo.safe_det], dim=1)
+    lam_i = (-bi * geo.gjj + bj * geo.gij) / geo.safe_detG
+    lam_j = (-bj * geo.gii + bi * geo.gij) / geo.safe_detG
+    dual_pair = geo.pair_ok & (lam_i >= -tol) & (lam_j >= -tol)
+
+    X = torch.cat([geo.origin, x_single, x_pair], dim=0)  # (C, 2, N)
+    dual_ok = torch.cat([geo.origin_ok, dual_single, dual_pair],
+                        dim=0)                            # (C, N)
     AX = (X[:, None, 0, :] * A[None, :, 0, :]
           + X[:, None, 1, :] * A[None, :, 1, :])          # (C, M, N)
     viol = torch.amax(AX - b[None], dim=1)                # (C, N)
@@ -101,12 +137,12 @@ def _relax_loop(At, bt, rt, ct, tol, I, J, max_relax: int):
     """The scalar-guarded relax loop over lanes: while any lane is
     infeasible, every unsolved lane retries at the batch-global
     t_next = max(t) + 1 (the JAX package's exact policy)."""
-    x, found, viol = _project_batch_lanes(At, bt, tol, I, J)
+    geo = _geometry(At, I, J)
+    x, found, viol = _project(geo, At, bt, tol)
     t = torch.zeros(found.shape, dtype=At.dtype, device=At.device)
     while bool(torch.any(~found) & (torch.amax(t) < max_relax)):
         t_next = torch.amax(t) + 1.0
-        x2, f2, v2 = _project_batch_lanes(At, bt + _slack(t_next, rt, ct),
-                                          tol, I, J)
+        x2, f2, v2 = _project(geo, At, bt + _slack(t_next, rt, ct), tol)
         upd = ~found
         x = torch.where(upd[None], x2, x)
         viol = torch.where(upd, v2, viol)
@@ -115,23 +151,90 @@ def _relax_loop(At, bt, rt, ct, tol, I, J, max_relax: int):
     return x, found, t, viol
 
 
-def _relax_unrolled(At, bt, rt, ct, tol, I, J, rounds: int):
-    """Fixed ``rounds`` relax attempts with where-selects (per-lane t):
-    while a lane is unsolved it always advances to the latest attempt,
-    matching the while form, which ends on the last attempt with t at the
-    cap when nothing is ever feasible."""
-    zero = torch.zeros((), dtype=At.dtype, device=At.device)
-    x, found, viol = _project_batch_lanes(At, bt + _slack(zero, rt, ct),
-                                          tol, I, J)
+def _fixed_rounds(At, bt, rt, ct, tol, I, J, b0, rounds: int):
+    """The first projection at RHS ``b0``, then ``rounds`` +1 relax
+    attempts with where-selects (per-lane t): while a lane is unsolved it
+    always advances to the latest attempt, matching the while form, which
+    ends on the last attempt with t at the cap when nothing is ever
+    feasible. Returns (x, found, t, viol)."""
+    geo = _geometry(At, I, J)
+    x, found, viol = _project(geo, At, b0, tol)
     t = torch.zeros(found.shape, dtype=At.dtype, device=At.device)
     for r in range(1, rounds + 1):
-        x2, f2, v2 = _project_batch_lanes(
-            At, bt + _slack(zero + float(r), rt, ct), tol, I, J)
+        x2, f2, v2 = _project(geo, At, bt + _slack(float(r), rt, ct), tol)
         upd = ~found
         x = torch.where(upd[None], x2, x)
         viol = torch.where(upd, v2, viol)
         t = torch.where(upd, float(r), t)
         found = found | f2
+    return x, found, t, viol
+
+
+def _relax_unrolled(At, bt, rt, ct, tol, I, J, rounds: int):
+    """``unroll_relax``'s fixed rounds; the first projection adds a zero
+    slack, as the JAX package's unrolled form does."""
+    zero = torch.zeros((), dtype=At.dtype, device=At.device)
+    return _fixed_rounds(At, bt, rt, ct, tol, I, J,
+                         bt + _slack(zero, rt, ct), rounds)
+
+
+def relax_guarded(At, bt, rt, ct, tol, I, J, max_relax: int, rounds: int):
+    """The relax loop as ``R = min(rounds, max_relax)`` fixed rounds with
+    where-selects and no host read.
+
+    In the while form ``t_next = max(t) + 1`` is always the round number:
+    solved lanes keep their t and unsolved lanes carry the newest. So the
+    loop gives each lane the first round r in 1..max_relax at which it is
+    feasible, or max_relax with the last attempt, and R rounds reproduce
+    it bit for bit wherever every lane is solved by round R (the first
+    projection is taken as :func:`_relax_loop` takes it, with no slack
+    added, so signed zeros agree too). Returns (x, found, t, viol,
+    pending): ``pending`` is the 0-dim device flag ``any(~found) & (R <
+    max_relax)`` — set exactly where the loop would have gone on."""
+    R = min(rounds, max_relax)
+    x, found, t, viol = _fixed_rounds(At, bt, rt, ct, tol, I, J, bt, R)
+    pending = (torch.any(~found) if R < max_relax
+               else torch.zeros((), dtype=torch.bool, device=At.device))
+    return x, found, t, viol, pending
+
+
+class _Guard(NamedTuple):
+    rounds: int
+    flag: torch.Tensor
+
+
+_GUARD: contextvars.ContextVar = contextvars.ContextVar("relax_guard",
+                                                         default=None)
+
+
+@contextlib.contextmanager
+def guarded_relax(rounds: int, flag):
+    """Within this context the batch solver's relax loop (and the
+    single-agent solver's while form) runs :func:`relax_guarded` with
+    ``rounds`` rounds and ORs its pending flag into ``flag`` (a 0-dim bool
+    tensor on the solver's device) in place — no host read, so the step
+    can be captured. Outside it the host-guarded loop runs."""
+    if rounds < 0:
+        raise ValueError(f"rounds must be >= 0, got {rounds}")
+    token = _GUARD.set(_Guard(rounds, flag))
+    try:
+        yield
+    finally:
+        _GUARD.reset(token)
+
+
+def _relax(At, bt, rt, ct, tol, I, J, max_relax: int, unroll_relax: int):
+    """The relax policy: ``unroll_relax`` fixed rounds, else the guarded
+    rounds inside :func:`guarded_relax`, else the host-guarded loop."""
+    if unroll_relax > 0:
+        return _relax_unrolled(At, bt, rt, ct, tol, I, J, unroll_relax)
+    guard = _GUARD.get()
+    if guard is None:
+        return _relax_loop(At, bt, rt, ct, tol, I, J, max_relax)
+    x, found, t, viol, pending = relax_guarded(At, bt, rt, ct, tol, I, J,
+                                               max_relax, guard.rounds)
+    if guard.rounds < max_relax:
+        guard.flag.logical_or_(pending)
     return x, found, t, viol
 
 
@@ -153,8 +256,8 @@ def project_polyhedron_2d(A, b, feas_tol=None):
     (x (2,), valid_found, max_violation)."""
     At, bt, _, _, dtype = _lanes(A[None], b[None], None, None)
     tol = _feas_tol(dtype) if feas_tol is None else feas_tol
-    x, valid, viol = _project_batch_lanes(At, bt, tol,
-                                          *_pairs(A.shape[0], A.device))
+    geo = _geometry(At, *_pairs(A.shape[0], A.device))
+    x, valid, viol = _project(geo, At, bt, tol)
     return x[:, 0], valid[0], viol[0]
 
 
@@ -170,13 +273,9 @@ def solve_qp_2d(A, b, relax_mask=None, *, max_relax: int = 64,
         A[None], b[None], None if relax_mask is None else relax_mask[None],
         None if relax_cap is None else relax_cap[None])
     tol = _feas_tol(dtype) if feas_tol is None else feas_tol
-    I, J = _pairs(A.shape[0], A.device)
-    if unroll_relax > 0:
-        x, found, t, viol = _relax_unrolled(At, bt, rt, ct, tol, I, J,
-                                            unroll_relax)
-    else:
-        x, found, t, viol = _relax_loop(At, bt, rt, ct, tol, I, J,
-                                        max_relax)
+    x, found, t, viol = _relax(At, bt, rt, ct, tol,
+                               *_pairs(A.shape[0], A.device), max_relax,
+                               unroll_relax)
     return x[:, 0], QPInfo(found[0], t[0], viol[0])
 
 
@@ -195,11 +294,7 @@ def solve_qp_2d_batch(A, b, relax_mask=None, *, max_relax: int = 64,
     uncapped, or an infeasible agent spins to max_relax."""
     At, bt, rt, ct, dtype = _lanes(A, b, relax_mask, relax_cap)
     tol = _feas_tol(dtype) if feas_tol is None else feas_tol
-    I, J = _pairs(b.shape[1], A.device)
-    if unroll_relax > 0:
-        x, found, t, viol = _relax_unrolled(At, bt, rt, ct, tol, I, J,
-                                            unroll_relax)
-    else:
-        x, found, t, viol = _relax_loop(At, bt, rt, ct, tol, I, J,
-                                        max_relax)
+    x, found, t, viol = _relax(At, bt, rt, ct, tol,
+                               *_pairs(b.shape[1], A.device), max_relax,
+                               unroll_relax)
     return x.T, QPInfo(found, t, viol)

@@ -27,28 +27,40 @@ Phases (each raises, and the script exits non-zero, on any failure):
    rows, window starts, overflow flags) equal to ``band_setup``'s PyTorch
    ops on every one of those inputs;
 3. drive the main path — ``swarm.make(Config(n=4096))``, ``gating="auto"``,
-   500 steps through ``rollout`` — and check one ``knn_fused`` launch per
-   step, the separation floor and zero infeasible QPs;
+   500 steps — and the same at the ``entry()`` size N=256, through the
+   compiled ``rollout`` (the step captured as a CUDA graph and replayed;
+   the first call captures): the run must equal the eager loop from the
+   same initial state (``engine.eager_rollout``) on the final state and
+   every ``StepOutputs`` field (``torch.equal``), launch ``knn_fused`` once
+   per step (plus any step the engine redid eagerly) and no other kernel,
+   and hold the separation floor with zero infeasible QPs; eager and
+   compiled are timed in turns (eager, compiled, compiled, eager) and the
+   peak device memory, the guarded relax rounds, the redo count and the
+   per-step relax rounds are printed;
 4. the same at N=16384 for 50 steps, which routes to ``knn_stream``; then
    hold both kernels against their plain versions again on the final
    states of phases 3 and 4, the main path's own inputs;
 5. the same N=4096 initial state for 20 steps on the card and on the CPU
-   (plain version there): positions and min distances within a stated
-   tolerance, the per-step counts equal;
+   (plain version there, the compiled rollout's body uncaptured):
+   positions and min distances within a stated tolerance, the per-step
+   counts equal;
 6. time each kernel at its main-path shape (median of single launches)
    beside its bound and its plain version — ``knn_stream`` with its
    column plan and the scan's and the merge's device times apart,
    ``knn_banded`` as the whole
    wrapper, as its sorted-input launch alone and as its prologue alone,
-   with the device ops one call issues (profiler); a short profile of the
-   main-path step and of the banded step;
+   with the device ops one call issues (profiler); then profile 20 steps
+   of every phase's run, eager and compiled side by side: device ops, device
+   ms and busy share per step, the knn kernels seen inside the replay;
 7. the banded path at full width — ``Config(n=65536, gating="banded")``,
-   200 steps: one ``knn_banded`` launch per step and none of the others,
+   200 steps, trajectory recorded, compiled and held to the eager loop as
+   in phase 3: one ``knn_banded`` launch per step and none of the others,
    the separation floor, zero infeasible QPs, the window overflow count
    printed; ``knn_banded`` held against its plain version on the final
    state;
 8. the obstacle field at the north-star N=4096, 12 obstacles, banded
-   gating, 300 steps: the "scatter" field above the floor with zero
+   gating, 300 steps, compiled and held to the eager loop as in phase 3:
+   the "scatter" field above the floor with zero
    infeasible QPs, the default "orbit" ring with zero infeasible QPs (its
    min distance printed: the reference itself dips below the floor there,
    the ring outruns the agents ~13x), and 20 steps of the orbit run on
@@ -57,8 +69,8 @@ Phases (each raises, and the script exits non-zero, on any failure):
 
 Phases 7 and 8 run before phase 6, which times their kernel.
 
-Stdout ends with the ``{"kernels": [...]}`` line, the main path's
-agent-QP-steps/s, the card line, and, last, the result line
+Stdout ends with the ``{"kernels": [...]}`` line, each phase's compiled
+and eager agent-QP-steps/s, the card line, and, last, the result line
 ``{"ok": true, "device": {...}}``. Without a card it exits 2 and prints
 no result.
 """
@@ -86,6 +98,7 @@ OPS_PER_PAIR = 8
 PACK = 0.25
 K, RADIUS = 8, 0.4
 FLOOR = 0.2 / math.sqrt(2.0) - 1e-4   # L1 barrier's Euclidean floor
+ENTRY_N, ENTRY_STEPS = 256, 500    # the entry() size
 MAIN_N, MAIN_STEPS = 4096, 500
 STREAM_N, STREAM_STEPS = 16384, 50
 BANDED_N, BANDED_STEPS = 65536, 200
@@ -165,22 +178,93 @@ def compare(kernel_fn, plain_fn, x, k=K, **kw) -> tuple[float, list]:
     return err, want
 
 
-def drive(swarm, rollout, knn, cfg):
-    """One main-path run through the user entry points, counts zeroed just
-    before and read just after. Returns (state0, final, outs, launches,
-    wall_s)."""
+def timed(fn) -> float:
+    """Host-clock seconds of ``fn()``, ended by a device synchronise."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def same_tree(a, b) -> bool:
+    """Every tensor leaf torch.equal (dtype and shape included), every
+    ``()`` field ``()`` on both sides."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a, b))
+    return (isinstance(a, tuple) and isinstance(b, tuple)
+            and len(a) == len(b) and all(map(same_tree, a, b)))
+
+
+def drive(swarm, engine, knn, cfg, label, kernel):
+    """One main-path run through the user entry points: ``swarm.make`` and
+    the compiled ``rollout`` (its first call on this step, so the capture
+    is inside), with the launch and engine counts zeroed just before and
+    read just after, and the peak device memory around it. Then the eager
+    loop from the same initial state, which the compiled run must equal
+    (final state and every StepOutputs field, torch.equal), and both timed
+    in turns (eager, compiled, compiled, eager) with the graphs cached.
+    Checks one ``kernel`` launch per step (plus any redone step) and none
+    of the others. Returns a dict of the run."""
     import torch
 
     state0, step = swarm.make(cfg)
     torch.cuda.synchronize()
     for name in knn.LAUNCHES:
         knn.LAUNCHES[name] = 0
+    for name in engine.COUNTS:
+        engine.COUNTS[name] = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    final, outs = rollout(step, state0, cfg.steps)
+    final, outs = engine.rollout(step, state0, cfg.steps)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    first = time.perf_counter() - t0
     launches = dict(knn.LAUNCHES)
-    return state0, final, outs, launches, wall
+    counts = dict(engine.COUNTS)
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eager_final, eager_outs = engine.eager_rollout(step, state0, cfg.steps)
+    torch.cuda.synchronize()
+    peak_eager = torch.cuda.max_memory_allocated()
+    check(same_tree(final, eager_final),
+          f"{label}: compiled final state differs from the eager loop's")
+    for name, a, b in zip(engine.StepOutputs._fields, outs, eager_outs):
+        check(same_tree(a, b), f"{label}: compiled {name} differs from the "
+              "eager loop's")
+    want = dict.fromkeys(knn.LAUNCHES, 0)
+    want[kernel] = cfg.steps + counts["redo_steps"]
+    check(launches == want, f"{label}: launches {launches}, want {want}")
+    walls = {"eager": [], "compiled": []}
+    for kind in ("eager", "compiled", "compiled", "eager"):
+        run = engine.eager_rollout if kind == "eager" else engine.rollout
+        walls[kind].append(timed(lambda: run(step, state0, cfg.steps)))
+    rounds = torch.bincount(eager_outs.max_relax_rounds.int().cpu())
+    run_info = {
+        "steps": cfg.steps, "n": cfg.n, "relax_rounds_captured":
+        step.relax_rounds, "redos": counts["redos"],
+        "redo_steps": counts["redo_steps"], "captures": counts["captures"],
+        "replays": counts["replays"], "first_call_s": first,
+        "eager_s": walls["eager"], "compiled_s": walls["compiled"],
+        "eager_step_ms": [w / cfg.steps * 1e3 for w in walls["eager"]],
+        "compiled_step_ms": [w / cfg.steps * 1e3 for w in walls["compiled"]],
+        "eager_agent_qp_steps_per_s": [cfg.n * cfg.steps / w
+                                       for w in walls["eager"]],
+        "compiled_agent_qp_steps_per_s": [cfg.n * cfg.steps / w
+                                          for w in walls["compiled"]],
+        "peak_mib_compiled_first_call": peak / 2**20,
+        "peak_mib_eager": peak_eager / 2**20,
+        "max_relax_rounds_steps": {r: int(c) for r, c in enumerate(rounds)
+                                   if int(c)}}
+    print(f"{label}: compiled == eager (final state, every StepOutputs "
+          f"field); launches {launches}; " + json.dumps(run_info))
+    return {"state0": state0, "step": step, "final": final,
+            "outs": outs, "launches": launches,
+            "wall": min(walls["compiled"]), "info": run_info}
 
 
 def check_run(label, cfg, final, outs, floor=FLOOR):
@@ -240,6 +324,12 @@ def cross_check(swarm, rollout, cfg, state0, label):
         check(torch.equal(a, b), f"{field} differs between card and CPU")
 
 
+def kernel_name(name: str) -> str:
+    """A repo kernel's short name: "void (anonymous namespace)::knn_x<8>(
+    ...)" -> "knn_x"."""
+    return name[name.index("knn_"):].split("<")[0].split("(")[0]
+
+
 def device_profile(fn, calls: int = 50) -> dict:
     """What one call of ``fn`` does on the device, from torch.profiler's
     CUDA activity over ``calls`` calls: device ops (kernels, copies and
@@ -264,17 +354,16 @@ def device_profile(fn, calls: int = 50) -> dict:
         return sum(ev.time_range.end - ev.time_range.start
                    for ev in evs if keep(ev.name)) / 1e3 / calls
 
-    def short(name):   # "void (anonymous namespace)::knn_x<8>(...)": knn_x
-        return name[name.index("knn_"):].split("<")[0].split("(")[0]
-
-    kernels = sorted({short(ev.name) for ev in evs if "knn_" in ev.name})
+    kernels = sorted({kernel_name(ev.name) for ev in evs
+                      if "knn_" in ev.name})
     return {"device_ops_per_call": len(evs) / calls,
             "device_ms": ms(lambda name: True) if evs else "not measured",
             "kernel_device_ms": (ms(lambda name: "knn_" in name) if evs
                                  else "not measured"),
             "kernel_device_ms_by_name": {
                 kname: ms(lambda name, kname=kname: "knn_" in name
-                          and short(name) == kname) for kname in kernels},
+                          and kernel_name(name) == kname)
+                for kname in kernels},
             "device_op_names": sorted({ev.name[:80] for ev in evs})}
 
 
@@ -310,29 +399,30 @@ def time_only(knn, swarm, card: str) -> int:
     return 0
 
 
-def profile_step(step, state, steps: int) -> dict:
-    """Where a main-path step's time goes, over ``steps`` steps under
-    torch.profiler: per phase (consensus/gating/filter/integrate) the host
-    span and the device kernel time inside its device-side range, plus the
-    device's busy share of the wall."""
+def profile_rollout(run, steps: int) -> dict:
+    """Where a run of ``steps`` steps spends its time under torch.profiler
+    (``run()`` once before, to warm it): device ops, device busy ms per
+    step and the busy share of the wall; the knn kernels seen on the
+    device, by name, with launches and device ms per step; and per phase
+    (consensus/gating/filter/integrate) the host span and the device time
+    inside its device-side range — which a graph replay does not record,
+    so the compiled run shows "not measured" there."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     phases = ("consensus", "gating", "filter", "integrate")
-    for _ in range(3):
-        state, _ = step(state, 0)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for t in range(steps):
-            state, _ = step(state, t)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     cuda = torch.autograd.DeviceType.CUDA
     kernels, ranges = [], {p: [] for p in phases}
     host = dict.fromkeys(phases, 0.0)
-    n_kernels = 0
+    knn_kernels = {}
     for ev in prof.events():
         span = (ev.time_range.start, ev.time_range.end)
         if ev.name in phases:
@@ -343,14 +433,20 @@ def profile_step(step, state, steps: int) -> dict:
         elif ev.device_type == cuda and not getattr(
                 ev, "is_user_annotation", False):
             kernels.append(span)
-            n_kernels += 1
+            if "knn_" in ev.name:
+                k = knn_kernels.setdefault(kernel_name(ev.name), [0, 0.0])
+                k[0] += 1
+                k[1] += (span[1] - span[0]) / 1e3
     busy_ms = sum(e - s for s, e in kernels) / 1e3
     out = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
-           "device_ops_per_step": n_kernels / steps,
+           "device_ops_per_step": len(kernels) / steps,
            "device_busy_ms_per_step": (busy_ms / steps if kernels
                                        else "not measured"),
            "device_busy_share": (busy_ms / wall_ms if kernels
-                                 else "not measured")}
+                                 else "not measured"),
+           "knn_kernels": {name: {"launches_per_step": c / steps,
+                                  "device_ms_per_step": ms / steps}
+                           for name, (c, ms) in sorted(knn_kernels.items())}}
     for p in phases:
         dev = sum(e - s for s, e in kernels
                   if any(a <= s and e <= b for a, b in ranges[p])) / 1e3
@@ -358,6 +454,21 @@ def profile_step(step, state, steps: int) -> dict:
                   "device_ms_per_step": (dev / steps if ranges[p]
                                          else "not measured")}
     return out
+
+
+def profile_both(engine, run, label: str, steps: int = 20) -> dict:
+    """One eager and one compiled run of ``steps`` steps from the run's
+    initial state, profiled side by side (the compiled one's graphs
+    captured by the warm-up call)."""
+    step, state0 = run["step"], run["state0"]
+    prof = {
+        "eager": profile_rollout(
+            lambda: engine.eager_rollout(step, state0, steps), steps),
+        "compiled": profile_rollout(
+            lambda: engine.rollout(step, state0, steps), steps)}
+    print(f"phase 6: {label} step profile, eager and compiled "
+          + json.dumps(prof))
+    return prof
 
 
 def main(argv: list[str]) -> int:
@@ -378,7 +489,7 @@ def main(argv: list[str]) -> int:
     if args.root is not None:
         sys.path.insert(0, args.root)
     from cbf_tpu_torch.ops import knn
-    from cbf_tpu_torch.rollout.engine import rollout
+    from cbf_tpu_torch.rollout import engine
     from cbf_tpu_torch.scenarios import swarm
 
     if args.time_only:
@@ -396,7 +507,9 @@ def main(argv: list[str]) -> int:
     kind = torch.cuda.get_device_name(0)
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, "
-          f"python {sys.version.split()[0]}")
+          f"python {sys.version.split()[0]}; CUDA graph conditional nodes "
+          f"(CUDAGraph.begin_capture_to_if_node): "
+          f"{hasattr(torch.cuda.CUDAGraph, 'begin_capture_to_if_node')}")
     t0 = time.perf_counter()
     so = knn.build_library()
     print(f"phase 1: built {so} in {time.perf_counter() - t0:.1f} s")
@@ -526,25 +639,29 @@ def main(argv: list[str]) -> int:
           "equal to band_setup on all of those; knn_banded = knn_stream "
           f"on the filled slots at N={BANDED_N} ({int(filled.sum())} slots)")
 
-    # 3. main path, fused kernel
-    cfg = swarm.Config(n=MAIN_N, steps=MAIN_STEPS)
-    state0, final, outs, launches, wall = drive(swarm, rollout, knn, cfg)
-    check(launches == {"knn_fused": MAIN_STEPS, "knn_stream": 0,
-                       "knn_banded": 0}, f"main path launches {launches}")
-    check_run(f"phase 3: N={MAIN_N} x {MAIN_STEPS} steps", cfg, final, outs)
-    qps = MAIN_N * MAIN_STEPS / wall
-    fused_launches = launches["knn_fused"]
+    # 3. main path, fused kernel: the north-star N=4096 and the entry()
+    # size N=256, each through the compiled rollout and held to the eager
+    # loop.
+    runs = {}
+    for n, steps in ((ENTRY_N, ENTRY_STEPS), (MAIN_N, MAIN_STEPS)):
+        cfg = swarm.Config(n=n, steps=steps)
+        runs[n] = drive(swarm, engine, knn, cfg, f"phase 3: N={n}",
+                        "knn_fused")
+        check_run(f"phase 3: N={n} x {steps} steps", cfg, runs[n]["final"],
+                  runs[n]["outs"])
+    main = runs[MAIN_N]
+    state0, final = main["state0"], main["final"]
+    qps = MAIN_N * MAIN_STEPS / main["wall"]
+    fused_launches = main["launches"]["knn_fused"]
 
     # 4. main path beyond the fused bound, streaming kernel
     cfg_s = swarm.Config(n=STREAM_N, steps=STREAM_STEPS)
-    state0_s, final_s, outs_s, launches_s, wall_s = drive(
-        swarm, rollout, knn, cfg_s)
-    check(launches_s == {"knn_fused": 0, "knn_stream": STREAM_STEPS,
-                         "knn_banded": 0},
-          f"streaming path launches {launches_s}")
+    stream = drive(swarm, engine, knn, cfg_s, f"phase 4: N={STREAM_N}",
+                   "knn_stream")
     check_run(f"phase 4: N={STREAM_N} x {STREAM_STEPS} steps", cfg_s,
-              final_s, outs_s)
-    stream_launches = launches_s["knn_stream"]
+              stream["final"], stream["outs"])
+    state0_s, final_s = stream["state0"], stream["final"]
+    stream_launches = stream["launches"]["knn_stream"]
     # The kernels on the main path's own inputs: the states the runs reach.
     hold("knn_fused", "phase 3 final state", final.x.float().contiguous())
     hold("knn_stream", "phase 3 final state", final.x.float().contiguous())
@@ -554,20 +671,21 @@ def main(argv: list[str]) -> int:
           "states of phases 3 and 4")
 
     # 5. card vs CPU from the same initial state
-    cross_check(swarm, rollout, swarm.Config(n=MAIN_N, steps=CROSS_STEPS),
-                state0, "phase 5")
+    cross_check(swarm, engine.rollout,
+                swarm.Config(n=MAIN_N, steps=CROSS_STEPS), state0, "phase 5")
 
-    # 7. the banded path at full width
-    cfg_b = swarm.Config(n=BANDED_N, steps=BANDED_STEPS, gating="banded")
+    # 7. the banded path at full width, recording the trajectory (the
+    # largest output buffer the compiled rollout holds)
+    cfg_b = swarm.Config(n=BANDED_N, steps=BANDED_STEPS, gating="banded",
+                         record_trajectory=True)
     w_b = swarm.banded_window_blocks(cfg_b)
-    state0_b, final_b, outs_b, launches_b, wall_b = drive(
-        swarm, rollout, knn, cfg_b)
-    check(launches_b == {"knn_fused": 0, "knn_stream": 0,
-                         "knn_banded": BANDED_STEPS},
-          f"banded path launches {launches_b}")
+    banded = drive(swarm, engine, knn, cfg_b, f"phase 7: N={BANDED_N}",
+                   "knn_banded")
     check_run(f"phase 7: N={BANDED_N} x {BANDED_STEPS} steps, banded "
-              f"(window {w_b} blocks)", cfg_b, final_b, outs_b)
-    banded_launches = launches_b["knn_banded"]
+              f"(window {w_b} blocks)", cfg_b, banded["final"],
+              banded["outs"])
+    state0_b, final_b = banded["state0"], banded["final"]
+    banded_launches = banded["launches"]["knn_banded"]
     hold("knn_banded", "phase 7 final state", final_b.x.float().contiguous(),
          w_b)
     print("phase 7: knn_banded equal to its plain version on the final "
@@ -578,18 +696,17 @@ def main(argv: list[str]) -> int:
     for layout in ("scatter", "orbit"):
         cfg_o = swarm.Config(n=OBST_N, steps=OBST_STEPS, n_obstacles=OBST_M,
                              obstacle_layout=layout, gating="banded")
-        state0_o, final_o, outs_o, launches_o, wall_o = drive(
-            swarm, rollout, knn, cfg_o)
-        check(launches_o == {"knn_fused": 0, "knn_stream": 0,
-                             "knn_banded": OBST_STEPS},
-              f"obstacle path launches {launches_o}")
-        obst[layout] = (state0_o, check_run(
+        obst[layout] = drive(swarm, engine, knn, cfg_o,
+                             f"phase 8: N={OBST_N}, {OBST_M} obstacles "
+                             f"({layout})", "knn_banded")
+        obst[layout]["min_distance"] = check_run(
             f"phase 8: N={OBST_N}, {OBST_M} obstacles ({layout}) x "
-            f"{OBST_STEPS} steps, banded", cfg_o, final_o, outs_o,
-            floor=FLOOR if layout == "scatter" else None), wall_o)
-    cross_check(swarm, rollout, swarm.Config(
+            f"{OBST_STEPS} steps, banded", cfg_o, obst[layout]["final"],
+            obst[layout]["outs"],
+            floor=FLOOR if layout == "scatter" else None)
+    cross_check(swarm, engine.rollout, swarm.Config(
         n=OBST_N, steps=CROSS_STEPS, n_obstacles=OBST_M, gating="banded"),
-        obst["orbit"][0], "phase 8 (orbit)")
+        obst["orbit"]["state0"], "phase 8 (orbit)")
 
     # 6. timings at the main-path shapes
     rows = []
@@ -678,24 +795,35 @@ def main(argv: list[str]) -> int:
           f"shape, column ranges %d x %d): median {stream_small[0]:.4f} ms, "
           f"back to back {stream_small[1]:.4f} ms, device "
           f"{stream_small_dev} ms" % knn.stream_plan(MAIN_N, x4096.device))
-    prof = profile_step(swarm.make(swarm.Config(n=MAIN_N))[1], state0, 20)
-    print("phase 6: main-path step profile " + json.dumps(prof))
-    prof_b = profile_step(swarm.make(cfg_b)[1], state0_b, 20)
-    print(f"phase 6: banded step profile (N={BANDED_N}) "
-          + json.dumps(prof_b))
+    for label, run in ((f"N={ENTRY_N} fused", runs[ENTRY_N]),
+                       (f"N={MAIN_N} fused", main),
+                       (f"N={STREAM_N} streaming", stream),
+                       (f"N={BANDED_N} banded", banded),
+                       (f"N={OBST_N} obstacles (scatter), banded",
+                        obst["scatter"]),
+                       (f"N={OBST_N} obstacles (orbit), banded",
+                        obst["orbit"])):
+        prof = profile_both(engine, run, label)
+        check(prof["compiled"]["knn_kernels"] != {}
+              or prof["compiled"]["device_ops_per_step"] == 0,
+              f"{label}: no knn kernel inside the graph replay")
     print(f"elapsed {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
-    print(f"main path N={MAIN_N}, {MAIN_STEPS} steps: "
-          f"{qps:.1f} agent-QP-steps/s ({wall:.3f} s wall); "
-          f"N={STREAM_N}, {STREAM_STEPS} steps: "
-          f"{STREAM_N * STREAM_STEPS / wall_s:.1f} agent-QP-steps/s; "
-          f"N={BANDED_N} banded, {BANDED_STEPS} steps: "
-          f"{BANDED_N * BANDED_STEPS / wall_b:.1f} agent-QP-steps/s; "
-          f"N={OBST_N} with {OBST_M} obstacles, {OBST_STEPS} steps: "
-          + ", ".join(f"{lay} {OBST_N * OBST_STEPS / w:.1f} "
-                      f"(min distance {md:.6f})"
-                      for lay, (_, md, w) in obst.items())
-          + f" agent-QP-steps/s; card {card}")
+    print("compiled rollout, best of two (eager beside it): "
+          + "; ".join(f"{label} x {run['info']['steps']} steps "
+                      f"{max(run['info']['compiled_agent_qp_steps_per_s']):.1f}"
+                      f" ({max(run['info']['eager_agent_qp_steps_per_s']):.1f}"
+                      ") agent-QP-steps/s"
+                      for label, run in ((f"N={ENTRY_N}", runs[ENTRY_N]),
+                                         (f"N={MAIN_N}", main),
+                                         (f"N={STREAM_N}", stream),
+                                         (f"N={BANDED_N} banded", banded),
+                                         (f"N={OBST_N} scatter",
+                                          obst["scatter"]),
+                                         (f"N={OBST_N} orbit",
+                                          obst["orbit"])))
+          + f"; main path {qps:.1f} agent-QP-steps/s; orbit min distance "
+          f"{obst['orbit']['min_distance']:.6f}; card {card}")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
