@@ -15,13 +15,38 @@ import numpy as np
 import torch
 
 from cbf_tpu_torch.core.filter import CBFParams
+from cbf_tpu_torch.errors import SLICE_CERT, OutOfSliceError
 from cbf_tpu_torch.scenarios.swarm import Config, State
+
+
+def _leaf(a, *, device, dtype):
+    """One state leaf across: float arrays in ``dtype``, integer arrays
+    (cache indices and counts, RTA mode and streak) as int32, nested
+    tuples leaf by leaf, ``()`` as ``()``."""
+    if isinstance(a, tuple):
+        return tuple(_leaf(b, device=device, dtype=dtype) for b in a)
+    a = np.array(a)
+    kind = torch.int32 if a.dtype.kind in "iu" else dtype
+    return torch.as_tensor(a, dtype=kind, device=device)
 
 
 def state_from_numpy(x, v, *, device, dtype) -> State:
     """State from (N, 2) positions and velocities (numpy or array-like)."""
-    return State(x=torch.as_tensor(np.array(x), dtype=dtype, device=device),
-                 v=torch.as_tensor(np.array(v), dtype=dtype, device=device))
+    return State(x=_leaf(x, device=device, dtype=dtype),
+                 v=_leaf(v, device=device, dtype=dtype))
+
+
+def state_from_reference(state, *, device, dtype) -> State:
+    """Every ported leaf of a JAX ``State`` (or any object with its
+    fields): positions and velocities, the unicycle headings, the Verlet
+    cache and the RTA carry, ``()`` where the configuration has none. The
+    certificate's carries arrive with Queue A6 and must be ``()``."""
+    for name in ("certificate_cache", "certificate_solver_state"):
+        if getattr(state, name, ()) != ():
+            raise OutOfSliceError(f"State.{name}", SLICE_CERT)
+    return State(*(_leaf(getattr(state, name), device=device, dtype=dtype)
+                   for name in ("x", "v", "theta", "gating_cache")),
+                 rta=_leaf(state.rta, device=device, dtype=dtype))
 
 
 def cbf_params_from_numpy(params, *, device=None, dtype=None) -> CBFParams:

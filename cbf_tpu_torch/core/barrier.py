@@ -52,16 +52,18 @@ def _signs(d):
 
 
 def _g_times(g, u):
-    """g @ u over leading batch axes: g (4, 2), u (..., 2) -> (..., 4)."""
+    """g @ u over leading batch axes: g (4, 2) or per-row (..., 4, 2),
+    u (..., 2) -> (..., 4)."""
     return torch.sum(g * u[..., None, :], dim=-1)
 
 
 def barrier_rhs(d, hs, f, gu0, *, dmin, k, gamma):
     """b = gamma*(hs@d - dmin) + hs@(f@d) + hs@(g@u0), shape-agnostic over
     leading batch axes — the single source of the barrier RHS for both
-    assemblies. d, hs (..., K, 4), f (4, 4), gu0 (..., 4)."""
+    assemblies. d, hs (..., K, 4), f (4, 4) or per-row (..., 4, 4),
+    gu0 (..., 4); dmin and gamma scalars or broadcastable to (..., K)."""
     h = torch.sum(hs * d, dim=-1) - dmin
-    fd = torch.sum(d[..., None, :] * f, dim=-1)               # (f @ d)
+    fd = torch.sum(d[..., None, :] * f[..., None, :, :], dim=-1)  # (f @ d)
     L_f = torch.sum(hs * fd, dim=-1)
     return gamma * h + L_f + torch.sum(hs * gu0[..., None, :], dim=-1)
 
@@ -70,13 +72,16 @@ def barrier_rows(robot_state, obs_states, obs_mask, f, g, u0, *, dmin, k,
                  gamma):
     """CBF rows for one agent against K masked obstacles (also batched
     over leading axes). robot_state (..., 4), obs_states (..., K, 4),
-    obs_mask (..., K), u0 (..., 2). Returns A (..., K, 2) zeroed where
-    masked and b (..., K) with MASKED_ROW_RHS where masked."""
+    obs_mask (..., K), u0 (..., 2); f (4, 4) and g (4, 2) shared, or
+    per-row (..., 4, 4) and (..., 4, 2); dmin, k and gamma scalars or
+    broadcastable to (..., K) (per-row parameters as (..., 1)). Returns
+    A (..., K, 2) zeroed where masked and b (..., K) with MASKED_ROW_RHS
+    where masked."""
     d = robot_state[..., None, :] - obs_states                 # (..., K, 4)
     sx, sy = _signs(d)
     hs = torch.stack([sx, sy, k * sx, k * sy], dim=-1)        # (..., K, 4)
     gu0 = _g_times(g, u0)                                      # (..., 4)
-    A = -torch.sum(hs[..., :, None] * g, dim=-2)              # (..., K, 2)
+    A = -torch.sum(hs[..., :, None] * g[..., None, :, :], dim=-2)  # (.., K, 2)
     b = barrier_rhs(d, hs, f, gu0, dmin=dmin, k=k, gamma=gamma)
     A = torch.where(obs_mask[..., None], A, 0.0)
     b = torch.where(obs_mask, b, MASKED_ROW_RHS)
@@ -197,7 +202,9 @@ def assemble_qp(robot_state, obs_states, obs_mask, f, g, u0, *, dmin, k,
                 gamma, max_speed, reference_layout=True, vel_box_rows=True,
                 priority_mask=None, priority_relax_weight=0.01):
     """Full (K+8)-row QP data for one agent (also batched over leading
-    axes). Returns (A, b, relax_mask): ``min ||du||^2 s.t. A du <= b``;
+    axes, with shared or per-row dynamics and parameters as
+    :func:`barrier_rows` takes them; ``max_speed`` scalar or (...,)).
+    Returns (A, b, relax_mask): ``min ||du||^2 s.t. A du <= b``;
     relax_mask is 1.0 on real CBF rows, 0.0 on masked and box rows, and
     ``priority_relax_weight`` on rows ``priority_mask`` marks."""
     A_cbf, b_cbf = barrier_rows(robot_state, obs_states, obs_mask, f, g, u0,

@@ -12,12 +12,13 @@ from typing import NamedTuple
 import torch
 
 from cbf_tpu_torch.core.barrier import assemble_qp, assemble_qp_dedup
-from cbf_tpu_torch.errors import SLICE_A5, OutOfSliceError
 from cbf_tpu_torch.solvers.exact2d import solve_qp_2d, solve_qp_2d_batch
 
 
 class CBFParams(NamedTuple):
-    """Filter parameters (reference defaults: cbf.py:6-16)."""
+    """Filter parameters (reference defaults: cbf.py:6-16). A leaf is a
+    float, or with per-agent dynamics an (N,) tensor (one value per
+    row)."""
     max_speed: float = 15.0
     dmin: float = 0.2
     k: float = 1.0
@@ -43,6 +44,14 @@ def _cbf_row_caps(priority_mask, relax_cap, dtype):
     box = torch.full(tuple(priority_mask.shape[:-1]) + (8,), torch.inf,
                      dtype=dtype, device=priority_mask.device)
     return torch.cat([cbf_caps, box], dim=-1)
+
+
+def _rows(leaf):
+    """An (N,) per-agent leaf as (N, 1), to meet (N, K) rows; anything
+    else as it is."""
+    if isinstance(leaf, torch.Tensor) and leaf.dim() == 1:
+        return leaf[:, None]
+    return leaf
 
 
 def safe_control(robot_state, obs_states, obs_mask, f, g, u0,
@@ -83,6 +92,15 @@ def safe_controls(robot_states, obs_states, obs_mask, f, g, u0,
     that many unrolled relax rounds each (the JAX package's vmap of
     :func:`safe_control`). Both give the same controls.
 
+    Per-agent dynamics (the mixed swarm): f (N, 4, 4), g (N, 4, 2), and
+    ``params`` leaves that may be (N,) tensors. This is the JAX package's
+    vmap of :func:`safe_control` batched: the full (K+8)-row assembly with
+    each row's own dynamics, box bound and velocity term, and the batch
+    solver, whose relax rounds are per lane (a lane's t is the round in
+    which it first becomes feasible, as its own while loop gives). The
+    tensor leaves are pinned to the states' dtype first, as JAX pins them
+    before its vmap.
+
     Args: robot_states (N, 4), obs_states (N, K, 4), obs_mask (N, K),
     f (4, 4), g (4, 2), u0 (N, 2); ``priority_mask`` (N, K) marks rows
     that relax at ``priority_relax_weight`` per round (tiered relaxation).
@@ -91,16 +109,23 @@ def safe_controls(robot_states, obs_states, obs_mask, f, g, u0,
     (u == u0 whenever |u0| <= max_speed); callers wanting the reference's
     skip select ``where(mask.any(-1), u, u0)``, as the swarm step does.
     """
-    if f.dim() == 3:
-        raise OutOfSliceError("per-agent dynamics (f of shape (N, 4, 4), "
-                              "the mixed-dynamics filter path)", SLICE_A5)
-    kw = dict(dmin=params.dmin, k=params.k, gamma=params.gamma,
-              max_speed=params.max_speed, reference_layout=reference_layout,
-              vel_box_rows=vel_box_rows, priority_mask=priority_mask,
+    per_agent = f.dim() == 3
+    if per_agent:
+        params = CBFParams(*(leaf.to(robot_states.dtype)
+                             if isinstance(leaf, torch.Tensor) else leaf
+                             for leaf in params))
+    kw = dict(dmin=_rows(params.dmin), k=_rows(params.k),
+              gamma=_rows(params.gamma), max_speed=params.max_speed,
+              reference_layout=reference_layout, vel_box_rows=vel_box_rows,
+              priority_mask=priority_mask,
               priority_relax_weight=priority_relax_weight)
-    if unroll_relax > 0:
+    max_speed = _rows(params.max_speed)
+    if per_agent or unroll_relax > 0:
         A, b, relax_mask = assemble_qp(robot_states, obs_states, obs_mask,
                                        f, g, u0, **kw)
+        # JAX's per-agent solve takes its first attempt at b + 0*relax
+        # (a -0.0 RHS becomes +0.0); the unrolled form adds that zero too.
+        b = b + 0.0
         cap_arr = (None if relax_cap is None
                    else _cbf_row_caps(priority_mask, relax_cap, b.dtype))
     else:
@@ -118,5 +143,5 @@ def safe_controls(robot_states, obs_states, obs_mask, f, g, u0,
             cap_arr = row_caps[None].expand(b.shape)
     du, info = solve_qp_2d_batch(A, b, relax_mask, max_relax=max_relax,
                                  relax_cap=cap_arr, unroll_relax=unroll_relax)
-    u = torch.clamp(du + u0, -params.max_speed, params.max_speed)
+    u = torch.clamp(du + u0, -max_speed, max_speed)
     return u, info

@@ -16,8 +16,6 @@ class OutOfSliceError(NotImplementedError):
         self.slice_name = slice_name
 
 
-SLICE_A5 = ("a later slice (Queue A5: double/unicycle/mixed dynamics, the "
-            "mixed filter path, the Verlet cache, RTA)")
 SLICE_CERT = "the joint-certificate slice (Queue A6)"
 SLICE_DIFF = "the differentiable-path slice (Queue A8)"
 SLICE_DURABLE = "the durability and observability slice (Queue A9)"

@@ -47,6 +47,8 @@ import subprocess
 import numpy as np
 import torch
 
+from cbf_tpu_torch.errors import SLICE_DIFF, OutOfSliceError
+
 # The reference's bounds and tiles, same values. MAX_N_FUSED (the TPU's
 # VMEM bound) still picks fused vs streaming, so both packages route alike;
 # TILE/RTILE are the TPU kernels' row tiles and size nothing here; CTILE,
@@ -821,6 +823,18 @@ def _kernel_dispatch(x, radius, k: int, kernel: str = "auto"):
     fn = knn_neighbors if uses_fused(x.shape[0], kernel) \
         else knn_neighbors_blocked
     return fn(x, radius, k)
+
+
+def knn_select(x, radius, k: int, kernel: str = "auto"):
+    """The kernels as a selection (forward of ``pallas_knn.knn_select``):
+    (idx, dist, nearest, count) of :func:`knn_neighbors` through the
+    fused-vs-streaming dispatch. Its zero-gradient ``autograd.Function``
+    arrives with Queue A8; until then it raises where autograd would need
+    a gradient through it."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise OutOfSliceError("knn_select under autograd (its zero "
+                              "cotangent)", SLICE_DIFF)
+    return _kernel_dispatch(x, radius, k, kernel)
 
 
 def _gating_epilogue(states4, idx, dist, count, k: int):

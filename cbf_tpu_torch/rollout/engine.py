@@ -18,11 +18,18 @@ of the table the hook returns (copied to the device before the chunk) as
 ``inputs``. Its QP solves run a fixed number of relax rounds on the device
 (``step_fn.relax_rounds``, default 0; :func:`cbf_tpu_torch.solvers.exact2d.
 guarded_relax`) and raise a device flag where the eager relax loop would
-have gone on. The engine reads that flag once per chunk; where it is set,
-it restores the chunk's start state and runs the chunk again with the
-eager loop (:func:`eager_rollout`, the host-guarded relax loop, the same
-kernels), counted in ``COUNTS``. So a compiled rollout is bit-identical to
-the eager loop.
+have gone on. The step may raise the same flag for a data-dependent branch
+it leaves out of the body (:func:`cbf_tpu_torch.solvers.exact2d.
+request_redo`; RTA's boosted re-solve). The engine reads that flag once
+per chunk; where it is set, it restores the chunk's start state and runs
+the chunk again with the eager loop (:func:`eager_rollout`, the
+host-guarded relax loop and host branches, the same kernels), counted in
+``COUNTS``. So a compiled rollout is bit-identical to the eager loop.
+
+The carried state is any tree of tensors and (named) tuples — the swarm's
+headings, Verlet cache (int32 indices) and RTA carry (int32 mode and
+streak, with ``()`` leaves nested inside) ride in the static buffers, the
+chunk's saved start and the redo like positions do.
 
 A capture or launch failure raises: no path runs the eager loop on the card
 except that counted redo.
@@ -41,7 +48,8 @@ from cbf_tpu_torch.solvers import exact2d
 
 # Engine-level counts: CUDA graphs captured and replayed, and chunks (and
 # their steps) redone with the eager loop because the guarded relax rounds
-# did not settle every QP.
+# did not settle every QP or the step asked for a branch the body leaves
+# out.
 COUNTS = {"captures": 0, "replays": 0, "redos": 0, "redo_steps": 0}
 
 

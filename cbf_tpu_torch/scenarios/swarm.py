@@ -5,16 +5,30 @@ The benchmark ladder's flagship (BASELINE.md: 4096 agents, 10k steps;
 north-star metric agent-QP-steps/s). Every agent runs the reference CBF-QP
 filter gated on its k nearest in-radius neighbours, and the swarm
 rendezvous to a packed disk around its centroid. Velocity slots carry the
-actual (previous filtered) velocities, and the single-integrator update
-applies the filtered command directly.
+actual (previous filtered) velocities.
 
-The port covers single-integrator dynamics with continuous or discrete
-barrier rows, the obstacle field (closed-form ring or scatter, exact
-priority rows, spawn stand-off repair) and every gating backend;
-``gating="pallas"``/``"streaming"``/``"banded"`` name the hand-written
-CUDA kernels (:mod:`cbf_tpu_torch.ops.knn`). Config fields of later
-slices are kept (a JAX ``Config`` carries across one to one) and raise
-:class:`~cbf_tpu_torch.errors.OutOfSliceError` when set.
+The port covers every dynamics family — single integrator (continuous or
+discrete barrier rows), double integrator (acceleration control, exact
+discrete rows), the unicycle (the filter runs on projection points, the
+Robotarium step integrates with wheel saturation) and the mixed
+single/double swarm (per-agent rows through the filter's per-agent path)
+— the obstacle field (closed-form ring or scatter, exact priority rows,
+spawn stand-off repair), every gating backend (``gating="pallas"``/
+``"streaming"``/``"banded"`` name the hand-written CUDA kernels of
+:mod:`cbf_tpu_torch.ops.knn`), the Verlet neighbour cache
+(``gating_rebuild_skin``) and runtime assurance (``rta``). The joint
+certificate, ``unroll_relax`` on the step and the serving layer's
+``active`` mask are later slices' and raise
+:class:`~cbf_tpu_torch.errors.OutOfSliceError`.
+
+Two branches of the reference step depend on device data (the Verlet
+rebuild and RTA's boosted re-solve are ``lax.cond``s there). The eager
+step takes them on the host. Inside the compiled rollout's body
+(:func:`cbf_tpu_torch.solvers.exact2d.in_guarded_body`) the rebuild search
+runs on every step and a ``torch.where`` on the 0-dim predicate picks
+rebuilt or cached — bit-identical to either branch — and the re-solve is
+left out: where it would change a row, the body raises the engine's redo
+flag and the chunk is run again by the eager loop.
 """
 
 from __future__ import annotations
@@ -27,13 +41,21 @@ import numpy as np
 import torch
 
 from cbf_tpu_torch.core.filter import CBFParams, safe_controls
-from cbf_tpu_torch.errors import (SLICE_A5, SLICE_CERT, SLICE_DIFF,
-                                  SLICE_SERVE, OutOfSliceError)
+from cbf_tpu_torch.errors import (SLICE_CERT, SLICE_DIFF, SLICE_SERVE,
+                                  OutOfSliceError)
 from cbf_tpu_torch.ops import knn
 from cbf_tpu_torch.ops.pairwise import pairwise_distances
 from cbf_tpu_torch.rollout.engine import StepOutputs, rollout
 from cbf_tpu_torch.rollout.gating import knn_gating
-from cbf_tpu_torch.utils.math import l2_cap
+from cbf_tpu_torch.rta.core import (RUNG_BACKUP, RUNG_RESOLVE,
+                                    backup_control, demanded_rung,
+                                    finite_rows, health_word, latch_update,
+                                    rta_seed)
+from cbf_tpu_torch.sim.robotarium import SimParams, unicycle_step
+from cbf_tpu_torch.sim.transformations import (si_to_uni_dyn,
+                                               uni_to_si_states)
+from cbf_tpu_torch.solvers import exact2d
+from cbf_tpu_torch.utils.math import l2_cap, safe_norm
 from cbf_tpu_torch.utils.profiling import annotate
 
 
@@ -112,13 +134,21 @@ class Config:
 
 
 class State(NamedTuple):
-    x: torch.Tensor                  # (N, 2) positions
-    v: torch.Tensor                  # (N, 2) last applied velocities
-    theta: torch.Tensor | tuple = ()            # unicycle (Queue A5)
-    gating_cache: tuple = ()                    # Verlet cache (Queue A5)
+    x: torch.Tensor      # (N, 2) positions (body centres in unicycle mode)
+    v: torch.Tensor      # (N, 2) last applied (si) velocities
+    # (N,) headings, unicycle mode only; () otherwise.
+    theta: torch.Tensor | tuple = ()
+    # Verlet cache, gating_rebuild_skin > 0 only: (idx (N, Kc) int32 —
+    # the k-NN at build time under the inflated radius, x_build (N, 2),
+    # dropped () int32 — build-time truncation vs the build radius,
+    # min_dkth () — min over truncating agents of their k-th kept build
+    # distance, which makes the between-rebuild floor metric sound).
+    gating_cache: tuple = ()
     certificate_cache: tuple = ()               # Queue A6
     certificate_solver_state: tuple = ()        # Queue A6
-    rta: tuple = ()                             # Queue A5
+    # RTA carry, rta=True only: (mode (N,) int32 latched rung, streak (N,)
+    # int32 consecutive healthy steps, lkg_x, lkg_v, lkg_theta | ()).
+    rta: tuple = ()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -353,10 +383,62 @@ def clear_obstacle_spawn(cfg: Config, x0):
     return pairwise_repair(x0)
 
 
+def dynamics_mask(cfg: Config, *, device=None) -> torch.Tensor:
+    """(N,) bool — True rows are the double-integrator agents of a
+    ``dynamics="mixed"`` swarm: agents ``[0, n_double)``."""
+    return torch.arange(cfg.n, device=resolve_device(device)) < cfg.n_double
+
+
+def _heading_seed(seed: int) -> int:
+    """The headings' generator seed: derived from (seed, 1) by a hash,
+    so member i's headings never alias member i+1's spawn jitter in a
+    consecutive-seed ensemble (the reason JAX takes ``fold_in``)."""
+    return int(np.random.SeedSequence((int(seed), 1)).generate_state(
+        1, dtype=np.uint64)[0])
+
+
+def heading_spawn(cfg: Config, seed, *, device=None) -> torch.Tensor:
+    """(N,) seeded initial headings in [-pi, pi), drawn in float32 on the
+    CPU from a ``torch.Generator`` of their own (:func:`_heading_seed`).
+    The stream differs from the JAX package's; tests carry JAX's headings
+    across with :mod:`cbf_tpu_torch.convert`."""
+    gen = torch.Generator().manual_seed(_heading_seed(seed))
+    lo, hi = np.float32(-np.pi), np.float32(np.pi)
+    u = torch.rand((cfg.n,), generator=gen, dtype=torch.float32)
+    theta = u * float(hi - lo) + float(lo)
+    return theta.to(cfg.dtype).to(resolve_device(device))
+
+
+def projection_points(cfg: Config, body_xy, theta):
+    """(N, 2) si projection points ``projection_distance`` ahead of the
+    wheel axis (the row-major twin of ``uni_to_si_states``)."""
+    return body_xy + cfg.projection_distance * torch.stack(
+        [torch.cos(theta), torch.sin(theta)], dim=1)
+
+
+def verlet_cache_seed(cfg: Config, *, device=None):
+    """Fresh Verlet cache (see ``State.gating_cache``): x_build = +inf
+    forces a rebuild on the first step, so the zero seeds are never
+    read."""
+    dev = resolve_device(device)
+    kc = min(cfg.k_neighbors, cfg.n - 1)
+    return (torch.zeros((cfg.n, kc), dtype=torch.int32, device=dev),
+            torch.full((cfg.n, 2), torch.inf, dtype=cfg.dtype, device=dev),
+            torch.zeros((), dtype=torch.int32, device=dev),
+            torch.zeros((), dtype=cfg.dtype, device=dev))
+
+
 def initial_state(cfg: Config, *, device=None) -> State:
     x0 = clear_obstacle_spawn(cfg, spawn_positions(cfg, cfg.seed,
                                                    device=device))
-    return State(x=x0, v=torch.zeros_like(x0))
+    theta0 = ()
+    if cfg.dynamics == "unicycle":
+        theta0 = heading_spawn(cfg, cfg.seed, device=device)
+    cache = (verlet_cache_seed(cfg, device=device)
+             if cfg.gating_rebuild_skin else ())
+    rta = rta_seed(x0, torch.zeros_like(x0), theta0) if cfg.rta else ()
+    return State(x=x0, v=torch.zeros_like(x0), theta=theta0,
+                 gating_cache=cache, rta=rta)
 
 
 def certificate_backend(cfg: Config) -> str:
@@ -367,14 +449,9 @@ def certificate_backend(cfg: Config) -> str:
     return cfg.certificate_backend
 
 
-# Robotarium wheel limits (cbf_tpu/sim/robotarium.py SimParams): radius
-# 0.016 m at 12.5 rad/s bounds unicycle speed.
-_WHEEL_VMAX = 0.016 * 12.5
-
-
 def validate_config(cfg: Config) -> None:
     """Raise ValueError on invalid knob combinations — the JAX package's
-    checks, unchanged. (Valid knobs this slice does not port raise
+    checks, unchanged. (Valid knobs of later slices raise
     OutOfSliceError when a step is built.)"""
     if cfg.dynamics not in ("single", "double", "unicycle", "mixed"):
         raise ValueError(f"dynamics must be single|double|unicycle|mixed, "
@@ -462,10 +539,12 @@ def validate_config(cfg: Config) -> None:
         if not cfg.projection_distance > 0:
             raise ValueError(f"unicycle dynamics needs projection_distance "
                              f"> 0, got {cfg.projection_distance}")
-        if cfg.speed_limit > _WHEEL_VMAX + 1e-9:
+        p = SimParams(dt=cfg.dt)
+        vmax = p.wheel_radius * p.max_wheel_speed
+        if cfg.speed_limit > vmax + 1e-9:
             raise ValueError(
                 f"unicycle speed_limit {cfg.speed_limit} exceeds the "
-                f"wheel-realizable max {_WHEEL_VMAX:.3f}")
+                f"wheel-realizable max {vmax:.3f}")
     if cfg.rta:
         if cfg.rta_recover_steps < 1:
             raise ValueError(f"rta_recover_steps must be >= 1, got "
@@ -494,22 +573,12 @@ def validate_config(cfg: Config) -> None:
                 f"{cfg.vel_tracking_tau}")
 
 
-def _require_single(cfg: Config, what: str) -> None:
-    if cfg.dynamics != "single":
-        raise OutOfSliceError(f"{what} for dynamics={cfg.dynamics!r}",
-                              SLICE_A5)
-
-
 def reject_out_of_slice(cfg: Config, *, unroll_relax: int = 0,
                         active=None) -> None:
     """Raise OutOfSliceError for every valid knob this slice does not
     port — never ignore one silently."""
-    _require_single(cfg, "the swarm step")
     later = [
         (cfg.certificate, "Config.certificate=True", SLICE_CERT),
-        (cfg.rta, "Config.rta=True", SLICE_A5),
-        (cfg.gating_rebuild_skin > 0,
-         f"Config.gating_rebuild_skin={cfg.gating_rebuild_skin}", SLICE_A5),
         (unroll_relax > 0, f"unroll_relax={unroll_relax} on the step",
          SLICE_DIFF),
         (active is not None, "the serving layer's active mask",
@@ -522,49 +591,119 @@ def reject_out_of_slice(cfg: Config, *, unroll_relax: int = 0,
 
 def barrier_dynamics(cfg: Config, dtype, validate: bool = True, *,
                      device=None):
-    """(f, g, discrete) for the configured barrier discretization.
-    "continuous": the reference's rows (f = 0, g = dyn_scale * I on the
-    position slots); "discrete": f = dt * (pos <- vel), g = dt * I — the
-    exact discrete-time CBF condition h_{k+1} >= (1-gamma) h_k. "auto" =
-    discrete when obstacles are present, else continuous."""
+    """(f, g, discrete) for the configured dynamics and barrier
+    discretization.
+
+    double: the exact discrete rows of the semi-implicit update, f = dt *
+    (pos <- vel), g = [[dt^2 I], [dt I]]. mixed: per-agent f (N, 4, 4) and
+    g (N, 4, 2), double rows as above and single rows g = dt * [[I], [0]]
+    (:func:`dynamics_mask`), which route the filter through its per-agent
+    path. single and unicycle: "continuous" gives the reference's rows
+    (f = 0, g = dyn_scale * I on the position slots), "discrete" f = dt *
+    (pos <- vel), g = dt * I — the exact discrete-time CBF condition
+    h_{k+1} >= (1-gamma) h_k; "auto" = discrete when obstacles are
+    present, else continuous."""
     if validate:
         validate_config(cfg)
-    _require_single(cfg, "barrier_dynamics")
     dev = resolve_device(device)
+
+    def rows(values):
+        return torch.tensor(values, dtype=dtype, device=dev)
+
+    coupling = rows([[0, 0, 1, 0], [0, 0, 0, 1], [0, 0, 0, 0], [0, 0, 0, 0]])
+    if cfg.dynamics in ("double", "mixed"):
+        dt = cfg.dt
+        f = dt * coupling
+        g_dbl = (rows([[1, 0], [0, 1], [1, 0], [0, 1]])
+                 * rows([dt * dt, dt * dt, dt, dt])[:, None])
+        if cfg.dynamics == "double":
+            return f, g_dbl, True
+        m = dynamics_mask(cfg, device=dev)
+        g_sgl = dt * rows([[1, 0], [0, 1], [0, 0], [0, 0]])
+        return (f[None].expand(cfg.n, 4, 4),
+                torch.where(m[:, None, None], g_dbl[None], g_sgl[None]), True)
     discrete = (cfg.n_obstacles > 0 if cfg.barrier == "auto"
                 else cfg.barrier == "discrete")
     scale = cfg.dt if discrete else cfg.dyn_scale
-    g = scale * torch.tensor([[1, 0], [0, 1], [0, 0], [0, 0]], dtype=dtype,
-                             device=dev)
-    if discrete:
-        f = cfg.dt * torch.tensor([[0, 0, 1, 0], [0, 0, 0, 1],
-                                   [0, 0, 0, 0], [0, 0, 0, 0]], dtype=dtype,
-                                  device=dev)
-    else:
-        f = cfg.dyn_scale * torch.zeros((4, 4), dtype=dtype, device=dev)
+    g = scale * rows([[1, 0], [0, 1], [0, 0], [0, 0]])
+    f = (cfg.dt * coupling if discrete
+         else cfg.dyn_scale * torch.zeros((4, 4), dtype=dtype, device=dev))
     return f, g, discrete
 
 
-def default_cbf(cfg: Config) -> CBFParams:
-    """Single mode — k = 0: the position-only barrier h = |dx|+|dy| - dmin.
-    At crowd scale the reference's k = 1 approach-velocity term feeds the
-    evasive outputs back into the next step's h; with k = 0 h contracts
-    geometrically to 0 and never crosses it."""
-    _require_single(cfg, "default_cbf")
+def default_cbf(cfg: Config, *, device=None) -> CBFParams:
+    """The scenario's filter parameters per dynamics family.
+
+    single — k = 0: the position-only barrier h = |dx|+|dy| - dmin (at
+    crowd scale the reference's k = 1 feeds evasive outputs back into the
+    next step's h; with k = 0 h contracts geometrically to 0 and never
+    crosses it). double — k = 1, the velocity term that gives an
+    acceleration authority over the barrier; max_speed is the box on
+    |a| (accel_limit). unicycle — the box at speed_limit, the
+    wheel-realizable command. mixed — (N,) leaves on ``device``: each row
+    its family's box bound and velocity term."""
+    if cfg.dynamics == "double":
+        return CBFParams(max_speed=cfg.accel_limit, k=1.0)
+    if cfg.dynamics == "mixed":
+        m = dynamics_mask(cfg, device=device)
+        return CBFParams(
+            max_speed=torch.where(m, cfg.accel_limit,
+                                  cfg.max_speed).to(cfg.dtype),
+            k=torch.where(m, 1.0, 0.0).to(cfg.dtype))
+    if cfg.dynamics == "unicycle":
+        return CBFParams(max_speed=cfg.speed_limit, k=0.0)
     return CBFParams(max_speed=cfg.max_speed, k=0.0)
 
 
+def separation_bias(cfg: Config, x, obs_slab, mask):
+    """Double mode: the short-range separation term of the nominal
+    velocity field, from the agent slab (before obstacle rows are
+    attached): pairs closer than ``sep_target`` push apart, so the packed
+    core decompresses through the QP instead of freezing below the floor.
+    Returns an (N, 2) bias, capped later with the rest of the nominal."""
+    rel = x[:, None, :] - obs_slab[..., :2]               # (N, K, 2)
+    d = safe_norm(rel)                                    # (N, K)
+    w = torch.where(mask, torch.clamp(cfg.sep_target - d, min=0.0), 0.0)
+    return cfg.sep_gain * torch.sum(
+        (w / torch.clamp(d, min=1e-9))[..., None] * rel, dim=1)
+
+
+def nominal_accel(cfg: Config, u_cmd, v):
+    """Double mode: the velocity-tracking PD turns the nominal velocity
+    field into a nominal acceleration, L2-capped at the actuator limit."""
+    return l2_cap((u_cmd - v) / cfg.vel_tracking_tau, cfg.accel_limit)
+
+
 def complete_nominal(cfg: Config, u0, x, v, obs_slab, mask):
-    """Finish the nominal after gating; single mode: the L2 speed cap."""
-    _require_single(cfg, "complete_nominal")
-    return l2_cap(u0, cfg.speed_limit)
+    """Finish the nominal after gating: the separation term of double
+    rows (it needs the agent slab), the L2 speed cap, then the double
+    rows' conversion to an acceleration. A mixed swarm's single rows keep
+    the homogeneous swarm's nominal bit for bit."""
+    double = cfg.dynamics == "double"
+    mixed = cfg.dynamics == "mixed"
+    dmask = dynamics_mask(cfg, device=x.device) if mixed else None
+    if (double or mixed) and cfg.sep_gain:
+        bias = separation_bias(cfg, x, obs_slab, mask)
+        if mixed:
+            bias = torch.where(dmask[:, None], bias, 0.0)
+        u0 = u0 + bias
+    u0 = l2_cap(u0, cfg.speed_limit)
+    if double:
+        u0 = nominal_accel(cfg, u0, v)
+    elif mixed:
+        u0 = torch.where(dmask[:, None], nominal_accel(cfg, u0, v), u0)
+    return u0
 
 
 def relax_tiers(cfg: Config, mask, priority):
-    """(priority_mask, relax_cap); single mode keeps obstacle rows (when
-    present) as the priority tier with agent rows capped at
-    ``relax_cap``."""
-    _require_single(cfg, "relax_tiers")
+    """(priority_mask, relax_cap). double, unicycle and mixed: every row
+    in the one eps tier, no cap — their per-step barrier authority is
+    actuation-bounded, so the reference's +1 relax would neuter rows in a
+    round. single: obstacle rows (when present) are the priority tier and
+    agent rows carry ``relax_cap``."""
+    if cfg.dynamics in ("double", "unicycle", "mixed"):
+        return (torch.ones_like(mask) if priority is None
+                else torch.ones_like(priority)), None
     return priority, (cfg.relax_cap if cfg.n_obstacles else None)
 
 
@@ -580,21 +719,121 @@ def banded_window_blocks(cfg: Config) -> int:
     return int(np.ceil((band + 2 * knn.RTILE) / knn.CTILE)) + 1
 
 
+def unicycle_apply(cfg: Config, body_xy, theta, u_si):
+    """Apply filtered si velocities to the unicycle fleet: map to
+    (v, omega) through the projection point, one saturated unicycle step,
+    and the new projection points. Returns (body_xy' (N, 2), theta' (N,),
+    p' (N, 2))."""
+    poses = torch.stack([body_xy[:, 0], body_xy[:, 1], theta])    # (3, N)
+    dxu = si_to_uni_dyn(u_si.T, poses, cfg.projection_distance)
+    new_poses = unicycle_step(poses, dxu, SimParams(dt=cfg.dt))
+    p_new = uni_to_si_states(new_poses, cfg.projection_distance).T
+    return (torch.stack([new_poses[0], new_poses[1]], dim=1), new_poses[2],
+            p_new)
+
+
 def integrate(cfg: Config, x, v, u):
-    """(x_new, v_new): the reference's first-order update in single
-    mode."""
-    _require_single(cfg, "integrate")
+    """(x_new, v_new): semi-implicit Euler in double mode (the update the
+    barrier rows discretize exactly), the first-order update in single
+    mode, and their per-row blend in a mixed swarm."""
+    if cfg.dynamics == "double":
+        v_new = v + cfg.dt * u
+        return x + cfg.dt * v_new, v_new
+    if cfg.dynamics == "mixed":
+        m = dynamics_mask(cfg, device=x.device)[:, None]
+        v_dbl = v + cfg.dt * u
+        return (torch.where(m, x + cfg.dt * v_dbl, x + cfg.dt * u),
+                torch.where(m, v_dbl, u))
     return x + cfg.dt * u, u
+
+
+def verlet_gating(cfg: Config, x, states4, cache, K: int, use_kernel: bool,
+                  not_self=None):
+    """One Verlet-cached gating step (``gating_rebuild_skin``).
+
+    The k-NN is rebuilt under the inflated radius r_build = safety_distance
+    + skin only when some agent has moved more than skin/2 since the last
+    build (then every pair now within safety_distance was within r_build
+    at build time); otherwise fresh states are gathered by the cached
+    index. The mask re-checks the true radius on fresh positions, so only
+    the selection is stale. The rebuild searches with the kernels
+    (:func:`knn.knn_select`) where ``use_kernel``, else densely (a stable
+    sort keeps the lower index first, as ``lax.top_k`` does; ``not_self``
+    (N, N) excludes the diagonal).
+
+    Eagerly the rebuild is a host branch; inside the compiled body it runs
+    every step and ``torch.where`` on the 0-dim predicate picks rebuilt or
+    cached values, bit for bit either branch.
+
+    Returns (obs_slab (N, Kc, 4), mask, min_dist_sound — the seen minimum
+    at the build radius combined with a lower bound on every unseen pair,
+    dropped () int32 — frozen at the last rebuild, counted vs the build
+    radius, new_cache)."""
+    skin = float(cfg.gating_rebuild_skin)
+    r_build = cfg.safety_distance + skin
+    Kc = min(K, cfg.n - 1)
+
+    def rebuild():
+        if use_kernel:
+            idx, bdist, _, count = knn.knn_select(states4[:, :2], r_build, Kc)
+        else:
+            dist = pairwise_distances(x)
+            eligible = (dist < r_build) & not_self
+            bdist, idx = torch.sort(torch.where(eligible, dist, torch.inf),
+                                    dim=1, stable=True)
+            bdist, idx = bdist[:, :Kc], idx[:, :Kc].to(torch.int32)
+            count = torch.sum(eligible, dim=1, dtype=torch.int32)
+        dropped = torch.sum(torch.clamp(count - Kc, min=0), dtype=torch.int32)
+        # Every build-time-truncated in-radius pair was at least as far as
+        # both endpoints' k-th kept distance.
+        d_kth = torch.amax(torch.where(torch.isfinite(bdist), bdist,
+                                       -torch.inf), dim=1)
+        min_dkth = torch.amin(torch.where(count > Kc, d_kth, torch.inf))
+        return idx, x, dropped, min_dkth.to(x.dtype)
+
+    disp2 = torch.amax(torch.sum((x - cache[1]) ** 2, dim=1))
+    stale = disp2 > (0.5 * skin) ** 2
+    if exact2d.in_guarded_body():
+        cache = tuple(torch.where(stale, new, old)
+                      for new, old in zip(rebuild(), cache))
+    elif bool(stale):
+        cache = rebuild()
+    idx_c, xb_c, dropped_c, dkth_c = cache
+    obs_slab = states4[idx_c.to(torch.int64)]              # fresh states
+    d = torch.sqrt(torch.sum((x[:, None, :] - obs_slab[..., :2]) ** 2,
+                             dim=-1))
+    # 0 < d excludes self rows, exact coincidences and the fillers that
+    # point at self; a filler pointing at an in-radius agent is a true
+    # duplicate row, which the QP absorbs.
+    mask = (d > 0.0) & (d < cfg.safety_distance)
+    seen_min = torch.amin(torch.where((d > 0.0) & (d < r_build), d,
+                                      torch.inf))
+    disp_now = torch.sqrt(torch.amax(torch.sum((x - xb_c) ** 2, dim=1)))
+    min_dist = torch.minimum(seen_min, dkth_c - 2.0 * disp_now)
+    return obs_slab, mask, min_dist, dropped_c, cache
 
 
 # Guarded relax rounds per step in the compiled rollout, beyond which a
 # chunk is redone with the eager relax loop. Chosen from the per-step relax
 # rounds measured on an H100 at N=4096 (PERF.md §5): without obstacles, or
-# with the static scatter field, no step needed more than one round; the
-# orbiting ring needed up to 12. Each round costs a projection on every
-# step, so the ring alone gets the deep guard.
+# with the static scatter field, no single-integrator step needed more
+# than one round; the orbiting ring needed up to 12. Each round costs a
+# projection on every step, so the ring alone gets the deep guard.
 RELAX_ROUNDS = 1
 RELAX_ROUNDS_ORBIT = 12
+# The other families put every row in the 0.01-per-round eps tier
+# (relax_tiers); per family the deepest step of its 300-step histogram at
+# N=4096 on the H100 (PERF.md §6, PR 7): double and mixed relaxed up to 3
+# rounds (most steps 1-2), the unicycle once in 300 steps.
+RELAX_ROUNDS_FAMILY = {"double": 3, "unicycle": 1, "mixed": 3}
+
+
+def relax_rounds(cfg: Config) -> int:
+    """The guarded relax rounds a step of ``cfg`` captures."""
+    rounds = RELAX_ROUNDS_FAMILY.get(cfg.dynamics, RELAX_ROUNDS)
+    if cfg.n_obstacles and cfg.obstacle_layout == "orbit":
+        rounds = max(rounds, RELAX_ROUNDS_ORBIT)
+    return rounds
 
 
 def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
@@ -619,7 +858,8 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
         raise ValueError(f"gating_rebuild_skin must be >= 0, got "
                          f"{cfg.gating_rebuild_skin}")
     use_banded = cfg.gating == "banded"
-    if cfg.gating_rebuild_skin and cfg.gating in ("banded", "streaming"):
+    cache_skin = float(cfg.gating_rebuild_skin)
+    if cache_skin and cfg.gating in ("banded", "streaming"):
         raise ValueError(
             "gating_rebuild_skin requires the pallas/jnp gating backends "
             "(the banded kernel's window bookkeeping has no cached form, "
@@ -627,27 +867,53 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
     reject_out_of_slice(cfg, unroll_relax=unroll_relax, active=active)
     dt_ = cfg.dtype
     f, g, discrete = barrier_dynamics(cfg, dt_, validate=False, device=dev)
+    double = cfg.dynamics == "double"
+    unicycle = cfg.dynamics == "unicycle"
+    mixed = cfg.dynamics == "mixed"
+    dmask = dynamics_mask(cfg, device=dev) if mixed else None
+    # Actuation-bounded families get the pure actuator box (the
+    # reference's velocity-coupled box rows are a parity artifact).
+    plain_box = cfg.dynamics != "single"
     goals_np = goal_layout(cfg)
     goals_c = (None if goals_np is None
                else torch.as_tensor(goals_np, dtype=dt_, device=dev))
     if cbf is None:
-        cbf = default_cbf(cfg)
+        cbf = default_cbf(cfg, device=dev)
     K = cfg.k_neighbors
     M = cfg.n_obstacles
     # "streaming" forces the streaming kernel below the fused bound.
     kernel = "streaming" if cfg.gating == "streaming" else "auto"
     use_kernel = (knn.supported(cfg.n) if cfg.gating == "auto"
                   else cfg.gating in ("pallas", "streaming"))
+    not_self = None
     if use_banded:
         window_blocks = banded_window_blocks(cfg)
     elif not use_kernel:
         all_rows = torch.ones(cfg.n, dtype=torch.bool, device=dev)
-        self_inf = torch.where(
-            torch.eye(cfg.n, dtype=torch.bool, device=dev),
-            torch.inf, 0.0).to(dt_)
+        eye = torch.eye(cfg.n, dtype=torch.bool, device=dev)
+        self_inf = torch.where(eye, torch.inf, 0.0).to(dt_)
+        not_self = ~eye
+    filter_kw = dict(reference_layout=not plain_box,
+                     vel_box_rows=not plain_box)
 
     def step(state: State, t, inputs=None):
-        x = state.x                                            # (N, 2)
+        scrub_bit = None
+        if cfg.rta:
+            # Rung-3 entry half (lane scrub): a non-finite carried row is
+            # replaced by its last-known-good row before any geometry
+            # touches it (one NaN would reach every agent through the
+            # consensus centroid).
+            mode_prev, streak_prev, lkg_x, lkg_v, lkg_th = state.rta
+            ok_rows = finite_rows(state.x, state.v, state.theta)
+            scrub_bit = ~ok_rows
+            state = state._replace(
+                x=torch.where(ok_rows[:, None], state.x, lkg_x),
+                v=torch.where(ok_rows[:, None], state.v, lkg_v),
+                theta=(torch.where(ok_rows, state.theta, lkg_th)
+                       if unicycle else state.theta))
+        # Unicycle: the filter works on the projection points.
+        x = (projection_points(cfg, state.x, state.theta) if unicycle
+             else state.x)                                     # (N, 2)
         with annotate("consensus"):
             if goals_c is not None:
                 u0 = cfg.consensus_gain * (goals_c - x)
@@ -664,14 +930,25 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
                               if inputs is None else inputs)
                 dodge, d_o = lane_dodge(x, obstacles4, cfg.safety_distance)
                 u0 = u0 + 2.0 * dodge
-        # Discrete rows zero the agents' velocity slots (u is the unknown
-        # the row solves for); continuous rows carry actual velocities.
-        vslots = torch.zeros_like(state.v) if discrete else state.v
+        # Discrete single rows zero the agents' velocity slots (u is the
+        # unknown the row solves for); double rows and continuous rows
+        # carry the actual velocities.
+        if mixed:
+            vslots = torch.where(dmask[:, None], state.v,
+                                 torch.zeros_like(state.v))
+        else:
+            vslots = (state.v if (double or not discrete)
+                      else torch.zeros_like(state.v))
         states4 = torch.cat([x, vslots], dim=1)                # (N, 4)
 
         overflow_count = ()
+        new_cache = ()
         with annotate("gating"):
-            if use_banded:
+            if cache_skin:
+                obs_slab, mask, min_dist, dropped, new_cache = verlet_gating(
+                    cfg, x, states4, state.gating_cache, K, use_kernel,
+                    not_self)
+            elif use_banded:
                 # O(N*W) y-sorted banded kernel; window overflow (possibly
                 # missed neighbours) is surfaced, never swallowed.
                 obs_slab, mask, nearest, overflow, dropped = \
@@ -707,12 +984,76 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
             priority, cap = relax_tiers(cfg, mask, priority)
             u_safe, info = safe_controls(
                 states4, obs_slab, mask, f, g, u0, cbf,
-                priority_mask=priority, relax_cap=cap)
+                priority_mask=priority, relax_cap=cap, **filter_kw)
             engaged = torch.any(mask, dim=1)
             u = torch.where(engaged[:, None], u_safe, u0)
 
+        if cfg.rta:
+            # Rung 1: the flagged agents' QPs re-solved with the cap lifted
+            # and the boosted budget. Eagerly a host branch; the compiled
+            # body leaves it out and raises the redo flag where it would
+            # change a row, so the eager loop runs that chunk again.
+            bit_infeas = ~info.feasible & engaged
+            boost = (bit_infeas | (mode_prev == RUNG_RESOLVE)) & engaged
+            if exact2d.in_guarded_body():
+                exact2d.request_redo(torch.any(boost))
+            elif bool(torch.any(boost)):
+                u_boost, _ = safe_controls(
+                    states4, obs_slab, mask, f, g, u0, cbf,
+                    priority_mask=priority, relax_cap=None,
+                    max_relax=cfg.rta_boost_budget, **filter_kw)
+                u = torch.where(boost[:, None], u_boost, u)
+            # Rungs 2-3, pre-integration half: the backup command for
+            # every agent whose latched or demanded rung asks for it.
+            health = health_word(cfg.n, infeasible=bit_infeas,
+                                 state_nonfinite=scrub_bit,
+                                 control_nonfinite=~finite_rows(u))
+            mode_eff = torch.maximum(mode_prev, demanded_rung(health))
+            u = torch.where((mode_eff >= RUNG_BACKUP)[:, None],
+                            backup_control(
+                                state.v, dynamics=cfg.dynamics,
+                                vel_tracking_tau=cfg.vel_tracking_tau,
+                                accel_limit=cfg.accel_limit,
+                                dynamics_mask=dmask), u)
+            # A non-finite command never reaches the integrator.
+            u = torch.where(torch.isfinite(u), u, torch.zeros_like(u))
+
+        deficit = ()
         with annotate("integrate"):
-            x_new, v_new = integrate(cfg, x, state.v, u)
+            if unicycle:
+                body_new, theta_new, p_new = unicycle_apply(
+                    cfg, state.x, state.theta, u)
+                # The applied si velocity at the projection point.
+                x_new, v_new = body_new, (p_new - x) / cfg.dt
+                deficit_pa = safe_norm(u - v_new)
+                deficit = torch.amax(deficit_pa)
+            else:
+                x_new, v_new = integrate(cfg, x, state.v, u)
+                theta_new = state.theta
+
+        rta_mode = ()
+        rta_carry = ()
+        if cfg.rta:
+            # Rung-3 exit half: a row the integrator broke is held at its
+            # pre-step value with v = 0, and the trailing health bits
+            # fold into the latch from the next step.
+            post_ok = finite_rows(x_new, v_new,
+                                  theta_new if unicycle else ())
+            x_new = torch.where(post_ok[:, None], x_new, state.x)
+            v_new = torch.where(post_ok[:, None], v_new,
+                                torch.zeros_like(v_new))
+            if unicycle:
+                theta_new = torch.where(post_ok, theta_new, state.theta)
+            health = health | health_word(
+                cfg.n, state_nonfinite=~post_ok,
+                actuation_deficit=(deficit_pa > cfg.rta_deficit_gate
+                                   if unicycle else None))
+            mode_new, streak_new = latch_update(
+                mode_prev, streak_prev, demanded_rung(health),
+                cfg.rta_recover_steps)
+            rta_mode = torch.amax(mode_new)
+            rta_carry = (mode_new, streak_new, x_new, v_new,
+                         theta_new if unicycle else ())
 
         out = StepOutputs(
             min_pairwise_distance=min_dist,
@@ -723,12 +1064,13 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
             trajectory=x if cfg.record_trajectory else (),
             gating_overflow_count=overflow_count,
             gating_dropped_count=torch.sum(dropped, dtype=torch.int32),
+            saturation_deficit=deficit,
+            rta_mode=rta_mode,
         )
-        return state._replace(x=x_new, v=v_new), out
+        return state._replace(x=x_new, v=v_new, theta=theta_new,
+                              gating_cache=new_cache, rta=rta_carry), out
 
-    step.relax_rounds = (RELAX_ROUNDS_ORBIT
-                         if M and cfg.obstacle_layout == "orbit"
-                         else RELAX_ROUNDS)
+    step.relax_rounds = relax_rounds(cfg)
     if M:
         step.host_inputs = lambda t0, n: obstacle_table(cfg, t0, n, dt_)
     return step

@@ -16,6 +16,9 @@ per round, and one per call in the all-feasible common case. Inside
 captures) the batch solver runs a fixed number of rounds on the device
 instead and raises a device flag where the loop would have gone on
 (:func:`relax_guarded`); the rollout then redoes that stretch eagerly.
+Every lane runs its own relax schedule in both forms, so the full-row
+lanes of the per-agent (mixed-dynamics) filter go through the same
+loop and guard as the deduplicated ones.
 """
 
 from __future__ import annotations
@@ -221,6 +224,26 @@ def guarded_relax(rounds: int, flag):
         yield
     finally:
         _GUARD.reset(token)
+
+
+def in_guarded_body() -> bool:
+    """Whether the caller runs inside :func:`guarded_relax` — the compiled
+    rollout's body, which may read nothing on the host. A step takes a
+    data-dependent branch there in branch-free form or hands it to the
+    eager redo (:func:`request_redo`)."""
+    return _GUARD.get() is not None
+
+
+def request_redo(pred) -> None:
+    """Inside :func:`guarded_relax`: OR the 0-dim device predicate
+    ``pred`` into the guard's flag, so the engine redoes the chunk with the
+    eager loop where it is set — the second source of the flag, for
+    branches a captured body leaves out. Outside it: an error."""
+    guard = _GUARD.get()
+    if guard is None:
+        raise RuntimeError("request_redo outside guarded_relax: take the "
+                           "branch on the host instead")
+    guard.flag.logical_or_(pred)
 
 
 def _relax(At, bt, rt, ct, tol, I, J, max_relax: int, unroll_relax: int):

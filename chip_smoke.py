@@ -65,9 +65,38 @@ Phases (each raises, and the script exits non-zero, on any failure):
    min distance printed: the reference itself dips below the floor there,
    the ring outruns the agents ~13x), and 20 steps of the orbit run on
    the card and on the CPU with positions and min distances within a
-   stated tolerance and every count equal.
+   stated tolerance and every count equal;
+9. the other dynamics families at N=4096, 300 steps each, compiled and
+   held to the eager loop as in phase 3 (the headings included):
+   ``dynamics="double"``, ``"unicycle"`` and ``"mixed"`` with
+   ``n_double=2048`` (the per-agent filter path), each above its
+   calibrated floor (``bench.py``: 0.08 double and mixed, 0.11 unicycle,
+   on the projection points), the infeasible count, the per-step relax
+   rounds and the rounds captured printed, unicycle's largest saturation
+   deficit printed; then each family at N=256 for 50 steps on the card
+   and on the CPU: positions and headings within a stated tolerance,
+   every count equal;
+10. the Verlet neighbour cache, ``Config(n=4096, gating_rebuild_skin=0.1)``
+   x 500 with the trajectory recorded, compiled (a rebuild search on every
+   step, the cached or rebuilt selection picked on the device) and held to
+   the eager loop (a rebuild only when an agent has moved skin/2): 0
+   infeasible, the sound floor metric at or below the true separation of
+   every step and that above the L1 floor, the metric's minimum printed
+   against tests/test_gating_truncation.py's N=512 bound of 0.13 (the
+   reference's own N=4096 run dips below it too), the rebuild count and
+   dropped count printed;
+11. runtime assurance at N=4096 x 300: armed and healthy
+   (``Config(rta=True)``) bit-equal to ``rta=False`` on x, v and every
+   count with ``rta_mode`` all 0; a NaN-poisoned agent at step 30
+   (rung 3 at step 30, released by the end, every row finite); an
+   8-agent clump teleported at step 10 onto the ring of 12 obstacles
+   (rung 1 engages and is released, the boosted re-solve runs in the
+   eager redo, whose counts are printed for the whole rollout and for
+   chunks of 50).
+   Each compiled and held to the eager loop.
 
-Phases 7 and 8 run before phase 6, which times their kernel.
+Phases 7-11 run before phase 6, which times their kernels and profiles
+every phase.
 
 Stdout ends with the ``{"kernels": [...]}`` line, each phase's compiled
 and eager agent-QP-steps/s, the card line, and, last, the result line
@@ -103,6 +132,15 @@ MAIN_N, MAIN_STEPS = 4096, 500
 STREAM_N, STREAM_STEPS = 16384, 50
 BANDED_N, BANDED_STEPS = 65536, 200
 OBST_N, OBST_M, OBST_STEPS = 4096, 12, 300
+DYN_N, DYN_STEPS = 4096, 300
+# bench.py's calibrated floors (SAFETY_FLOOR_DOUBLE, _UNICYCLE): the
+# double rows' inertial transient dips below the single floor; unicycle
+# distances are between projection points.
+DYN_FLOORS = {"double": 0.08, "unicycle": 0.11, "mixed": 0.08}
+DYN_CROSS_N, DYN_CROSS_STEPS = 256, 50
+VERLET_STEPS, VERLET_SKIN = 500, 0.1
+VERLET_FLOOR = 0.13   # tests/test_gating_truncation.py's bound at N=512
+RTA_STEPS, RTA_POISON_AT, RTA_CLUMP_AT = 300, 30, 10
 THIN_N = 4096   # phase 2's thin band: 8 blocks of rows in one 1e-3 m band
 CROSS_STEPS = 20
 # Card vs CPU after CROSS_STEPS steps: positions reach ~13 m, where a
@@ -111,6 +149,10 @@ CROSS_STEPS = 20
 # 1e-4 m leaves ~5x headroom over 20 steps of that, and the min-distance
 # series (values ~0.2 m, ulp ~1.5e-8) gets 1e-5.
 CROSS_X_ATOL, CROSS_MD_ATOL = 1e-4, 1e-5
+# The same bounds hold phase 9's 50 steps at N=256 (positions ~3 m, a
+# float32 ulp ~2.4e-7): CUDA's and the CPU's cos/sin may differ by an ulp
+# and the unicycle heading feeds that back every step, which 1e-4 covers
+# ~400x over; theta (|theta| < ~10) gets the same 1e-4.
 
 
 def check(cond: bool, msg: str) -> None:
@@ -201,7 +243,14 @@ def same_tree(a, b) -> bool:
             and len(a) == len(b) and all(map(same_tree, a, b)))
 
 
-def drive(swarm, engine, knn, cfg, label, kernel):
+def zero_counts(engine, knn) -> None:
+    for name in knn.LAUNCHES:
+        knn.LAUNCHES[name] = 0
+    for name in engine.COUNTS:
+        engine.COUNTS[name] = 0
+
+
+def drive(swarm, engine, knn, cfg, label, kernel, wrap=None):
     """One main-path run through the user entry points: ``swarm.make`` and
     the compiled ``rollout`` (its first call on this step, so the capture
     is inside), with the launch and engine counts zeroed just before and
@@ -209,17 +258,22 @@ def drive(swarm, engine, knn, cfg, label, kernel):
     loop from the same initial state, which the compiled run must equal
     (final state and every StepOutputs field, torch.equal), and both timed
     in turns (eager, compiled, compiled, eager) with the graphs cached.
-    Checks one ``kernel`` launch per step (plus any redone step) and none
-    of the others. Returns a dict of the run."""
+    ``wrap`` wraps the step (a fault injector). Checks ``kernel``
+    launches and none of the others: one per step in the compiled run (a
+    graph replays every step's search; the Verlet cache's too) plus the
+    eager loop's where the chunk was redone, and one per step eagerly
+    (the Verlet cache: one per rebuild). Returns a dict of the run."""
     import torch
 
     state0, step = swarm.make(cfg)
+    if wrap is not None:
+        step = wrap(step)
     torch.cuda.synchronize()
-    for name in knn.LAUNCHES:
-        knn.LAUNCHES[name] = 0
-    for name in engine.COUNTS:
-        engine.COUNTS[name] = 0
+    zero_counts(engine, knn)
     torch.cuda.reset_peak_memory_stats()
+    # Earlier phases' programs keep their buffers and graph pools: report
+    # the peak over what was held before this run, too.
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     final, outs = engine.rollout(step, state0, cfg.steps)
     torch.cuda.synchronize()
@@ -228,8 +282,10 @@ def drive(swarm, engine, knn, cfg, label, kernel):
     counts = dict(engine.COUNTS)
     peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    zero_counts(engine, knn)
     eager_final, eager_outs = engine.eager_rollout(step, state0, cfg.steps)
     torch.cuda.synchronize()
+    eager_launches = dict(knn.LAUNCHES)
     peak_eager = torch.cuda.max_memory_allocated()
     check(same_tree(final, eager_final),
           f"{label}: compiled final state differs from the eager loop's")
@@ -237,8 +293,12 @@ def drive(swarm, engine, knn, cfg, label, kernel):
         check(same_tree(a, b), f"{label}: compiled {name} differs from the "
               "eager loop's")
     want = dict.fromkeys(knn.LAUNCHES, 0)
-    want[kernel] = cfg.steps + counts["redo_steps"]
+    want[kernel] = cfg.steps + (eager_launches[kernel]
+                                if counts["redo_steps"] else 0)
     check(launches == want, f"{label}: launches {launches}, want {want}")
+    if not cfg.gating_rebuild_skin:
+        check(eager_launches[kernel] == cfg.steps,
+              f"{label}: eager launches {eager_launches}")
     walls = {"eager": [], "compiled": []}
     for kind in ("eager", "compiled", "compiled", "eager"):
         run = engine.eager_rollout if kind == "eager" else engine.rollout
@@ -258,53 +318,67 @@ def drive(swarm, engine, knn, cfg, label, kernel):
                                           for w in walls["compiled"]],
         "peak_mib_compiled_first_call": peak / 2**20,
         "peak_mib_eager": peak_eager / 2**20,
+        "held_before_mib": base / 2**20,
+        "peak_over_held_mib_compiled": (peak - base) / 2**20,
+        "peak_over_held_mib_eager": (peak_eager - base) / 2**20,
         "max_relax_rounds_steps": {r: int(c) for r, c in enumerate(rounds)
-                                   if int(c)}}
+                                   if int(c)},
+        "eager_launches": eager_launches[kernel]}
     print(f"{label}: compiled == eager (final state, every StepOutputs "
           f"field); launches {launches}; " + json.dumps(run_info))
     return {"state0": state0, "step": step, "final": final,
-            "outs": outs, "launches": launches,
+            "outs": outs, "eager_outs": eager_outs, "launches": launches,
             "wall": min(walls["compiled"]), "info": run_info}
 
 
-def check_run(label, cfg, final, outs, floor=FLOOR):
-    """Shapes, finiteness, zero infeasible agent-steps and (unless
-    ``floor`` is None) the separation floor. Returns the min distance."""
+def check_run(label, cfg, final, outs, floor=FLOOR, feasible=True):
+    """Shapes, finiteness (every state leaf), zero infeasible agent-steps
+    (unless ``feasible`` is False: then the count is only printed) and
+    (unless ``floor`` is None) the separation floor. Returns the min
+    distance."""
     import torch
 
     md = outs.min_pairwise_distance
     check(tuple(md.shape) == (cfg.steps,), f"{label}: min-distance shape")
     check(tuple(final.x.shape) == (cfg.n, 2), f"{label}: state shape")
-    check(bool(torch.isfinite(final.x).all())
-          and bool(torch.isfinite(final.v).all()), f"{label}: non-finite")
+    leaves = [v for v in (final.x, final.v, final.theta)
+              if isinstance(v, torch.Tensor)]
+    check(all(bool(torch.isfinite(v).all()) for v in leaves),
+          f"{label}: non-finite")
     md_min = float(md.min())
     infeasible = int(outs.infeasible_count.sum())
     if floor is not None:
         check(md_min >= floor, f"{label}: min distance {md_min} < {floor}")
-    check(infeasible == 0, f"{label}: {infeasible} infeasible agent-steps")
+    if feasible:
+        check(infeasible == 0,
+              f"{label}: {infeasible} infeasible agent-steps")
     overflow = ("" if isinstance(outs.gating_overflow_count, tuple) else
                 f", window overflow {int(outs.gating_overflow_count.sum())}")
     print(f"{label}: min distance {md_min:.6f} "
           f"({'floor %.5f' % floor if floor is not None else 'not held'}), "
-          f"infeasible 0, max relax rounds "
+          f"infeasible {infeasible}, max relax rounds "
           f"{float(outs.max_relax_rounds.max()):.0f}, filter-active mean "
           f"{float(outs.filter_active_count.float().mean()):.1f}, "
           f"dropped {int(outs.gating_dropped_count.sum())}{overflow}")
     return md_min
 
 
-def cross_check(swarm, rollout, cfg, state0, label):
-    """``cfg.steps`` steps from ``state0`` on the card and on the CPU
-    (plain versions there): positions and min distances within
+def cross_check(swarm, engine, cfg, state0, label):
+    """``cfg.steps`` steps of the compiled rollout from ``state0`` on the
+    card and on the CPU (plain versions there, the body uncaptured):
+    positions (and headings) and min distances within
     CROSS_X_ATOL/CROSS_MD_ATOL, every count equal."""
     import torch
 
     _, step_gpu = swarm.make(cfg)
     _, step_cpu = swarm.make(cfg, device="cpu")
-    fg, og = rollout(step_gpu, state0, cfg.steps)
-    fc, oc = rollout(step_cpu, swarm.State(x=state0.x.cpu(),
-                                           v=state0.v.cpu()), cfg.steps)
+    fg, og = engine.rollout(step_gpu, state0, cfg.steps)
+    fc, oc = engine.rollout(
+        step_cpu, engine._tree_map(lambda v: v.cpu(), state0), cfg.steps)
     dx = float(torch.amax(torch.abs(fg.x.cpu() - fc.x)))
+    if isinstance(fg.theta, torch.Tensor):
+        dx = max(dx, float(torch.amax(torch.abs(fg.theta.cpu()
+                                                - fc.theta))))
     dmd = float(torch.amax(torch.abs(og.min_pairwise_distance.cpu()
                                      - oc.min_pairwise_distance)))
     print(f"{label}: card vs CPU over {cfg.steps} steps at N={cfg.n}: "
@@ -313,14 +387,15 @@ def cross_check(swarm, rollout, cfg, state0, label):
     check(dx <= CROSS_X_ATOL and dmd <= CROSS_MD_ATOL,
           f"{label}: card and CPU trajectories part beyond tolerance")
     for field in ("filter_active_count", "infeasible_count",
-                  "gating_dropped_count", "gating_overflow_count"):
+                  "gating_dropped_count", "gating_overflow_count",
+                  "max_relax_rounds", "rta_mode"):
         a, b = getattr(og, field), getattr(oc, field)
         if isinstance(a, tuple):
             check(b == (), f"{field}: reported on one device only")
             continue
         a = a.cpu()
-        print(f"  {field} per step, card vs CPU: sums {int(a.sum())} / "
-              f"{int(b.sum())}")
+        print(f"  {field} per step, card vs CPU: sums {float(a.sum())} / "
+              f"{float(b.sum())}")
         check(torch.equal(a, b), f"{field} differs between card and CPU")
 
 
@@ -474,6 +549,7 @@ def profile_both(engine, run, label: str, steps: int = 20) -> dict:
 def main(argv: list[str]) -> int:
     import argparse
 
+    import numpy as np
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -652,7 +728,6 @@ def main(argv: list[str]) -> int:
     main = runs[MAIN_N]
     state0, final = main["state0"], main["final"]
     qps = MAIN_N * MAIN_STEPS / main["wall"]
-    fused_launches = main["launches"]["knn_fused"]
 
     # 4. main path beyond the fused bound, streaming kernel
     cfg_s = swarm.Config(n=STREAM_N, steps=STREAM_STEPS)
@@ -661,7 +736,6 @@ def main(argv: list[str]) -> int:
     check_run(f"phase 4: N={STREAM_N} x {STREAM_STEPS} steps", cfg_s,
               stream["final"], stream["outs"])
     state0_s, final_s = stream["state0"], stream["final"]
-    stream_launches = stream["launches"]["knn_stream"]
     # The kernels on the main path's own inputs: the states the runs reach.
     hold("knn_fused", "phase 3 final state", final.x.float().contiguous())
     hold("knn_stream", "phase 3 final state", final.x.float().contiguous())
@@ -671,8 +745,8 @@ def main(argv: list[str]) -> int:
           "states of phases 3 and 4")
 
     # 5. card vs CPU from the same initial state
-    cross_check(swarm, engine.rollout,
-                swarm.Config(n=MAIN_N, steps=CROSS_STEPS), state0, "phase 5")
+    cross_check(swarm, engine, swarm.Config(n=MAIN_N, steps=CROSS_STEPS),
+                state0, "phase 5")
 
     # 7. the banded path at full width, recording the trajectory (the
     # largest output buffer the compiled rollout holds)
@@ -685,7 +759,6 @@ def main(argv: list[str]) -> int:
               f"(window {w_b} blocks)", cfg_b, banded["final"],
               banded["outs"])
     state0_b, final_b = banded["state0"], banded["final"]
-    banded_launches = banded["launches"]["knn_banded"]
     hold("knn_banded", "phase 7 final state", final_b.x.float().contiguous(),
          w_b)
     print("phase 7: knn_banded equal to its plain version on the final "
@@ -704,23 +777,186 @@ def main(argv: list[str]) -> int:
             f"{OBST_STEPS} steps, banded", cfg_o, obst[layout]["final"],
             obst[layout]["outs"],
             floor=FLOOR if layout == "scatter" else None)
-    cross_check(swarm, engine.rollout, swarm.Config(
+    cross_check(swarm, engine, swarm.Config(
         n=OBST_N, steps=CROSS_STEPS, n_obstacles=OBST_M, gating="banded"),
         obst["orbit"]["state0"], "phase 8 (orbit)")
 
-    # 6. timings at the main-path shapes
+    # 9. the other dynamics families at N=4096, and card vs CPU at N=256
+    dyn = {}
+    for family in ("double", "unicycle", "mixed"):
+        split = {"n_double": DYN_N // 2} if family == "mixed" else {}
+        cfg_d = swarm.Config(n=DYN_N, steps=DYN_STEPS, dynamics=family,
+                             **split)
+        label = f"phase 9: N={DYN_N}, {family}"
+        dyn[family] = drive(swarm, engine, knn, cfg_d, label, "knn_fused")
+        dyn[family]["min_distance"] = check_run(
+            f"{label} x {DYN_STEPS} steps", cfg_d, dyn[family]["final"],
+            dyn[family]["outs"], floor=DYN_FLOORS[family], feasible=False)
+        if family == "unicycle":
+            deficit = dyn[family]["outs"].saturation_deficit
+            check(bool(torch.isfinite(deficit).all()),
+                  "unicycle saturation deficit not finite")
+            dyn[family]["max_deficit"] = float(deficit.max())
+            print(f"{label}: max saturation deficit "
+                  f"{dyn[family]['max_deficit']:.6f} m/s")
+        small = {"n_double": DYN_CROSS_N // 2} if family == "mixed" else {}
+        cfg_x = swarm.Config(n=DYN_CROSS_N, steps=DYN_CROSS_STEPS,
+                             dynamics=family, **small)
+        cross_check(swarm, engine, cfg_x, swarm.initial_state(cfg_x),
+                    f"phase 9 ({family})")
+
+    # 10. the Verlet neighbour cache
+    cfg_v = swarm.Config(n=MAIN_N, steps=VERLET_STEPS,
+                         gating_rebuild_skin=VERLET_SKIN,
+                         record_trajectory=True)
+    verlet = drive(swarm, engine, knn, cfg_v,
+                   f"phase 10: N={MAIN_N}, Verlet skin {VERLET_SKIN}",
+                   "knn_fused")
+    verlet["min_distance"] = check_run(
+        f"phase 10: N={MAIN_N}, Verlet skin {VERLET_SKIN} x {VERLET_STEPS} "
+        "steps (sound floor metric)", cfg_v, verlet["final"],
+        verlet["outs"], floor=None)
+    # The metric is a lower bound on the true separation (seen pairs plus
+    # a bound on the unseen): hold it below the true minimum of every
+    # recorded step (the plain nearest-any, float32 sqrt through float64,
+    # beside the metric's own float32 sqrt), and the true minimum above
+    # the L1 floor. At N=4096 the bound sits below 0.13 (the N=512 bound
+    # of tests/test_gating_truncation.py) in the reference too.
+    metric = verlet["outs"].min_pairwise_distance
+    true_min = torch.stack([
+        knn.knn_neighbors_plain(p.contiguous(), RADIUS, K)[2].min()
+        for p in verlet["outs"].trajectory]).to(metric.dtype)
+    check(bool((metric <= true_min + 1e-6).all()),
+          "phase 10: the sound metric exceeds the true separation")
+    check(float(true_min.min()) >= FLOOR, f"phase 10: true separation "
+          f"{float(true_min.min())} < {FLOOR}")
+    verlet["true_min"] = float(true_min.min())
+    print(f"phase 10: sound metric min {verlet['min_distance']:.6f} "
+          f"{'>=' if verlet['min_distance'] >= VERLET_FLOOR else '<'} "
+          f"{VERLET_FLOOR} (reported; the reference's own N=4096 run dips "
+          f"too, ROADMAP Queue C), <= the true separation on every step; "
+          f"true separation min {verlet['true_min']:.6f} (floor "
+          f"{FLOOR:.5f})")
+    rebuilds = verlet["info"]["eager_launches"]
+    print(f"phase 10: {rebuilds} rebuilds in {VERLET_STEPS} eager steps; "
+          f"the graph searches on all {VERLET_STEPS} ("
+          f"{VERLET_STEPS / max(rebuilds, 1):.1f}x the eager searches); "
+          f"dropped {int(verlet['outs'].gating_dropped_count.sum())}")
+    hold("knn_fused", "phase 10 final state",
+         verlet["final"].x.float().contiguous())
+
+    # 11. runtime assurance
+    from cbf_tpu_torch.rta import RUNG_RESOLVE, RUNG_SCRUB
+    from cbf_tpu_torch.utils import faults
+
+    cfg_r = swarm.Config(n=MAIN_N, steps=RTA_STEPS, rta=True)
+    rta = {"healthy": drive(swarm, engine, knn, cfg_r,
+                            f"phase 11: N={MAIN_N}, RTA armed, healthy",
+                            "knn_fused")}
+    check_run(f"phase 11: N={MAIN_N}, RTA armed, healthy x {RTA_STEPS} "
+              "steps", cfg_r, rta["healthy"]["final"], rta["healthy"]["outs"])
+    state_off, step_off = swarm.make(swarm.Config(n=MAIN_N, steps=RTA_STEPS))
+    check(torch.equal(state_off.x, rta["healthy"]["state0"].x),
+          "phase 11: the rta=False twin spawns elsewhere")
+    final_off, outs_off = engine.rollout(step_off, state_off, RTA_STEPS)
+    on = rta["healthy"]
+    check(torch.equal(on["final"].x, final_off.x)
+          and torch.equal(on["final"].v, final_off.v),
+          "phase 11: armed-healthy RTA moves x or v")
+    for name, a, b in zip(engine.StepOutputs._fields, on["outs"], outs_off):
+        if name != "rta_mode":
+            check(same_tree(a, b), f"phase 11: armed-healthy RTA changes "
+                  f"{name}")
+    check(int(on["outs"].rta_mode.max()) == 0,
+          "phase 11: the healthy run engaged the ladder")
+    print("phase 11: armed-healthy RTA bit-equal to rta=False (x, v, every "
+          "count), rta_mode all 0")
+
+    rta["poison"] = drive(
+        swarm, engine, knn, cfg_r,
+        f"phase 11: N={MAIN_N}, agent 0 poisoned at step {RTA_POISON_AT}",
+        "knn_fused", wrap=lambda s: faults.poison_agent_at_step(
+            s, RTA_POISON_AT, agent=0))
+    modes = rta["poison"]["outs"].rta_mode
+    check_run("phase 11: poisoned", cfg_r, rta["poison"]["final"],
+              rta["poison"]["outs"], floor=None, feasible=False)
+    check(int(modes[RTA_POISON_AT]) == RUNG_SCRUB and int(modes[-1]) == 0
+          and all(bool(torch.isfinite(v).all())
+                  for v in engine._leaves(rta["poison"]["final"])),
+          f"phase 11: rung 3 not engaged at step {RTA_POISON_AT}, not "
+          "released, or a row non-finite")
+    print(f"phase 11: rung 3 at step {RTA_POISON_AT}, engaged steps "
+          f"{int((modes > 0).sum())}, released by step {RTA_STEPS}, every "
+          "row finite")
+
+    cfg_c = swarm.Config(n=MAIN_N, steps=RTA_STEPS, n_obstacles=OBST_M,
+                         rta=True)
+    # On the obstacle ring, as the reference's N=16 clump at the origin
+    # lies on its 0.34 m ring: at the origin of the N=4096 swarm (ring
+    # radius 5.4 m) nothing passes to unpack the clump, and rung 1 holds
+    # to the end of 300 steps (PERF.md §6, PR 7).
+    ring = (cfg_c.obstacle_orbit_frac * cfg_c.pack_radius, 0.0)
+
+    def clump(s):
+        return faults.teleport_clump_at_step(s, RTA_CLUMP_AT,
+                                             agents=range(8), spacing=0.01,
+                                             center=ring)
+
+    rta["clump"] = drive(
+        swarm, engine, knn, cfg_c,
+        f"phase 11: N={MAIN_N}, {OBST_M} obstacles, clump at step "
+        f"{RTA_CLUMP_AT} at {ring}", "knn_fused", wrap=clump)
+    modes = rta["clump"]["outs"].rta_mode
+    check_run("phase 11: clump", cfg_c, rta["clump"]["final"],
+              rta["clump"]["outs"], floor=None, feasible=False)
+    check(bool((modes == RUNG_RESOLVE).any()) and int(modes[-1]) == 0,
+          "phase 11: rung 1 not engaged or not released")
+    engaged = (modes > 0).nonzero().flatten()
+    zero_counts(engine, knn)
+    step_c = clump(swarm.make(cfg_c)[1])
+    final_k, outs_k, _ = engine.rollout_chunked(
+        step_c, rta["clump"]["state0"], RTA_STEPS, chunk=50)
+    chunk_counts = dict(engine.COUNTS)
+    eager_outs = rta["clump"]["eager_outs"]
+    check(same_tree(final_k, rta["clump"]["final"])
+          and all(a == () if isinstance(b, tuple) else
+                  np.array_equal(a, b.cpu().numpy())
+                  for a, b in zip(outs_k, eager_outs)),
+          "phase 11: rollout_chunked differs from the eager loop")
+    rta["clump"]["chunked_redos"] = chunk_counts["redos"]
+    print(f"phase 11: rung 1 engaged on steps {int(engaged[0])}-"
+          f"{int(engaged[-1])} ({engaged.numel()} steps), released; redos: "
+          f"rollout {rta['clump']['info']['redos']} of 1 chunk, "
+          f"rollout_chunked(chunk=50) {chunk_counts['redos']} of "
+          f"{RTA_STEPS // 50} chunks ({chunk_counts['redo_steps']} steps), "
+          "both equal to the eager loop")
+
+    # 6. timings at the main-path shapes; launches are every compiled
+    # main-path run's of this call, by phase
+    all_runs = {"phase 3 N=256": runs[ENTRY_N], "phase 3 N=4096": main,
+                "phase 4": stream, "phase 7": banded,
+                "phase 8 scatter": obst["scatter"],
+                "phase 8 orbit": obst["orbit"],
+                **{f"phase 9 {family}": run for family, run in dyn.items()},
+                "phase 10": verlet,
+                **{f"phase 11 {kind}": run for kind, run in rta.items()}}
+    by_phase = {name: {label: run["launches"][name]
+                       for label, run in all_runs.items()
+                       if run["launches"][name]}
+                for name in knn.LAUNCHES}
     rows = []
     x_b = state0_b.x.to(torch.float32).contiguous()
-    for name, fn, plain, x, launches_n, src_line, kw in (
+    for name, fn, plain, x, src_line, kw in (
             ("knn_fused", knn.knn_fused, knn.knn_neighbors_plain,
-             state0.x.to(torch.float32).contiguous(), fused_launches,
+             state0.x.to(torch.float32).contiguous(),
              "cbf_tpu/ops/pallas_knn.py:94", {}),
             ("knn_stream", knn.knn_stream, knn.knn_neighbors_blocked_plain,
-             state0_s.x.to(torch.float32).contiguous(), stream_launches,
+             state0_s.x.to(torch.float32).contiguous(),
              "cbf_tpu/ops/pallas_knn.py:184", {}),
             ("knn_banded", knn.knn_banded, knn.knn_neighbors_banded_plain,
-             x_b, banded_launches, "cbf_tpu/ops/pallas_knn.py:309",
+             x_b, "cbf_tpu/ops/pallas_knn.py:309",
              {"window_blocks": w_b})):
+        launches_n = sum(by_phase[name].values())
         n = x.shape[0]
         out = fn(x, RADIUS, K, **kw)
         count = out[-1]
@@ -743,6 +979,7 @@ def main(argv: list[str]) -> int:
             "name": name, "route": "cuda",
             "source": "cbf_tpu_torch/csrc/knn.cu",
             "replaces": src_line, "launches": launches_n,
+            "launches_by_phase": by_phase[name],
             "max_abs_err": errs[name][n], "equal": True, "n": n,
             "compared_at_n": compared[name][n], **timed,
             "plain_ms": cuda_ms(lambda: plain(x, RADIUS, K, **kw), reps=10,
@@ -802,7 +1039,11 @@ def main(argv: list[str]) -> int:
                        (f"N={OBST_N} obstacles (scatter), banded",
                         obst["scatter"]),
                        (f"N={OBST_N} obstacles (orbit), banded",
-                        obst["orbit"])):
+                        obst["orbit"]),
+                       *((f"N={DYN_N} {family}", dyn[family])
+                         for family in dyn),
+                       (f"N={MAIN_N} Verlet", verlet),
+                       (f"N={MAIN_N} RTA armed, healthy", rta["healthy"])):
         prof = profile_both(engine, run, label)
         check(prof["compiled"]["knn_kernels"] != {}
               or prof["compiled"]["device_ops_per_step"] == 0,
@@ -821,7 +1062,12 @@ def main(argv: list[str]) -> int:
                                          (f"N={OBST_N} scatter",
                                           obst["scatter"]),
                                          (f"N={OBST_N} orbit",
-                                          obst["orbit"])))
+                                          obst["orbit"]),
+                                         *((f"N={DYN_N} {family}", run)
+                                           for family, run in dyn.items()),
+                                         (f"N={MAIN_N} Verlet", verlet),
+                                         *((f"N={MAIN_N} RTA {kind}", run)
+                                           for kind, run in rta.items())))
           + f"; main path {qps:.1f} agent-QP-steps/s; orbit min distance "
           f"{obst['orbit']['min_distance']:.6f}; card {card}")
     print(card)

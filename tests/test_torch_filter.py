@@ -19,7 +19,6 @@ from cbf_tpu.oracle.reference_filter import OracleCBF, solve_qp_slsqp
 from cbf_tpu.solvers import exact2d as jqp
 from cbf_tpu_torch.core import barrier as tbar
 from cbf_tpu_torch.core import filter as tfil
-from cbf_tpu_torch.errors import OutOfSliceError
 from cbf_tpu_torch.solvers import exact2d as tqp
 
 ATOL = {np.float64: 1e-12, np.float32: 1e-5}
@@ -325,14 +324,26 @@ def test_relax_cap_needs_priority_mask():
             tfil.safe_controls(*args, relax_cap=0.05, unroll_relax=unroll)
 
 
-def test_per_agent_dynamics_path_is_out_of_slice():
-    (states, obs, mask, u0, _) = _batch(np.random.default_rng(12), N=4)
-    f3 = np.broadcast_to(FX, (4, 4, 4))
-    g3 = np.broadcast_to(GX, (4, 4, 2))
-    with pytest.raises(OutOfSliceError, match="Queue A5"):
-        tfil.safe_controls(_t(states, np.float32), _t(obs, np.float32),
-                           _t(mask, bool), _t(f3, np.float32),
-                           _t(g3, np.float32), _t(u0, np.float32))
+def test_per_agent_dynamics_path_matches_jax(dt):
+    """Per-agent f (N, 4, 4) and g (N, 4, 2) — here every lane the same
+    discrete rows — through the full-row per-agent path: equal to JAX's
+    vmap and to the port's shared-dynamics (deduplicated) path."""
+    (states, obs, mask, u0, _) = _batch(np.random.default_rng(12), N=12)
+    f3 = np.broadcast_to(FD, (12, 4, 4))
+    g3 = np.broadcast_to(GD, (12, 4, 2))
+    args = [states, obs, mask, f3, g3, u0]
+    uj, ij = jfil.safe_controls(*(_j(a, bool if a is mask else dt)
+                                  for a in args))
+    ut, it = tfil.safe_controls(*(_t(a, bool if a is mask else dt)
+                                  for a in args))
+    _close(ut, uj, dt)
+    np.testing.assert_array_equal(it.feasible.numpy(),
+                                  np.asarray(ij.feasible))
+    np.testing.assert_array_equal(it.relax_rounds.numpy(),
+                                  np.asarray(ij.relax_rounds))
+    us, _ = tfil.safe_controls(*(_t(a, bool if a is mask else dt) for a in
+                                 (states, obs, mask, FD, GD, u0)))
+    _close(ut, us, dt)
 
 
 def test_masked_row_constants_match():

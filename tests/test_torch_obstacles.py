@@ -23,7 +23,6 @@ import torch
 from cbf_tpu.rollout import engine as jeng
 from cbf_tpu.scenarios import swarm as jsw
 from cbf_tpu_torch import convert
-from cbf_tpu_torch.errors import OutOfSliceError
 from cbf_tpu_torch.rollout import engine as teng
 from cbf_tpu_torch.scenarios import swarm as tsw
 
@@ -227,6 +226,28 @@ def test_obstacle_min_distance_includes_obstacles():
 @pytest.mark.parametrize("override", [{"dynamics": "double"},
                                       {"rta": True},
                                       {"gating_rebuild_skin": 0.1}])
-def test_rest_of_queue_a5_still_raises(override):
-    with pytest.raises(OutOfSliceError, match="Queue A5"):
-        tsw.make(tsw.Config(n=16, n_obstacles=2, **override), device="cpu")
+def test_queue_a5_knobs_with_obstacles_match_jax(override):
+    """The Queue A5 knobs among obstacles (they raised OutOfSliceError
+    before they were ported): the port's rollout holds the JAX package's
+    with test_torch_swarm.py's float32 tolerances (the Verlet cache has no
+    float64 reference: its rebuild cond does not trace under x64)."""
+    jcfg = jsw.Config(n=16, steps=20, n_obstacles=2, gating="jnp",
+                      spawn_half_width_override=0.6, **override)
+    s0, jstep = jsw.make(jcfg)
+    jf, jo = jeng.rollout(jstep, s0, jcfg.steps)
+    fields = dataclasses.asdict(jcfg)
+    fields["dtype"] = "float32"
+    tcfg = convert.config_from_fields(fields)
+    _, tstep = tsw.make(tcfg, device="cpu")
+    tf, to = teng.rollout(tstep, convert.state_from_reference(
+        s0, device="cpu", dtype=torch.float32), tcfg.steps)
+    for name in COUNTS:
+        np.testing.assert_array_equal(getattr(to, name).numpy(),
+                                      np.asarray(getattr(jo, name)),
+                                      err_msg=name)
+    assert int(to.filter_active_count.max()) > 0
+    np.testing.assert_allclose(to.min_pairwise_distance.numpy(),
+                               np.asarray(jo.min_pairwise_distance),
+                               rtol=1e-6)
+    np.testing.assert_allclose(tf.x.numpy(), np.asarray(jf.x), atol=1e-5)
+    np.testing.assert_allclose(tf.v.numpy(), np.asarray(jf.v), atol=1e-5)

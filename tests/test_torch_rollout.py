@@ -15,8 +15,12 @@ only skips the capture. Held here:
   relaxable row capped);
 - the compiled ``rollout``/``rollout_chunked`` bit for bit equal to the
   eager loop (``eager_rollout``) on the dense, kernel-plain, streaming and
-  banded paths and the obstacle orbit — with R = 0 there, which forces the
-  redo path — for every ``unroll``, and leaving ``state0`` untouched;
+  banded paths, the obstacle orbit — with R = 0 there, which forces the
+  redo path — the double, unicycle and mixed dynamics (the mixed swarm's
+  per-agent filter lanes under the guard, and at R = 0), the Verlet cache
+  (the rebuild picked on the device), and RTA (the poisoned lane's scrub;
+  the clump's boosted re-solve, which the body hands to the redo), for
+  every ``unroll``, and leaving ``state0`` untouched;
 - the same runs against the JAX package's ``rollout_chunked`` with the
   tolerances tests/test_torch_swarm.py and tests/test_torch_obstacles.py
   state: float32 min distance rtol 1e-6, x and v atol 1e-5; float64 atol
@@ -44,6 +48,7 @@ from cbf_tpu_torch.errors import OutOfSliceError
 from cbf_tpu_torch.rollout import engine as teng
 from cbf_tpu_torch.scenarios import swarm as tsw
 from cbf_tpu_torch.solvers import exact2d as tqp
+from cbf_tpu_torch.utils import faults
 
 COUNTS = ("filter_active_count", "infeasible_count", "gating_dropped_count",
           "max_relax_rounds")
@@ -59,7 +64,27 @@ PATHS = {
                    gating_window_blocks=2),
     "orbit": dict(steps=30, **ORBIT),
     "orbit R=0": dict(steps=30, **ORBIT),
+    "double": dict(n=64, steps=12, dynamics="double"),
+    "unicycle": dict(n=64, steps=12, dynamics="unicycle"),
+    "mixed": dict(n=64, steps=12, dynamics="mixed", n_double=20),
+    # Packed: the per-agent lanes relax from the first step.
+    "mixed R=0": dict(n=16, steps=12, dynamics="mixed", n_double=8,
+                      spawn_half_width_override=0.25),
+    "verlet": dict(n=128, steps=12, gating_rebuild_skin=0.1),
+    "verlet dense": dict(n=64, steps=12, gating="jnp",
+                         gating_rebuild_skin=0.1),
+    "rta poison": dict(n=16, steps=12, rta=True,
+                       spawn_half_width_override=0.5),
+    "rta clump": dict(n=16, steps=30, n_obstacles=4, rta=True),
 }
+# Fault injectors at step 1 (inside the capture probe's second body).
+WRAPS = {
+    "rta poison": lambda step: faults.poison_agent_at_step(step, 1),
+    "rta clump": lambda step: faults.teleport_clump_at_step(
+        step, 1, agents=range(8)),
+}
+# Paths whose chunks are redone: R = 0, and the boosted re-solve.
+REDONE = ("orbit R=0", "mixed R=0", "rta clump")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -181,7 +206,9 @@ def test_guarded_solvers_match_the_loop(rounds):
 def _make(path: str):
     cfg = tsw.Config(**PATHS[path])
     state0, step = tsw.make(cfg, device="cpu")
-    if path == "orbit R=0":
+    if path in WRAPS:
+        step = WRAPS[path](step)
+    if path.endswith("R=0"):
         step.relax_rounds = 0
     return cfg, state0, step
 
@@ -201,13 +228,15 @@ def test_rollout_equals_the_eager_loop(path):
     _assert_same(final_c, want_final, "chunked final")
     _assert_same(outs_c, want, "chunked outs")
     assert int(want.filter_active_count.max()) > 0
-    if path.startswith("orbit"):
+    # R = 0 redoes every chunk that relaxed, the boosted re-solve every
+    # chunk that needs it; the steps' own R none here.
+    assert (redos > 0) == (path in REDONE)
+    assert ((teng.COUNTS["redo_steps"] > before["redo_steps"])
+            == (redos > 0))
+    if path.startswith("orbit") or path.endswith("R=0"):
         assert float(want.max_relax_rounds.max()) >= 1.0
-        # R = 0 redoes every chunk that relaxed; the step's own R (12)
-        # none.
-        assert (redos > 0) == (path == "orbit R=0")
-        assert ((teng.COUNTS["redo_steps"] > before["redo_steps"])
-                == (redos > 0))
+    if path.startswith("rta"):
+        assert int(want.rta_mode.max()) > 0
     if path == "banded":
         assert want.gating_overflow_count.shape == (cfg.steps,)
 
@@ -384,12 +413,15 @@ def _no_host_traffic():
 
 
 @pytest.mark.parametrize("path", ["dense", "kernel", "streaming", "banded",
-                                  "orbit"])
+                                  "orbit", "double", "unicycle", "mixed",
+                                  "verlet", "verlet dense", "rta poison",
+                                  "rta clump"])
 def test_capture_body_makes_no_host_traffic(path):
     """The engine's program for 3 steps: the first body runs as the
     warm-up before a capture does (it fills the kernels' and the
     constants' caches), the next two steps run as one body under the
-    patches — and still equal the eager loop."""
+    patches — and still equal the eager loop, or, for the clump, raise
+    the redo flag for the boosted re-solve the body leaves out."""
     cfg, state0, step = _make(path)
     prog = teng._program(step, state0, 3, unroll=2)
     prog.load(state0)
@@ -397,7 +429,9 @@ def test_capture_body_makes_no_host_traffic(path):
     prog.body(step, 1)
     with _no_host_traffic():
         prog.body(step, 2)
-    assert not bool(prog.flag)
+    assert bool(prog.flag) == (path == "rta clump")
+    if path == "rta clump":
+        return
     want_final, want = teng.eager_rollout(step, state0, 3)
     _assert_same(prog.carry, want_final, "carry")
     _assert_same(prog.outs, want, "outs")

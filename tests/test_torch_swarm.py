@@ -42,8 +42,7 @@ def _run_both(jcfg, **port_override):
     jf, jo = jeng.rollout(jstep, s0, jcfg.steps)
     tcfg = _port_config(jcfg, **port_override)
     _, tstep = tsw.make(tcfg, device="cpu")
-    ts0 = convert.state_from_numpy(np.asarray(s0.x), np.asarray(s0.v),
-                                   device="cpu", dtype=tcfg.dtype)
+    ts0 = convert.state_from_reference(s0, device="cpu", dtype=tcfg.dtype)
     tf, to = teng.rollout(tstep, ts0, tcfg.steps)
     return jf, jo, tf, to
 
@@ -149,18 +148,37 @@ def test_make_without_card_needs_device_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("override,make_kw,slice_name", [
-    ({"dynamics": "double"}, {}, "Queue A5"),
-    ({"dynamics": "unicycle"}, {}, "Queue A5"),
-    ({"dynamics": "mixed", "n_double": 4}, {}, "Queue A5"),
+    # The Queue A5 knobs build now (test_queue_a5_knobs_build_and_match_
+    # jax); paired with a later slice's knob, that one still raises.
+    ({"dynamics": "double", "rta": True}, {"unroll_relax": 2}, "Queue A8"),
+    ({"dynamics": "unicycle", "certificate": True}, {}, "Queue A6"),
+    ({"dynamics": "mixed", "n_double": 4}, {"unroll_relax": 1}, "Queue A8"),
     ({"certificate": True}, {}, "Queue A6"),
-    ({"rta": True}, {}, "Queue A5"),
-    ({"gating_rebuild_skin": 0.1}, {}, "Queue A5"),
+    ({"rta": True, "certificate": True}, {}, "Queue A6"),
+    ({"gating_rebuild_skin": 0.1}, {"unroll_relax": 2}, "Queue A8"),
     ({}, {"unroll_relax": 2}, "Queue A8"),
 ])
 def test_out_of_slice_knobs_raise(override, make_kw, slice_name):
     cfg = tsw.Config(n=16, **override)
     with pytest.raises(OutOfSliceError, match=slice_name):
         tsw.make(cfg, device="cpu", **make_kw)
+
+
+@pytest.mark.parametrize("override", [
+    {"dynamics": "double"}, {"dynamics": "unicycle"},
+    {"dynamics": "mixed", "n_double": 4}, {"rta": True},
+    {"gating_rebuild_skin": 0.1},
+])
+def test_queue_a5_knobs_build_and_match_jax(override):
+    """Each knob that raised OutOfSliceError("Queue A5") before it was
+    ported builds and holds the JAX package's step (float32, packed so the
+    filter engages)."""
+    jf, jo, tf, to = _run_both(jsw.Config(
+        n=16, steps=8, gating="jnp", spawn_half_width_override=0.5,
+        **override))
+    _assert_counts(jo, to)
+    assert int(to.filter_active_count.min()) > 0
+    np.testing.assert_allclose(tf.x.numpy(), np.asarray(jf.x), atol=1e-5)
 
 
 def test_serving_active_mask_is_out_of_slice():
