@@ -9,9 +9,10 @@ It covers the swarm step: consensus nominal, k-NN danger gating
 (hand-written CUDA kernels for Hopper in ``csrc/knn.cu``), the batched CBF
 filter with the exact 2-D QP solver (direction-deduped, or per agent for a
 mixed swarm), every dynamics family (``sim/`` holds the unicycle), the
-obstacle field, the Verlet neighbour cache and runtime assurance
-(``rta/``), driven over time by ``rollout.engine``, whose compiled rollout
-captures the step as a CUDA graph. Knobs of later slices raise
+obstacle field, the Verlet neighbour cache, runtime assurance (``rta/``)
+and the joint barrier certificate (``sim/certificates.py`` on the ADMM
+solvers of ``solvers/``), driven over time by ``rollout.engine``, whose
+compiled rollout captures the step as a CUDA graph. Knobs of later slices raise
 :class:`~cbf_tpu_torch.errors.OutOfSliceError`.
 
 Entry points run on the card unless the caller passes ``device="cpu"``

@@ -15,7 +15,6 @@ import numpy as np
 import torch
 
 from cbf_tpu_torch.core.filter import CBFParams
-from cbf_tpu_torch.errors import SLICE_CERT, OutOfSliceError
 from cbf_tpu_torch.scenarios.swarm import Config, State
 
 
@@ -37,16 +36,12 @@ def state_from_numpy(x, v, *, device, dtype) -> State:
 
 
 def state_from_reference(state, *, device, dtype) -> State:
-    """Every ported leaf of a JAX ``State`` (or any object with its
-    fields): positions and velocities, the unicycle headings, the Verlet
-    cache and the RTA carry, ``()`` where the configuration has none. The
-    certificate's carries arrive with Queue A6 and must be ``()``."""
-    for name in ("certificate_cache", "certificate_solver_state"):
-        if getattr(state, name, ()) != ():
-            raise OutOfSliceError(f"State.{name}", SLICE_CERT)
-    return State(*(_leaf(getattr(state, name), device=device, dtype=dtype)
-                   for name in ("x", "v", "theta", "gating_cache")),
-                 rta=_leaf(state.rta, device=device, dtype=dtype))
+    """Every leaf of a JAX ``State`` (or any object with its fields):
+    positions and velocities, the unicycle headings, the Verlet cache, the
+    certificate's Verlet cache and warm ADMM carry, and the RTA carry,
+    ``()`` where the configuration has none."""
+    return State(*(_leaf(getattr(state, name, ()), device=device,
+                         dtype=dtype) for name in State._fields))
 
 
 def cbf_params_from_numpy(params, *, device=None, dtype=None) -> CBFParams:

@@ -16,7 +16,7 @@ class OutOfSliceError(NotImplementedError):
         self.slice_name = slice_name
 
 
-SLICE_CERT = "the joint-certificate slice (Queue A6)"
 SLICE_DIFF = "the differentiable-path slice (Queue A8)"
 SLICE_DURABLE = "the durability and observability slice (Queue A9)"
+SLICE_PARALLEL = "the ensembles and partitioning slice (Queue A10)"
 SLICE_SERVE = "the serving slice (Queue A11)"

@@ -18,6 +18,8 @@ of the table the hook returns (copied to the device before the chunk) as
 ``inputs``. Its QP solves run a fixed number of relax rounds on the device
 (``step_fn.relax_rounds``, default 0; :func:`cbf_tpu_torch.solvers.exact2d.
 guarded_relax`) and raise a device flag where the eager relax loop would
+have gone on; an adaptive sparse-ADMM budget runs ``step_fn.admm_blocks``
+blocks (default None, the whole budget) and raises it where its loop would
 have gone on. The step may raise the same flag for a data-dependent branch
 it leaves out of the body (:func:`cbf_tpu_torch.solvers.exact2d.
 request_redo`; RTA's boosted re-solve). The engine reads that flag once
@@ -124,10 +126,12 @@ class _Program:
     """One chunk length's static buffers and bodies for one step — the
     counterpart of one jit executable (see the module docstring)."""
 
-    def __init__(self, step_fn, state, n: int, unroll: int, rounds: int):
+    def __init__(self, step_fn, state, n: int, unroll: int, rounds: int,
+                 blocks: int | None = None):
         leaf = _leaves(state)[0]
         self.device = leaf.device
         self.n, self.unroll, self.rounds = n, unroll, rounds
+        self.blocks = blocks
         self.carry = _tree_map(torch.empty_like, state)
         # clock = [t, j]: the global step and the position in the chunk of
         # the body's first step; the body advances both.
@@ -161,7 +165,7 @@ class _Program:
         no host read, no host-to-device copy, no allocation that outlives
         it."""
         state = self.carry
-        with exact2d.guarded_relax(self.rounds, self.flag):
+        with exact2d.guarded_relax(self.rounds, self.flag, self.blocks):
             for i in range(length):
                 t = self.clock[0] if i == 0 else self.clock[0] + i
                 j = self.clock[1:] if i == 0 else self.clock[1:] + i
@@ -247,11 +251,12 @@ def _signature(tree) -> tuple:
 
 def _program(step_fn, state, n: int, unroll) -> _Program:
     """The cached program of (step, state signature, n, unroll, relax
-    rounds); new programs are cached on the step where it takes an
-    attribute."""
+    rounds, ADMM blocks); new programs are cached on the step where it
+    takes an attribute."""
     unroll = _check_unroll(unroll, n)
     rounds = int(getattr(step_fn, "relax_rounds", 0))
-    key = (_signature(state), n, unroll, rounds)
+    blocks = getattr(step_fn, "admm_blocks", None)
+    key = (_signature(state), n, unroll, rounds, blocks)
     cache = getattr(step_fn, "_rollout_programs", None)
     if cache is None:
         cache = {}
@@ -260,7 +265,7 @@ def _program(step_fn, state, n: int, unroll) -> _Program:
         except (AttributeError, TypeError):
             pass
     if key not in cache:
-        cache[key] = _Program(step_fn, state, n, unroll, rounds)
+        cache[key] = _Program(step_fn, state, n, unroll, rounds, blocks)
     return cache[key]
 
 

@@ -16,19 +16,24 @@ single/double swarm (per-agent rows through the filter's per-agent path)
 spawn stand-off repair), every gating backend (``gating="pallas"``/
 ``"streaming"``/``"banded"`` name the hand-written CUDA kernels of
 :mod:`cbf_tpu_torch.ops.knn`), the Verlet neighbour cache
-(``gating_rebuild_skin``) and runtime assurance (``rta``). The joint
-certificate, ``unroll_relax`` on the step and the serving layer's
-``active`` mask are later slices' and raise
-:class:`~cbf_tpu_torch.errors.OutOfSliceError`.
+(``gating_rebuild_skin``), runtime assurance (``rta``) and the joint
+barrier certificate (``certificate``: the dense and the sparse backend,
+the latter's Verlet cache, warm start and adaptive budget;
+:mod:`cbf_tpu_torch.sim.certificates`). ``unroll_relax`` on the step,
+the serving layer's ``active`` mask and the row-partitioned certificate
+are later slices' and raise :class:`~cbf_tpu_torch.errors.OutOfSliceError`.
 
-Two branches of the reference step depend on device data (the Verlet
-rebuild and RTA's boosted re-solve are ``lax.cond``s there). The eager
-step takes them on the host. Inside the compiled rollout's body
-(:func:`cbf_tpu_torch.solvers.exact2d.in_guarded_body`) the rebuild search
+Branches of the reference step that depend on device data (the Verlet
+rebuilds and RTA's boosted re-solve are ``lax.cond``s there, the adaptive
+certificate budget a ``lax.while_loop``) are taken on the host by the
+eager step. Inside the compiled rollout's body
+(:func:`cbf_tpu_torch.solvers.exact2d.in_guarded_body`) a rebuild search
 runs on every step and a ``torch.where`` on the 0-dim predicate picks
-rebuilt or cached — bit-identical to either branch — and the re-solve is
-left out: where it would change a row, the body raises the engine's redo
-flag and the chunk is run again by the eager loop.
+rebuilt or cached — bit-identical to either branch; the adaptive budget
+runs ``step.admm_blocks`` selected blocks; and the re-solve is left out.
+Where the re-solve would change a row, or the budget would run past its
+blocks, the body raises the engine's redo flag and the chunk is run again
+by the eager loop.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ import numpy as np
 import torch
 
 from cbf_tpu_torch.core.filter import CBFParams, safe_controls
-from cbf_tpu_torch.errors import (SLICE_CERT, SLICE_DIFF, SLICE_SERVE,
+from cbf_tpu_torch.errors import (SLICE_DIFF, SLICE_PARALLEL, SLICE_SERVE,
                                   OutOfSliceError)
 from cbf_tpu_torch.ops import knn
 from cbf_tpu_torch.ops.pairwise import pairwise_distances
@@ -51,10 +56,12 @@ from cbf_tpu_torch.rta.core import (RUNG_BACKUP, RUNG_RESOLVE,
                                     backup_control, demanded_rung,
                                     finite_rows, health_word, latch_update,
                                     rta_seed)
+from cbf_tpu_torch.sim import certificates
 from cbf_tpu_torch.sim.robotarium import SimParams, unicycle_step
 from cbf_tpu_torch.sim.transformations import (si_to_uni_dyn,
                                                uni_to_si_states)
 from cbf_tpu_torch.solvers import exact2d
+from cbf_tpu_torch.solvers.sparse_admm import SparseADMMSettings
 from cbf_tpu_torch.utils.math import l2_cap, safe_norm
 from cbf_tpu_torch.utils.profiling import annotate
 
@@ -144,8 +151,12 @@ class State(NamedTuple):
     # min_dkth () — min over truncating agents of their k-th kept build
     # distance, which makes the between-rebuild floor metric sound).
     gating_cache: tuple = ()
-    certificate_cache: tuple = ()               # Queue A6
-    certificate_solver_state: tuple = ()        # Queue A6
+    # The certificate's Verlet cache, certificate_rebuild_skin > 0 only:
+    # (idx (N, kc) int32, x_build (N, 2), dropped () int32).
+    certificate_cache: tuple = ()
+    # The sparse ADMM's warm carry, certificate_warm_start only: (x (2N,),
+    # z_p (R,), z_b (2N,), y_p (R,), y_b (2N,)), seeded all-zero.
+    certificate_solver_state: tuple = ()
     # RTA carry, rta=True only: (mode (N,) int32 latched rung, streak (N,)
     # int32 consecutive healthy steps, lkg_x, lkg_v, lkg_theta | ()).
     rta: tuple = ()
@@ -436,9 +447,17 @@ def initial_state(cfg: Config, *, device=None) -> State:
         theta0 = heading_spawn(cfg, cfg.seed, device=device)
     cache = (verlet_cache_seed(cfg, device=device)
              if cfg.gating_rebuild_skin else ())
+    dev = x0.device
+    ccache = (certificates.certificate_cache_seed(
+        cfg.n, cfg.certificate_k, cfg.dtype, device=dev)
+        if cfg.certificate_rebuild_skin else ())
+    sstate = (certificates.certificate_solver_seed(
+        cfg.n, cfg.certificate_k, cfg.dtype, device=dev)
+        if cfg.certificate_warm_start else ())
     rta = rta_seed(x0, torch.zeros_like(x0), theta0) if cfg.rta else ()
     return State(x=x0, v=torch.zeros_like(x0), theta=theta0,
-                 gating_cache=cache, rta=rta)
+                 gating_cache=cache, certificate_cache=ccache,
+                 certificate_solver_state=sstate, rta=rta)
 
 
 def certificate_backend(cfg: Config) -> str:
@@ -447,6 +466,90 @@ def certificate_backend(cfg: Config) -> str:
     if cfg.certificate_backend == "auto":
         return "dense" if cfg.n <= 128 else "sparse"
     return cfg.certificate_backend
+
+
+def _certificate_problem(cfg: Config):
+    """(CertificateParams, arena) of the joint second layer: the nominal
+    pre-limit at ``speed_limit``, a square arena of half-width
+    ``arena_half_override`` or 1.5x the spawn half-width."""
+    half = (cfg.arena_half_override if cfg.arena_half_override is not None
+            else cfg.spawn_half_width * 1.5)
+    return (certificates.CertificateParams(magnitude_limit=cfg.speed_limit),
+            (-half, half, -half, half))
+
+
+def _certificate_settings(cfg: Config):
+    """SparseADMMSettings from the Config budget knobs (the fused path
+    pairs with the Chebyshev x-update)."""
+    d = SparseADMMSettings()
+
+    def pick(value, default):
+        return default if value is None else value
+
+    return SparseADMMSettings(
+        iters=pick(cfg.certificate_iters, d.iters),
+        cg_iters=pick(cfg.certificate_cg_iters, d.cg_iters),
+        tol=pick(cfg.certificate_tol, d.tol),
+        check_every=pick(cfg.certificate_check_every, d.check_every),
+        fused=cfg.certificate_fused,
+        ksolve="chebyshev" if cfg.certificate_fused else d.ksolve)
+
+
+def apply_certificate(cfg: Config, u, x, neighbor_cache=None,
+                      solver_state=None):
+    """The joint second layer over already-filtered si velocities u
+    (N, 2) at positions x (N, 2). Returns (u_certified (N, 2),
+    primal_residual, dropped_count int32 — the sparse backend's k-slot
+    truncation, 0 on the dense backend —, iterations int32 — the ADMM
+    iterations run, 0 on the dense backend), plus a trailing new_cache
+    when ``neighbor_cache`` is given (certificate_rebuild_skin) and a
+    trailing new_solver_state when ``solver_state`` is given
+    (certificate_warm_start)."""
+    params, arena = _certificate_problem(cfg)
+    if certificate_backend(cfg) == "sparse":
+        out = certificates.si_barrier_certificate_sparse(
+            u.T, x.T, params, settings=_certificate_settings(cfg),
+            k=cfg.certificate_k, with_info=True, arena=arena,
+            rebuild_skin=(cfg.certificate_rebuild_skin
+                          if neighbor_cache is not None else 0.0),
+            neighbor_cache=neighbor_cache, solver_state=solver_state)
+        u_cert, cinfo = out[0], out[1]
+        return (u_cert.T, cinfo.primal_residual, cinfo.dropped_count,
+                cinfo.iterations) + tuple(out[2:])
+    pairs = (cfg.certificate_pairs if cfg.certificate_pairs is not None
+             else 8 * cfg.n)
+    u_cert, cinfo = certificates.si_barrier_certificate(
+        u.T, x.T, params, max_pairs=pairs, with_info=True, arena=arena)
+    zero = torch.zeros((), dtype=torch.int32, device=u.device)
+    return u_cert.T, cinfo.primal_residual, zero, zero
+
+
+def apply_certificate_batched(cfg: Config, u, x, solver_state=None):
+    """Lockstep-batched twin of :func:`apply_certificate` (sparse backend
+    only): u, x (E, N, 2), ``solver_state`` an optional batched warm carry.
+    Returns (u_certified (E, N, 2), primal_residual (E,), dropped (E,)
+    int32, iterations (E,) int32)[, new_solver_state]."""
+    if certificate_backend(cfg) != "sparse":
+        raise ValueError(
+            "apply_certificate_batched is sparse-backend only (the dense "
+            "solver has no lockstep driver); resolved backend is "
+            f"{certificate_backend(cfg)!r}")
+    params, arena = _certificate_problem(cfg)
+    out = certificates.si_barrier_certificate_sparse_batched(
+        torch.swapaxes(u, 1, 2), torch.swapaxes(x, 1, 2), params,
+        settings=_certificate_settings(cfg), k=cfg.certificate_k,
+        with_info=True, arena=arena, solver_state=solver_state)
+    u_cert, cinfo = out[0], out[1]
+    ret = (torch.swapaxes(u_cert, 1, 2), cinfo.primal_residual,
+           cinfo.dropped_count, cinfo.iterations)
+    if solver_state is not None and solver_state != ():
+        ret += (out[2],)
+    return ret
+
+
+def apply_certificate_sharded(cfg: Config, u, x, axis_name: str):
+    """The row-partitioned twin (sp-sharded ensembles): not ported yet."""
+    raise OutOfSliceError("apply_certificate_sharded", SLICE_PARALLEL)
 
 
 def validate_config(cfg: Config) -> None:
@@ -578,7 +681,6 @@ def reject_out_of_slice(cfg: Config, *, unroll_relax: int = 0,
     """Raise OutOfSliceError for every valid knob this slice does not
     port — never ignore one silently."""
     later = [
-        (cfg.certificate, "Config.certificate=True", SLICE_CERT),
         (unroll_relax > 0, f"unroll_relax={unroll_relax} on the step",
          SLICE_DIFF),
         (active is not None, "the serving layer's active mask",
@@ -828,6 +930,16 @@ RELAX_ROUNDS_ORBIT = 12
 RELAX_ROUNDS_FAMILY = {"double": 3, "unicycle": 1, "mixed": 3}
 
 
+# Guarded blocks of the certificate's adaptive ADMM budget
+# (certificate_tol) in the compiled rollout, beyond which a chunk is redone
+# with the eager loop (None would run the whole budget, ceil(iters /
+# check_every) blocks, and never redo). Each block costs its compute on
+# every step whether or not the loop has stopped. Chosen from the per-step
+# iterations measured on an H100 at N=4096, warm start, tol 1e-5 (PERF.md
+# §6): 40 on 43 of 50 steps, 50 on 7, so 5 blocks of 10.
+CERTIFICATE_BLOCKS = 5
+
+
 def relax_rounds(cfg: Config) -> int:
     """The guarded relax rounds a step of ``cfg`` captures."""
     rounds = RELAX_ROUNDS_FAMILY.get(cfg.dynamics, RELAX_ROUNDS)
@@ -843,7 +955,8 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
     ``device``; ``t`` is an int or a 0-dim integer tensor.
 
     For the compiled rollout the step carries ``relax_rounds`` (the
-    guarded relax rounds to capture) and, with obstacles, the hook
+    guarded relax rounds to capture), ``admm_blocks`` (the guarded blocks
+    of the certificate's adaptive budget) and, with obstacles, the hook
     ``host_inputs(t0, n)``: the (n, M, 4) obstacle rows of steps
     t0..t0+n-1 on the host. The rollout copies them to the device before
     it replays and hands each step its row as ``inputs``; without
@@ -1003,11 +1116,44 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
                     priority_mask=priority, relax_cap=None,
                     max_relax=cfg.rta_boost_budget, **filter_kw)
                 u = torch.where(boost[:, None], u_boost, u)
+
+        cert_residual = cert_dropped = cert_iters = carry_resets = ()
+        new_ccache = new_sstate = ()
+        carry_reset = None
+        if cfg.certificate:
+            sstate_in = None
+            if cfg.certificate_warm_start:
+                # A non-finite warm carry cold-resets (counted) instead of
+                # poisoning every later warm solve.
+                sstate_in, carry_reset = certificates.sanitize_solver_state(
+                    state.certificate_solver_state)
+                carry_resets = carry_reset.to(torch.int32)
+            # Second layer of the reference's stack: the joint certificate
+            # over the already-filtered si velocities.
+            with annotate("certificate"):
+                res = apply_certificate(
+                    cfg, u, x,
+                    neighbor_cache=(state.certificate_cache
+                                    if cfg.certificate_rebuild_skin
+                                    else None),
+                    solver_state=sstate_in)
+                u, cert_residual, cert_dropped, cert_iters = res[:4]
+                rest = list(res[4:])
+                if cfg.certificate_rebuild_skin:
+                    new_ccache = rest.pop(0)
+                if cfg.certificate_warm_start:
+                    new_sstate = rest.pop(0)
+
+        if cfg.rta:
             # Rungs 2-3, pre-integration half: the backup command for
-            # every agent whose latched or demanded rung asks for it.
-            health = health_word(cfg.n, infeasible=bit_infeas,
-                                 state_nonfinite=scrub_bit,
-                                 control_nonfinite=~finite_rows(u))
+            # every agent whose latched or demanded rung asks for it. A
+            # NaN certificate residual trips the trust gate (~(r <= gate)).
+            health = health_word(
+                cfg.n, infeasible=bit_infeas,
+                cert_residual=(~(cert_residual <= cfg.rta_residual_gate)
+                               if cfg.certificate else None),
+                carry_reset=carry_reset, state_nonfinite=scrub_bit,
+                control_nonfinite=~finite_rows(u))
             mode_eff = torch.maximum(mode_prev, demanded_rung(health))
             u = torch.where((mode_eff >= RUNG_BACKUP)[:, None],
                             backup_control(
@@ -1064,13 +1210,21 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
             trajectory=x if cfg.record_trajectory else (),
             gating_overflow_count=overflow_count,
             gating_dropped_count=torch.sum(dropped, dtype=torch.int32),
+            certificate_residual=cert_residual,
+            certificate_dropped_count=cert_dropped,
             saturation_deficit=deficit,
+            certificate_iterations=cert_iters,
+            certificate_carry_resets=carry_resets,
             rta_mode=rta_mode,
         )
         return state._replace(x=x_new, v=v_new, theta=theta_new,
-                              gating_cache=new_cache, rta=rta_carry), out
+                              gating_cache=new_cache,
+                              certificate_cache=new_ccache,
+                              certificate_solver_state=new_sstate,
+                              rta=rta_carry), out
 
     step.relax_rounds = relax_rounds(cfg)
+    step.admm_blocks = CERTIFICATE_BLOCKS
     if M:
         step.host_inputs = lambda t0, n: obstacle_table(cfg, t0, n, dt_)
     return step

@@ -1,3 +1,4 @@
 """Simulator surface (counterpart: cbf_tpu/sim): the single-integrator
-<-> unicycle maps and the Robotarium unicycle step. The certificates,
-controllers and graph modules arrive with later slices."""
+<-> unicycle maps, the Robotarium unicycle step and the joint barrier
+certificates. The controllers and graph modules arrive with later
+slices."""

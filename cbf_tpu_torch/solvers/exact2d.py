@@ -204,6 +204,7 @@ def relax_guarded(At, bt, rt, ct, tol, I, J, max_relax: int, rounds: int):
 class _Guard(NamedTuple):
     rounds: int
     flag: torch.Tensor
+    blocks: int | None = None
 
 
 _GUARD: contextvars.ContextVar = contextvars.ContextVar("relax_guard",
@@ -211,15 +212,18 @@ _GUARD: contextvars.ContextVar = contextvars.ContextVar("relax_guard",
 
 
 @contextlib.contextmanager
-def guarded_relax(rounds: int, flag):
+def guarded_relax(rounds: int, flag, blocks: int | None = None):
     """Within this context the batch solver's relax loop (and the
     single-agent solver's while form) runs :func:`relax_guarded` with
     ``rounds`` rounds and ORs its pending flag into ``flag`` (a 0-dim bool
     tensor on the solver's device) in place — no host read, so the step
-    can be captured. Outside it the host-guarded loop runs."""
+    can be captured. Outside it the host-guarded loop runs. ``blocks`` is
+    the adaptive ADMM budget's guarded blocks (:func:`guarded_blocks`)."""
     if rounds < 0:
         raise ValueError(f"rounds must be >= 0, got {rounds}")
-    token = _GUARD.set(_Guard(rounds, flag))
+    if blocks is not None and blocks < 0:
+        raise ValueError(f"blocks must be >= 0, got {blocks}")
+    token = _GUARD.set(_Guard(rounds, flag, blocks))
     try:
         yield
     finally:
@@ -232,6 +236,17 @@ def in_guarded_body() -> bool:
     data-dependent branch there in branch-free form or hands it to the
     eager redo (:func:`request_redo`)."""
     return _GUARD.get() is not None
+
+
+def guarded_blocks() -> int | None:
+    """Inside :func:`guarded_relax`: how many blocks of the sparse ADMM's
+    adaptive budget the body runs before it hands the solve to the eager
+    redo (None = the whole budget, which never redoes). Outside it: an
+    error."""
+    guard = _GUARD.get()
+    if guard is None:
+        raise RuntimeError("guarded_blocks outside guarded_relax")
+    return guard.blocks
 
 
 def request_redo(pred) -> None:

@@ -7,8 +7,9 @@ Each wraps a swarm step and corrupts the real carried state at
 corruption is a select on ``t``: with a Python int ``t`` (the eager loop)
 the wrapper picks on the host; with the compiled rollout's 0-dim device
 ``t`` it is a ``torch.where``, which the captured body replays. The
-wrapper forwards the step's ``inputs``, ``relax_rounds`` and
-``host_inputs``, so the compiled rollout drives it like the step itself.
+wrapper forwards the step's ``inputs``, ``relax_rounds``, ``admm_blocks``
+and ``host_inputs``, so the compiled rollout drives it like the step
+itself.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 
 def _forward(wrapped: Callable, step_fn: Callable) -> Callable:
     """Give ``wrapped`` the step's compiled-rollout attributes."""
-    for name in ("relax_rounds", "host_inputs"):
+    for name in ("relax_rounds", "admm_blocks", "host_inputs"):
         if hasattr(step_fn, name):
             setattr(wrapped, name, getattr(step_fn, name))
     return wrapped

@@ -9,14 +9,18 @@ Phases (each raises, and the script exits non-zero, on any failure):
 
 1. build the k-NN kernels from ``cbf_tpu_torch/csrc/knn.cu`` with nvcc,
    print the registers and spills of the k=8 kernels and of the k=16
-   ``knn_stream`` scan, and print the card's name and power limit;
+   ``knn_fused`` and ``knn_stream`` scans (the certificate's search), and
+   print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card —
    ``knn_fused`` at N in {1, 37, 256, 4096, 5000, 8192} and on rows 8
    bytes off a 16-byte boundary, ``knn_stream`` at N in {1, 37, 1000,
    2000, 4096 (forced), 16384, 20000, 65536} (1000 and 2000 split into
    several column ranges, so the merge launch is held too; the others
    scan one range), on rows 8 bytes off a 16-byte boundary and at k=1 and
-   k=16 (N=20000), ``knn_banded`` at N in {4096, 65536}
+   k=16 (N=20000), and at the certificate's search — k=16 at its
+   binding-pair radius 0.5707 — ``knn_fused`` at N in {37, 256, 4096,
+   8192} and ``knn_stream`` at N in {4096 (forced), 16384}, spawned and
+   packed, ``knn_banded`` at N in {4096, 65536}
    with the main path's windows, k=8, radius 0.4, seeded spawn positions,
    and the same spawns packed 4x closer (every row then holds more than k
    in-radius candidates, the top-k's overflow branch) — every output must
@@ -95,8 +99,28 @@ Phases (each raises, and the script exits non-zero, on any failure):
    chunks of 50).
    Each compiled and held to the eager loop.
 
-Phases 7-11 run before phase 6, which times their kernels and profiles
-every phase.
+12. the joint barrier certificate, each run compiled and held to the
+   eager loop as in phase 3 (both certificate carries included), with
+   ``knn_fused`` launched twice per step (the gating search and the
+   certificate's): 12a ``Config(n=4096, certificate=True)`` x 100 (the
+   sparse backend, k=16, 100 ADMM iterations x 8 CG); 12b the same warm
+   started with ``certificate_tol=1e-5`` (the adaptive budget's guarded
+   blocks), and again x 10 with one guarded block, which must redo its
+   chunk eagerly and still equal the eager loop; 12c
+   ``certificate_fused`` (Chebyshev) with the certificate's Verlet cache,
+   skin 0.1, x 50 (eager rebuilds printed);
+   12d ``Config(n=128, certificate=True)``, the dense backend (Cholesky
+   in the captured body, one launch per step) x 100; each with max
+   certificate residual < 1e-4 (``bench.py``'s gate), 0 infeasible and
+   min distance >= 0.13 (``bench.py``'s floor), and R, B, redos, the
+   per-step iterations histogram, the dropped count, peak memory and the
+   first call's seconds printed; ``knn_fused`` at k=16 held on 12a's
+   final state; 12e ``Config(n=256, certificate=True)`` x 10 on the card
+   and on the CPU as in phase 5, the certificate's counts included.
+
+Phases 7-12 run before phase 6, which times their kernels (``knn_fused``
+and ``knn_stream`` also at the certificate's k=16 shape) and profiles
+every phase over 20 steps (12a over 3, 12d over 5).
 
 Stdout ends with the ``{"kernels": [...]}`` line, each phase's compiled
 and eager agent-QP-steps/s, the card line, and, last, the result line
@@ -142,6 +166,23 @@ VERLET_STEPS, VERLET_SKIN = 500, 0.1
 VERLET_FLOOR = 0.13   # tests/test_gating_truncation.py's bound at N=512
 RTA_STEPS, RTA_POISON_AT, RTA_CLUMP_AT = 300, 30, 10
 THIN_N = 4096   # phase 2's thin band: 8 blocks of rows in one 1e-3 m band
+# Phase 12, the joint certificate: the sparse backend at the north-star
+# width (k=16 rows per agent, its search at the binding-pair radius), the
+# dense backend at its largest auto size, and card vs CPU at N=256. The
+# sparse step's ~28 k device ops per step are profiled over
+# CERT_PROFILE_STEPS steps (the dense step's ~6 k over 5): a 20-step
+# profile of them takes minutes of the script's time (PERF.md §5).
+CERT_N, CERT_STEPS, CERT_FUSED_STEPS = 4096, 100, 50
+CERT_PROFILE_STEPS = 3
+# 12b again with one guarded block, which the warm solves outgrow: the
+# chunk is redone by the eager loop and must still equal it.
+CERT_REDO_STEPS = 10
+CERT_DENSE_N, CERT_DENSE_STEPS = 128, 100
+CERT_CROSS_N, CERT_CROSS_STEPS = 256, 10
+CERT_K = 16
+CERT_SKIN, CERT_TOL = 0.1, 1e-5
+CERT_FLOOR = 0.13          # bench.py's SAFETY_FLOOR
+CERT_RESIDUAL_GATE = 1e-4  # bench.py's _gate_certificate
 CROSS_STEPS = 20
 # Card vs CPU after CROSS_STEPS steps: positions reach ~13 m, where a
 # float32 ulp is ~1e-6, and the two devices reduce the centroid mean in
@@ -193,14 +234,16 @@ def cuda_ms(fn, reps: int, warmup: int) -> tuple[float, float]:
     return single[reps // 2], start.elapsed_time(end) / reps
 
 
-def compare(kernel_fn, plain_fn, x, k=K, **kw) -> tuple[float, list]:
+def compare(kernel_fn, plain_fn, x, k=K, radius=RADIUS, **kw
+            ) -> tuple[float, list]:
     """Kernel vs plain on the same card input: every output (four, or five
     with the banded overflow flag) must be equal. Returns the max abs
     difference of the float outputs (finite entries; 0.0 when equal) and
     the outputs."""
     import torch
 
-    got, want = kernel_fn(x, RADIUS, k, **kw), plain_fn(x, RADIUS, k, **kw)
+    got = kernel_fn(x, radius, k, **kw)
+    want = plain_fn(x, radius, k, **kw)
     torch.cuda.synchronize()
     names = (("idx", "dist", "nearest", "count") if len(want) == 4
              else ("idx", "dist", "nearest", "overflow", "count"))
@@ -250,19 +293,22 @@ def zero_counts(engine, knn) -> None:
         engine.COUNTS[name] = 0
 
 
-def drive(swarm, engine, knn, cfg, label, kernel, wrap=None):
+def drive(swarm, engine, knn, cfg, label, kernel, wrap=None, per_step=1):
     """One main-path run through the user entry points: ``swarm.make`` and
     the compiled ``rollout`` (its first call on this step, so the capture
     is inside), with the launch and engine counts zeroed just before and
     read just after, and the peak device memory around it. Then the eager
     loop from the same initial state, which the compiled run must equal
     (final state and every StepOutputs field, torch.equal), and both timed
-    in turns (eager, compiled, compiled, eager) with the graphs cached.
-    ``wrap`` wraps the step (a fault injector). Checks ``kernel``
-    launches and none of the others: one per step in the compiled run (a
-    graph replays every step's search; the Verlet cache's too) plus the
-    eager loop's where the chunk was redone, and one per step eagerly
-    (the Verlet cache: one per rebuild). Returns a dict of the run."""
+    in turns (eager, compiled, compiled, eager) with the graphs cached;
+    every timed run must equal the first eager run too (run-to-run
+    determinism). ``wrap`` wraps the step (a fault injector). Checks
+    ``kernel`` launches and none of the others: ``per_step`` per step in
+    the compiled run (a graph replays every step's searches — the gating
+    search, the certificate's, and a Verlet cache's on every step) plus
+    the eager loop's where the chunk was redone, and ``per_step`` per step
+    eagerly (a Verlet cache: one per rebuild). Returns a dict of the
+    run."""
     import torch
 
     state0, step = swarm.make(cfg)
@@ -293,16 +339,22 @@ def drive(swarm, engine, knn, cfg, label, kernel, wrap=None):
         check(same_tree(a, b), f"{label}: compiled {name} differs from the "
               "eager loop's")
     want = dict.fromkeys(knn.LAUNCHES, 0)
-    want[kernel] = cfg.steps + (eager_launches[kernel]
-                                if counts["redo_steps"] else 0)
+    want[kernel] = per_step * cfg.steps + (eager_launches[kernel]
+                                           if counts["redo_steps"] else 0)
     check(launches == want, f"{label}: launches {launches}, want {want}")
-    if not cfg.gating_rebuild_skin:
-        check(eager_launches[kernel] == cfg.steps,
+    if not (cfg.gating_rebuild_skin or cfg.certificate_rebuild_skin):
+        check(eager_launches[kernel] == per_step * cfg.steps,
               f"{label}: eager launches {eager_launches}")
     walls = {"eager": [], "compiled": []}
     for kind in ("eager", "compiled", "compiled", "eager"):
         run = engine.eager_rollout if kind == "eager" else engine.rollout
-        walls[kind].append(timed(lambda: run(step, state0, cfg.steps)))
+        result = []
+        walls[kind].append(timed(lambda: result.extend(
+            run(step, state0, cfg.steps))))
+        check(same_tree(result[0], eager_final)
+              and same_tree(tuple(result[1]), tuple(eager_outs)),
+              f"{label}: a timed {kind} run differs from the first eager "
+              "run")
     rounds = torch.bincount(eager_outs.max_relax_rounds.int().cpu())
     run_info = {
         "steps": cfg.steps, "n": cfg.n, "relax_rounds_captured":
@@ -323,7 +375,9 @@ def drive(swarm, engine, knn, cfg, label, kernel, wrap=None):
         "peak_over_held_mib_eager": (peak_eager - base) / 2**20,
         "max_relax_rounds_steps": {r: int(c) for r, c in enumerate(rounds)
                                    if int(c)},
-        "eager_launches": eager_launches[kernel]}
+        "eager_launches": eager_launches[kernel],
+        "determinism": "every timed run (2 eager, 2 compiled) equal to "
+                       "the first eager run"}
     print(f"{label}: compiled == eager (final state, every StepOutputs "
           f"field); launches {launches}; " + json.dumps(run_info))
     return {"state0": state0, "step": step, "final": final,
@@ -388,7 +442,9 @@ def cross_check(swarm, engine, cfg, state0, label):
           f"{label}: card and CPU trajectories part beyond tolerance")
     for field in ("filter_active_count", "infeasible_count",
                   "gating_dropped_count", "gating_overflow_count",
-                  "max_relax_rounds", "rta_mode"):
+                  "max_relax_rounds", "rta_mode",
+                  "certificate_dropped_count", "certificate_iterations",
+                  "certificate_carry_resets"):
         a, b = getattr(og, field), getattr(oc, field)
         if isinstance(a, tuple):
             check(b == (), f"{field}: reported on one device only")
@@ -479,13 +535,14 @@ def profile_rollout(run, steps: int) -> dict:
     (``run()`` once before, to warm it): device ops, device busy ms per
     step and the busy share of the wall; the knn kernels seen on the
     device, by name, with launches and device ms per step; and per phase
-    (consensus/gating/filter/integrate) the host span and the device time
+    (consensus/gating/filter/certificate/integrate) the host span and the
+    device time
     inside its device-side range — which a graph replay does not record,
     so the compiled run shows "not measured" there."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    phases = ("consensus", "gating", "filter", "integrate")
+    phases = ("consensus", "gating", "filter", "certificate", "integrate")
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -567,6 +624,11 @@ def main(argv: list[str]) -> int:
     from cbf_tpu_torch.ops import knn
     from cbf_tpu_torch.rollout import engine
     from cbf_tpu_torch.scenarios import swarm
+    from cbf_tpu_torch.sim import certificates
+
+    # The certificate's search radius at the main path's speed limit.
+    cert_radius = certificates.binding_pair_radius(swarm._certificate_problem(
+        swarm.Config(n=CERT_N, certificate=True))[0])
 
     if args.time_only:
         knn.build_library()
@@ -594,7 +656,8 @@ def main(argv: list[str]) -> int:
         if "Compiling entry function" in line:
             name = line.split("'")[1]
             shown = ("ILi8E" in name or "prologue" in name
-                     or ("stream_partial" in name and "ILi16E" in name))
+                     or (("stream_partial" in name or "fused" in name)
+                         and "ILi16E" in name))
             kernel = name if shown else None
         elif kernel and ("registers" in line or "stack frame" in line):
             print(f"  {kernel}: {line.split(':', 1)[-1].strip()}")
@@ -615,11 +678,14 @@ def main(argv: list[str]) -> int:
     def window(n):   # the main path's window for N agents
         return swarm.banded_window_blocks(swarm.Config(n=n))
 
-    def hold(name, label, x, w=None, k=K):
+    def hold(name, label, x, w=None, k=K, radius=RADIUS):
         n = x.shape[0]
         kw = {} if w is None else {"window_blocks": w}
-        err, outs = compare(getattr(knn, name), plains[name], x, k=k, **kw)
+        err, outs = compare(getattr(knn, name), plains[name], x, k=k,
+                            radius=radius, **kw)
         errs[name][n] = max(errs[name].get(n, 0.0), err)
+        if radius != RADIUS:
+            label = f"{label}, r={radius:.4f}"
         compared[name].setdefault(n, []).append(
             label if k == K else f"{label}, k={k}")
         over = int((outs[-1] > k).sum())
@@ -669,6 +735,17 @@ def main(argv: list[str]) -> int:
         hold("knn_stream", "spawn", spawn(20000), k=k)
         hold("knn_stream", "packed", spawn(20000) * PACK, k=k)
     compare(knn.knn_stream, knn.knn_neighbors_plain, spawn(4096))
+    # The certificate's search: k=16 at the binding-pair radius.
+    for n in (37, 256, MAIN_N, knn.MAX_N_FUSED):
+        hold("knn_fused", "spawn", spawn(n), k=CERT_K, radius=cert_radius)
+        over = hold("knn_fused", "packed", spawn(n) * PACK, k=CERT_K,
+                    radius=cert_radius)
+        check(n < MAIN_N or over == n,
+              f"packed N={n}, k={CERT_K}: a row holds <= k candidates")
+    for n in (MAIN_N, STREAM_N):
+        hold("knn_stream", "spawn", spawn(n), k=CERT_K, radius=cert_radius)
+        hold("knn_stream", "packed", spawn(n) * PACK, k=CERT_K,
+             radius=cert_radius)
     gen = torch.Generator().manual_seed(0)
     for n in (OBST_N, BANDED_N):
         hold("knn_banded", "spawn", spawn(n), window(n))
@@ -707,9 +784,11 @@ def main(argv: list[str]) -> int:
           and torch.equal(near_b[close], near_s[close]),
           f"knn_banded and knn_stream differ at N={BANDED_N} on the spawn")
     print("phase 2: knn_fused equal at N=1/37/256/4096/5000/8192 (and on "
-          "8-byte-aligned rows), knn_stream equal at N=1/37/1000/2000/4096/"
+          f"8-byte-aligned rows; at k={CERT_K}, r={cert_radius:.4f}, "
+          "N=37/256/4096/8192), knn_stream equal at N=1/37/1000/2000/4096/"
           f"16384/20000/{BANDED_N} (and on 8-byte-aligned rows, at k=1 and "
-          "k=16, and to the fused plain version at 4096), "
+          f"k=16, at k={CERT_K}, r={cert_radius:.4f}, N=4096/16384, and to "
+          "the fused plain version at 4096), "
           f"knn_banded equal at N={OBST_N}/{BANDED_N}, spawned, packed and "
           "float64, and on the thin band (overflow flagged); band_prologue "
           "equal to band_setup on all of those; knn_banded = knn_stream "
@@ -931,6 +1010,94 @@ def main(argv: list[str]) -> int:
           f"{RTA_STEPS // 50} chunks ({chunk_counts['redo_steps']} steps), "
           "both equal to the eager loop")
 
+    # 12. the joint certificate, compiled and held to the eager loop
+    cert = {}
+
+    def cert_run(key, cfg, per_step, note="", wrap=None):
+        label = f"phase 12{key}: N={cfg.n}, certificate{note}"
+        run = drive(swarm, engine, knn, cfg, label, "knn_fused",
+                    per_step=per_step, wrap=wrap)
+        outs, step, info = run["outs"], run["step"], run["info"]
+        md = check_run(f"{label} x {cfg.steps} steps", cfg, run["final"],
+                       outs, floor=CERT_FLOOR)
+        res = float(outs.certificate_residual.max())
+        check(res < CERT_RESIDUAL_GATE,
+              f"{label}: certificate residual {res} >= {CERT_RESIDUAL_GATE}")
+        check(bool(torch.isfinite(outs.certificate_residual).all()),
+              f"{label}: non-finite certificate residual")
+        settings = swarm._certificate_settings(cfg)
+        backend = swarm.certificate_backend(cfg)
+        if backend == "sparse":
+            rows = cfg.n * min(cfg.certificate_k, cfg.n - 1)
+        else:
+            rows = min(cfg.certificate_pairs or 8 * cfg.n,
+                       cfg.n * (cfg.n - 1) // 2) + 4 * cfg.n
+        blocks = None
+        if cfg.certificate_tol:
+            blocks = (step.admm_blocks if step.admm_blocks is not None
+                      else -(-settings.iters // settings.check_every))
+        hist = torch.bincount(outs.certificate_iterations.long().cpu())
+        run["cert"] = {
+            "backend": backend, "rows_R": rows, "variables": 2 * cfg.n,
+            "guarded_blocks_B": blocks, "redos": info["redos"],
+            "redo_steps": info["redo_steps"],
+            "certificate_iterations_histogram": {
+                i: int(c) for i, c in enumerate(hist) if int(c)},
+            "dropped_count": int(outs.certificate_dropped_count.sum()),
+            "max_residual": res, "min_distance": md,
+            "infeasible": int(outs.infeasible_count.sum()),
+            "peak_over_held_mib_compiled":
+                info["peak_over_held_mib_compiled"],
+            "peak_over_held_mib_eager": info["peak_over_held_mib_eager"],
+            "first_call_s": info["first_call_s"],
+            "first_call_less_a_replay_s":
+                info["first_call_s"] - min(info["compiled_s"]),
+            "eager_step_ms": info["eager_step_ms"],
+            "compiled_step_ms": info["compiled_step_ms"]}
+        print(f"{label}: " + json.dumps(run["cert"])
+              + f" (script at {time.perf_counter() - t_start:.1f} s)")
+        cert[key] = run
+        return run
+
+    cert_run("a", swarm.Config(n=CERT_N, steps=CERT_STEPS,
+                               certificate=True), per_step=2)
+    hold("knn_fused", "phase 12a final state",
+         cert["a"]["final"].x.float().contiguous(), k=CERT_K,
+         radius=cert_radius)
+    cert_run("b", swarm.Config(n=CERT_N, steps=CERT_STEPS, certificate=True,
+                               certificate_warm_start=True,
+                               certificate_tol=CERT_TOL), per_step=2,
+             note=f", warm start, tol {CERT_TOL}")
+
+    def one_block(step):
+        step.admm_blocks = 1
+        return step
+
+    redo = cert_run("b B=1", swarm.Config(
+        n=CERT_N, steps=CERT_REDO_STEPS, certificate=True,
+        certificate_warm_start=True, certificate_tol=CERT_TOL), per_step=2,
+        note=f", warm start, tol {CERT_TOL}, one guarded block",
+        wrap=one_block)
+    check(redo["info"]["redos"] == 1,
+          f"phase 12b B=1: {redo['info']['redos']} redos, want 1")
+    fused = cert_run("c", swarm.Config(
+        n=CERT_N, steps=CERT_FUSED_STEPS, certificate=True,
+        certificate_backend="sparse", certificate_fused=True,
+        certificate_rebuild_skin=CERT_SKIN), per_step=2,
+        note=f", fused (Chebyshev), skin {CERT_SKIN}")
+    rebuilds = fused["info"]["eager_launches"] - CERT_FUSED_STEPS
+    fused["cert"]["eager_rebuilds"] = rebuilds
+    print(f"phase 12c: {rebuilds} certificate-search rebuilds in "
+          f"{CERT_FUSED_STEPS} eager steps; the graph searches on all "
+          f"{CERT_FUSED_STEPS}")
+    cert_run("d", swarm.Config(n=CERT_DENSE_N, steps=CERT_DENSE_STEPS,
+                               certificate=True), per_step=1,
+             note=", dense")
+    cfg_x = swarm.Config(n=CERT_CROSS_N, steps=CERT_CROSS_STEPS,
+                         certificate=True)
+    cross_check(swarm, engine, cfg_x, swarm.initial_state(cfg_x),
+                "phase 12e (certificate, sparse)")
+
     # 6. timings at the main-path shapes; launches are every compiled
     # main-path run's of this call, by phase
     all_runs = {"phase 3 N=256": runs[ENTRY_N], "phase 3 N=4096": main,
@@ -939,7 +1106,8 @@ def main(argv: list[str]) -> int:
                 "phase 8 orbit": obst["orbit"],
                 **{f"phase 9 {family}": run for family, run in dyn.items()},
                 "phase 10": verlet,
-                **{f"phase 11 {kind}": run for kind, run in rta.items()}}
+                **{f"phase 11 {kind}": run for kind, run in rta.items()},
+                **{f"phase 12{key}": run for key, run in cert.items()}}
     by_phase = {name: {label: run["launches"][name]
                        for label, run in all_runs.items()
                        if run["launches"][name]}
@@ -1022,6 +1190,26 @@ def main(argv: list[str]) -> int:
             row["prologue_device_ms"] = prologue["device_ms"]
             row["prologue_kernel_device_ms"] = prologue["kernel_device_ms"]
             row["device_op_names"] = names
+        if name in ("knn_fused", "knn_stream"):
+            # The certificate's search: k=16 at the binding-pair radius,
+            # on phase 12a's initial state (knn_fused, the main path's
+            # shape) and on phase 4's (knn_stream, the shape a certificate
+            # beyond the fused bound would take).
+            xc = (cert["a"]["state0"].x if name == "knn_fused"
+                  else state0_s.x).to(torch.float32).contiguous()
+            count_c = fn(xc, cert_radius, CERT_K)[-1]
+            t_ops = (OPS_PER_PAIR * n * n + CERT_K * int(count_c.sum())
+                     ) / PEAK_F32_ISSUE_PER_S
+            t_bytes = (8 * n + n * CERT_K * 8 + n * 8) / PEAK_BYTES_PER_S
+            timed_c = time_call(lambda: fn(xc, cert_radius, CERT_K))
+            timed_c.pop("device_op_names")
+            row["certificate_search"] = {
+                "k": CERT_K, "radius": cert_radius, "n": n, **timed_c,
+                "plain_ms": cuda_ms(lambda: plain(xc, cert_radius, CERT_K),
+                                    reps=10, warmup=2)[0],
+                "bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "in_radius_candidates": int(count_c.sum())}
         rows.append(row)
     x4096 = state0.x.to(torch.float32).contiguous()
     stream_small = cuda_ms(lambda: knn.knn_stream(x4096, RADIUS, K),
@@ -1043,8 +1231,14 @@ def main(argv: list[str]) -> int:
                        *((f"N={DYN_N} {family}", dyn[family])
                          for family in dyn),
                        (f"N={MAIN_N} Verlet", verlet),
-                       (f"N={MAIN_N} RTA armed, healthy", rta["healthy"])):
-        prof = profile_both(engine, run, label)
+                       (f"N={MAIN_N} RTA armed, healthy", rta["healthy"]),
+                       (f"N={CERT_N} certificate (12a)", cert["a"]),
+                       (f"N={CERT_DENSE_N} dense certificate (12d)",
+                        cert["d"])):
+        prof = profile_both(engine, run, label,
+                            steps=(CERT_PROFILE_STEPS if run is cert["a"]
+                                   else 5 if run is cert["d"] else 20))
+        print(f"  (script at {time.perf_counter() - t_start:.1f} s)")
         check(prof["compiled"]["knn_kernels"] != {}
               or prof["compiled"]["device_ops_per_step"] == 0,
               f"{label}: no knn kernel inside the graph replay")
@@ -1067,7 +1261,9 @@ def main(argv: list[str]) -> int:
                                            for family, run in dyn.items()),
                                          (f"N={MAIN_N} Verlet", verlet),
                                          *((f"N={MAIN_N} RTA {kind}", run)
-                                           for kind, run in rta.items())))
+                                           for kind, run in rta.items()),
+                                         *((f"phase 12{key}", run)
+                                           for key, run in cert.items())))
           + f"; main path {qps:.1f} agent-QP-steps/s; orbit min distance "
           f"{obst['orbit']['min_distance']:.6f}; card {card}")
     print(card)

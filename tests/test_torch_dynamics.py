@@ -27,7 +27,6 @@ from cbf_tpu.sim import robotarium as jrob
 from cbf_tpu.sim import transformations as jtr
 from cbf_tpu_torch import convert
 from cbf_tpu_torch.core import filter as tfil
-from cbf_tpu_torch.errors import OutOfSliceError
 from cbf_tpu_torch.rollout import engine as teng
 from cbf_tpu_torch.scenarios import swarm as tsw
 from cbf_tpu_torch.sim import robotarium as trob
@@ -360,21 +359,29 @@ def test_packed_f32_families_match_jax():
 
 
 def test_state_carries_across_with_every_leaf():
+    cert = dict(certificate=True, certificate_backend="sparse",
+                certificate_rebuild_skin=0.1, certificate_warm_start=True)
     jcfg = jsw.Config(n=12, dynamics="unicycle", gating_rebuild_skin=0.1,
-                      rta=True)
+                      rta=True, **cert)
     s0, _ = jsw.make(jcfg)
     t0 = convert.state_from_reference(s0, device="cpu", dtype=torch.float32)
     assert torch.equal(t0.theta, torch.as_tensor(np.asarray(s0.theta)))
     assert [a.dtype for a in t0.gating_cache] == [
         torch.int32, torch.float32, torch.int32, torch.float32]
+    assert [a.dtype for a in t0.certificate_cache] == [
+        torch.int32, torch.float32, torch.int32]
+    assert [a.shape for a in t0.certificate_solver_state] == [
+        (24,), (132,), (24,), (132,), (24,)]
     assert [a.dtype for a in t0.rta[:4]] == [
         torch.int32, torch.int32, torch.float32, torch.float32]
     assert t0.rta[4].shape == (12,)
-    for got, want in zip(teng._leaves(t0), teng._leaves(
-            tsw.initial_state(tsw.Config(n=12, dynamics="unicycle",
-                                         gating_rebuild_skin=0.1, rta=True),
-                              device="cpu"))):
+    seed = tsw.initial_state(tsw.Config(n=12, dynamics="unicycle",
+                                        gating_rebuild_skin=0.1, rta=True,
+                                        **cert), device="cpu")
+    for got, want in zip(teng._leaves(t0), teng._leaves(seed)):
         assert got.shape == want.shape and got.dtype == want.dtype
-    with pytest.raises(OutOfSliceError, match="Queue A6"):
-        convert.state_from_reference(s0._replace(certificate_cache=(1,)),
-                                     device="cpu", dtype=torch.float32)
+    # The certificate's carries are the port's own seeds, value for value.
+    for got, want in zip(t0.certificate_cache + t0.certificate_solver_state,
+                         seed.certificate_cache
+                         + seed.certificate_solver_state):
+        assert torch.equal(got, want)

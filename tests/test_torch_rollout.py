@@ -18,9 +18,11 @@ only skips the capture. Held here:
   banded paths, the obstacle orbit — with R = 0 there, which forces the
   redo path — the double, unicycle and mixed dynamics (the mixed swarm's
   per-agent filter lanes under the guard, and at R = 0), the Verlet cache
-  (the rebuild picked on the device), and RTA (the poisoned lane's scrub;
-  the clump's boosted re-solve, which the body hands to the redo), for
-  every ``unroll``, and leaving ``state0`` untouched;
+  (the rebuild picked on the device), RTA (the poisoned lane's scrub;
+  the clump's boosted re-solve, which the body hands to the redo) and the
+  joint certificate (sparse, dense, fused with its Verlet cache, and warm
+  with the adaptive budget at B = 1 guarded block, which forces the
+  redo), for every ``unroll``, and leaving ``state0`` untouched;
 - the same runs against the JAX package's ``rollout_chunked`` with the
   tolerances tests/test_torch_swarm.py and tests/test_torch_obstacles.py
   state: float32 min distance rtol 1e-6, x and v atol 1e-5; float64 atol
@@ -76,6 +78,24 @@ PATHS = {
     "rta poison": dict(n=16, steps=12, rta=True,
                        spawn_half_width_override=0.5),
     "rta clump": dict(n=16, steps=30, n_obstacles=4, rta=True),
+    # The joint certificate on packed spawns, where it binds.
+    "cert sparse": dict(n=64, steps=6, certificate=True,
+                        certificate_backend="sparse",
+                        spawn_half_width_override=0.8),
+    # One guarded block of the adaptive budget (B = 1) where the solves
+    # need three or four: the redo path.
+    "cert warm tol B=1": dict(n=64, steps=6, certificate=True,
+                              certificate_backend="sparse",
+                              certificate_warm_start=True,
+                              certificate_tol=1e-5,
+                              spawn_half_width_override=0.8),
+    "cert fused skin": dict(n=64, steps=6, certificate=True,
+                            certificate_backend="sparse",
+                            certificate_fused=True,
+                            certificate_rebuild_skin=0.1,
+                            spawn_half_width_override=0.8),
+    "cert dense": dict(n=32, steps=6, certificate=True,
+                       spawn_half_width_override=0.6),
 }
 # Fault injectors at step 1 (inside the capture probe's second body).
 WRAPS = {
@@ -83,8 +103,8 @@ WRAPS = {
     "rta clump": lambda step: faults.teleport_clump_at_step(
         step, 1, agents=range(8)),
 }
-# Paths whose chunks are redone: R = 0, and the boosted re-solve.
-REDONE = ("orbit R=0", "mixed R=0", "rta clump")
+# Paths whose chunks are redone: R = 0, the boosted re-solve, and B = 1.
+REDONE = ("orbit R=0", "mixed R=0", "rta clump", "cert warm tol B=1")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -210,6 +230,8 @@ def _make(path: str):
         step = WRAPS[path](step)
     if path.endswith("R=0"):
         step.relax_rounds = 0
+    if path.endswith("B=1"):
+        step.admm_blocks = 1
     return cfg, state0, step
 
 
@@ -239,6 +261,10 @@ def test_rollout_equals_the_eager_loop(path):
         assert int(want.rta_mode.max()) > 0
     if path == "banded":
         assert want.gating_overflow_count.shape == (cfg.steps,)
+    if path.startswith("cert"):
+        assert float(want.certificate_residual.max()) < 1e-4
+    if path.endswith("B=1"):
+        assert int(want.certificate_iterations.min()) > 10
 
 
 @pytest.mark.parametrize("unroll", [1, 3, 8, True])
@@ -415,13 +441,16 @@ def _no_host_traffic():
 @pytest.mark.parametrize("path", ["dense", "kernel", "streaming", "banded",
                                   "orbit", "double", "unicycle", "mixed",
                                   "verlet", "verlet dense", "rta poison",
-                                  "rta clump"])
+                                  "rta clump", "cert sparse",
+                                  "cert warm tol B=1", "cert fused skin",
+                                  "cert dense"])
 def test_capture_body_makes_no_host_traffic(path):
     """The engine's program for 3 steps: the first body runs as the
     warm-up before a capture does (it fills the kernels' and the
     constants' caches), the next two steps run as one body under the
-    patches — and still equal the eager loop, or, for the clump, raise
-    the redo flag for the boosted re-solve the body leaves out."""
+    patches — and still equal the eager loop, or, for the clump and the
+    certificate's one guarded block, raise the redo flag for what the
+    body leaves out (the boosted re-solve, the budget's later blocks)."""
     cfg, state0, step = _make(path)
     prog = teng._program(step, state0, 3, unroll=2)
     prog.load(state0)
@@ -429,8 +458,9 @@ def test_capture_body_makes_no_host_traffic(path):
     prog.body(step, 1)
     with _no_host_traffic():
         prog.body(step, 2)
-    assert bool(prog.flag) == (path == "rta clump")
-    if path == "rta clump":
+    flagged = path in ("rta clump", "cert warm tol B=1")
+    assert bool(prog.flag) == flagged
+    if flagged:
         return
     want_final, want = teng.eager_rollout(step, state0, 3)
     _assert_same(prog.carry, want_final, "carry")

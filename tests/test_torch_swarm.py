@@ -148,20 +148,67 @@ def test_make_without_card_needs_device_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("override,make_kw,slice_name", [
-    # The Queue A5 knobs build now (test_queue_a5_knobs_build_and_match_
-    # jax); paired with a later slice's knob, that one still raises.
+    # The Queue A5 and A6 knobs build now (test_queue_a5_knobs_build_and_
+    # match_jax, tests/test_torch_certificate.py); paired with a later
+    # slice's knob, that one still raises.
     ({"dynamics": "double", "rta": True}, {"unroll_relax": 2}, "Queue A8"),
-    ({"dynamics": "unicycle", "certificate": True}, {}, "Queue A6"),
+    ({"dynamics": "unicycle", "certificate": True}, {"unroll_relax": 2},
+     "Queue A8"),
     ({"dynamics": "mixed", "n_double": 4}, {"unroll_relax": 1}, "Queue A8"),
-    ({"certificate": True}, {}, "Queue A6"),
-    ({"rta": True, "certificate": True}, {}, "Queue A6"),
+    ({"certificate": True}, {"unroll_relax": 1}, "Queue A8"),
+    ({"rta": True, "certificate": True}, {"active": True}, "Queue A11"),
     ({"gating_rebuild_skin": 0.1}, {"unroll_relax": 2}, "Queue A8"),
     ({}, {"unroll_relax": 2}, "Queue A8"),
 ])
 def test_out_of_slice_knobs_raise(override, make_kw, slice_name):
     cfg = tsw.Config(n=16, **override)
     with pytest.raises(OutOfSliceError, match=slice_name):
-        tsw.make(cfg, device="cpu", **make_kw)
+        if make_kw.get("active"):
+            # The serving layer's mask reaches the step factory only.
+            tsw._build_step(cfg, active=torch.ones(16, dtype=torch.bool),
+                            device="cpu")
+        else:
+            tsw.make(cfg, device="cpu", **make_kw)
+
+
+def _autograd_through_the_k_solve():
+    """The sparse certificate's solver with row directions that need a
+    gradient: its K solve's implicit gradient is the Queue A8 slice's."""
+    from cbf_tpu_torch.solvers import sparse_admm
+    N, k = 8, 2
+    coef = torch.ones((N * k, 2), requires_grad=True)
+    I = torch.arange(N).repeat_interleave(k)
+    J = (I + 1) % N
+    sparse_admm.solve_pair_box_qp_admm(
+        torch.zeros((N, 2)), I, J, coef, torch.ones(N * k),
+        torch.full((N, 2), -1.0), torch.full((N, 2), 1.0), agent_k=k)
+
+
+@pytest.mark.parametrize("call,slice_name", [
+    ("apply_certificate_sharded", "Queue A10"),
+    ("axis_name", "Queue A10"),
+    ("si_barrier_certificate_sparse_sharded", "Queue A10"),
+    ("autograd through the K solve", "Queue A8"),
+])
+def test_certificate_out_of_slice_paths_raise(call, slice_name):
+    from cbf_tpu_torch.sim import certificates
+    from cbf_tpu_torch.solvers import sparse_admm
+    cfg = tsw.Config(n=16, certificate=True, certificate_backend="sparse")
+    u = torch.zeros((16, 2))
+    calls = {
+        "apply_certificate_sharded":
+            lambda: tsw.apply_certificate_sharded(cfg, u, u, "sp"),
+        "axis_name": lambda: sparse_admm.solve_pair_box_qp_admm(
+            u, torch.zeros(4, dtype=torch.int64),
+            torch.ones(4, dtype=torch.int64), torch.ones((4, 2)),
+            torch.ones(4), u - 1.0, u + 1.0, axis_name="sp"),
+        "si_barrier_certificate_sparse_sharded":
+            lambda: certificates.si_barrier_certificate_sparse_sharded(
+                u.T, u.T, "sp"),
+        "autograd through the K solve": _autograd_through_the_k_solve,
+    }
+    with pytest.raises(OutOfSliceError, match=slice_name):
+        calls[call]()
 
 
 @pytest.mark.parametrize("override", [
