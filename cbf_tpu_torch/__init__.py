@@ -12,11 +12,17 @@ mixed swarm), every dynamics family (``sim/`` holds the unicycle), the
 obstacle field, the Verlet neighbour cache, runtime assurance (``rta/``)
 and the joint barrier certificate (``sim/certificates.py`` on the ADMM
 solvers of ``solvers/``), driven over time by ``rollout.engine``, whose
-compiled rollout captures the step as a CUDA graph. Knobs of later slices raise
-:class:`~cbf_tpu_torch.errors.OutOfSliceError`.
+compiled rollout captures the step as a CUDA graph. It also holds the
+reference's own scenarios (``scenarios/meet_at_center.py``,
+``cross_and_rescue.py``, ``antipodal.py``), the rps-style object API
+(``compat.py``, with ``examples/``), the replay renderer (``render/``),
+the SLSQP oracle (``oracle/``), the native trajectory sink (``native/``)
+and the ``run``/``list`` CLI (``python -m cbf_tpu_torch``). Knobs of later
+slices raise :class:`~cbf_tpu_torch.errors.OutOfSliceError`.
 
 Entry points run on the card unless the caller passes ``device="cpu"``
-(:func:`cbf_tpu_torch.scenarios.swarm.make`).
+(:func:`cbf_tpu_torch.scenarios.swarm.make`; ``--device cpu`` on the
+CLI).
 """
 
 from cbf_tpu_torch.errors import OutOfSliceError

@@ -44,6 +44,16 @@ def state_from_reference(state, *, device, dtype) -> State:
                          dtype=dtype) for name in State._fields))
 
 
+def scenario_state_from_reference(state, state_cls, *, device, dtype):
+    """A reference scenario's State (meet_at_center, cross_and_rescue,
+    antipodal: any object with ``state_cls``'s fields) as the port's
+    ``state_cls``, every field a ``dtype`` tensor on ``device``. Their
+    "weights", the consensus and adjacency matrices, are rebuilt from the
+    same Config by each package's ``make``."""
+    return state_cls(*(_leaf(getattr(state, name), device=device,
+                             dtype=dtype) for name in state_cls._fields))
+
+
 def cbf_params_from_numpy(params, *, device=None, dtype=None) -> CBFParams:
     """CBFParams from any object with max_speed/dmin/k/gamma fields (a JAX
     ``CBFParams`` or a mapping). Scalar leaves become Python floats;
@@ -58,8 +68,9 @@ def cbf_params_from_numpy(params, *, device=None, dtype=None) -> CBFParams:
     return CBFParams(**leaves)
 
 
-def config_from_fields(fields: dict) -> Config:
-    """Config from a field dict (e.g. ``dataclasses.asdict`` of a JAX
+def config_from_fields(fields: dict, cls=Config):
+    """A ``cls`` config (default: the swarm's; or a scenario module's
+    ``Config``) from a field dict (e.g. ``dataclasses.asdict`` of a JAX
     Config) whose ``dtype`` is a name such as ``"float32"`` or a torch
     dtype. Unknown fields raise TypeError."""
     fields = dict(fields)
@@ -69,8 +80,8 @@ def config_from_fields(fields: dict) -> Config:
         if not isinstance(resolved, torch.dtype):
             raise ValueError(f"unknown dtype name {dtype!r}")
         fields["dtype"] = resolved
-    names = {f.name for f in dataclasses.fields(Config)}
+    names = {f.name for f in dataclasses.fields(cls)}
     unknown = sorted(set(fields) - names)
     if unknown:
-        raise TypeError(f"fields unknown to Config: {unknown}")
-    return Config(**fields)
+        raise TypeError(f"fields unknown to {cls.__name__}: {unknown}")
+    return cls(**fields)

@@ -102,13 +102,13 @@ Phases (each raises, and the script exits non-zero, on any failure):
 12. the joint barrier certificate, each run compiled and held to the
    eager loop as in phase 3 (both certificate carries included), with
    ``knn_fused`` launched twice per step (the gating search and the
-   certificate's): 12a ``Config(n=4096, certificate=True)`` x 100 (the
+   certificate's): 12a ``Config(n=4096, certificate=True)`` x 50 (the
    sparse backend, k=16, 100 ADMM iterations x 8 CG); 12b the same warm
    started with ``certificate_tol=1e-5`` (the adaptive budget's guarded
    blocks), and again x 10 with one guarded block, which must redo its
    chunk eagerly and still equal the eager loop; 12c
    ``certificate_fused`` (Chebyshev) with the certificate's Verlet cache,
-   skin 0.1, x 50 (eager rebuilds printed);
+   skin 0.1, x 30 (eager rebuilds printed);
    12d ``Config(n=128, certificate=True)``, the dense backend (Cholesky
    in the captured body, one launch per step) x 100; each with max
    certificate residual < 1e-4 (``bench.py``'s gate), 0 infeasible and
@@ -116,11 +116,41 @@ Phases (each raises, and the script exits non-zero, on any failure):
    per-step iterations histogram, the dropped count, peak memory and the
    first call's seconds printed; ``knn_fused`` at k=16 held on 12a's
    final state; 12e ``Config(n=256, certificate=True)`` x 10 on the card
-   and on the CPU as in phase 5, the certificate's counts included.
+   and on the CPU as in phase 5, the certificate's counts included. (12a-c
+   ran 100/100/50 steps before phase 13 came; they were cut to 50/50/30,
+   with the 12a profile from 3 steps to 2, to keep the script near ten
+   minutes: an eager sparse step takes 0.26-0.38 s on an H100 80GB HBM3
+   at 700 W, PERF.md §5.)
+13. the reference scenarios, the CLI and the compat layer: 13a
+   ``meet_at_center`` (10 robots x 1000 iterations), 13b
+   ``cross_and_rescue`` (4 robots, 6 ring obstacles, the dense
+   certificate, x 3000) and 13c ``antipodal`` (N=32 x 1500), each at its
+   default Config through its ``make`` and the compiled rollout, held
+   ``torch.equal`` to the eager loop over the whole horizon (13b: its
+   first 300 steps, as an eager step takes 54-107 ms on an H100 80GB
+   HBM3 at 700 W, PERF.md §5; the compiled run goes the full 3000),
+   launching no knn kernel, each with the bounds of
+   tests/test_scenarios.py (13a: free-agent spread < 0.35, min distance >
+   0.05, the filter engaged on > 100 agent-steps of the first 400; 13b:
+   goal distances min < 0.15 and max < 0.6, min distance > 0.1, residual
+   < 1e-4; 13c: all 32 within 0.2 m of their antipodes, min distance >
+   0.2/sqrt(2) - 5e-3) and 0 infeasible, R, redos, the relax histogram,
+   the step walls eager and compiled in turns (13b over 100 steps), the
+   device ops per step and the first call's seconds printed; 13d the
+   golden anchor: float64 ``meet_at_center`` on the card for 5 steps
+   within 5e-5 of the float64 numpy replay through the port's SLSQP
+   oracle; 13e 13a and 13c for 50 steps on the card and on the CPU within
+   CROSS_X_ATOL, every count equal; 13f ``cbf_tpu_torch.__main__.main``
+   in process: ``run swarm --set n=4096 --steps 200 --traj`` (the floor,
+   0 infeasible, one ``knn_fused`` launch per step, the ``.cbt`` read back
+   equal to the run's trajectory), ``run meet_at_center --video`` (a gif)
+   and ``list``; 13g ``examples.meet_at_center_compat`` x 200 on the card
+   and on the CPU, final poses within CROSS_X_ATOL, wall per step printed.
 
-Phases 7-12 run before phase 6, which times their kernels (``knn_fused``
+Phases 7-13 run before phase 6, which times their kernels (``knn_fused``
 and ``knn_stream`` also at the certificate's k=16 shape) and profiles
-every phase over 20 steps (12a over 3, 12d over 5).
+every phase of 1-12 over 20 steps (12a over 2, 12d over 5; phase 13
+profiles its own runs, 13b over 3).
 
 Stdout ends with the ``{"kernels": [...]}`` line, each phase's compiled
 and eager agent-QP-steps/s, the card line, and, last, the result line
@@ -172,8 +202,8 @@ THIN_N = 4096   # phase 2's thin band: 8 blocks of rows in one 1e-3 m band
 # sparse step's ~28 k device ops per step are profiled over
 # CERT_PROFILE_STEPS steps (the dense step's ~6 k over 5): a 20-step
 # profile of them takes minutes of the script's time (PERF.md §5).
-CERT_N, CERT_STEPS, CERT_FUSED_STEPS = 4096, 100, 50
-CERT_PROFILE_STEPS = 3
+CERT_N, CERT_STEPS, CERT_FUSED_STEPS = 4096, 50, 30
+CERT_PROFILE_STEPS = 2
 # 12b again with one guarded block, which the warm solves outgrow: the
 # chunk is redone by the eager loop and must still equal it.
 CERT_REDO_STEPS = 10
@@ -190,6 +220,16 @@ CROSS_STEPS = 20
 # 1e-4 m leaves ~5x headroom over 20 steps of that, and the min-distance
 # series (values ~0.2 m, ulp ~1.5e-8) gets 1e-5.
 CROSS_X_ATOL, CROSS_MD_ATOL = 1e-4, 1e-5
+# Phase 13, the reference scenarios at their own sizes. cross_and_rescue's
+# 3000 steps run compiled; the eager loop holds them on the first 300
+# (an eager step of its dense certificate takes 54-107 ms on an H100 80GB
+# HBM3 at 700 W, PERF.md §5), and the walls
+# are timed over 100.
+SCEN_CAR_PREFIX, SCEN_CAR_TIMED = 300, 100
+SCEN_ANCHOR_STEPS = 5          # tests/test_scenarios.py's golden anchor
+SCEN_CROSS_STEPS = 50
+SCEN_CLI_STEPS = 200
+SCEN_COMPAT_STEPS = 200
 # The same bounds hold phase 9's 50 steps at N=256 (positions ~3 m, a
 # float32 ulp ~2.4e-7): CUDA's and the CPU's cos/sin may differ by an ulp
 # and the unicycle heading feeds that back every step, which 1e-4 covers
@@ -601,6 +641,353 @@ def profile_both(engine, run, label: str, steps: int = 20) -> dict:
     print(f"phase 6: {label} step profile, eager and compiled "
           + json.dumps(prof))
     return prof
+
+
+def drive_scenario(engine, knn, module, cfg, label, horizon, prefix=None,
+                   timed_steps=None, profile_steps=20):
+    """13a-c: a reference scenario through its ``make`` on the card and
+    the compiled ``rollout`` over the whole ``horizon`` (its first call on
+    this step, so the capture is inside), the engine and launch counts
+    zeroed just before and read just after. Held ``torch.equal`` to the
+    eager loop over the first ``prefix`` steps (the whole horizon when
+    None): every StepOutputs field, and the final state of a compiled run
+    of that length. Eager and compiled are timed in turns over
+    ``timed_steps`` steps (default: those), each timed run held to the
+    eager loop, and 20 steps (``profile_steps``) profiled eager and
+    compiled.
+    The per-step relax histogram is the compiled run's (equal to the eager
+    loop's wherever both ran: a step past R rounds would have redone its
+    chunk). Returns a dict of the run."""
+    import torch
+
+    n_ref = horizon if prefix is None else prefix
+    state0, step = module.make(cfg)
+    torch.cuda.synchronize()
+    zero_counts(engine, knn)
+    t0 = time.perf_counter()
+    final, outs = engine.rollout(step, state0, horizon)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts, launches = dict(engine.COUNTS), dict(knn.LAUNCHES)
+    check(not any(launches.values()),
+          f"{label}: a scenario without a kernel launched {launches}")
+    eager_final, eager_outs = engine.eager_rollout(step, state0, n_ref)
+    head = engine._tree_map(lambda v: v[:n_ref], outs)
+    for name, a, b in zip(engine.StepOutputs._fields, head, eager_outs):
+        check(same_tree(a, b), f"{label}: compiled {name} differs from the "
+              f"eager loop's over the first {n_ref} steps")
+    if n_ref == horizon:
+        check(same_tree(final, eager_final),
+              f"{label}: compiled final state differs from the eager loop's")
+    else:
+        pre_final, pre_outs = engine.rollout(step, state0, n_ref)
+        check(same_tree(pre_final, eager_final)
+              and same_tree(tuple(pre_outs), tuple(eager_outs)),
+              f"{label}: a compiled run of {n_ref} steps differs from the "
+              "eager loop's")
+    n_timed = n_ref if timed_steps is None else min(timed_steps, n_ref)
+    want_outs = engine._tree_map(lambda v: v[:n_timed], eager_outs)
+    walls = {"eager": [], "compiled": []}
+    for kind in ("eager", "compiled", "compiled", "eager"):
+        run = engine.eager_rollout if kind == "eager" else engine.rollout
+        result = []
+        walls[kind].append(timed(lambda: result.extend(
+            run(step, state0, n_timed))))
+        check((n_timed < n_ref or same_tree(result[0], eager_final))
+              and same_tree(tuple(result[1]), tuple(want_outs)),
+              f"{label}: a timed {kind} run over {n_timed} steps differs "
+              "from the first eager run")
+    rounds = torch.bincount(outs.max_relax_rounds.int().cpu())
+    prof = profile_both(engine, {"step": step, "state0": state0}, label,
+                        steps=profile_steps)
+    info = {
+        "horizon": horizon, "held_equal_steps": n_ref,
+        "relax_rounds_captured": step.relax_rounds,
+        "redos": counts["redos"], "redo_steps": counts["redo_steps"],
+        "captures": counts["captures"], "first_call_s": first,
+        "timed_steps": n_timed,
+        "eager_step_ms": [w / n_timed * 1e3 for w in walls["eager"]],
+        "compiled_step_ms": [w / n_timed * 1e3 for w in walls["compiled"]],
+        "device_ops_per_step": {
+            kind: prof[kind]["device_ops_per_step"] for kind in prof},
+        "device_busy_share": {
+            kind: prof[kind]["device_busy_share"] for kind in prof},
+        "max_relax_rounds_steps": {r: int(c) for r, c in enumerate(rounds)
+                                   if int(c)},
+        "infeasible": int(outs.infeasible_count.sum()),
+        "min_distance": float(outs.min_pairwise_distance.min())}
+    print(f"{label}: compiled == eager over the first {n_ref} of {horizon} "
+          "steps (every StepOutputs field"
+          + (", final state" if n_ref == horizon else
+             f"; a compiled run of {n_ref} steps, final state included")
+          + f"; timed runs of {n_timed} steps held too); "
+          + json.dumps(info))
+    return {"state0": state0, "step": step, "final": final, "outs": outs,
+            "eager_final": eager_final, "info": info}
+
+
+def golden_anchor(mac, cfg, steps: int, device=None) -> float:
+    """13d: ``meet_at_center`` in float64 on ``device`` (None = the card;
+    tests/test_torch_scenarios.py runs it on the CPU), ``steps`` steps,
+    replayed in float64 numpy with the port's copy of the SLSQP oracle
+    (``cbf_tpu_torch.oracle.OracleCBF``), as the JAX package's
+    tests/test_scenarios.py::test_meet_at_center_trace_oracle_parity
+    replays its own: the danger sets by the reference's loops, the filter
+    by the oracle, the unicycle tail by the port's sim functions in
+    float64 on the CPU. Every step's poses within 5e-5. Returns the
+    largest difference."""
+    import numpy as np
+    import torch
+
+    from cbf_tpu_torch.oracle import OracleCBF
+    from cbf_tpu_torch.sim import (SimParams, adjacency_from_laplacian,
+                                   complete_gl, cycle_gl, si_to_uni_dyn,
+                                   unicycle_step)
+
+    sim = SimParams()
+    state, step = mac.make(cfg, sim, device=device)
+    oracle = OracleCBF(max_speed=cfg.max_speed)
+    fx = cfg.dyn_scale * np.zeros((4, 4))
+    gx = cfg.dyn_scale * np.array([[1.0, 0], [0, 1.0], [0, 0], [0, 0]])
+    nO, N = cfg.n_obstacles, cfg.n
+    A_ring = adjacency_from_laplacian(cycle_gl(nO), dtype=torch.float64
+                                      ).numpy()
+    A_full = adjacency_from_laplacian(complete_gl(cfg.n_free),
+                                      dtype=torch.float64).numpy()
+    theta = -np.pi / nO
+    rot = np.array([[np.cos(theta), -np.sin(theta)],
+                    [np.sin(theta), np.cos(theta)]])
+    poses = np.asarray(mac.initial_poses(cfg), dtype=np.float64)
+    worst = 0.0
+    for t in range(steps):
+        state, _ = step(state, t)
+        th = poses[2]
+        x_si = poses[:2] + sim.projection_distance * np.stack(
+            [np.cos(th), np.sin(th)])
+        vo = rot @ (x_si[:, :nO] @ A_ring.T - x_si[:, :nO] * A_ring.sum(1))
+        vf = x_si[:, nO:] @ A_full.T - x_si[:, nO:] * A_full.sum(1)
+        si_vel = np.concatenate([vo, vf], axis=1)
+        states4 = np.concatenate([poses[:2], si_vel], axis=0).T
+        for i in range(nO, N):
+            danger = []
+            for j in range(N):
+                dist = np.linalg.norm(states4[j, :2] - states4[i, :2])
+                if dist < cfg.safety_distance and (j < nO or dist > 0):
+                    danger.append(states4[j])
+            if danger:
+                si_vel[:, i] = oracle.get_safe_control(
+                    states4[i], np.array(danger), fx, gx, si_vel[:, i])
+        p = torch.as_tensor(poses)
+        dxu = si_to_uni_dyn(torch.as_tensor(si_vel), p,
+                            sim.projection_distance)
+        poses = unicycle_step(p, dxu, sim).numpy()
+        err = float(np.max(np.abs(state.poses.cpu().numpy() - poses)))
+        worst = max(worst, err)
+        check(err <= 5e-5, f"13d: the card's float64 meet_at_center left the "
+              f"oracle replay by {err} at step {t}")
+    return worst
+
+
+def scenario_cross_check(engine, module, cfg, horizon, label) -> dict:
+    """13e: ``horizon`` steps of a reference scenario's compiled rollout
+    on the card and on the CPU from the same initial state: every pose
+    (headings included) and min distance within CROSS_X_ATOL /
+    CROSS_MD_ATOL, every count equal."""
+    import torch
+
+    state_g, step_g = module.make(cfg)
+    state_c, step_c = module.make(cfg, device="cpu")
+    fg, og = engine.rollout(step_g, state_g, horizon)
+    fc, oc = engine.rollout(step_c, state_c, horizon)
+    dx = max(float(torch.amax(torch.abs(a.cpu() - b)))
+             for a, b in zip(engine._leaves(fg), engine._leaves(fc)))
+    dmd = float(torch.amax(torch.abs(og.min_pairwise_distance.cpu()
+                                     - oc.min_pairwise_distance)))
+    print(f"{label}: card vs CPU over {horizon} steps: max |dx| {dx:.3e} "
+          f"(atol {CROSS_X_ATOL}), max |d min-dist| {dmd:.3e} (atol "
+          f"{CROSS_MD_ATOL})")
+    check(dx <= CROSS_X_ATOL and dmd <= CROSS_MD_ATOL,
+          f"{label}: card and CPU trajectories part beyond tolerance")
+    for field in ("filter_active_count", "infeasible_count",
+                  "max_relax_rounds", "gating_dropped_count"):
+        a, b = getattr(og, field), getattr(oc, field)
+        if isinstance(a, tuple):
+            continue
+        check(torch.equal(a.cpu(), b), f"{label}: {field} differs between "
+              "card and CPU")
+    return {"max_abs_dx": dx, "max_abs_dmd": dmd}
+
+
+def phase13(engine, knn, swarm, t_start) -> dict:
+    """Phase 13: the reference scenarios, the CLI and the compat example
+    (module docstring). Returns what the kernel table and the summary
+    need."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cbf_tpu_torch import __main__ as cli
+    from cbf_tpu_torch.examples import meet_at_center_compat
+    from cbf_tpu_torch.native import trajsink
+    from cbf_tpu_torch.scenarios import antipodal, cross_and_rescue
+    from cbf_tpu_torch.scenarios import meet_at_center as mac
+
+    out = {}
+    # 13a meet_at_center, default Config.
+    cfg = mac.Config()
+    run = drive_scenario(engine, knn, mac, cfg, "phase 13a: meet_at_center",
+                         cfg.iterations)
+    free = run["final"].poses[:2, cfg.n_obstacles:]
+    spread = float(torch.amax(torch.linalg.norm(
+        free - free.mean(dim=1, keepdim=True), dim=0)))
+    engaged400 = int(run["outs"].filter_active_count[:400].sum())
+    info = run["info"]
+    check(spread < 0.35 and info["min_distance"] > 0.05
+          and info["infeasible"] == 0 and engaged400 > 100,
+          f"13a: spread {spread}, min distance {info['min_distance']}, "
+          f"infeasible {info['infeasible']}, engaged {engaged400} over 400")
+    info.update(free_spread=spread, engaged_first_400=engaged400)
+    print(f"phase 13a: free-agent spread {spread:.4f} m (< 0.35), min "
+          f"distance {info['min_distance']:.6f} (> 0.05), 0 infeasible, "
+          f"engaged on {engaged400} agent-steps of the first 400 (> 100)")
+    out["13a"] = run
+
+    # 13b cross_and_rescue, default Config: the full horizon compiled, held
+    # to the eager loop on a prefix (SCEN_CAR_PREFIX: 3000 eager steps of
+    # the dense certificate's ~6 k ops would take minutes).
+    cfg = cross_and_rescue.Config()
+    run = drive_scenario(engine, knn, cross_and_rescue, cfg,
+                         "phase 13b: cross_and_rescue", cfg.iterations,
+                         prefix=SCEN_CAR_PREFIX, timed_steps=SCEN_CAR_TIMED,
+                         profile_steps=3)
+    dists = np.linalg.norm(run["final"].poses[:2].cpu().numpy().T
+                           - np.array(cfg.goal), axis=1)
+    res = float(run["outs"].certificate_residual.max())
+    info = run["info"]
+    check(dists.min() < 0.15 and dists.max() < 0.6
+          and info["min_distance"] > 0.1 and res < CERT_RESIDUAL_GATE
+          and info["infeasible"] == 0,
+          f"13b: goal distances {dists}, min distance "
+          f"{info['min_distance']}, residual {res}, infeasible "
+          f"{info['infeasible']}")
+    info.update(goal_distances=dists.tolist(), max_residual=res)
+    print(f"phase 13b: robot distances to the goal {np.round(dists, 4)} "
+          f"(min < 0.15, max < 0.6), min distance {info['min_distance']:.6f}"
+          f" (> 0.1), max certificate residual {res:.3e} (< "
+          f"{CERT_RESIDUAL_GATE}), 0 infeasible (script at "
+          f"{time.perf_counter() - t_start:.1f} s)")
+    out["13b"] = run
+
+    # 13c antipodal, default Config (N=32).
+    cfg = antipodal.Config()
+    run = drive_scenario(engine, knn, antipodal, cfg, "phase 13c: antipodal",
+                         cfg.steps)
+    d = torch.linalg.norm(run["final"].x - antipodal.goals(cfg), dim=1)
+    arrived = int((d < 0.2).sum())
+    info = run["info"]
+    floor = 0.2 / math.sqrt(2.0) - 5e-3
+    print(f"phase 13c: {arrived}/{cfg.n} agents within 0.2 m of their "
+          f"antipodes, min distance {info['min_distance']:.6f} (> "
+          f"{floor:.5f}), infeasible {info['infeasible']}")
+    check(arrived == cfg.n and info["min_distance"] > floor
+          and info["infeasible"] == 0, "13c: the swap did not complete "
+          "safely")
+    info["arrived"] = arrived
+    out["13c"] = run
+
+    # 13d the golden anchor on the card.
+    worst = golden_anchor(mac, mac.Config(iterations=SCEN_ANCHOR_STEPS,
+                                          dtype=torch.float64),
+                          SCEN_ANCHOR_STEPS)
+    print(f"phase 13d: float64 meet_at_center on the card within {worst:.3e}"
+          f" of the oracle replay over {SCEN_ANCHOR_STEPS} steps (atol 5e-5)")
+    out["13d"] = worst
+
+    # 13e card vs CPU.
+    out["13e"] = {
+        "meet_at_center": scenario_cross_check(
+            engine, mac, mac.Config(iterations=SCEN_CROSS_STEPS),
+            SCEN_CROSS_STEPS, "phase 13e (meet_at_center)"),
+        "antipodal": scenario_cross_check(
+            engine, antipodal, antipodal.Config(steps=SCEN_CROSS_STEPS),
+            SCEN_CROSS_STEPS, "phase 13e (antipodal)")}
+
+    # 13f the CLI in process.
+    def cli_run(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        check(rc == 0, f"13f: {' '.join(argv)} exited {rc}")
+        return buf.getvalue()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cbt = os.path.join(tmp, "swarm.cbt")
+        torch.cuda.synchronize()
+        zero_counts(engine, knn)
+        record = json.loads(cli_run(
+            ["run", "swarm", "--set", f"n={MAIN_N}", "--steps",
+             str(SCEN_CLI_STEPS), "--traj", cbt]).strip().splitlines()[-1])
+        launches, counts = dict(knn.LAUNCHES), dict(engine.COUNTS)
+        want = dict.fromkeys(knn.LAUNCHES, 0)
+        want["knn_fused"] = SCEN_CLI_STEPS + counts["redo_steps"]
+        check(launches == want, f"13f: launches {launches}, want {want}")
+        check(record["min_pairwise_distance"] >= FLOOR
+              and record["infeasible_agent_steps"] == 0
+              and record["traj"] == cbt,
+              f"13f: run swarm record {record}")
+        traj = trajsink.read_trajectory(cbt)
+        check(traj.shape == (SCEN_CLI_STEPS, MAIN_N, 2),
+              f"13f: the .cbt holds {traj.shape}")
+        state0, step = swarm.make(swarm.Config(
+            n=MAIN_N, steps=SCEN_CLI_STEPS, record_trajectory=True))
+        want_traj = engine.rollout(step, state0, SCEN_CLI_STEPS)[1].trajectory
+        check(np.array_equal(traj, want_traj.cpu().numpy()),
+              "13f: the .cbt differs from the run's trajectory")
+        gif = os.path.join(tmp, "meet.gif")
+        cli_run(["run", "meet_at_center", "--steps", str(SCEN_CLI_STEPS),
+                 "--video", gif])
+        with open(gif, "rb") as fh:
+            check(fh.read(6) in (b"GIF87a", b"GIF89a"),
+                  "13f: the video is not a gif")
+        gif_bytes = os.path.getsize(gif)
+        listing = cli_run(["list"])
+        names = sorted(line.split()[0] for line in listing.splitlines()
+                       if line and not line.startswith(" "))
+        check(names == ["antipodal", "cross_and_rescue", "meet_at_center",
+                        "swarm"], f"13f: list printed {names}")
+    out["13f"] = {"launches": launches, "record": record,
+                  "cbt_shape": list(traj.shape), "gif_bytes": gif_bytes,
+                  "redos": counts["redos"]}
+    print(f"phase 13f: run swarm n={MAIN_N} x {SCEN_CLI_STEPS}: min distance "
+          f"{record['min_pairwise_distance']:.6f} (floor {FLOOR:.5f}), 0 "
+          f"infeasible, launches {launches}; .cbt {list(traj.shape)} equal "
+          f"to the run's trajectory; run meet_at_center --video: a "
+          f"{gif_bytes}-byte gif; list: {names}")
+
+    # 13g the compat example, card and CPU.
+    walls, finals = {}, {}
+    for device in ("cuda", "cpu"):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            finals[device] = meet_at_center_compat.main(
+                steps=SCEN_COMPAT_STEPS, device=device)
+        walls[device] = (time.perf_counter() - t0) / SCEN_COMPAT_STEPS * 1e3
+    dx = float(np.max(np.abs(finals["cuda"] - finals["cpu"])))
+    check(finals["cuda"].shape == (3, 10)
+          and bool(np.isfinite(finals["cuda"]).all()) and dx <= CROSS_X_ATOL,
+          f"13g: compat example card vs CPU max |dx| {dx}")
+    out["13g"] = {"step_wall_ms": walls, "max_abs_dx": dx}
+    print(f"phase 13g: meet_at_center_compat x {SCEN_COMPAT_STEPS} steps: "
+          f"card vs CPU final poses max |dx| {dx:.3e} (atol {CROSS_X_ATOL}); "
+          f"wall per step {walls['cuda']:.3f} ms on the card, "
+          f"{walls['cpu']:.3f} ms on the CPU (every compat call crosses "
+          f"host<->device) (script at {time.perf_counter() - t_start:.1f} s)")
+    return out
 
 
 def main(argv: list[str]) -> int:
@@ -1098,8 +1485,11 @@ def main(argv: list[str]) -> int:
     cross_check(swarm, engine, cfg_x, swarm.initial_state(cfg_x),
                 "phase 12e (certificate, sparse)")
 
+    # 13. the reference scenarios, the CLI and the compat example
+    scen = phase13(engine, knn, swarm, t_start)
+
     # 6. timings at the main-path shapes; launches are every compiled
-    # main-path run's of this call, by phase
+    # main-path run's of this call, by phase (13f's run swarm included)
     all_runs = {"phase 3 N=256": runs[ENTRY_N], "phase 3 N=4096": main,
                 "phase 4": stream, "phase 7": banded,
                 "phase 8 scatter": obst["scatter"],
@@ -1107,7 +1497,8 @@ def main(argv: list[str]) -> int:
                 **{f"phase 9 {family}": run for family, run in dyn.items()},
                 "phase 10": verlet,
                 **{f"phase 11 {kind}": run for kind, run in rta.items()},
-                **{f"phase 12{key}": run for key, run in cert.items()}}
+                **{f"phase 12{key}": run for key, run in cert.items()},
+                "phase 13f": scen["13f"]}
     by_phase = {name: {label: run["launches"][name]
                        for label, run in all_runs.items()
                        if run["launches"][name]}
