@@ -17,7 +17,12 @@ reference's own scenarios (``scenarios/meet_at_center.py``,
 ``cross_and_rescue.py``, ``antipodal.py``), the rps-style object API
 (``compat.py``, with ``examples/``), the replay renderer (``render/``),
 the SLSQP oracle (``oracle/``), the native trajectory sink (``native/``)
-and the ``run``/``list`` CLI (``python -m cbf_tpu_torch``). Knobs of later
+and the ``run``/``list``/``verify`` CLI (``python -m cbf_tpu_torch``). The
+step differentiates with ``unroll_relax > 0``: the trainer (``learn/``,
+on ``parallel/ensemble.py``'s member step) fits the filter's parameters
+through the closed loop, and the falsifier (``verify/``) searches for
+initial states that break it over member-batched compiled rollouts, its
+engines drawing JAX's random streams (``utils/prng.py``). Knobs of later
 slices raise :class:`~cbf_tpu_torch.errors.OutOfSliceError`.
 
 Entry points run on the card unless the caller passes ``device="cpu"``

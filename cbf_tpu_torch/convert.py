@@ -85,3 +85,25 @@ def config_from_fields(fields: dict, cls=Config):
     if unknown:
         raise TypeError(f"fields unknown to {cls.__name__}: {unknown}")
     return cls(**fields)
+
+
+def tunable_params_from_numpy(params, *, device=None, dtype=None):
+    """The trainer's TunableParams from any object with gamma_raw/dmin_raw/
+    k_raw fields (a JAX ``TunableParams``), each a 0-dim tensor (float32
+    by default, as JAX's ``init_params`` makes them)."""
+    from cbf_tpu_torch.learn.tuning import TunableParams
+
+    return TunableParams(*(
+        torch.as_tensor(np.array(getattr(params, name)),
+                        dtype=dtype or torch.float32, device=device)
+        for name in TunableParams._fields))
+
+
+def prng_key_from_numpy(key) -> torch.Tensor:
+    """A legacy JAX key ((2,) uint32 array) as the port's (2,) int64 key
+    (:mod:`cbf_tpu_torch.utils.prng`)."""
+    a = np.asarray(key, dtype=np.uint32)
+    if a.shape != (2,):
+        raise ValueError(f"a key is a (2,) uint32 array, got {a.shape}")
+    return torch.as_tensor(a.astype(np.int64))
+

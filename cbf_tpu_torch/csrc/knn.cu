@@ -5,6 +5,10 @@
 // knn_neighbors; knn_banded computes it over y-sorted rows and a window of
 // columns per row block, see its note):
 //   in : x (N, 2) float32 row-major, r2 = float32(radius)^2, k <= kMaxK
+//        (knn_fused and knn_stream: B members of N rows, (B, N, 2), each
+//        member's rows scanned against its own columns only — the member
+//        is a grid dimension and every pointer steps by the member's
+//        stride, which is what jax.vmap makes of one pallas_call);
 //   out: idx (N, k) int32 — the k nearest in-radius neighbours, nearest
 //        first, ties to the lower column index, 0 on empty slots;
 //        dist (N, k) float32 — their distances, +inf on empty slots;
@@ -460,6 +464,12 @@ __global__ void __launch_bounds__(kFusedWarps * 32)
                      int* __restrict__ count) {
   // 32 * steps columns, then the second half's merge slots.
   extern __shared__ __align__(16) float2 pts[];
+  const size_t member = blockIdx.y;
+  x += 2 * n * member;
+  idx += K * n * member;
+  dist += K * n * member;
+  nearest += n * member;
+  count += n * member;
   const int steps = (n + 31) / 32;
   HalfMerge<K>* hm = reinterpret_cast<HalfMerge<K>*>(pts + 32 * steps);
   const int lane = threadIdx.x & 31;
@@ -610,6 +620,19 @@ __global__ void __launch_bounds__(kFusedWarps * 32) knn_stream_partial_kernel(
   __shared__ __align__(16) float2
       ring[kStreamStages][kFusedHalves][kStreamPiece * 32];
   __shared__ HalfMerge<K> hm;
+  const size_t member = blockIdx.z;
+  x += 2 * n * member;
+  if (splits > 1) {
+    part_d2 += K * splits * n * member;
+    part_idx += K * splits * n * member;
+    part_near += splits * n * member;
+    part_cnt += splits * n * member;
+  } else {
+    idx += K * n * member;
+    dist += K * n * member;
+    nearest += n * member;
+    count += n * member;
+  }
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int group = warp % kFusedGroups;
@@ -868,6 +891,15 @@ __global__ void __launch_bounds__(kThreads) knn_stream_merge_kernel(
     int* __restrict__ count) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const size_t member = blockIdx.y;
+  part_d2 += K * splits * n * member;
+  part_idx += K * splits * n * member;
+  part_near += splits * n * member;
+  part_cnt += splits * n * member;
+  idx += K * n * member;
+  dist += K * n * member;
+  nearest += n * member;
+  count += n * member;
   float bd[K];
   int bi[K];
   float near;
@@ -907,9 +939,16 @@ __global__ void __launch_bounds__(kThreads) knn_banded_merge_kernel(
   overflow[a] = block_overflow[i / kRtile];
 }
 
+// One launch for ``members`` members of n rows (B = 1: the single swarm).
+// 16-byte staging needs every member's first column 16-byte aligned.
+int aligned16_of(const float* x, int members, int n) {
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         (members == 1 || n % 2 == 0);
+}
+
 template <int K>
-cudaError_t launch_fused(const float* x, int n, float r2, int* idx,
-                         float* dist, float* nearest, int* count,
+cudaError_t launch_fused(const float* x, int members, int n, float r2,
+                         int* idx, float* dist, float* nearest, int* count,
                          cudaStream_t stream) {
   const size_t steps = (static_cast<size_t>(n) + 31) / 32;
   const size_t smem = sizeof(float2) * 32 * steps + sizeof(HalfMerge<K>);
@@ -920,8 +959,9 @@ cudaError_t launch_fused(const float* x, int n, float r2, int* idx,
     if (e != cudaSuccess) return e;
   }
   const int blocks = (n + kFusedBlockRows - 1) / kFusedBlockRows;
-  const int aligned16 = reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  knn_fused_kernel<K><<<blocks, kFusedWarps * 32, smem, stream>>>(
+  const int aligned16 = aligned16_of(x, members, n);
+  knn_fused_kernel<K><<<dim3(blocks, members), kFusedWarps * 32, smem,
+                        stream>>>(
       x, n, r2, aligned16, idx, dist, nearest, count);
   return cudaGetLastError();
 }
@@ -999,14 +1039,15 @@ cudaError_t stream_plan(int n, int* cols_per_split, int* splits) {
 }
 
 template <int K>
-cudaError_t launch_merge(int n, int splits, const float* part_d2,
+cudaError_t launch_merge(int members, int n, int splits, const float* part_d2,
                          const int* part_idx, const float* part_near,
                          const int* part_cnt, int* idx, float* dist,
                          float* nearest, int* count, cudaStream_t stream) {
   const cudaError_t e = cudaGetLastError();  // the partial launch
   if (e != cudaSuccess) return e;
-  knn_stream_merge_kernel<K><<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                               stream>>>(n, splits, part_d2, part_idx,
+  knn_stream_merge_kernel<K><<<dim3((n + kThreads - 1) / kThreads, members),
+                               kThreads, 0, stream>>>(n, splits, part_d2,
+                                                      part_idx,
                                          part_near, part_cnt, idx, dist,
                                          nearest, count);
   return cudaGetLastError();
@@ -1015,7 +1056,8 @@ cudaError_t launch_merge(int n, int splits, const float* part_d2,
 // ``splits`` is the range count the caller sized the partials for; it must
 // be the plan's. With one range the partials are not used (may be null).
 template <int K>
-cudaError_t launch_stream(const float* x, int n, float r2, int splits,
+cudaError_t launch_stream(const float* x, int members, int n, float r2,
+                          int splits,
                           float* part_d2, int* part_idx, float* part_near,
                           int* part_cnt, int* idx, float* dist,
                           float* nearest, int* count, cudaStream_t stream) {
@@ -1025,14 +1067,14 @@ cudaError_t launch_stream(const float* x, int n, float r2, int splits,
   if (e != cudaSuccess) return e;
   if (planned != splits) return cudaErrorInvalidValue;
   const int row_blocks = (n + kFusedBlockRows - 1) / kFusedBlockRows;
-  const int aligned16 = reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  knn_stream_partial_kernel<K><<<dim3(row_blocks, splits), kFusedWarps * 32,
-                                 0, stream>>>(
+  const int aligned16 = aligned16_of(x, members, n);
+  knn_stream_partial_kernel<K><<<dim3(row_blocks, splits, members),
+                                 kFusedWarps * 32, 0, stream>>>(
       x, n, r2, cols_per_split, splits, aligned16, part_d2, part_idx,
       part_near, part_cnt, idx, dist, nearest, count);
   if (splits == 1) return cudaGetLastError();
-  return launch_merge<K>(n, splits, part_d2, part_idx, part_near, part_cnt,
-                         idx, dist, nearest, count, stream);
+  return launch_merge<K>(members, n, splits, part_d2, part_idx, part_near,
+                         part_cnt, idx, dist, nearest, count, stream);
 }
 
 // ``w`` window tiles per 256-row block; ``splits`` as for launch_stream.
@@ -1065,7 +1107,7 @@ cudaError_t launch_banded(const float* xs, int n, float r2,
       launch_banded_partials<K>(xs, n, r2, starts, w, splits, part_d2,
                                 part_idx, part_near, part_cnt, stream);
   if (e != cudaSuccess) return e;
-  return launch_merge<K>(n, splits, part_d2, part_idx, part_near, part_cnt,
+  return launch_merge<K>(1, n, splits, part_d2, part_idx, part_near, part_cnt,
                          idx, dist, nearest, count, stream);
 }
 
@@ -1124,12 +1166,16 @@ cudaError_t launch_banded_agents(const void* x, int x_f64,
 extern "C" {
 
 // Returns a cudaError_t code (0 = launched); the wrapper raises otherwise.
-int knn_fused_launch(const float* x, int n, float r2, int k, int* idx,
-                     float* dist, float* nearest, int* count, void* stream) {
+// ``members`` >= 1 members of n rows each, one launch (x (B, N, 2)).
+int knn_fused_launch(const float* x, int members, int n, float r2, int k,
+                     int* idx, float* dist, float* nearest, int* count,
+                     void* stream) {
+  if (members < 1 || members > 65535) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define KNN_FUSED_CASE(KV) \
-  case KV:                 \
-    return launch_fused<KV>(x, n, r2, idx, dist, nearest, count, st);
+#define KNN_FUSED_CASE(KV)                                               \
+  case KV:                                                               \
+    return launch_fused<KV>(x, members, n, r2, idx, dist, nearest, count, \
+                            st);
   switch (k) {
     KNN_K_CASES(KNN_FUSED_CASE)
     default:
@@ -1144,15 +1190,18 @@ int knn_stream_plan(int n, int* cols_per_split, int* splits) {
   return stream_plan(n, cols_per_split, splits);
 }
 
-int knn_stream_launch(const float* x, int n, float r2, int k, int splits,
-                      float* part_d2, int* part_idx, float* part_near,
-                      int* part_cnt, int* idx, float* dist, float* nearest,
-                      int* count, void* stream) {
+// As knn_fused_launch; the partials are (B, N, splits, k) and (B, N, splits).
+int knn_stream_launch(const float* x, int members, int n, float r2, int k,
+                      int splits, float* part_d2, int* part_idx,
+                      float* part_near, int* part_cnt, int* idx, float* dist,
+                      float* nearest, int* count, void* stream) {
+  if (members < 1 || members > 65535) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define KNN_STREAM_CASE(KV)                                                \
-  case KV:                                                                 \
-    return launch_stream<KV>(x, n, r2, splits, part_d2, part_idx, part_near, \
-                             part_cnt, idx, dist, nearest, count, st);
+#define KNN_STREAM_CASE(KV)                                                 \
+  case KV:                                                                  \
+    return launch_stream<KV>(x, members, n, r2, splits, part_d2, part_idx,  \
+                             part_near, part_cnt, idx, dist, nearest, count, \
+                             st);
   switch (k) {
     KNN_K_CASES(KNN_STREAM_CASE)
     default:

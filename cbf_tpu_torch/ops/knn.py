@@ -22,9 +22,24 @@ loaded through ctypes):
   writes each sorted row to its agent.
 
 All three compute the contract of :func:`knn_neighbors` (the banded one
-within its windows); the source notes say how. A wrapper given a CUDA tensor launches its kernel or raises (also
-when the build fails); only a tensor on the CPU goes to the plain
-version. ``LAUNCHES[name]`` counts kernel launches, so a run can show it
+within its windows); the source notes say how. ``knn_fused`` and
+``knn_stream`` also take a member axis, (B, N, 2): one launch scans each
+member's rows against that member's columns only — what ``jax.vmap``
+makes of one ``pallas_call``. The falsifier's batches and
+``torch.func.vmap`` reach it through :func:`knn_select`, whose vmap rule
+folds the mapped axis into that member axis. A banded search under a
+member axis raises (the ensembles and partitioning slice).
+
+Differentiation: :func:`knn_select` is an ``autograd.Function`` whose
+backward is a zero gradient for x — the selection is piecewise constant
+in the positions (``pallas_knn.knn_select``'s ``custom_vjp``), so a caller
+on a gradient path recomputes every value it differentiates from the
+positions through ``idx`` (:func:`knn_gating_pallas_diff`). The raw
+gating entries raise under autograd instead of returning silent
+constants.
+
+A wrapper given a CUDA tensor launches its kernel or raises (also when
+the build fails); only a tensor on the CPU goes to the plain version. ``LAUNCHES[name]`` counts kernel launches, so a run can show it
 went through the kernels: a wrapper adds one where it launches; under CUDA
 graph capture, where nothing launches, the compiled rollout takes back
 what the wrappers added and adds it again at every replay
@@ -40,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -47,7 +63,8 @@ import subprocess
 import numpy as np
 import torch
 
-from cbf_tpu_torch.errors import SLICE_DIFF, OutOfSliceError
+from cbf_tpu_torch.errors import SLICE_PARALLEL, OutOfSliceError
+from cbf_tpu_torch.utils.math import safe_norm
 
 # The reference's bounds and tiles, same values. MAX_N_FUSED (the TPU's
 # VMEM bound) still picks fused vs streaming, so both packages route alike;
@@ -64,7 +81,11 @@ MAX_N_BLOCKED = 262144
 KNN_MAX_K = 16       # csrc/knn.cu kMaxK: k is a template parameter there
 _FAR = 1.0e6         # padding coordinate (pallas_knn._pad_coords)
 
-LAUNCHES = {"knn_fused": 0, "knn_stream": 0, "knn_banded": 0}
+# Launches per kernel; "<kernel>_members" counts the launches of it that
+# took a member axis ((B, N, 2) input), which count under the kernel too.
+LAUNCHES = {"knn_fused": 0, "knn_stream": 0, "knn_banded": 0,
+            "knn_fused_members": 0, "knn_stream_members": 0}
+MAX_MEMBERS = 65535  # csrc/knn.cu: the member axis is a grid dimension
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "knn.cu")
@@ -124,11 +145,11 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(build_library())
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.knn_fused_launch.argtypes = [p, i, f, i, p, p, p, p, p]
+        lib.knn_fused_launch.argtypes = [p, i, i, f, i, p, p, p, p, p]
         lib.knn_fused_launch.restype = i
         lib.knn_stream_plan.argtypes = [i, p, p]
         lib.knn_stream_plan.restype = i
-        lib.knn_stream_launch.argtypes = [p, i, f, i, i, p, p, p, p,
+        lib.knn_stream_launch.argtypes = [p, i, i, f, i, i, p, p, p, p,
                                           p, p, p, p, p]
         lib.knn_stream_launch.restype = i
         lib.knn_banded_plan.argtypes = [i, i, p, p]
@@ -163,35 +184,45 @@ def _radius_f32(radius) -> float:
 
 
 def _check_launch(name: str, x, k: int | None, max_n: int,
-                  dtypes=(torch.float32,)) -> None:
+                  dtypes=(torch.float32,), members: bool = False) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name} launches on a CUDA tensor, got {x.device}")
-    if x.dtype not in dtypes or x.dim() != 2 or x.shape[1] != 2:
+    ranks = (2, 3) if members else (2,)
+    if x.dtype not in dtypes or x.dim() not in ranks or x.shape[-1] != 2:
         kinds = "/".join(str(d).removeprefix("torch.") for d in dtypes)
-        raise ValueError(f"{name} takes (N, 2) {kinds} positions, got "
+        form = "(N, 2) or (B, N, 2)" if members else "(N, 2)"
+        raise ValueError(f"{name} takes {form} {kinds} positions, got "
                          f"{tuple(x.shape)} {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{name} takes a contiguous tensor")
-    if not 1 <= x.shape[0] <= max_n:
-        raise ValueError(f"{name} takes 1 <= N <= {max_n}, got {x.shape[0]}")
+    if not 1 <= x.shape[-2] <= max_n:
+        raise ValueError(f"{name} takes 1 <= N <= {max_n}, got "
+                         f"{x.shape[-2]}")
+    if x.dim() == 3 and not 1 <= x.shape[0] <= MAX_MEMBERS:
+        raise ValueError(f"{name} takes 1 <= B <= {MAX_MEMBERS} members, "
+                         f"got {x.shape[0]}")
     if k is not None and not 1 <= k <= KNN_MAX_K:
         raise ValueError(f"{name} takes 1 <= k <= {KNN_MAX_K}, got {k}")
 
 
-def _outputs(n: int, k: int, device):
-    return (torch.empty((n, k), dtype=torch.int32, device=device),
-            torch.empty((n, k), dtype=torch.float32, device=device),
-            torch.empty((n,), dtype=torch.float32, device=device),
-            torch.empty((n,), dtype=torch.int32, device=device))
+def _outputs(n: int, k: int, device, lead=()):
+    return (torch.empty(lead + (n, k), dtype=torch.int32, device=device),
+            torch.empty(lead + (n, k), dtype=torch.float32, device=device),
+            torch.empty(lead + (n,), dtype=torch.float32, device=device),
+            torch.empty(lead + (n,), dtype=torch.int32, device=device))
 
 
-def _partials(n: int, splits: int, k: int, device):
+def _partials(n: int, splits: int, k: int, device, lead=()):
     """(N, S, k) squared-distance and index partials plus (N, S) nearest
-    and count partials of a split column scan."""
-    return (torch.empty((n, splits, k), dtype=torch.float32, device=device),
-            torch.empty((n, splits, k), dtype=torch.int32, device=device),
-            torch.empty((n, splits), dtype=torch.float32, device=device),
-            torch.empty((n, splits), dtype=torch.int32, device=device))
+    and count partials of a split column scan (``lead``: a member axis)."""
+    return (torch.empty(lead + (n, splits, k), dtype=torch.float32,
+                        device=device),
+            torch.empty(lead + (n, splits, k), dtype=torch.int32,
+                        device=device),
+            torch.empty(lead + (n, splits), dtype=torch.float32,
+                        device=device),
+            torch.empty(lead + (n, splits), dtype=torch.int32,
+                        device=device))
 
 
 def _stream_ptr(device) -> int:
@@ -205,19 +236,23 @@ def _raise_on(name: str, code: int) -> None:
 
 
 def knn_fused(x, radius, k: int):
-    """Launch ``knn_fused`` on (N, 2) float32 CUDA positions. Returns
-    (idx, dist, nearest, count) — see :func:`knn_neighbors`."""
-    _check_launch("knn_fused", x, k, MAX_N_FUSED)
+    """Launch ``knn_fused`` on (N, 2) — or, one launch for B members,
+    (B, N, 2) — float32 CUDA positions. Returns (idx, dist, nearest,
+    count) — see :func:`knn_neighbors` — with the same leading axes."""
+    _check_launch("knn_fused", x, k, MAX_N_FUSED, members=True)
     lib = _library()
-    n = x.shape[0]
-    idx, dist, nearest, count = _outputs(n, k, x.device)
+    lead, n = tuple(x.shape[:-2]), x.shape[-2]
+    idx, dist, nearest, count = _outputs(n, k, x.device, lead)
     with torch.cuda.device(x.device):
         code = lib.knn_fused_launch(
-            x.data_ptr(), n, _radius_sq(radius), k, idx.data_ptr(),
+            x.data_ptr(), math.prod(lead), n, _radius_sq(radius), k,
+            idx.data_ptr(),
             dist.data_ptr(), nearest.data_ptr(), count.data_ptr(),
             _stream_ptr(x.device))
     _raise_on("knn_fused", code)
     LAUNCHES["knn_fused"] += 1
+    if lead:
+        LAUNCHES["knn_fused_members"] += 1
     return idx, dist, nearest, count
 
 
@@ -247,21 +282,24 @@ def stream_plan(n: int, device) -> tuple[int, int]:
 
 def knn_stream(x, radius, k: int):
     """Launch ``knn_stream`` (range partials + merge, or one range written
-    straight to the outputs) on (N, 2) float32 CUDA positions. Same
-    contract as :func:`knn_fused`."""
-    _check_launch("knn_stream", x, k, MAX_N_BLOCKED)
+    straight to the outputs) on (N, 2) or (B, N, 2) float32 CUDA
+    positions. Same contract as :func:`knn_fused`."""
+    _check_launch("knn_stream", x, k, MAX_N_BLOCKED, members=True)
     lib = _library()
-    n = x.shape[0]
+    lead, n = tuple(x.shape[:-2]), x.shape[-2]
     _, splits = stream_plan(n, x.device)
-    outs = _outputs(n, k, x.device)
-    parts = _partials(n, splits, k, x.device) if splits > 1 else ()
+    outs = _outputs(n, k, x.device, lead)
+    parts = _partials(n, splits, k, x.device, lead) if splits > 1 else ()
     part_ptrs = [t.data_ptr() for t in parts] or [None] * 4
     with torch.cuda.device(x.device):
         code = lib.knn_stream_launch(
-            x.data_ptr(), n, _radius_sq(radius), k, splits, *part_ptrs,
+            x.data_ptr(), math.prod(lead), n, _radius_sq(radius), k, splits,
+            *part_ptrs,
             *(t.data_ptr() for t in outs), _stream_ptr(x.device))
     _raise_on("knn_stream", code)
     LAUNCHES["knn_stream"] += 1
+    if lead:
+        LAUNCHES["knn_stream_members"] += 1
     return outs
 
 
@@ -418,10 +456,11 @@ def knn_banded(x, radius, k: int, *, window_blocks: int):
 # -- plain versions ---------------------------------------------------------
 
 def _pair_d2(xr, xc):
-    """(R, C) float32 squared distances, difference form, each operation
-    rounded on its own (no FMA) — bit-equal to the kernels' pair_d2."""
-    dx = xr[:, None, 0] - xc[None, :, 0]
-    dy = xr[:, None, 1] - xc[None, :, 1]
+    """(..., R, C) float32 squared distances of (..., R, 2) rows and
+    (..., C, 2) columns, difference form, each operation rounded on its
+    own (no FMA) — bit-equal to the kernels' pair_d2."""
+    dx = xr[..., :, None, 0] - xc[..., None, :, 0]
+    dy = xr[..., :, None, 1] - xc[..., None, :, 1]
     return dx * dx + dy * dy
 
 
@@ -434,34 +473,36 @@ def _sqrt_rn(d2):
 
 
 def _select_k(key, k: int, ids=None):
-    """k first-minimizer passes over ``key`` (R, C): (ids (R, k) int32,
-    keys (R, k)); ``ids`` maps columns to reported ids (default the column
-    itself). Empty slots (key +inf) report id 0 — the TPU kernels'
-    convention."""
+    """k first-minimizer passes over ``key`` (..., R, C): (ids (..., R, k)
+    int32, keys (..., R, k)); ``ids`` maps columns to reported ids (default
+    the column itself). Empty slots (key +inf) report id 0 — the TPU
+    kernels' convention."""
     key = key.clone()
     out_i, out_d = [], []
     for _ in range(k):
-        m, j = torch.min(key, dim=1)       # first minimizer on ties
-        sel = j if ids is None else torch.gather(ids, 1, j[:, None])[:, 0]
+        m, j = torch.min(key, dim=-1)      # first minimizer on ties
+        sel = (j if ids is None
+               else torch.gather(ids, -1, j[..., None])[..., 0])
         out_i.append(torch.where(torch.isfinite(m), sel.to(torch.int32), 0))
         out_d.append(m)
-        key.scatter_(1, j[:, None], torch.inf)
-    return torch.stack(out_i, dim=1), torch.stack(out_d, dim=1)
+        key.scatter_(-1, j[..., None], torch.inf)
+    return torch.stack(out_i, dim=-1), torch.stack(out_d, dim=-1)
 
 
 def knn_neighbors_plain(x, radius, k: int):
     """Plain PyTorch version of ``knn_fused``: the (N, N) slab and k
-    first-minimizer passes, as ``_knn_kernel`` does per tile."""
+    first-minimizer passes, as ``_knn_kernel`` does per tile. ``x`` is
+    (N, 2) or, with the kernel's member axis, (B, N, 2)."""
     x = x.to(torch.float32)
-    n = x.shape[0]
+    n = x.shape[-2]
     r2 = torch.full((), _radius_sq(radius), dtype=torch.float32,
                     device=x.device)
     d2 = _pair_d2(x, x)
     is_self = torch.eye(n, dtype=torch.bool, device=x.device)
     nearest = _sqrt_rn(torch.amin(torch.where(is_self, torch.inf, d2),
-                                  dim=1))
+                                  dim=-1))
     eligible = (d2 < r2) & (d2 > 0.0)
-    count = torch.sum(eligible, dim=1, dtype=torch.int32)
+    count = torch.sum(eligible, dim=-1, dtype=torch.int32)
     idx, key = _select_k(torch.where(eligible, d2, torch.inf), k)
     return idx, _sqrt_rn(key), nearest, count
 
@@ -470,29 +511,32 @@ def knn_neighbors_blocked_plain(x, radius, k: int):
     """Plain PyTorch version of ``knn_stream``, in the streaming kernel's
     shape: CTILE column blocks pass by, each folds nearest and count, and
     its block-local top-k merges with the running squared top-k by an
-    exact 2k-wide merge whose ties go to the first (running) slot."""
+    exact 2k-wide merge whose ties go to the first (running) slot. ``x``
+    is (N, 2) or (B, N, 2), as for :func:`knn_neighbors_plain`."""
     x = x.to(torch.float32)
-    n = x.shape[0]
+    lead, n = tuple(x.shape[:-2]), x.shape[-2]
     dev = x.device
     r2 = torch.full((), _radius_sq(radius), dtype=torch.float32, device=dev)
     rows = torch.arange(n, device=dev)
-    run_i = torch.zeros((n, k), dtype=torch.int32, device=dev)
-    run_d2 = torch.full((n, k), torch.inf, dtype=torch.float32, device=dev)
-    near = torch.full((n,), torch.inf, dtype=torch.float32, device=dev)
-    count = torch.zeros((n,), dtype=torch.int32, device=dev)
+    run_i = torch.zeros(lead + (n, k), dtype=torch.int32, device=dev)
+    run_d2 = torch.full(lead + (n, k), torch.inf, dtype=torch.float32,
+                        device=dev)
+    near = torch.full(lead + (n,), torch.inf, dtype=torch.float32,
+                      device=dev)
+    count = torch.zeros(lead + (n,), dtype=torch.int32, device=dev)
     for c0 in range(0, n, CTILE):
         cols = torch.arange(c0, min(n, c0 + CTILE), device=dev)
-        d2 = _pair_d2(x, x[c0:c0 + CTILE])
+        d2 = _pair_d2(x, x[..., c0:c0 + CTILE, :])
         is_self = cols[None, :] == rows[:, None]
         near = torch.minimum(near, torch.amin(
-            torch.where(is_self, torch.inf, d2), dim=1))
+            torch.where(is_self, torch.inf, d2), dim=-1))
         eligible = (d2 < r2) & (d2 > 0.0)
-        count = count + torch.sum(eligible, dim=1, dtype=torch.int32)
-        col_ids = cols.to(torch.int32)[None, :].expand(n, -1)
+        count = count + torch.sum(eligible, dim=-1, dtype=torch.int32)
+        col_ids = cols.to(torch.int32).expand(lead + (n, cols.shape[0]))
         bk_i, bk_d2 = _select_k(torch.where(eligible, d2, torch.inf), k,
                                 ids=col_ids)
-        run_i, run_d2 = _select_k(torch.cat([run_d2, bk_d2], dim=1), k,
-                                  ids=torch.cat([run_i, bk_i], dim=1))
+        run_i, run_d2 = _select_k(torch.cat([run_d2, bk_d2], dim=-1), k,
+                                  ids=torch.cat([run_i, bk_i], dim=-1))
     return run_i, _sqrt_rn(run_d2), _sqrt_rn(near), count
 
 
@@ -793,7 +837,12 @@ def knn_neighbors_banded(x, radius, k: int, *, window_blocks: int):
     nearest (N,) — window-local, exact up to the radius, overflow (N,)
     bool — the row's block needed more than its window, count (N,) int32
     — in-radius candidates seen in the window). A CUDA tensor launches
-    ``knn_banded``; a CPU tensor runs the plain version."""
+    ``knn_banded``; a CPU tensor runs the plain version. A member axis —
+    a (B, N, 2) input, or a tensor batched by ``torch.func.vmap`` —
+    raises: the banded kernel has none yet."""
+    if x.dim() != 2 or _batched(x):
+        raise OutOfSliceError("the banded k-NN search under a member axis",
+                              SLICE_PARALLEL)
     x = x.contiguous()
     if x.device.type == "cpu":
         return knn_neighbors_banded_plain(x, radius, k,
@@ -817,24 +866,65 @@ def uses_fused(n: int, kernel: str = "auto") -> bool:
 
 
 def _kernel_dispatch(x, radius, k: int, kernel: str = "auto"):
-    """Fused-vs-streaming dispatch — the one routing decision.
-    ``kernel="streaming"`` forces the streaming kernel below the fused
-    bound."""
-    fn = knn_neighbors if uses_fused(x.shape[0], kernel) \
+    """Fused-vs-streaming dispatch — the one routing decision, for (N, 2)
+    or member-batched (B, N, 2) positions. ``kernel="streaming"`` forces
+    the streaming kernel below the fused bound."""
+    fn = knn_neighbors if uses_fused(x.shape[-2], kernel) \
         else knn_neighbors_blocked
     return fn(x, radius, k)
 
 
+def _batched(x) -> bool:
+    """Whether ``x`` is a tensor batched by ``torch.func.vmap``."""
+    return torch._C._functorch.is_batchedtensor(x)
+
+
+class _KnnSelect(torch.autograd.Function):
+    """:func:`knn_select`'s Function: forward the dispatch, backward a
+    zero gradient for x (``pallas_knn._knn_select_bwd``), and a vmap rule
+    that runs the mapped axis as the kernels' member axis — one launch for
+    the whole batch."""
+
+    @staticmethod
+    def forward(x, radius, k, kernel):
+        return _kernel_dispatch(x, radius, k, kernel)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x = inputs[0]
+        ctx.x_meta = (x.shape, x.dtype, x.device)
+        ctx.mark_non_differentiable(output[0], output[3])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        shape, dtype, device = ctx.x_meta
+        return torch.zeros(shape, dtype=dtype, device=device), None, None, \
+            None
+
+    @staticmethod
+    def vmap(info, in_dims, x, radius, k, kernel):
+        if in_dims[0] is None:
+            return _kernel_dispatch(x, radius, k, kernel), (None,) * 4
+        x = x.movedim(in_dims[0], 0)
+        if x.dim() != 3:
+            raise ValueError(f"knn_select maps over (N, 2) positions, got a "
+                             f"batch of {tuple(x.shape[1:])}")
+        return _kernel_dispatch(x.contiguous(), radius, k, kernel), (0,) * 4
+
+
 def knn_select(x, radius, k: int, kernel: str = "auto"):
-    """The kernels as a selection (forward of ``pallas_knn.knn_select``):
-    (idx, dist, nearest, count) of :func:`knn_neighbors` through the
-    fused-vs-streaming dispatch. Its zero-gradient ``autograd.Function``
-    arrives with Queue A8; until then it raises where autograd would need
-    a gradient through it."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise OutOfSliceError("knn_select under autograd (its zero "
-                              "cotangent)", SLICE_DIFF)
-    return _kernel_dispatch(x, radius, k, kernel)
+    """The kernels as a SELECTION with a defined (zero) gradient
+    (``pallas_knn.knn_select``): (idx, dist, nearest, count) of
+    :func:`knn_neighbors` through the fused-vs-streaming dispatch.
+
+    Under autograd the gradient it passes to x is zero — the true
+    derivative of which neighbours are kept — and ``idx``/``count`` are
+    non-differentiable; ``dist`` and ``nearest`` are values whose position
+    gradient it drops, so a caller on a gradient path recomputes what it
+    differentiates through ``idx`` (:func:`knn_gating_pallas_diff`).
+    Under ``torch.func.vmap`` the mapped axis becomes the kernels' member
+    axis: one launch for the batch."""
+    return _KnnSelect.apply(x, radius, k, kernel)
 
 
 def _gating_epilogue(states4, idx, dist, count, k: int):
@@ -851,11 +941,40 @@ def knn_gating_pallas(states4, radius, k: int, *, kernel: str = "auto"):
 
     Args: states4 (N, 4). Returns (obs (N, k, 4), mask (N, k),
     nearest_all (N,), dropped (N,) int32 — in-radius candidates beyond the
-    k slots; callers surface it as StepOutputs.gating_dropped_count)."""
-    idx, dist, nearest, count = _kernel_dispatch(states4[:, :2], radius, k,
-                                                 kernel)
+    k slots; callers surface it as StepOutputs.gating_dropped_count).
+
+    Not differentiable: in the JAX package ``jax.grad`` through it fails
+    (the raw kernel has no AD rule), and here a kernel output would be a
+    silent constant, so it raises where autograd would need a gradient
+    through it — use :func:`knn_gating_pallas_diff`."""
+    if torch.is_grad_enabled() and states4.requires_grad:
+        raise RuntimeError(
+            "knn_gating_pallas has no gradient (the kernels' outputs are "
+            "constants to autograd); differentiate through "
+            "knn_gating_pallas_diff, which recomputes the gathered rows and "
+            "the nearest distance from the positions")
+    idx, dist, nearest, count = knn_select(states4[:, :2], radius, k,
+                                           kernel)
     obs, mask, dropped = _gating_epilogue(states4, idx, dist, count, k)
     return obs, mask, nearest, dropped
+
+
+def knn_gating_pallas_diff(states4, radius, k: int, *,
+                           kernel: str = "auto"):
+    """Differentiable twin of :func:`knn_gating_pallas`
+    (``pallas_knn.knn_gating_pallas_diff``): the kernels select through
+    :func:`knn_select`, torch gathers the slab and recomputes the gated
+    nearest distance from the gathered positions (``safe_norm``: a
+    coincident kept pair would otherwise NaN the gradient). The mask stays
+    the kernels' (boolean, no gradient on any path).
+
+    Returns (obs (N, k, 4), mask (N, k), nearest1 (N,) — the GATED top-1
+    distance, inf when nothing is in radius, dropped (N,) int32)."""
+    idx, dist, _, count = knn_select(states4[:, :2], radius, k, kernel)
+    obs, mask, dropped = _gating_epilogue(states4, idx, dist, count, k)
+    d = safe_norm(states4[:, None, :2] - obs[..., :2], dim=-1)
+    nearest1 = torch.amin(torch.where(mask, d, torch.inf), dim=1)
+    return obs, mask, nearest1, dropped
 
 
 def knn_gating_banded(states4, radius, k: int, *, window_blocks: int):

@@ -19,9 +19,15 @@ spawn stand-off repair), every gating backend (``gating="pallas"``/
 (``gating_rebuild_skin``), runtime assurance (``rta``) and the joint
 barrier certificate (``certificate``: the dense and the sparse backend,
 the latter's Verlet cache, warm start and adaptive budget;
-:mod:`cbf_tpu_torch.sim.certificates`). ``unroll_relax`` on the step,
-the serving layer's ``active`` mask and the row-partitioned certificate
-are later slices' and raise :class:`~cbf_tpu_torch.errors.OutOfSliceError`.
+:mod:`cbf_tpu_torch.sim.certificates`) and ``unroll_relax``: the QP's
+relax rounds unrolled, branch-free, which makes the eager step
+reverse-differentiable (the trainer, :mod:`cbf_tpu_torch.learn`, and the
+falsifier's gradient engine, :mod:`cbf_tpu_torch.verify`, differentiate
+through it; the kernels select through :func:`cbf_tpu_torch.ops.knn.
+knn_select`'s zero-gradient Function, and the sparse certificate's K solve
+carries its implicit gradient). The serving layer's ``active`` mask and
+the row-partitioned certificate are later slices' and raise
+:class:`~cbf_tpu_torch.errors.OutOfSliceError`.
 
 Branches of the reference step that depend on device data (the Verlet
 rebuilds and RTA's boosted re-solve are ``lax.cond``s there, the adaptive
@@ -46,8 +52,7 @@ import numpy as np
 import torch
 
 from cbf_tpu_torch.core.filter import CBFParams, safe_controls
-from cbf_tpu_torch.errors import (SLICE_DIFF, SLICE_PARALLEL, SLICE_SERVE,
-                                  OutOfSliceError)
+from cbf_tpu_torch.errors import SLICE_PARALLEL, SLICE_SERVE, OutOfSliceError
 from cbf_tpu_torch.ops import knn
 from cbf_tpu_torch.ops.pairwise import pairwise_distances
 from cbf_tpu_torch.rollout.engine import StepOutputs, rollout
@@ -62,6 +67,7 @@ from cbf_tpu_torch.sim.transformations import (si_to_uni_dyn,
                                                uni_to_si_states)
 from cbf_tpu_torch.solvers import exact2d
 from cbf_tpu_torch.solvers.sparse_admm import SparseADMMSettings
+from cbf_tpu_torch.utils import prng
 from cbf_tpu_torch.utils.math import l2_cap, safe_norm
 from cbf_tpu_torch.utils.profiling import annotate
 
@@ -238,17 +244,14 @@ def goal_layout(cfg: Config) -> np.ndarray | None:
 
 def spawn_positions(cfg: Config, seed: int, *, device=None):
     """Seeded collision-free (N, 2) start: :func:`spawn_layout` plus a
-    float32 jitter of up to 0.25x the layout spacing, drawn on the CPU
-    from a ``torch.Generator`` seeded with ``seed`` (so every device gets
-    the same spawn). The stream differs from the JAX package's threefry
-    one; tests carry a JAX state across with :mod:`cbf_tpu_torch.convert`
-    instead."""
+    float32 jitter of up to 0.25x the layout spacing — JAX's
+    ``uniform(PRNGKey(seed))`` bit for bit (:mod:`cbf_tpu_torch.utils.
+    prng`), drawn on the CPU, so both packages and every device start
+    from the same spawn. float32 whatever ``cfg.dtype``: a float64 replay
+    re-runs the same spawn."""
     grid, spacing = spawn_layout(cfg)
-    gen = torch.Generator().manual_seed(int(seed))
-    lo = np.float32(-0.25 * spacing)
-    hi = np.float32(0.25 * spacing)
-    u = torch.rand((cfg.n, 2), generator=gen, dtype=torch.float32)
-    jitter = u * float(hi - lo) + float(lo)
+    jitter = prng.uniform(prng.prng_key(seed), (cfg.n, 2), torch.float32,
+                          -0.25 * spacing, 0.25 * spacing)
     x0 = torch.as_tensor(grid, dtype=cfg.dtype) + jitter.to(cfg.dtype)
     return x0.to(resolve_device(device))
 
@@ -400,23 +403,13 @@ def dynamics_mask(cfg: Config, *, device=None) -> torch.Tensor:
     return torch.arange(cfg.n, device=resolve_device(device)) < cfg.n_double
 
 
-def _heading_seed(seed: int) -> int:
-    """The headings' generator seed: derived from (seed, 1) by a hash,
-    so member i's headings never alias member i+1's spawn jitter in a
-    consecutive-seed ensemble (the reason JAX takes ``fold_in``)."""
-    return int(np.random.SeedSequence((int(seed), 1)).generate_state(
-        1, dtype=np.uint64)[0])
-
-
 def heading_spawn(cfg: Config, seed, *, device=None) -> torch.Tensor:
-    """(N,) seeded initial headings in [-pi, pi), drawn in float32 on the
-    CPU from a ``torch.Generator`` of their own (:func:`_heading_seed`).
-    The stream differs from the JAX package's; tests carry JAX's headings
-    across with :mod:`cbf_tpu_torch.convert`."""
-    gen = torch.Generator().manual_seed(_heading_seed(seed))
-    lo, hi = np.float32(-np.pi), np.float32(np.pi)
-    u = torch.rand((cfg.n,), generator=gen, dtype=torch.float32)
-    theta = u * float(hi - lo) + float(lo)
+    """(N,) seeded initial headings in [-pi, pi): JAX's float32
+    ``uniform(fold_in(PRNGKey(seed), 1))`` bit for bit — fold_in, so
+    member i's headings never alias member i+1's spawn jitter in a
+    consecutive-seed ensemble."""
+    key = prng.fold_in(prng.prng_key(int(seed)), 1)
+    theta = prng.uniform(key, (cfg.n,), torch.float32, -np.pi, np.pi)
     return theta.to(cfg.dtype).to(resolve_device(device))
 
 
@@ -676,19 +669,11 @@ def validate_config(cfg: Config) -> None:
                 f"{cfg.vel_tracking_tau}")
 
 
-def reject_out_of_slice(cfg: Config, *, unroll_relax: int = 0,
-                        active=None) -> None:
+def reject_out_of_slice(cfg: Config, *, active=None) -> None:
     """Raise OutOfSliceError for every valid knob this slice does not
     port — never ignore one silently."""
-    later = [
-        (unroll_relax > 0, f"unroll_relax={unroll_relax} on the step",
-         SLICE_DIFF),
-        (active is not None, "the serving layer's active mask",
-         SLICE_SERVE),
-    ]
-    for hit, what, slice_name in later:
-        if hit:
-            raise OutOfSliceError(what, slice_name)
+    if active is not None:
+        raise OutOfSliceError("the serving layer's active mask", SLICE_SERVE)
 
 
 def barrier_dynamics(cfg: Config, dtype, validate: bool = True, *,
@@ -919,10 +904,11 @@ def verlet_gating(cfg: Config, x, states4, cache, K: int, use_kernel: bool,
 # chunk is redone with the eager relax loop. Chosen from the per-step relax
 # rounds measured on an H100 at N=4096 (PERF.md §5): without obstacles, or
 # with the static scatter field, no single-integrator step needed more
-# than one round; the orbiting ring needed up to 12. Each round costs a
-# projection on every step, so the ring alone gets the deep guard.
+# than one round; the orbiting ring needed up to 15 (on the spawn drawn
+# from JAX's stream; 12 on the earlier one). Each round costs a projection
+# on every step, so the ring alone gets the deep guard.
 RELAX_ROUNDS = 1
-RELAX_ROUNDS_ORBIT = 12
+RELAX_ROUNDS_ORBIT = 15
 # The other families put every row in the 0.01-per-round eps tier
 # (relax_tiers); per family the deepest step of its 300-step histogram at
 # N=4096 on the H100 (PERF.md §6, PR 7): double and mixed relaxed up to 3
@@ -961,7 +947,9 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
     t0..t0+n-1 on the host. The rollout copies them to the device before
     it replays and hands each step its row as ``inputs``; without
     ``inputs`` the step computes the row itself from ``t``, on the host.
-    ``active`` (the serving layer's padded-bucket mask) is not ported."""
+    ``unroll_relax > 0`` solves every QP with that many unrolled relax
+    rounds (the differentiable step; module docstring). ``active`` (the
+    serving layer's padded-bucket mask) is not ported."""
     dev = resolve_device(device)
     validate_config(cfg)
     if cfg.gating not in ("auto", "pallas", "jnp", "banded", "streaming"):
@@ -977,7 +965,9 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
             "gating_rebuild_skin requires the pallas/jnp gating backends "
             "(the banded kernel's window bookkeeping has no cached form, "
             "and the cache's rebuild search keeps the auto kernel choice)")
-    reject_out_of_slice(cfg, unroll_relax=unroll_relax, active=active)
+    reject_out_of_slice(cfg, active=active)
+    if unroll_relax < 0:
+        raise ValueError(f"unroll_relax must be >= 0, got {unroll_relax}")
     dt_ = cfg.dtype
     f, g, discrete = barrier_dynamics(cfg, dt_, validate=False, device=dev)
     double = cfg.dynamics == "double"
@@ -1007,7 +997,7 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
         self_inf = torch.where(eye, torch.inf, 0.0).to(dt_)
         not_self = ~eye
     filter_kw = dict(reference_layout=not plain_box,
-                     vel_box_rows=not plain_box)
+                     vel_box_rows=not plain_box, unroll_relax=unroll_relax)
 
     def step(state: State, t, inputs=None):
         scrub_bit = None

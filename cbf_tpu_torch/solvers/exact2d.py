@@ -238,6 +238,16 @@ def in_guarded_body() -> bool:
     return _GUARD.get() is not None
 
 
+def guard_settings() -> tuple[int, int | None]:
+    """Inside :func:`guarded_relax`: its (rounds, blocks), for a caller
+    that opens a guard of its own with the same settings (the falsifier's
+    member-batched step, one flag per member). Outside it: an error."""
+    guard = _GUARD.get()
+    if guard is None:
+        raise RuntimeError("guard_settings outside guarded_relax")
+    return guard.rounds, guard.blocks
+
+
 def guarded_blocks() -> int | None:
     """Inside :func:`guarded_relax`: how many blocks of the sparse ADMM's
     adaptive budget the body runs before it hands the solve to the eager

@@ -39,9 +39,17 @@ from the guard (:func:`exact2d.guarded_blocks`; None = the whole budget,
 which never redoes). A NaN residual stops both forms (``NaN > tol`` is
 False).
 
-Not ported here: the backward pass (``_solve_K``'s implicit gradient, the
-differentiable-path slice) and the row-partitioned mode ``axis_name``
-(the ensembles and partitioning slice); both raise OutOfSliceError.
+The gradient. ``_solve_K`` is an ``autograd.Function`` with the JAX
+package's implicit rule (its ``custom_vjp``): the backward is one more CG
+solve ``K w = cotangent`` with the same budget, then ``w`` for the
+right-hand side and the closed-form cotangent of the pair coefficients;
+differentiating through the unrolled CG instead is numerically explosive
+in float32. Its backward reuses the call's segment plans, so the
+transpose stays deterministic. The rest of the iteration is plain torch
+and differentiates as it stands.
+
+Not ported here: the row-partitioned mode ``axis_name`` (the ensembles
+and partitioning slice), which raises OutOfSliceError.
 """
 
 from __future__ import annotations
@@ -50,7 +58,7 @@ from typing import NamedTuple
 
 import torch
 
-from cbf_tpu_torch.errors import SLICE_DIFF, SLICE_PARALLEL, OutOfSliceError
+from cbf_tpu_torch.errors import SLICE_PARALLEL, OutOfSliceError
 from cbf_tpu_torch.solvers import exact2d
 from cbf_tpu_torch.solvers.admm import relaxed_zy_update
 from cbf_tpu_torch.utils.math import safe_norm
@@ -252,18 +260,50 @@ def _make_apply_K(coef_s, pair: _Pair, rho, sigma):
     return apply_K, A_pair, A_pair_T
 
 
+class _SolveK(torch.autograd.Function):
+    """x = K^{-1} rhs with the implicit gradient (``_solve_K_fwd``/
+    ``_solve_K_bwd``): dL/drhs = w with K w = dL/dx (K symmetric, one more
+    CG solve of the same budget); dL/dcoef_s = -rho (A w (x_I - x_J) +
+    A x (w_I - w_J)) per row, from dL = -w^T dK x restricted to K's rho
+    A^T A block; x does not depend on the warm start."""
+
+    @staticmethod
+    def forward(coef_s, rhs, x_warm, iters, rho, sigma, pair):
+        apply_K, _, _ = _make_apply_K(coef_s, pair, rho, sigma)
+        return x_warm + _cg(apply_K, rhs - apply_K(x_warm), iters)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        coef_s, _, _, iters, rho, sigma, pair = inputs
+        ctx.save_for_backward(coef_s, output)
+        ctx.consts = (iters, rho, sigma, pair)
+
+    @staticmethod
+    def backward(ctx, ct):
+        coef_s, x = ctx.saved_tensors
+        iters, rho, sigma, pair = ctx.consts
+        apply_K, A_pair, _ = _make_apply_K(coef_s, pair, rho, sigma)
+        w = _cg(apply_K, ct, iters)
+        E = pair.E
+        xv, wv = x.reshape(E, -1, 2), w.reshape(E, -1, 2)
+        dx_p = _gather(xv, pair.Ig, E) - _gather(xv, pair.Jg, E)
+        dw_p = _gather(wv, pair.Ig, E) - _gather(wv, pair.Jg, E)
+        Ax = torch.sum(coef_s * dx_p, dim=2)
+        Aw = torch.sum(coef_s * dw_p, dim=2)
+        d_coef = -rho * (Aw[..., None] * dx_p + Ax[..., None] * dw_p)
+        return d_coef, w, None, None, None, None, None
+
+
 def _solve_K(iters: int, rho_sigma, coef_s, pair: _Pair, rhs, x_warm):
     """Warm-started SPD solve x = K^{-1} rhs: x_warm + CG(K, rhs - K
-    x_warm). The JAX package differentiates it by an implicit-gradient
-    ``custom_vjp``, which the differentiable-path slice brings; under
-    autograd this raises rather than differentiate through CG."""
+    x_warm), differentiable by the implicit rule of :class:`_SolveK`."""
+    rho, sigma = rho_sigma
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (coef_s, rhs, x_warm)):
-        raise OutOfSliceError("the sparse certificate's K solve under "
-                              "autograd (its implicit gradient)", SLICE_DIFF)
-    rho, sigma = rho_sigma
-    apply_K, _, _ = _make_apply_K(coef_s, pair, rho, sigma)
-    return x_warm + _cg(apply_K, rhs - apply_K(x_warm), iters)
+        return _SolveK.apply(coef_s, rhs, x_warm, iters, rho, sigma, pair)
+    # No gradient wanted: the same operations outside the Function, which
+    # also run under torch.func.vmap (the falsifier's member-batched step).
+    return _SolveK.forward(coef_s, rhs, x_warm, iters, rho, sigma, pair)
 
 
 class _PairOps(NamedTuple):

@@ -147,6 +147,36 @@ Phases (each raises, and the script exits non-zero, on any failure):
    and ``list``; 13g ``examples.meet_at_center_compat`` x 200 on the card
    and on the CPU, final poses within CROSS_X_ATOL, wall per step printed.
 
+14. the differentiable path, the trainer and the falsifier: 14a the
+   member axis — ``knn_fused`` (N=256, 4096) and ``knn_stream`` (N=256,
+   1000: several column ranges) at B in {1, 3, 16} members of different
+   spawns, packed and spread, k=8 and 16, each output ``torch.equal`` to
+   the batched plain version and to B single launches (B=1: to the
+   single-swarm launch); 14b the trainer at N=4096, E=2, an 8-step
+   horizon with remat, 3 Adam steps on the dense spawn of
+   ``examples/train_safety_params.py`` (finite losses, a later one below
+   the first; 2 x E x 8 ``knn_fused`` launches per step, the forward and
+   the remat replay), and one loss and gradient at N=256 on the card and
+   on the CPU within TRAIN_CROSS_*; 14c the same with
+   ``gating="streaming"``: ``knn_stream`` launched, loss and gradient
+   ``torch.equal`` to 14b's; 14d the two-layer trainer at N=512 (sparse
+   certificate, k=4, 4-step horizon, 3 Adam steps, descending) and the
+   certificate's gradient through ``_solve_K``'s Function against a
+   finite-difference probe (tests/test_sparse_certificate.py:439-484's
+   N=1024 probe); 14e the falsifier at ``bench.py``'s BENCH_VERIFY shape
+   (N=256 x 200, batch 16): fresh and warm candidates/s, one
+   member-batched ``knn_fused`` launch per step per batch, two of a
+   batch's candidates run alone through the eager step against the
+   batch's margins, ``random`` then ``cem`` (3 rounds each), and one
+   ``gating="streaming"`` batch (member-batched ``knn_stream``); 14f the
+   falsification walkthrough (``examples/falsify_swarm.py`` on the card:
+   the weakened filter falsified, shrunk, confirmed in float64, archived
+   and replayed; the default survives) and ``gradient_search``'s batch
+   gradients finite; 14g the checked-in corpus replayed in float64 on the
+   card and the CPU (verdicts exact, margins within CORPUS_REPLAY_ATOL)
+   and ``verify`` in process on the weakened corpus config (exit 3) and
+   the default (exit 0).
+
 Phases 7-13 run before phase 6, which times their kernels (``knn_fused``
 and ``knn_stream`` also at the certificate's k=16 shape) and profiles
 every phase of 1-12 over 20 steps (12a over 2, 12d over 5; phase 13
@@ -234,6 +264,32 @@ SCEN_COMPAT_STEPS = 200
 # float32 ulp ~2.4e-7): CUDA's and the CPU's cos/sin may differ by an ulp
 # and the unicycle heading feeds that back every step, which 1e-4 covers
 # ~400x over; theta (|theta| < ~10) gets the same 1e-4.
+# Phase 14. The trainer: examples/train_safety_params.py's dense spawn
+# (k=4, pack spacing 0.02, spacing 0.15 m), E members, horizon, Adam
+# steps; the two-layer bar of tests/test_sparse_certificate.py:487-520.
+TRAIN_N, TRAIN_E, TRAIN_HORIZON, TRAIN_OPT_STEPS = 4096, 2, 8, 3
+TWO_N, TWO_HORIZON = 512, 4
+TRAIN_CROSS_N = 256
+# Card vs CPU of one float32 loss and gradient over the 8-step horizon:
+# the devices reduce the centroid in other orders (CROSS_X_ATOL's ulps per
+# step), which the loss carries at ~1e-7 relative and the gradient, a sum
+# over the backward pass, at ~1e-5.
+TRAIN_CROSS_LOSS_RTOL, TRAIN_CROSS_GRAD_RTOL = 1e-5, 1e-3
+# The certificate's finite-difference probe (tests/test_sparse_certificate
+# .py:439-484): a 32 x 32 grid, k=8, one coordinate, eps 1e-3, 5e-3.
+FD_SIDE, FD_EPS, FD_RTOL = 32, 1e-3, 5e-3
+# bench.py's BENCH_VERIFY defaults (_child_verify): N, steps, batch,
+# rounds; the member axis held at B in MEMBER_BS.
+VERIFY_N, VERIFY_STEPS, VERIFY_BATCH, VERIFY_ROUNDS = 256, 200, 16, 3
+MEMBER_BS = (1, 3, 16)
+# A batch's margins against its candidates run alone: float32 margins
+# ~0.1-1 m; on the CPU they are bit-equal (tests/test_torch_verify.py),
+# on the card batched reductions may sum in another order.
+MEMBER_MARGIN_ATOL = 1e-5
+# The corpus replayed in float64 on the card and the CPU: the same
+# operations in other summation orders over 150 steps.
+CORPUS_REPLAY_ATOL = 1e-9
+CORPUS_CFG = {"n": 16, "steps": 140, "k_neighbors": 4, "gating": "jnp"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -990,6 +1046,381 @@ def phase13(engine, knn, swarm, t_start) -> dict:
     return out
 
 
+def member_inputs(swarm, n: int, B: int, seed0: int = 0):
+    """(B, n, 2) float32 members of different spawns on the card, every
+    other one packed (PACK) so rows hold more than k candidates."""
+    import torch
+
+    xs = [swarm.spawn_positions(swarm.Config(n=n), seed0 + b,
+                                device="cuda").float()
+          * (PACK if b % 2 else 1.0) for b in range(B)]
+    return torch.stack(xs).contiguous()
+
+
+def member_bound(x, k: int, count) -> tuple[float, str]:
+    """(bound ms, by) of one member-batched launch: B times the single
+    launch's operations and bytes (module header)."""
+    B, n = x.shape[0], x.shape[1]
+    rate = PEAK_F32_PER_S / 2        # no FMA issued: one op per lane slot
+    t_ops = (OPS_PER_PAIR * B * n * n + k * int(count.sum())) / rate
+    t_bytes = B * (8 * n + n * k * 8 + n * 8) / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase14(engine, knn, swarm, t_start) -> dict:
+    """The differentiable path, the trainer and the falsifier (module
+    docstring, phase 14). Returns the member-axis rows' data and each
+    run's launches."""
+    import contextlib
+    import dataclasses
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cbf_tpu_torch import verify as V
+    from cbf_tpu_torch import __main__ as cli
+    from cbf_tpu_torch.core.filter import CBFParams
+    from cbf_tpu_torch.examples import falsify_swarm
+    from cbf_tpu_torch.learn import tuning
+    from cbf_tpu_torch.parallel.ensemble import ensemble_initial_states
+    from cbf_tpu_torch.sim import certificates
+    from cbf_tpu_torch.utils import prng
+    from cbf_tpu_torch.verify import search
+
+    out = {"runs": {}, "members": {}}
+
+    # 14a. the member axis
+    held = 0
+    for name, fn, plain, ns in (
+            ("knn_fused", knn.knn_fused, knn.knn_neighbors_plain,
+             (VERIFY_N, MAIN_N)),
+            ("knn_stream", knn.knn_stream, knn.knn_neighbors_blocked_plain,
+             (VERIFY_N, 1000))):
+        for n in ns:
+            for k in (K, CERT_K):
+                for B in MEMBER_BS:
+                    x = member_inputs(swarm, n, B, seed0=7 * B)
+                    got = fn(x, RADIUS, k)
+                    want = plain(x, RADIUS, k)
+                    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                          f"14a: {name} B={B} N={n} k={k} differs from its "
+                          "plain version")
+                    for b in range(B):
+                        single = fn(x[b].contiguous(), RADIUS, k)
+                        check(all(torch.equal(a[b], c)
+                                  for a, c in zip(got, single)),
+                              f"14a: {name} B={B} N={n} k={k} member {b} "
+                              "differs from its single launch")
+                    held += 1
+        xv = member_inputs(swarm, VERIFY_N, VERIFY_BATCH, seed0=100)
+        count = fn(xv, RADIUS, K)[-1]
+        bound, by = member_bound(xv, K, count)
+        timed = time_call(lambda: fn(xv, RADIUS, K))
+        timed.pop("device_op_names")
+        single = time_call(lambda: fn(xv[0].contiguous(), RADIUS, K))
+        single.pop("device_op_names")
+        out["members"][name] = {
+            "b": VERIFY_BATCH, "n": VERIFY_N, **timed,
+            "single_member_ms": single["ms"],
+            "single_member_device_ms": single["kernel_device_ms"],
+            "plain_ms": cuda_ms(lambda: plain(xv, RADIUS, K), reps=10,
+                                warmup=2)[0],
+            "bound_ms": bound, "bound_by": by}
+        print(f"14a: {name} (B={VERIFY_BATCH}, N={VERIFY_N}) median "
+              f"{timed['ms']:.4f} ms, device {timed['kernel_device_ms']} ms "
+              f"per launch; one member alone {single['ms']:.4f} ms "
+              f"(device {single['kernel_device_ms']}); bound {bound:.5f} "
+              f"ms ({by})")
+    print(f"14a: {held} member-axis launches equal to their plain versions "
+          "and to single launches (B=1: the single-swarm launch)")
+
+    # 14b. the trainer at N=4096
+    def dense_cfg(n, **kw):
+        side = int(np.ceil(np.sqrt(n)))
+        return swarm.Config(n=n, steps=0, k_neighbors=4, pack_spacing=0.02,
+                            spawn_half_width_override=0.15 * (side - 1),
+                            **kw)
+
+    def params_line(p):
+        sp = torch.nn.functional.softplus
+        return (f"gamma={float(sp(p.gamma_raw)):.5f} "
+                f"dmin={float(sp(p.dmin_raw)):.5f} "
+                f"k={float(sp(p.k_raw)):.5f}")
+
+    cfg_t = dense_cfg(TRAIN_N)
+    tc = tuning.TrainConfig(steps=TRAIN_HORIZON, unroll_relax=2, remat=True,
+                            learning_rate=3e-2)
+    state_t = ensemble_initial_states(cfg_t, range(TRAIN_E), device="cuda")
+    p0 = tuning.init_params(gamma=0.15, dmin=0.10, k=0.5, device="cuda")
+    per_step = 2 * TRAIN_E * TRAIN_HORIZON
+    lg = tuning.make_loss_and_grad_fn(cfg_t, None, tc)
+    zero_counts(engine, knn)
+    t0 = time.perf_counter()
+    loss0, grad0 = lg(p0, *state_t)
+    torch.cuda.synchronize()
+    vg_s = time.perf_counter() - t0
+    vg_launches = dict(knn.LAUNCHES)
+    check(vg_launches["knn_fused"] == per_step
+          and vg_launches["knn_stream"] == 0,
+          f"14b: value_and_grad launches {vg_launches}, want knn_fused "
+          f"{per_step}")
+    train_step, opt = tuning.make_train_step(cfg_t, None, tc)
+    params, opt_state = p0, opt.init(p0)
+    losses, walls, step_launches = [], [], []
+    for _ in range(TRAIN_OPT_STEPS):
+        zero_counts(engine, knn)
+        t0 = time.perf_counter()
+        params, opt_state, loss = train_step(params, opt_state, *state_t)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        step_launches.append(knn.LAUNCHES["knn_fused"])
+    check(all(n == per_step for n in step_launches),
+          f"14b: knn_fused launches per train step {step_launches}, want "
+          f"{per_step}")
+    check(np.isfinite(losses).all() and min(losses[1:]) < losses[0],
+          f"14b: losses {losses} not finite and descending")
+    check(float(loss0) == losses[0], "14b: the train step's first loss "
+          "differs from value_and_grad's")
+    out["runs"]["phase 14b"] = {"launches": {
+        "knn_fused": vg_launches["knn_fused"] + sum(step_launches)}}
+    print(f"14b: N={TRAIN_N} E={TRAIN_E} horizon {TRAIN_HORIZON} (remat): "
+          f"losses {[round(v, 6) for v in losses]}, train step "
+          f"{[round(w, 3) for w in walls]} s (value_and_grad {vg_s:.3f} s), "
+          f"knn_fused {per_step} launches per step; start "
+          f"{params_line(p0)}, trained {params_line(params)}")
+    cfg_c = dense_cfg(TRAIN_CROSS_N)
+    lg_c = tuning.make_loss_and_grad_fn(cfg_c, None, tc)
+    cross = {}
+    for dev in ("cuda", "cpu"):
+        p = tuning.TunableParams(*(v.to(dev) for v in p0))
+        st = ensemble_initial_states(cfg_c, range(TRAIN_E), device=dev)
+        cross[dev] = lg_c(p, *st)
+    l_card, l_cpu = float(cross["cuda"][0]), float(cross["cpu"][0])
+    g_card = np.array([float(v) for v in cross["cuda"][1]])
+    g_cpu = np.array([float(v) for v in cross["cpu"][1]])
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    grad_rel = float(np.abs(g_card - g_cpu).max() / np.abs(g_cpu).max())
+    check(loss_rel <= TRAIN_CROSS_LOSS_RTOL
+          and grad_rel <= TRAIN_CROSS_GRAD_RTOL,
+          f"14b: N={TRAIN_CROSS_N} card vs CPU loss {l_card} / {l_cpu}, "
+          f"gradients {g_card} / {g_cpu}")
+    print(f"14b: N={TRAIN_CROSS_N} card vs CPU: loss {l_card:.9g} / "
+          f"{l_cpu:.9g} (rel {loss_rel:.3e}), gradients rel {grad_rel:.3e}")
+
+    # 14c. forced streaming
+    lg_s = tuning.make_loss_and_grad_fn(
+        dataclasses.replace(cfg_t, gating="streaming"), None, tc)
+    zero_counts(engine, knn)
+    t0 = time.perf_counter()
+    loss_s, grad_s = lg_s(p0, *state_t)
+    torch.cuda.synchronize()
+    s_s = time.perf_counter() - t0
+    s_launches = dict(knn.LAUNCHES)
+    check(s_launches["knn_stream"] == per_step
+          and s_launches["knn_fused"] == 0,
+          f"14c: launches {s_launches}, want knn_stream {per_step}")
+    check(torch.equal(loss_s, loss0)
+          and all(torch.equal(a, b) for a, b in zip(grad_s, grad0)),
+          "14c: streaming loss or gradient differs from 14b's")
+    out["runs"]["phase 14c"] = {"launches": {"knn_stream": per_step}}
+    print(f"14c: gating='streaming': {per_step} knn_stream launches, loss "
+          f"and gradient torch.equal to 14b's ({s_s:.3f} s)")
+
+    # 14d. the two-layer trainer at N=512 and the certificate's gradient
+    cfg_2 = dense_cfg(TWO_N, certificate=True, certificate_backend="sparse")
+    tc2 = tuning.TrainConfig(steps=TWO_HORIZON, unroll_relax=2,
+                             learning_rate=3e-2)
+    state_2 = ensemble_initial_states(cfg_2, range(TRAIN_E), device="cuda")
+    ts2, opt2 = tuning.make_train_step(cfg_2, None, tc2)
+    params2, st2 = p0, opt2.init(p0)
+    losses2, walls2 = [], []
+    zero_counts(engine, knn)
+    for _ in range(TRAIN_OPT_STEPS):
+        t0 = time.perf_counter()
+        params2, st2, loss = ts2(params2, st2, *state_2)
+        torch.cuda.synchronize()
+        walls2.append(time.perf_counter() - t0)
+        losses2.append(float(loss))
+    out["runs"]["phase 14d"] = {"launches": dict(knn.LAUNCHES)}
+    check(np.isfinite(losses2).all() and min(losses2[1:]) < losses2[0],
+          f"14d: two-layer losses {losses2} not finite and descending")
+    rng = np.random.default_rng(5)
+    lin = np.linspace(-4.0, 4.0, FD_SIDE)
+    gxm, gym = np.meshgrid(lin, lin)
+    xg = torch.tensor(np.stack([gxm.ravel(), gym.ravel()])
+                      + rng.uniform(-0.05, 0.05, (2, FD_SIDE ** 2)),
+                      dtype=torch.float32, device="cuda")
+    u = torch.tensor(rng.normal(0, 0.1, (2, FD_SIDE ** 2)),
+                     dtype=torch.float32, device="cuda")
+
+    def cert_loss(d):
+        return torch.sum(certificates.si_barrier_certificate_sparse(
+            d, xg, k=8, neighbor_backend="pallas",
+            arena=(-5.0, 5.0, -5.0, 5.0)) ** 2)
+
+    ug = u.clone().requires_grad_()
+    g_fd, = torch.autograd.grad(cert_loss(ug), ug)
+    up, um = u.clone(), u.clone()
+    up[1, 100] += FD_EPS
+    um[1, 100] -= FD_EPS
+    with torch.no_grad():
+        fd = (float(cert_loss(up)) - float(cert_loss(um))) / (2 * FD_EPS)
+    check(bool(torch.isfinite(g_fd).all())
+          and abs(float(g_fd[1, 100]) - fd) < FD_RTOL * max(abs(fd), 1.0),
+          f"14d: certificate gradient {float(g_fd[1, 100])} vs finite "
+          f"difference {fd}")
+    print(f"14d: N={TWO_N} two layers, horizon {TWO_HORIZON}: losses "
+          f"{[round(v, 6) for v in losses2]}, train step "
+          f"{[round(w, 3) for w in walls2]} s, {params_line(params2)}; "
+          f"certificate gradient at N={FD_SIDE ** 2} "
+          f"{float(g_fd[1, 100]):.6f} vs finite difference {fd:.6f}")
+
+    # 14e. the falsifier at BENCH_VERIFY's shape
+    cfg_v = swarm.Config(n=VERIFY_N, steps=VERIFY_STEPS)
+    settings = V.SearchSettings(budget=VERIFY_BATCH * VERIFY_ROUNDS,
+                                batch=VERIFY_BATCH, seed=0)
+    adapter = V.make_adapter("swarm", cfg_v, device="cuda")
+    eval_b = V.make_eval_batch(adapter, settings)
+    key = prng.prng_key(settings.seed)
+
+    def deltas_for(r):
+        return (settings.perturb_scale * prng.normal(
+            prng.fold_in(key, r), (VERIFY_BATCH, VERIFY_N, 2),
+            torch.float32)).to("cuda")
+
+    d0 = deltas_for(0)
+    zero_counts(engine, knn)
+    t0 = time.perf_counter()
+    m0 = eval_b(d0)
+    torch.cuda.synchronize()
+    fresh_s = time.perf_counter() - t0
+    fresh_launches, fresh_counts = dict(knn.LAUNCHES), dict(engine.COUNTS)
+    check(fresh_launches["knn_fused_members"] == VERIFY_STEPS,
+          f"14e: member launches {fresh_launches}, want {VERIFY_STEPS}")
+    walls_v = []
+    for r in range(1, VERIFY_ROUNDS + 1):
+        d = deltas_for(r)
+        t0 = time.perf_counter()
+        eval_b(d)
+        torch.cuda.synchronize()
+        walls_v.append(time.perf_counter() - t0)
+    warm_s = min(walls_v)
+    one = V.make_eval_one(adapter, settings)
+    gaps = []
+    for b in (0, VERIFY_BATCH - 1):
+        alone = one(d0[b])
+        fin = torch.isfinite(alone)
+        check(torch.equal(torch.isfinite(m0[b]), fin),
+              f"14e: candidate {b}'s vacuous margins differ")
+        gap = float((alone[fin] - m0[b][fin]).abs().max())
+        gaps.append(gap)
+        check(gap <= MEMBER_MARGIN_ATOL,
+              f"14e: candidate {b} alone {alone} vs batched {m0[b]}")
+    engines = {}
+    member_launches = fresh_launches["knn_fused_members"]
+    for name, fn in (("random", V.random_search), ("cem", V.cem_search)):
+        zero_counts(engine, knn)
+        t0 = time.perf_counter()
+        res = fn(adapter, settings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(knn.LAUNCHES)
+        check(launches["knn_fused_members"] == res.rounds * VERIFY_STEPS,
+              f"14e: {name} launches {launches} over {res.rounds} rounds")
+        member_launches += launches["knn_fused_members"]
+        engines[name] = (res, wall, dict(engine.COUNTS))
+    cfg_vs = dataclasses.replace(cfg_v, gating="streaming")
+    adapter_s = V.make_adapter("swarm", cfg_vs, device="cuda")
+    zero_counts(engine, knn)
+    m_s = V.make_eval_batch(adapter_s, settings)(d0)
+    torch.cuda.synchronize()
+    stream_launches = knn.LAUNCHES["knn_stream_members"]
+    check(stream_launches == VERIFY_STEPS
+          and torch.equal(torch.isfinite(m_s), torch.isfinite(m0))
+          and float((m_s - m0)[torch.isfinite(m0)].abs().max()) == 0.0,
+          f"14e: the streaming batch ({stream_launches} launches) differs")
+    out["runs"]["phase 14e"] = {"launches": {
+        "knn_fused_members": member_launches,
+        "knn_stream_members": stream_launches}}
+    out["members"]["knn_fused"]["launches"] = member_launches
+    out["members"]["knn_stream"]["launches"] = stream_launches
+    print(f"14e: falsifier N={VERIFY_N} x {VERIFY_STEPS}, batch "
+          f"{VERIFY_BATCH}: fresh {VERIFY_BATCH / fresh_s:.3f} candidates/s "
+          f"({fresh_s:.3f} s, capture included; captures "
+          f"{fresh_counts['captures']}, redos {fresh_counts['redos']}), warm "
+          f"{VERIFY_BATCH / warm_s:.3f} candidates/s (rounds "
+          f"{[round(w, 4) for w in walls_v]} s), {VERIFY_STEPS} member "
+          f"launches per batch; candidates alone vs batched max gap "
+          f"{max(gaps):.3e}; streaming batch equal, {stream_launches} "
+          "knn_stream member launches")
+    for name, (res, wall, counts) in engines.items():
+        print(f"14e: {name}: margin {res.margin:.6f} ({res.property}), "
+              f"found {res.found}, {res.evaluated} candidates in "
+              f"{res.rounds} rounds, {wall:.3f} s, redos {counts['redos']}")
+
+    # 14f. the falsification walkthrough and the gradient engine
+    weak = CBFParams(max_speed=15.0, k=0.0, dmin=0.16)
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_counts(engine, knn)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = falsify_swarm.main(["--device", "cuda", "--out", tmp])
+        walk_s = time.perf_counter() - t0
+    print("\n".join("14f: " + line for line in buf.getvalue().splitlines()))
+    check(rc == 0, f"14f: the falsification walkthrough returned {rc}")
+    adapter_d = V.make_adapter("swarm", swarm.Config(**CORPUS_CFG),
+                               cbf=weak, differentiable=True, device="cuda")
+    grad_b = search.make_grad_batch(adapter_d, settings)
+    dg = (0.04 * prng.normal(prng.prng_key(2), (8, 16, 2),
+                             torch.float32)).to("cuda")
+    obj, _, grads = grad_b(dg)
+    check(bool(torch.isfinite(grads).all()) and float(grads.abs().sum()) > 0
+          and bool(torch.isfinite(obj).all()),
+          "14f: gradient_search's batch gradients not finite")
+    print(f"14f: walkthrough {walk_s:.1f} s; gradient_search batch of 8: "
+          f"objective min {float(obj.min()):.6f}, gradient norms "
+          f"{float(grads.flatten(1).norm(dim=1).min()):.4e}-"
+          f"{float(grads.flatten(1).norm(dim=1).max()):.4e}, finite")
+
+    # 14g. the corpus in float64, card vs CPU, and the CLI
+    import os
+    corpus = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "corpus", "violations.jsonl")
+    for entry in V.load_entries(corpus):
+        card_r = V.replay_entry(entry, device="cuda")
+        cpu_r = V.replay_entry(entry, device="cpu")
+        gap = abs(card_r["margin"] - cpu_r["margin"])
+        check(V.check_verdict(entry, card_r) == []
+              and gap <= CORPUS_REPLAY_ATOL,
+              f"14g: {entry['scenario']}/{entry['expect']} card "
+              f"{card_r['margin']!r} cpu {cpu_r['margin']!r}")
+        print(f"14g: {entry['scenario']} expect {entry['expect']}: card "
+              f"{card_r['margin']!r}, CPU {cpu_r['margin']!r} (gap "
+              f"{gap:.3e}), recorded {entry['margin_x64']!r}")
+    args = ["verify", "swarm", "--device", "cuda", "--budget", "32",
+            "--batch", "16", "--no-shrink", "--json"]
+    for key_, value in CORPUS_CFG.items():
+        args += ["--set", f"{key_}={value}"]
+    for extra, want in ((["--weaken", "dmin=0.16"], 3), ([], 0)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(args + extra)
+        record = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(rc == want, f"14g: verify {' '.join(extra)} exited {rc}, "
+              f"want {want}")
+        print(f"14g: verify {' '.join(extra) or '(default filter)'}: exit "
+              f"{rc}; " + "; ".join(
+                  f"{r['engine']} margin {r['margin']:.6f} found "
+                  f"{r['found']}" for r in record["results"]))
+    print(f"phase 14 done (script at {time.perf_counter() - t_start:.1f} s)")
+    return out
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -1488,6 +1919,9 @@ def main(argv: list[str]) -> int:
     # 13. the reference scenarios, the CLI and the compat example
     scen = phase13(engine, knn, swarm, t_start)
 
+    # 14. the differentiable path, the trainer and the falsifier
+    p14 = phase14(engine, knn, swarm, t_start)
+
     # 6. timings at the main-path shapes; launches are every compiled
     # main-path run's of this call, by phase (13f's run swarm included)
     all_runs = {"phase 3 N=256": runs[ENTRY_N], "phase 3 N=4096": main,
@@ -1498,10 +1932,10 @@ def main(argv: list[str]) -> int:
                 "phase 10": verlet,
                 **{f"phase 11 {kind}": run for kind, run in rta.items()},
                 **{f"phase 12{key}": run for key, run in cert.items()},
-                "phase 13f": scen["13f"]}
+                "phase 13f": scen["13f"], **p14["runs"]}
     by_phase = {name: {label: run["launches"][name]
                        for label, run in all_runs.items()
-                       if run["launches"][name]}
+                       if run["launches"].get(name)}
                 for name in knn.LAUNCHES}
     rows = []
     x_b = state0_b.x.to(torch.float32).contiguous()
@@ -1602,6 +2036,19 @@ def main(argv: list[str]) -> int:
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "in_radius_candidates": int(count_c.sum())}
         rows.append(row)
+    # The member-axis launches (phase 14): one launch for the falsifier's
+    # batch of VERIFY_BATCH candidates, held equal in 14a.
+    for name, src_line in (("knn_fused", "cbf_tpu/ops/pallas_knn.py:94"),
+                           ("knn_stream", "cbf_tpu/ops/pallas_knn.py:184")):
+        mem = dict(p14["members"][name])
+        mem.pop("device_op_names", None)
+        rows.append({
+            "name": f"{name} (member axis)", "route": "cuda",
+            "source": "cbf_tpu_torch/csrc/knn.cu",
+            "replaces": f"{src_line} under jax.vmap "
+                        "(cbf_tpu/verify/search.py:324)",
+            "max_abs_err": 0.0, "equal": True, "library_ms": None,
+            **mem, "launches_by_phase": {"phase 14e": mem["launches"]}})
     x4096 = state0.x.to(torch.float32).contiguous()
     stream_small = cuda_ms(lambda: knn.knn_stream(x4096, RADIUS, K),
                            reps=200, warmup=10)

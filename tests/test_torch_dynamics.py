@@ -212,13 +212,15 @@ def test_heading_spawn_is_seeded_and_its_own_stream():
     assert torch.equal(a, tsw.heading_spawn(cfg, 3, device="cpu"))
     assert not torch.equal(a, tsw.heading_spawn(cfg, 4, device="cpu"))
     assert float(a.min()) >= -np.pi and float(a.max()) < np.pi
-    # Not the spawn jitter's stream (seed s) nor seed s+1's.
+    # JAX's headings bit for bit, and not the spawn jitter's stream (seed s)
+    # nor seed s+1's.
+    np.testing.assert_array_equal(
+        a.numpy(), np.asarray(jsw.heading_spawn(jsw.Config(
+            n=300, dynamics="unicycle"), 3)))
     for seed in (3, 4):
-        jitter = torch.rand((300, 2), generator=torch.Generator().manual_seed(
-            seed))
-        assert not np.allclose(jitter[:, 0].numpy() * 2 * np.pi - np.pi,
-                               a.numpy())
-    assert tsw._heading_seed(3) not in (3, 4)
+        jitter = tsw.spawn_positions(cfg, seed, device="cpu").numpy() - \
+            tsw.spawn_layout(cfg)[0]
+        assert not np.allclose(jitter[:, 0], a.numpy())
     state = tsw.initial_state(cfg, device="cpu")
     assert torch.equal(state.theta,
                        tsw.heading_spawn(cfg, cfg.seed, device="cpu"))

@@ -148,17 +148,11 @@ def test_make_without_card_needs_device_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("override,make_kw,slice_name", [
-    # The Queue A5 and A6 knobs build now (test_queue_a5_knobs_build_and_
-    # match_jax, tests/test_torch_certificate.py); paired with a later
+    # The Queue A5, A6 and A8 knobs build now (test_queue_a5_knobs_build_
+    # and_match_jax, tests/test_torch_certificate.py,
+    # test_unroll_relax_knobs_step_and_match_jax); paired with a later
     # slice's knob, that one still raises.
-    ({"dynamics": "double", "rta": True}, {"unroll_relax": 2}, "Queue A8"),
-    ({"dynamics": "unicycle", "certificate": True}, {"unroll_relax": 2},
-     "Queue A8"),
-    ({"dynamics": "mixed", "n_double": 4}, {"unroll_relax": 1}, "Queue A8"),
-    ({"certificate": True}, {"unroll_relax": 1}, "Queue A8"),
     ({"rta": True, "certificate": True}, {"active": True}, "Queue A11"),
-    ({"gating_rebuild_skin": 0.1}, {"unroll_relax": 2}, "Queue A8"),
-    ({}, {"unroll_relax": 2}, "Queue A8"),
 ])
 def test_out_of_slice_knobs_raise(override, make_kw, slice_name):
     cfg = tsw.Config(n=16, **override)
@@ -171,24 +165,71 @@ def test_out_of_slice_knobs_raise(override, make_kw, slice_name):
             tsw.make(cfg, device="cpu", **make_kw)
 
 
+@pytest.mark.parametrize("override,unroll", [
+    # The knob pairs that raised until the differentiable slice: each now
+    # builds, steps and differentiates through ``unroll`` relax rounds
+    # like the JAX package's step (the Verlet cache steps too — the JAX
+    # trainer and gradient engine reject it, tests/test_torch_learn.py).
+    ({"dynamics": "double", "rta": True}, 2),
+    ({"dynamics": "unicycle", "certificate": True}, 2),
+    ({"dynamics": "mixed", "n_double": 4}, 1),
+    ({"certificate": True}, 1),
+    ({"gating_rebuild_skin": 0.1}, 2),
+    ({}, 2),
+])
+def test_unroll_relax_knobs_step_and_match_jax(override, unroll):
+    import jax
+
+    override = {"certificate_backend": "sparse", "certificate_k": 4,
+                **override} if override.get("certificate") else override
+    jcfg = jsw.Config(n=16, gating="jnp", **override)
+    js0, jstep = jsw.make(jcfg, unroll_relax=unroll)
+    tcfg = tsw.Config(**{**_fields(jcfg), "dtype": torch.float32})
+    _, tstep = tsw.make(tcfg, unroll_relax=unroll, device="cpu")
+    ts0 = convert.state_from_reference(js0, device="cpu",
+                                       dtype=torch.float32)
+    want, jout = jstep(js0, 0)
+    x = ts0.x.clone().requires_grad_()
+    got, tout = tstep(ts0._replace(x=x), 0)
+    np.testing.assert_allclose(got.x.detach().numpy(), np.asarray(want.x),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(float(tout.min_pairwise_distance.detach()),
+                               float(jout.min_pairwise_distance), atol=1e-5)
+    gx, = torch.autograd.grad(torch.sum(got.x ** 2), x)
+    jg = jax.grad(lambda x0: jax.numpy.sum(
+        jstep(js0._replace(x=x0), 0)[0].x ** 2))(js0.x)
+    assert bool(torch.isfinite(gx).all())
+    np.testing.assert_allclose(gx.numpy(), np.asarray(jg), rtol=0,
+                               atol=1e-4)
+
+
+def _fields(cfg) -> dict:
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
 def _autograd_through_the_k_solve():
     """The sparse certificate's solver with row directions that need a
-    gradient: its K solve's implicit gradient is the Queue A8 slice's."""
+    gradient: its K solve carries the implicit gradient, so the solution
+    differentiates with a finite gradient (held against JAX and finite
+    differences in tests/test_torch_diff.py)."""
     from cbf_tpu_torch.solvers import sparse_admm
     N, k = 8, 2
-    coef = torch.ones((N * k, 2), requires_grad=True)
+    coef = torch.ones((N * k, 2), dtype=torch.float64, requires_grad=True)
     I = torch.arange(N).repeat_interleave(k)
     J = (I + 1) % N
-    sparse_admm.solve_pair_box_qp_admm(
-        torch.zeros((N, 2)), I, J, coef, torch.ones(N * k),
-        torch.full((N, 2), -1.0), torch.full((N, 2), 1.0), agent_k=k)
+    u, _ = sparse_admm.solve_pair_box_qp_admm(
+        torch.linspace(-1, 1, 2 * N, dtype=torch.float64).reshape(N, 2), I,
+        J, coef, torch.full((N * k,), 0.1, dtype=torch.float64),
+        torch.full((N, 2), -1.0, dtype=torch.float64),
+        torch.full((N, 2), 1.0, dtype=torch.float64), agent_k=k)
+    g, = torch.autograd.grad(torch.sum(u ** 2), coef)
+    assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
 
 
 @pytest.mark.parametrize("call,slice_name", [
     ("apply_certificate_sharded", "Queue A10"),
     ("axis_name", "Queue A10"),
     ("si_barrier_certificate_sparse_sharded", "Queue A10"),
-    ("autograd through the K solve", "Queue A8"),
 ])
 def test_certificate_out_of_slice_paths_raise(call, slice_name):
     from cbf_tpu_torch.sim import certificates
@@ -205,10 +246,15 @@ def test_certificate_out_of_slice_paths_raise(call, slice_name):
         "si_barrier_certificate_sparse_sharded":
             lambda: certificates.si_barrier_certificate_sparse_sharded(
                 u.T, u.T, "sp"),
-        "autograd through the K solve": _autograd_through_the_k_solve,
     }
     with pytest.raises(OutOfSliceError, match=slice_name):
         calls[call]()
+
+
+def test_certificate_k_solve_differentiates():
+    """Autograd through the K solve, which raised until the
+    differentiable slice, gives a finite nonzero gradient."""
+    _autograd_through_the_k_solve()
 
 
 @pytest.mark.parametrize("override", [

@@ -24,7 +24,6 @@ from cbf_tpu.ops import pallas_knn
 from cbf_tpu.rollout import engine as jeng
 from cbf_tpu.scenarios import swarm as jsw
 from cbf_tpu_torch import convert
-from cbf_tpu_torch.errors import OutOfSliceError
 from cbf_tpu_torch.ops import knn
 from cbf_tpu_torch.rollout import engine as teng
 from cbf_tpu_torch.scenarios import swarm as tsw
@@ -168,8 +167,16 @@ def test_knn_select_matches_jax_and_guards_autograd():
         for a, b in zip(got, knn._kernel_dispatch(torch.as_tensor(x),
                                                   radius, k)):
             assert torch.equal(a, b)
+    # Under autograd the selection passes a zero gradient to x (the JAX
+    # package's custom_vjp); the raw gating entry raises instead.
     xg = torch.as_tensor(x).requires_grad_()
-    with pytest.raises(OutOfSliceError, match="Queue A8"):
-        knn.knn_select(xg, 0.5, 8)
+    idx, dist, near, count = knn.knn_select(xg, 0.5, 8)
+    assert not idx.requires_grad and not count.requires_grad
+    g, = torch.autograd.grad(torch.sum(torch.where(
+        torch.isfinite(dist), dist, 0.0)) + near.sum(), xg)
+    assert torch.equal(g, torch.zeros_like(xg))
+    s4 = torch.cat([xg, torch.zeros_like(xg)], dim=1)
+    with pytest.raises(RuntimeError, match="knn_gating_pallas_diff"):
+        knn.knn_gating_pallas(s4, 0.5, 8)
     with torch.no_grad():
         knn.knn_select(xg, 0.5, 8)
