@@ -107,3 +107,38 @@ def prng_key_from_numpy(key) -> torch.Tensor:
         raise ValueError(f"a key is a (2,) uint32 array, got {a.shape}")
     return torch.as_tensor(a.astype(np.int64))
 
+
+
+def solver_state_from_reference(carry, *, device, dtype) -> tuple:
+    """An ensemble's sparse-certificate warm carry — the 5-tuple (x, z_p,
+    z_b, y_p, y_b) of (E, ...) arrays that the JAX package's
+    ``sharded_swarm_rollout(..., with_solver_state=True)`` returns — as
+    ``dtype`` tensors on ``device``, ready for the port's
+    ``initial_state``."""
+    carry = tuple(carry)
+    if len(carry) != 5:
+        raise ValueError(f"a solver carry is a 5-tuple (x, z_p, z_b, y_p, "
+                         f"y_b), got {len(carry)} leaves")
+    return tuple(torch.as_tensor(np.array(a), dtype=dtype, device=device)
+                 for a in carry)
+
+
+def ensemble_state_from_reference(state, *, device, dtype) -> tuple:
+    """A JAX ensemble state — (x, v[, theta]) of (E, N, 2) / (E, N)
+    arrays, with the solver carry as a trailing 5-tuple where it has one
+    — as the port's ``sharded_swarm_rollout`` takes it."""
+    return tuple(solver_state_from_reference(a, device=device, dtype=dtype)
+                 if isinstance(a, tuple) else
+                 torch.as_tensor(np.array(a), dtype=dtype, device=device)
+                 for a in state)
+
+
+def ensemble_metrics_from_reference(mets):
+    """A JAX ``EnsembleMetrics`` (or any object with its fields, the
+    port's too) as the port's, every field a numpy array of (E, steps) —
+    the form a chunked ensemble run returns."""
+    from cbf_tpu_torch.parallel.ensemble import EnsembleMetrics
+
+    return EnsembleMetrics(*(
+        np.array(v.cpu() if isinstance(v, torch.Tensor) else v)
+        for v in (getattr(mets, name) for name in EnsembleMetrics._fields)))

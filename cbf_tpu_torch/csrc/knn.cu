@@ -773,12 +773,26 @@ __device__ __forceinline__ void scan_range_to_partial(
 // Work is O(N * window): at N = 65536 and a 4-tile window, 134 M pairs,
 // ~8 f32 operations each, which bounds it by operations (~0.03 ms at the
 // non-FMA issue rate) as the other two kernels are.
+//
+// Member axis (what jax.vmap makes of the pallas_call): B swarms of N rows,
+// (B, N, 2), each sorted by the caller along its own rows (one batched
+// torch.argsort). Each of the three launches takes the member as its last
+// grid dimension and steps every pointer by the member's stride, so a
+// member's rows see only its own window starts and sorted columns; the
+// window split (split_plan) counts the row blocks of all members.
 template <int K>
 __global__ void __launch_bounds__(kThreads) knn_banded_partial_kernel(
-    const float* __restrict__ xs, int n, float r2,
+    const float* __restrict__ xs, int n, int band_blocks, float r2,
     const int* __restrict__ starts, int window, int cols_per_split,
     int splits, float* __restrict__ part_d2, int* __restrict__ part_idx,
     float* __restrict__ part_near, int* __restrict__ part_cnt) {
+  const size_t member = blockIdx.z;
+  xs += 2 * n * member;
+  starts += band_blocks * member;
+  part_d2 += K * splits * n * member;
+  part_idx += K * splits * n * member;
+  part_near += splits * n * member;
+  part_cnt += splits * n * member;
   const int start = starts[blockIdx.x * kThreads / kRtile];
   const int c0 = start + blockIdx.y * cols_per_split;
   const int c1 = min(min(n, start + window), c0 + cols_per_split);
@@ -832,6 +846,12 @@ __global__ void __launch_bounds__(kRtile) knn_band_prologue_kernel(
     int n_pad, int wlen, float r, float* __restrict__ xs,
     int* __restrict__ starts, bool* __restrict__ block_overflow) {
   __shared__ int lo_hi[2];
+  const size_t member = blockIdx.y;
+  x += 2 * n * member;
+  order += n * member;
+  xs += 2 * n * member;
+  starts += gridDim.x * member;
+  block_overflow += gridDim.x * member;
   const int row0 = blockIdx.x * kRtile;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -917,11 +937,24 @@ __global__ void __launch_bounds__(kThreads) knn_banded_merge_kernel(
     int n, int splits, const float* __restrict__ part_d2,
     const int* __restrict__ part_idx, const float* __restrict__ part_near,
     const int* __restrict__ part_cnt, const long long* __restrict__ order,
-    const bool* __restrict__ block_overflow, int* __restrict__ idx,
-    float* __restrict__ dist, float* __restrict__ nearest,
-    bool* __restrict__ overflow, int* __restrict__ count) {
+    int band_blocks, const bool* __restrict__ block_overflow,
+    int* __restrict__ idx, float* __restrict__ dist,
+    float* __restrict__ nearest, bool* __restrict__ overflow,
+    int* __restrict__ count) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const size_t member = blockIdx.y;
+  part_d2 += K * splits * n * member;
+  part_idx += K * splits * n * member;
+  part_near += splits * n * member;
+  part_cnt += splits * n * member;
+  order += n * member;
+  block_overflow += band_blocks * member;
+  idx += K * n * member;
+  dist += K * n * member;
+  nearest += n * member;
+  overflow += n * member;
+  count += n * member;
   float bd[K];
   int bi[K];
   float near;
@@ -968,18 +1001,21 @@ cudaError_t launch_fused(const float* x, int members, int n, float r2,
 
 // knn_banded's window split on the current device: S ranges of whole
 // kCtile tiles out of ``col_tiles``, as many as put ~4 blocks of kThreads
-// rows on each SM (at least one range, at most one per tile).
-cudaError_t split_plan(int n, int col_tiles, int* cols_per_split,
-                       int* splits) {
+// rows on each SM over all ``members`` (at least one range, at most one
+// per tile).
+cudaError_t split_plan(int members, int n, int col_tiles,
+                       int* cols_per_split, int* splits) {
   int dev = 0;
   int sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  const int row_blocks = (n + kThreads - 1) / kThreads;
-  const int want =
-      std::min(col_tiles, std::max(1, (4 * sms + row_blocks - 1) / row_blocks));
+  const long long row_blocks =
+      static_cast<long long>(members) * ((n + kThreads - 1) / kThreads);
+  const int want = static_cast<int>(std::min<long long>(
+      col_tiles, std::max<long long>(1, (4 * sms + row_blocks - 1) /
+                                             row_blocks)));
   const int tiles_per_split = (col_tiles + want - 1) / want;
   *cols_per_split = tiles_per_split * kCtile;
   *splits = (col_tiles + tiles_per_split - 1) / tiles_per_split;
@@ -1077,57 +1113,61 @@ cudaError_t launch_stream(const float* x, int members, int n, float r2,
                          part_cnt, idx, dist, nearest, count, stream);
 }
 
-// ``w`` window tiles per 256-row block; ``splits`` as for launch_stream.
-template <int K>
-cudaError_t launch_banded_partials(const float* xs, int n, float r2,
-                                   const int* starts, int w, int splits,
-                                   float* part_d2, int* part_idx,
-                                   float* part_near, int* part_cnt,
-                                   cudaStream_t stream) {
-  int cols_per_split = 0;
-  int planned = 0;
-  const cudaError_t e = split_plan(n, w, &cols_per_split, &planned);
-  if (e != cudaSuccess) return e;
-  if (planned != splits) return cudaErrorInvalidValue;
-  const int row_blocks = (n + kThreads - 1) / kThreads;
-  knn_banded_partial_kernel<K><<<dim3(row_blocks, splits), kThreads, 0,
-                                 stream>>>(xs, n, r2, starts, w * kCtile,
-                                           cols_per_split, splits, part_d2,
-                                           part_idx, part_near, part_cnt);
-  return cudaGetLastError();
-}
-
-template <int K>
-cudaError_t launch_banded(const float* xs, int n, float r2,
-                          const int* starts, int w, int splits,
-                          float* part_d2, int* part_idx, float* part_near,
-                          int* part_cnt, int* idx, float* dist,
-                          float* nearest, int* count, cudaStream_t stream) {
-  const cudaError_t e =
-      launch_banded_partials<K>(xs, n, r2, starts, w, splits, part_d2,
-                                part_idx, part_near, part_cnt, stream);
-  if (e != cudaSuccess) return e;
-  return launch_merge<K>(1, n, splits, part_d2, part_idx, part_near, part_cnt,
-                         idx, dist, nearest, count, stream);
-}
-
 // Rows padded to whole RTILE and CTILE blocks (ops/knn.py _band_pad).
 int band_pad(int n) {
   return std::max(kBandBlock, (n + kBandBlock - 1) / kBandBlock * kBandBlock);
 }
 
+// ``w`` window tiles per 256-row block; ``splits`` as for launch_stream.
+// Every member's rows scan its own window of its own sorted columns: the
+// member is the grid's z dimension, and each pointer steps by the
+// member's stride (starts: one per 256-row block of the padded rows).
+template <int K>
+cudaError_t launch_banded_partials(const float* xs, int members, int n,
+                                   float r2, const int* starts, int w,
+                                   int splits, float* part_d2, int* part_idx,
+                                   float* part_near, int* part_cnt,
+                                   cudaStream_t stream) {
+  int cols_per_split = 0;
+  int planned = 0;
+  const cudaError_t e = split_plan(members, n, w, &cols_per_split, &planned);
+  if (e != cudaSuccess) return e;
+  if (planned != splits) return cudaErrorInvalidValue;
+  const int row_blocks = (n + kThreads - 1) / kThreads;
+  knn_banded_partial_kernel<K><<<dim3(row_blocks, splits, members), kThreads,
+                                 0, stream>>>(
+      xs, n, band_pad(n) / kRtile, r2, starts, w * kCtile, cols_per_split,
+      splits, part_d2, part_idx, part_near, part_cnt);
+  return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch_banded(const float* xs, int members, int n, float r2,
+                          const int* starts, int w, int splits,
+                          float* part_d2, int* part_idx, float* part_near,
+                          int* part_cnt, int* idx, float* dist,
+                          float* nearest, int* count, cudaStream_t stream) {
+  const cudaError_t e = launch_banded_partials<K>(
+      xs, members, n, r2, starts, w, splits, part_d2, part_idx, part_near,
+      part_cnt, stream);
+  if (e != cudaSuccess) return e;
+  return launch_merge<K>(members, n, splits, part_d2, part_idx, part_near,
+                         part_cnt, idx, dist, nearest, count, stream);
+}
+
 cudaError_t launch_band_prologue(const void* x, int x_f64,
-                                 const long long* order, int n, int w,
-                                 float r, float* xs, int* starts,
+                                 const long long* order, int members, int n,
+                                 int w, float r, float* xs, int* starts,
                                  bool* block_overflow, cudaStream_t stream) {
   const int n_pad = band_pad(n);
   if (n < 1 || w < 1 || w * kCtile > n_pad) return cudaErrorInvalidValue;
+  const dim3 grid(n_pad / kRtile, members);
   if (x_f64) {
-    knn_band_prologue_kernel<double><<<n_pad / kRtile, kRtile, 0, stream>>>(
+    knn_band_prologue_kernel<double><<<grid, kRtile, 0, stream>>>(
         static_cast<const double*>(x), order, n, n_pad, w * kCtile, r, xs,
         starts, block_overflow);
   } else {
-    knn_band_prologue_kernel<float><<<n_pad / kRtile, kRtile, 0, stream>>>(
+    knn_band_prologue_kernel<float><<<grid, kRtile, 0, stream>>>(
         static_cast<const float*>(x), order, n, n_pad, w * kCtile, r, xs,
         starts, block_overflow);
   }
@@ -1136,24 +1176,25 @@ cudaError_t launch_band_prologue(const void* x, int x_f64,
 
 template <int K>
 cudaError_t launch_banded_agents(const void* x, int x_f64,
-                                 const long long* order, int n, float r,
-                                 float r2, int w, int splits, float* xs,
-                                 int* starts, bool* block_overflow,
+                                 const long long* order, int members, int n,
+                                 float r, float r2, int w, int splits,
+                                 float* xs, int* starts, bool* block_overflow,
                                  float* part_d2, int* part_idx,
                                  float* part_near, int* part_cnt, int* idx,
                                  float* dist, float* nearest, bool* overflow,
                                  int* count, cudaStream_t stream) {
-  cudaError_t e = launch_band_prologue(x, x_f64, order, n, w, r, xs, starts,
-                                       block_overflow, stream);
+  cudaError_t e = launch_band_prologue(x, x_f64, order, members, n, w, r, xs,
+                                       starts, block_overflow, stream);
   if (e != cudaSuccess) return e;
-  e = launch_banded_partials<K>(xs, n, r2, starts, w, splits, part_d2,
-                                part_idx, part_near, part_cnt, stream);
+  e = launch_banded_partials<K>(xs, members, n, r2, starts, w, splits,
+                                part_d2, part_idx, part_near, part_cnt,
+                                stream);
   if (e != cudaSuccess) return e;
-  knn_banded_merge_kernel<K><<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                               stream>>>(n, splits, part_d2, part_idx,
-                                         part_near, part_cnt, order,
-                                         block_overflow, idx, dist, nearest,
-                                         overflow, count);
+  knn_banded_merge_kernel<K><<<dim3((n + kThreads - 1) / kThreads, members),
+                               kThreads, 0, stream>>>(
+      n, splits, part_d2, part_idx, part_near, part_cnt, order,
+      band_pad(n) / kRtile, block_overflow, idx, dist, nearest, overflow,
+      count);
   return cudaGetLastError();
 }
 
@@ -1210,27 +1251,31 @@ int knn_stream_launch(const float* x, int members, int n, float r2, int k,
 #undef KNN_STREAM_CASE
 }
 
-// knn_banded's window split for N rows and a ``w``-tile window on the
-// current device; the caller sizes the (N, splits, k) partials from it.
-int knn_banded_plan(int n, int w, int* cols_per_split, int* splits) {
-  if (w < 1) return cudaErrorInvalidValue;
-  return split_plan(n, w, cols_per_split, splits);
+// knn_banded's window split for ``members`` members of N rows and a
+// ``w``-tile window on the current device; the caller sizes the
+// (B, N, splits, k) partials from it.
+int knn_banded_plan(int members, int n, int w, int* cols_per_split,
+                    int* splits) {
+  if (w < 1 || members < 1 || members > 65535) return cudaErrorInvalidValue;
+  return split_plan(members, n, w, cols_per_split, splits);
 }
 
-// xs (N, 2) float32 in y-sorted order; starts int32, one per 256-row block
-// of the padded rows: the first sorted column of the block's window of
-// w * 512 columns. Outputs are in sorted order, column ids sorted indices.
-int knn_banded_launch(const float* xs, int n, float r2, int k,
+// xs (B, N, 2) float32, each member's rows in its y-sorted order; starts
+// (B, n_pad / 256) int32: the first sorted column of each 256-row block's
+// window of w * 512 columns. Outputs (B, N, ...) in sorted order, column
+// ids sorted indices of the member.
+int knn_banded_launch(const float* xs, int members, int n, float r2, int k,
                       const int* starts, int w, int splits, float* part_d2,
                       int* part_idx, float* part_near, int* part_cnt,
                       int* idx, float* dist, float* nearest, int* count,
                       void* stream) {
+  if (members < 1 || members > 65535) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define KNN_BANDED_CASE(KV)                                                   \
   case KV:                                                                    \
-    return launch_banded<KV>(xs, n, r2, starts, w, splits, part_d2, part_idx, \
-                             part_near, part_cnt, idx, dist, nearest, count,  \
-                             st);
+    return launch_banded<KV>(xs, members, n, r2, starts, w, splits, part_d2,  \
+                             part_idx, part_near, part_cnt, idx, dist,        \
+                             nearest, count, st);
   switch (k) {
     KNN_K_CASES(KNN_BANDED_CASE)
     default:
@@ -1239,35 +1284,40 @@ int knn_banded_launch(const float* xs, int n, float r2, int k,
 #undef KNN_BANDED_CASE
 }
 
-// x (N, 2) float32 (x_f64 = 0) or float64 (1), order the stable y-sort of
-// its rows (int64). Writes band_setup's xs (N, 2) float32 in sorted
-// order, and per 256-row block of the padded rows the window start
-// (int32) and overflow flag (bool) for a w-tile window.
+// x (B, N, 2) float32 (x_f64 = 0) or float64 (1), order (B, N) the stable
+// y-sort of each member's rows (int64, indices within the member). Writes
+// band_setup's xs (B, N, 2) float32 in sorted order, and per member and
+// 256-row block of the padded rows the window start (int32) and overflow
+// flag (bool) for a w-tile window.
 int knn_band_prologue_launch(const void* x, int x_f64, const long long* order,
-                             int n, int w, float r, float* xs, int* starts,
-                             bool* block_overflow, void* stream) {
-  return launch_band_prologue(x, x_f64, order, n, w, r, xs, starts,
+                             int members, int n, int w, float r, float* xs,
+                             int* starts, bool* block_overflow,
+                             void* stream) {
+  if (members < 1 || members > 65535) return cudaErrorInvalidValue;
+  return launch_band_prologue(x, x_f64, order, members, n, w, r, xs, starts,
                               block_overflow, static_cast<cudaStream_t>(stream));
 }
 
 // The whole banded call after the sort: prologue, window partials and the
-// merge into agent order (idx, dist, nearest, overflow, count). xs, starts
-// and block_overflow are the prologue's scratch, as for
+// merge into agent order (idx, dist, nearest, overflow, count), for B
+// members in one launch of each (B = 1: the single swarm). xs, starts and
+// block_overflow are the prologue's scratch, as for
 // knn_band_prologue_launch; splits as for knn_banded_launch.
 int knn_banded_agents_launch(const void* x, int x_f64, const long long* order,
-                             int n, float r, float r2, int k, int w,
-                             int splits, float* xs, int* starts,
+                             int members, int n, float r, float r2, int k,
+                             int w, int splits, float* xs, int* starts,
                              bool* block_overflow, float* part_d2,
                              int* part_idx, float* part_near, int* part_cnt,
                              int* idx, float* dist, float* nearest,
                              bool* overflow, int* count, void* stream) {
+  if (members < 1 || members > 65535) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define KNN_AGENTS_CASE(KV)                                                   \
   case KV:                                                                    \
-    return launch_banded_agents<KV>(x, x_f64, order, n, r, r2, w, splits, xs, \
-                                    starts, block_overflow, part_d2,          \
-                                    part_idx, part_near, part_cnt, idx, dist, \
-                                    nearest, overflow, count, st);
+    return launch_banded_agents<KV>(x, x_f64, order, members, n, r, r2, w,    \
+                                    splits, xs, starts, block_overflow,       \
+                                    part_d2, part_idx, part_near, part_cnt,   \
+                                    idx, dist, nearest, overflow, count, st);
   switch (k) {
     KNN_K_CASES(KNN_AGENTS_CASE)
     default:

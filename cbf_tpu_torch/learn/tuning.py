@@ -153,8 +153,9 @@ def _member_loss(cfg: swarm_scenario.Config, tc: TrainConfig):
         cbf = params_to_cbf(params, max_speed)
 
         def body(x, v, th, t):
-            x2, v2, th2, nearest = _local_swarm_step(
-                x, v, cfg, cbf, unroll_relax=tc.unroll_relax, t=t, theta=th)
+            x2, v2, th2, _, nearest = _local_swarm_step(
+                x, v, cfg, cbf, unroll_relax=tc.unroll_relax,
+                compute_metrics=False, t=t, theta=th)[:5]
             # Hinge on separation: per-agent nearest-neighbour distance
             # below the target (clipped to the gating radius when no
             # neighbour is in range).

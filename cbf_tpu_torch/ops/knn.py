@@ -22,13 +22,13 @@ loaded through ctypes):
   writes each sorted row to its agent.
 
 All three compute the contract of :func:`knn_neighbors` (the banded one
-within its windows); the source notes say how. ``knn_fused`` and
-``knn_stream`` also take a member axis, (B, N, 2): one launch scans each
+within its windows); the source notes say how. Each also takes a member
+axis, (B, N, 2): one launch (the banded form: one launch set) scans each
 member's rows against that member's columns only — what ``jax.vmap``
-makes of one ``pallas_call``. The falsifier's batches and
-``torch.func.vmap`` reach it through :func:`knn_select`, whose vmap rule
-folds the mapped axis into that member axis. A banded search under a
-member axis raises (the ensembles and partitioning slice).
+makes of one ``pallas_call``. The falsifier's batches, the ensembles and
+``torch.func.vmap`` reach it through :func:`knn_select` and
+:func:`knn_neighbors_banded`, whose vmap rules fold the mapped axis into
+that member axis.
 
 Differentiation: :func:`knn_select` is an ``autograd.Function`` whose
 backward is a zero gradient for x — the selection is piecewise constant
@@ -63,7 +63,6 @@ import subprocess
 import numpy as np
 import torch
 
-from cbf_tpu_torch.errors import SLICE_PARALLEL, OutOfSliceError
 from cbf_tpu_torch.utils.math import safe_norm
 
 # The reference's bounds and tiles, same values. MAX_N_FUSED (the TPU's
@@ -84,7 +83,8 @@ _FAR = 1.0e6         # padding coordinate (pallas_knn._pad_coords)
 # Launches per kernel; "<kernel>_members" counts the launches of it that
 # took a member axis ((B, N, 2) input), which count under the kernel too.
 LAUNCHES = {"knn_fused": 0, "knn_stream": 0, "knn_banded": 0,
-            "knn_fused_members": 0, "knn_stream_members": 0}
+            "knn_fused_members": 0, "knn_stream_members": 0,
+            "knn_banded_members": 0}
 MAX_MEMBERS = 65535  # csrc/knn.cu: the member axis is a grid dimension
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -152,15 +152,16 @@ def _library():
         lib.knn_stream_launch.argtypes = [p, i, i, f, i, i, p, p, p, p,
                                           p, p, p, p, p]
         lib.knn_stream_launch.restype = i
-        lib.knn_banded_plan.argtypes = [i, i, p, p]
+        lib.knn_banded_plan.argtypes = [i, i, i, p, p]
         lib.knn_banded_plan.restype = i
-        lib.knn_banded_launch.argtypes = [p, i, f, i, p, i, i, p, p, p, p,
-                                          p, p, p, p, p]
+        lib.knn_banded_launch.argtypes = [p, i, i, f, i, p, i, i, p, p, p,
+                                          p, p, p, p, p, p]
         lib.knn_banded_launch.restype = i
-        lib.knn_band_prologue_launch.argtypes = [p, i, p, i, i, f, p, p, p, p]
+        lib.knn_band_prologue_launch.argtypes = [p, i, p, i, i, i, f, p, p,
+                                                 p, p]
         lib.knn_band_prologue_launch.restype = i
-        lib.knn_banded_agents_launch.argtypes = [p, i, p, i, f, f, i, i, i,
-                                                 p, p, p, p, p, p, p,
+        lib.knn_banded_agents_launch.argtypes = [p, i, p, i, i, f, f, i, i,
+                                                 i, p, p, p, p, p, p, p,
                                                  p, p, p, p, p, p]
         lib.knn_banded_agents_launch.restype = i
         lib.knn_max_k.restype = i
@@ -329,7 +330,11 @@ def band_setup(x, radius, window_blocks: int):
 
     Returns (order (N,) int64, xs (N, 2) float32 sorted, starts
     (n_pad // RTILE,) int32, block_overflow (n_pad // RTILE,) bool, w —
-    window blocks, clipped to the padded column count)."""
+    window blocks, clipped to the padded column count). A (B, N, 2) input
+    gives each member's, stacked."""
+    if x.dim() == 3:
+        per = [band_setup(m, radius, window_blocks) for m in x]
+        return _stacked(p[:4] for p in per) + (per[0][4],)
     n = x.shape[0]
     n_pad, w = _band_window(n, window_blocks)
     wlen = w * CTILE
@@ -360,96 +365,114 @@ def band_unsort(order, block_overflow, idx_s, dist_s, near_s, cnt_s):
     return idx, dist_s[inv], near_s[inv], overflow, cnt_s[inv]
 
 
-def band_plan(n: int, w: int, device) -> tuple[int, int]:
+def band_plan(n: int, w: int, device, members: int = 1) -> tuple[int, int]:
     """(cols_per_split, splits): the ranges ``knn_banded`` splits each
-    ``w``-block window into on ``device``, as csrc/knn.cu chooses them."""
-    return _plan("knn_banded", device, n, w)
+    ``w``-block window into on ``device`` for ``members`` swarms of N rows,
+    as csrc/knn.cu chooses them."""
+    return _plan("knn_banded", device, members, n, w)
 
 
 def _band_buffers(x, n_pad: int):
-    """The y-sort of ``x``'s rows (stable, in their dtype) and the buffers
-    the prologue kernel fills: (order, xs, starts, block_overflow)."""
-    dev = x.device
-    return (torch.argsort(x[:, 1], stable=True),
-            torch.empty((x.shape[0], 2), dtype=torch.float32, device=dev),
-            torch.empty((n_pad // RTILE,), dtype=torch.int32, device=dev),
-            torch.empty((n_pad // RTILE,), dtype=torch.bool, device=dev))
+    """The y-sort of each member's rows of ``x`` ((N, 2) or (B, N, 2);
+    stable, in their dtype) and the buffers the prologue kernel fills:
+    (order, xs, starts, block_overflow), with ``x``'s leading axes."""
+    dev, lead = x.device, tuple(x.shape[:-2])
+    return (torch.argsort(x[..., 1], dim=-1, stable=True),
+            torch.empty(x.shape, dtype=torch.float32, device=dev),
+            torch.empty(lead + (n_pad // RTILE,), dtype=torch.int32,
+                        device=dev),
+            torch.empty(lead + (n_pad // RTILE,), dtype=torch.bool,
+                        device=dev))
+
+
+def _count_banded(lead) -> None:
+    LAUNCHES["knn_banded"] += 1
+    if lead:
+        LAUNCHES["knn_banded_members"] += 1
 
 
 def band_prologue(x, radius, window_blocks: int):
-    """Launch ``knn_banded``'s prologue kernel alone on (N, 2) float32 or
-    float64 CUDA positions: the y-sort, then one launch that gathers the
-    sorted rows to float32 and finds each RTILE block's window start and
-    overflow flag. Returns :func:`band_setup`'s 5-tuple, bit for bit (its
+    """Launch ``knn_banded``'s prologue kernel alone on (N, 2) — or, one
+    launch for B members, (B, N, 2) — float32 or float64 CUDA positions:
+    the y-sort, then one launch that gathers the sorted rows to float32
+    and finds each RTILE block's window start and overflow flag. Returns
+    :func:`band_setup`'s 5-tuple (with the leading axes), bit for bit (its
     plain model in the kernel's form: :func:`band_prologue_plain`)."""
     _check_launch("band_prologue", x, None, MAX_N_BLOCKED,
-                  dtypes=(torch.float32, torch.float64))
+                  dtypes=(torch.float32, torch.float64), members=True)
     lib = _library()
-    n = x.shape[0]
+    lead, n = tuple(x.shape[:-2]), x.shape[-2]
     n_pad, w = _band_window(n, window_blocks)
     dev = x.device
     order, xs, starts, block_overflow = _band_buffers(x, n_pad)
     with torch.cuda.device(dev):
         code = lib.knn_band_prologue_launch(
-            x.data_ptr(), int(x.dtype == torch.float64), order.data_ptr(), n,
-            w, _radius_f32(radius), xs.data_ptr(), starts.data_ptr(),
-            block_overflow.data_ptr(), _stream_ptr(dev))
+            x.data_ptr(), int(x.dtype == torch.float64), order.data_ptr(),
+            math.prod(lead), n, w, _radius_f32(radius), xs.data_ptr(),
+            starts.data_ptr(), block_overflow.data_ptr(), _stream_ptr(dev))
     _raise_on("band_prologue", code)
-    LAUNCHES["knn_banded"] += 1
+    _count_banded(lead)
     return order, xs, starts, block_overflow, w
 
 
 def knn_banded_sorted(xs, starts, radius, k: int, w: int):
     """Launch ``knn_banded``'s window partials and the sorted-order merge
-    on y-sorted float32 CUDA positions and their window starts
+    on y-sorted float32 CUDA positions ((N, 2), or (B, N, 2) for B
+    members in one launch each) and their window starts
     (:func:`band_setup`). Returns (idx, dist, nearest, count) in sorted
     order, ids sorted indices (plain: :func:`knn_banded_sorted_plain`)."""
-    _check_launch("knn_banded", xs, k, MAX_N_BLOCKED)
+    _check_launch("knn_banded", xs, k, MAX_N_BLOCKED, members=True)
     lib = _library()
-    n = xs.shape[0]
+    lead, n = tuple(xs.shape[:-2]), xs.shape[-2]
     if (starts.dtype != torch.int32 or starts.device != xs.device
-            or tuple(starts.shape) != (_band_pad(n) // RTILE,)):
-        raise ValueError("knn_banded takes int32 window starts, one per "
-                         "RTILE block of the padded rows, on xs's device")
-    _, splits = band_plan(n, w, xs.device)
-    outs = _outputs(n, k, xs.device)
-    parts = _partials(n, splits, k, xs.device)
+            or tuple(starts.shape) != lead + (_band_pad(n) // RTILE,)
+            or not starts.is_contiguous()):
+        raise ValueError("knn_banded takes contiguous int32 window starts, "
+                         "one per RTILE block of the padded rows of each "
+                         "member, on xs's device")
+    members = math.prod(lead)
+    _, splits = band_plan(n, w, xs.device, members)
+    outs = _outputs(n, k, xs.device, lead)
+    parts = _partials(n, splits, k, xs.device, lead)
     with torch.cuda.device(xs.device):
         code = lib.knn_banded_launch(
-            xs.data_ptr(), n, _radius_sq(radius), k, starts.data_ptr(), w,
-            splits, *(t.data_ptr() for t in parts + outs),
-            _stream_ptr(xs.device))
+            xs.data_ptr(), members, n, _radius_sq(radius), k,
+            starts.data_ptr(), w, splits,
+            *(t.data_ptr() for t in parts + outs), _stream_ptr(xs.device))
     _raise_on("knn_banded", code)
-    LAUNCHES["knn_banded"] += 1
+    _count_banded(lead)
     return outs
 
 
 def knn_banded(x, radius, k: int, *, window_blocks: int):
     """:func:`knn_neighbors_banded` through the ``knn_banded`` kernels on
-    (N, 2) float32 or float64 CUDA positions: the y-sort, then one call
-    into csrc/knn.cu that launches the prologue, the window partials and
-    the merge into agent order — no PyTorch op after the sort."""
+    (N, 2) — or, for B members at once, (B, N, 2) — float32 or float64
+    CUDA positions: the y-sort (one batched ``torch.argsort``), then one
+    call into csrc/knn.cu that launches the prologue, the window partials
+    and the merge into agent order, each over every member — no PyTorch
+    op after the sort. Outputs carry ``x``'s leading axes."""
     _check_launch("knn_banded", x, k, MAX_N_BLOCKED,
-                  dtypes=(torch.float32, torch.float64))
+                  dtypes=(torch.float32, torch.float64), members=True)
     lib = _library()
-    n = x.shape[0]
+    lead, n = tuple(x.shape[:-2]), x.shape[-2]
+    members = math.prod(lead)
     n_pad, w = _band_window(n, window_blocks)
     dev = x.device
-    _, splits = band_plan(n, w, dev)
+    _, splits = band_plan(n, w, dev, members)
     order, xs, starts, block_overflow = _band_buffers(x, n_pad)
-    parts = _partials(n, splits, k, dev)
-    idx, dist, nearest, count = _outputs(n, k, dev)
-    overflow = torch.empty((n,), dtype=torch.bool, device=dev)
+    parts = _partials(n, splits, k, dev, lead)
+    idx, dist, nearest, count = _outputs(n, k, dev, lead)
+    overflow = torch.empty(lead + (n,), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         code = lib.knn_banded_agents_launch(
-            x.data_ptr(), int(x.dtype == torch.float64), order.data_ptr(), n,
-            _radius_f32(radius), _radius_sq(radius), k, w, splits,
-            xs.data_ptr(), starts.data_ptr(), block_overflow.data_ptr(),
-            *(t.data_ptr() for t in parts), idx.data_ptr(), dist.data_ptr(),
-            nearest.data_ptr(), overflow.data_ptr(), count.data_ptr(),
-            _stream_ptr(dev))
+            x.data_ptr(), int(x.dtype == torch.float64), order.data_ptr(),
+            members, n, _radius_f32(radius), _radius_sq(radius), k, w,
+            splits, xs.data_ptr(), starts.data_ptr(),
+            block_overflow.data_ptr(), *(t.data_ptr() for t in parts),
+            idx.data_ptr(), dist.data_ptr(), nearest.data_ptr(),
+            overflow.data_ptr(), count.data_ptr(), _stream_ptr(dev))
     _raise_on("knn_banded", code)
-    LAUNCHES["knn_banded"] += 1
+    _count_banded(lead)
     return idx, dist, nearest, overflow, count
 
 
@@ -681,13 +704,22 @@ def stream_merge_plain(part_d2, part_idx, part_near, part_cnt):
             torch.sum(part_cnt, dim=1, dtype=torch.int32))
 
 
+def _stacked(per) -> tuple:
+    """Per-member output tuples stacked along a new leading member axis."""
+    return tuple(torch.stack(parts) for parts in zip(*per))
+
+
 def knn_banded_sorted_plain(xs, starts, radius, k: int, w: int):
     """Plain PyTorch version of :func:`knn_banded_sorted`, in the
     streaming kernel's shape: per sorted row, its block's W CTILE column
     blocks pass by in order, each folding nearest and count, its
     block-local top-k merged with the running one by the exact 2k merge
     (ties to the running slot). Returns (idx, dist, nearest, count) in
-    sorted order, ids sorted indices."""
+    sorted order, ids sorted indices; (B, N, 2) positions with (B, ...)
+    starts give each member's, stacked."""
+    if xs.dim() == 3:
+        return _stacked(knn_banded_sorted_plain(m, s, radius, k, w)
+                        for m, s in zip(xs, starts))
     n = xs.shape[0]
     dev = xs.device
     n_pad = starts.shape[0] * RTILE
@@ -724,7 +756,12 @@ def knn_banded_sorted_plain(xs, starts, radius, k: int, w: int):
 def knn_neighbors_banded_plain(x, radius, k: int, *, window_blocks: int):
     """Plain PyTorch version of ``knn_banded``: the sort and windows of
     :func:`band_setup`, the window scan of :func:`knn_banded_sorted_plain`,
-    and the mapping back of :func:`band_unsort`."""
+    and the mapping back of :func:`band_unsort`. A (B, N, 2) input runs
+    each member alone and stacks the results — B single calls, bit for
+    bit."""
+    if x.dim() == 3:
+        return _stacked(knn_neighbors_banded_plain(
+            m, radius, k, window_blocks=window_blocks) for m in x)
     order, xs, starts, block_overflow, w = band_setup(x, radius,
                                                       window_blocks)
     return band_unsort(order, block_overflow,
@@ -829,6 +866,52 @@ def knn_neighbors_blocked(x, radius, k: int):
     return knn_stream(x, radius, k)
 
 
+def _banded_dispatch(x, radius, k: int, window_blocks: int):
+    """The banded search on (N, 2) or (B, N, 2) positions: the kernels on
+    a CUDA tensor, the plain version on a CPU one."""
+    x = x.contiguous()
+    if x.device.type == "cpu":
+        return knn_neighbors_banded_plain(x, radius, k,
+                                          window_blocks=window_blocks)
+    return knn_banded(x, radius, k, window_blocks=window_blocks)
+
+
+class _KnnBanded(torch.autograd.Function):
+    """:func:`knn_neighbors_banded`'s Function: forward the dispatch, a
+    vmap rule that runs the mapped axis as the kernels' member axis — one
+    launch set for the whole batch — and no gradient: the JAX package's
+    banded kernel has no AD rule, and its gradient engine forces
+    ``gating="jnp"``, so a backward through it raises."""
+
+    @staticmethod
+    def forward(x, radius, k, window_blocks):
+        return _banded_dispatch(x, radius, k, window_blocks)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output[0], output[3], output[4])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(
+            "the banded k-NN search has no gradient (the JAX package's "
+            "banded kernel has none, and its gradient engine forces "
+            "gating='jnp'); differentiate through gating='jnp' or "
+            "knn_gating_pallas_diff")
+
+    @staticmethod
+    def vmap(info, in_dims, x, radius, k, window_blocks):
+        if in_dims[0] is None:
+            return _banded_dispatch(x, radius, k, window_blocks), (None,) * 5
+        x = x.movedim(in_dims[0], 0)
+        if x.dim() != 3:
+            raise ValueError(f"knn_neighbors_banded maps over (N, 2) "
+                             f"positions, got a batch of "
+                             f"{tuple(x.shape[1:])}")
+        # Through the Function again, so a backward still meets its rule.
+        return _KnnBanded.apply(x, radius, k, window_blocks), (0,) * 5
+
+
 def knn_neighbors_banded(x, radius, k: int, *, window_blocks: int):
     """O(N·W) y-sorted banded k-NN gating over (N, 2) positions (the
     sort runs in their dtype, the distances in float32).
@@ -838,16 +921,11 @@ def knn_neighbors_banded(x, radius, k: int, *, window_blocks: int):
     bool — the row's block needed more than its window, count (N,) int32
     — in-radius candidates seen in the window). A CUDA tensor launches
     ``knn_banded``; a CPU tensor runs the plain version. A member axis —
-    a (B, N, 2) input, or a tensor batched by ``torch.func.vmap`` —
-    raises: the banded kernel has none yet."""
-    if x.dim() != 2 or _batched(x):
-        raise OutOfSliceError("the banded k-NN search under a member axis",
-                              SLICE_PARALLEL)
-    x = x.contiguous()
-    if x.device.type == "cpu":
-        return knn_neighbors_banded_plain(x, radius, k,
-                                          window_blocks=window_blocks)
-    return knn_banded(x, radius, k, window_blocks=window_blocks)
+    a (B, N, 2) input, or a tensor batched by ``torch.func.vmap`` — runs
+    every member in one launch set, each member's rows against its own
+    columns and windows, overflow flagged per member. No gradient: a
+    backward through it raises."""
+    return _KnnBanded.apply(x, radius, k, window_blocks)
 
 
 def supported(n: int) -> bool:

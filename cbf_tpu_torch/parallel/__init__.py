@@ -1,7 +1,8 @@
 """Ensembles over a member axis (counterpart: cbf_tpu/parallel/).
 
-Ported: the whole-swarm-per-member step of the ensemble path
-(:mod:`cbf_tpu_torch.parallel.ensemble`), which the trainer drives. The
-(dp, sp) mesh, the agent-sharded exchange and the sharded rollout are the
-ensembles and partitioning slice's (ROADMAP.md item 10).
+Ported: the (dp, sp) mesh on one device (:mod:`.mesh`, only (1, 1)
+exists there) and the ensemble rollout (:mod:`.ensemble`): the member
+step, ``sharded_swarm_rollout`` with dp folded into the member axis and
+the lockstep batched certificate. Agent sharding (sp > 1), meshes across
+devices and the spatial partition are ROADMAP.md item 10c.
 """

@@ -286,11 +286,19 @@ def rollout(step_fn: Callable, state0, steps: int, *, unroll: int = 1,
     never written. Returns (final_state, StepOutputs stacked over time, on
     the state's device; None for no steps)."""
     _reject_later("rollout", telemetry=telemetry, cost_model=cost_model)
+    return rollout_at(step_fn, state0, steps, 0, unroll=unroll)
+
+
+def rollout_at(step_fn: Callable, state0, steps: int, t0: int, *,
+               unroll: int = 1):
+    """:func:`rollout`'s compiled chunk from global step ``t0`` — a
+    resumed ensemble's clock (the JAX package scans ``t0 +
+    arange(steps)`` there)."""
     if steps < 1:
         return state0, None
     prog = _program(step_fn, state0, steps, unroll)
     prog.load(state0)
-    prog.run(step_fn, 0)
+    prog.run(step_fn, t0)
     return _tree_map(torch.clone, prog.carry), prog.outputs(to_host=False)
 
 

@@ -293,16 +293,61 @@ class _SolveK(torch.autograd.Function):
         d_coef = -rho * (Aw[..., None] * dx_p + Ax[..., None] * dw_p)
         return d_coef, w, None, None, None, None, None
 
+    @staticmethod
+    def vmap(info, in_dims, coef_s, rhs, x_warm, iters, rho, sigma, pair):
+        """The mapped axis folded into the member axis: B batches of E
+        members solve as B * E members through the Function itself, so
+        the implicit rule holds under ``torch.func.vmap`` (JAX's
+        ``custom_vjp`` does under ``jax.vmap``)."""
+        B, E = info.batch_size, pair.E
+
+        def lead(t, dim):
+            return t.expand(B, *t.shape) if dim is None else t.movedim(dim, 0)
+
+        def fold(t, dim):
+            t = lead(t, dim)
+            return t.reshape(B * E, *t.shape[2:])
+
+        def shifted(idx, stride):
+            """(B, L) flat indices, batch b's shifted by b * stride."""
+            base = torch.arange(B, dtype=idx.dtype, device=idx.device)
+            return idx + base[:, None] * stride
+
+        def fold_plan(plan, dims):
+            """B plans over L values each -> one plan over B * L values:
+            batch b's targets follow batch b - 1's, so its permutation and
+            segment offsets shift by b * L."""
+            if plan is None:
+                return None
+            perm = lead(plan.perm, dims.perm)
+            L = perm.shape[1]
+            offsets = shifted(lead(plan.offsets, dims.offsets), L)
+            return _SegmentPlan(shifted(perm, L).reshape(-1),
+                                torch.cat([offsets[:, :-1].reshape(-1),
+                                           offsets[-1, -1:]]))
+
+        pd = in_dims[6]
+        stride = E * pair.n
+        folded = _Pair(shifted(lead(pair.Ig, pd.Ig), stride).reshape(-1),
+                       shifted(lead(pair.Jg, pd.Jg), stride).reshape(-1),
+                       fold_plan(pair.plan_I, pd.plan_I),
+                       fold_plan(pair.plan_J, pd.plan_J),
+                       fold_plan(pair.plan_IJ, pd.plan_IJ),
+                       B * E, pair.n, pair.agent_k, pair.rows_start)
+        x = _SolveK.apply(fold(coef_s, in_dims[0]), fold(rhs, in_dims[1]),
+                          fold(x_warm, in_dims[2]), iters, rho, sigma,
+                          folded)
+        return x.reshape(B, E, *x.shape[1:]), 0
+
 
 def _solve_K(iters: int, rho_sigma, coef_s, pair: _Pair, rhs, x_warm):
     """Warm-started SPD solve x = K^{-1} rhs: x_warm + CG(K, rhs - K
-    x_warm), differentiable by the implicit rule of :class:`_SolveK`."""
+    x_warm), differentiable by the implicit rule of :class:`_SolveK` —
+    under ``torch.func.vmap`` too, whose batched tensors hide
+    ``requires_grad``, so the Function applies whenever grad mode is on."""
     rho, sigma = rho_sigma
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (coef_s, rhs, x_warm)):
+    if torch.is_grad_enabled():
         return _SolveK.apply(coef_s, rhs, x_warm, iters, rho, sigma, pair)
-    # No gradient wanted: the same operations outside the Function, which
-    # also run under torch.func.vmap (the falsifier's member-batched step).
     return _SolveK.forward(coef_s, rhs, x_warm, iters, rho, sigma, pair)
 
 

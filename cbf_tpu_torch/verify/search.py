@@ -16,9 +16,11 @@ in which every ``pallas_call`` becomes one batched launch. Here
 :func:`make_eval_batch` is one program per batch shape too: the member
 step :func:`member_step` is ``torch.func.vmap`` of the scenario's
 capture-safe step over a leading candidate axis — the k-NN kernels reach
-it through :func:`cbf_tpu_torch.ops.knn.knn_select`, whose vmap rule makes
-the candidate axis the kernels' member axis, one launch per step for the
-batch, and every other op runs batched — and the compiled rollout
+it through :func:`cbf_tpu_torch.ops.knn.knn_select` (a ``gating="banded"``
+swarm through :func:`~cbf_tpu_torch.ops.knn.knn_neighbors_banded`), whose
+vmap rules make the candidate axis the kernels' member axis, one launch
+(set) per step for the batch, and every other op runs batched — and the
+compiled rollout
 (:func:`cbf_tpu_torch.rollout.engine.rollout`) captures it as a CUDA
 graph. Each candidate carries its own relax flag; where any is set, the
 chunk is redone candidate by candidate with the eager step (exact: the

@@ -177,6 +177,46 @@ Phases (each raises, and the script exits non-zero, on any failure):
    and ``verify`` in process on the weakened corpus config (exit 3) and
    the default (exit 0).
 
+15. the member axis on one card: 15a the member-axis ``knn_banded`` (one
+   launch set of the prologue, the window partials and the merge for B
+   swarms) at B in {1, 3, 16} (N=256, 4096) and B=4 at N=65536 (phase
+   7's width, W=4), members of different spawns, packed and spread, each
+   output ``torch.equal`` to the batched plain version and to B single
+   launches (B=1: the single-swarm launch), the member-axis prologue and
+   sorted-order launches equal to ``band_setup`` and their plain version,
+   and a thin member that alone flags overflow; timed at the falsifier's
+   shape (N=256, B=16) and at N=65536, B=4, beside one member alone and
+   the bound; 15b the falsifier on ``gating="banded"`` at BENCH_VERIFY's
+   shape (one member-axis banded launch set per step per batch, 0
+   redos, two candidates run alone against the batch within
+   MEMBER_MARGIN_ATOL, fresh and warm candidates/s); then
+   ``parallel.ensemble.sharded_swarm_rollout`` on the card's (1, 1) mesh,
+   each run held ``torch.equal`` to the eager loop of the same step
+   program (final carry and every metric), timed, launches per step and
+   peak memory printed: 15c BASELINE.md:31's Monte-Carlo sweep, 1024
+   seeds x 64 agents x 500 steps (one member-axis ``knn_fused`` launch
+   per step), 0 infeasible and in every member the floor, or, for the
+   seeds whose reference run itself dips below it (MC_REFERENCE_DIPS,
+   measured with the JAX package on the CPU), the reference's own
+   minimum; 15d 8 members of 4096 x 300 steps, fused and forced
+   streaming (member-axis ``knn_stream``), the two trajectories equal,
+   held as 15c (ENS_REFERENCE_DIPS); in 15c and 15d the member-axis
+   launch of the run (``knn_fused``; ``knn_stream`` in 15d streaming) is
+   also called on the ensemble's own spawn and final positions at the
+   step's radius and k, each output ``torch.equal`` to its plain version
+   and to single launches of members 0, 1, E/2 and E-1, and one launch
+   on the final positions timed beside its bound;
+   15e the lockstep batched sparse certificate, 4 members of 4096 x 20
+   steps: every member's residual under the gate, 0 infeasible, the
+   batched run against each member run alone within LOCK_*_ATOL, device
+   ops per step; 15f chunk=50 ``torch.equal`` to the unchunked run (4 x
+   4096 x 200), a warm-carry resume at step 100 (``with_solver_state``,
+   4 x 4096 sparse certificate, warm start under certificate_tol, no
+   redo, its per-step iteration histogram printed)
+   ``torch.equal`` to the straight run, and the Verlet cache at E=1
+   against the exact search (equal trajectories below truncation, the
+   sound floor at or below the exact separation).
+
 Phases 7-13 run before phase 6, which times their kernels (``knn_fused``
 and ``knn_stream`` also at the certificate's k=16 shape) and profiles
 every phase of 1-12 over 20 steps (12a over 2, 12d over 5; phase 13
@@ -282,6 +322,33 @@ FD_SIDE, FD_EPS, FD_RTOL = 32, 1e-3, 5e-3
 # rounds; the member axis held at B in MEMBER_BS.
 VERIFY_N, VERIFY_STEPS, VERIFY_BATCH, VERIFY_ROUNDS = 256, 200, 16, 3
 MEMBER_BS = (1, 3, 16)
+# Phase 15a: the member-axis knn_banded also at phase 7's width, B
+# members.
+BANDED_MEMBERS = 4
+# Phase 15c: BASELINE.md:31's Monte-Carlo sweep, 1024 seeds x 64 agents
+# (its 500 steps held against the eager loop when MC_EAGER_STEPS is None).
+MC_E, MC_N, MC_STEPS, MC_EAGER_STEPS = 1024, 64, 500, None
+# The sweep's seeds whose run dips below FLOOR in the JAX package itself
+# (jax 0.9.0 on the CPU, this sweep's Config; the port's CPU run dips on
+# the same 21 seeds, within 1e-6): seed -> the reference's minimum. Those
+# members are held to it within CROSS_MD_ATOL instead of the floor.
+MC_REFERENCE_DIPS = {
+    29: 0.14129546, 37: 0.14130959, 193: 0.14129612, 194: 0.14100416,
+    246: 0.13630636, 375: 0.13681684, 476: 0.14129606, 587: 0.14128754,
+    599: 0.14117305, 634: 0.13361771, 698: 0.14131558, 730: 0.14131488,
+    732: 0.14130966, 743: 0.14130147, 828: 0.14129603, 830: 0.14128154,
+    925: 0.14128710, 947: 0.14129378, 955: 0.14063704, 956: 0.14128052,
+    1013: 0.14129223}
+# 15d: the north-star width in an ensemble; 15e: the lockstep certificate
+# (tests/test_fused_batched.py's lockstep tolerances: x 2e-5, residual
+# 1e-6, batched vs each member alone); 15f: chunk and resume.
+ENS_E, ENS_STEPS = 8, 300
+# 15d's seeds whose run dips below FLOOR in the JAX package itself (jax
+# 0.9.0 on the CPU, E=8 x N=4096 x 300): seed -> the reference's minimum.
+ENS_REFERENCE_DIPS = {4: 0.14131725, 6: 0.14130257}
+LOCK_E, LOCK_STEPS = 4, 20
+LOCK_X_ATOL, LOCK_RES_ATOL = 2e-5, 1e-6
+ENS_STEPS_F, ENS_CHUNK = 200, 50
 # A batch's margins against its candidates run alone: float32 margins
 # ~0.1-1 m; on the CPU they are bit-equal (tests/test_torch_verify.py),
 # on the card batched reductions may sum in another order.
@@ -1421,6 +1488,513 @@ def phase14(engine, knn, swarm, t_start) -> dict:
     return out
 
 
+def banded_member_bound(knn, x, w: int, k: int, count) -> tuple[float, str]:
+    """(bound ms, by) of one member-axis ``knn_banded`` launch set on
+    (B, N, 2) ``x``: B single launches' work, counted on this input —
+    each row against the real columns of its block's window (the windows'
+    starts from ``band_setup``), OPS_PER_PAIR each, plus k per in-radius
+    candidate; bytes: positions read, the starts, and the five outputs."""
+    import torch
+
+    B, n = x.shape[0], x.shape[1]
+    _, _, starts, _, w_eff = knn.band_setup(x, RADIUS, w)
+    starts = starts.long()
+    row0 = torch.arange(starts.shape[1], device=x.device) * knn.RTILE
+    rows = (n - row0).clamp(min=0, max=knn.RTILE)
+    cols = (starts + w_eff * knn.CTILE).clamp(max=n) - starts
+    pairs = int((cols * rows[None]).sum())
+    t_ops = (OPS_PER_PAIR * pairs + k * int(count.sum())) / \
+        PEAK_F32_ISSUE_PER_S
+    t_bytes = B * (8 * n + 4 * starts.shape[1] + n * (k * 8 + 9)) / \
+        PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase15a(knn, swarm) -> dict:
+    """15a: the member-axis ``knn_banded`` (module docstring, phase 15).
+    Returns the member row's data at the falsifier's shape (N=256, B=16)
+    and at phase 7's (N=65536, B=4)."""
+    import torch
+
+    held = 0
+    for n, bs in ((VERIFY_N, MEMBER_BS),
+                  (MAIN_N, MEMBER_BS), (BANDED_N, (BANDED_MEMBERS,))):
+        w = swarm.banded_window_blocks(swarm.Config(n=n))
+        for B in bs:
+            x = member_inputs(swarm, n, B, seed0=11 * B + n)
+            got = knn.knn_banded(x, RADIUS, K, window_blocks=w)
+            want = knn.knn_neighbors_banded_plain(x, RADIUS, K,
+                                                  window_blocks=w)
+            check(all(a.dtype == b.dtype and torch.equal(a, b)
+                      for a, b in zip(got, want)),
+                  f"15a: knn_banded B={B} N={n} differs from its batched "
+                  "plain version")
+            for b in range(B):
+                single = knn.knn_banded(x[b].contiguous(), RADIUS, K,
+                                        window_blocks=w)
+                check(all(torch.equal(a[b], c) for a, c in zip(got, single)),
+                      f"15a: knn_banded B={B} N={n} member {b} differs from "
+                      "its single launch")
+            if n != VERIFY_N:
+                pro = knn.band_prologue(x, RADIUS, w)
+                setup = knn.band_setup(x, RADIUS, w)
+                check(all(torch.equal(a, c) for a, c in zip(pro[:4],
+                                                            setup[:4])),
+                      f"15a: band_prologue B={B} N={n} differs from "
+                      "band_setup")
+                srt = knn.knn_banded_sorted(setup[1], setup[2], RADIUS, K,
+                                            setup[4])
+                check(all(torch.equal(a, c) for a, c in zip(
+                    srt, knn.knn_banded_sorted_plain(
+                        setup[1], setup[2], RADIUS, K, setup[4]))),
+                      f"15a: knn_banded_sorted B={B} N={n} differs from "
+                      "its plain version")
+            held += 1
+            print(f"  15a: knn_banded B={B} N={n} (window {w} blocks, "
+                  f"ranges %d x %d): equal to the batched plain version and "
+                  f"to {B} single launches; overflow rows per member "
+                  f"{[int(v) for v in got[3].sum(dim=1)]}"
+                  % knn.band_plan(n, min(w, knn._band_pad(n) // knn.CTILE),
+                                  x.device, B))
+    # A thin member beside spread ones: its overflow is flagged, theirs
+    # not, and each equals its single launch.
+    gen = torch.Generator().manual_seed(3)
+    thin = torch.stack([torch.rand(MAIN_N, generator=gen) - 0.5,
+                        torch.rand(MAIN_N, generator=gen) * 1e-3], 1)
+    x = member_inputs(swarm, MAIN_N, 3, seed0=40)
+    x[1] = thin.cuda()
+    got = knn.knn_banded(x, RADIUS, K, window_blocks=1)
+    flagged = [bool(v) for v in got[3].any(dim=1)]
+    check(flagged[1] and all(torch.equal(a[b], c) for b in range(3)
+                             for a, c in zip(got, knn.knn_banded(
+                                 x[b].contiguous(), RADIUS, K,
+                                 window_blocks=1))),
+          f"15a: the thin member's overflow ({flagged}) or a member differs")
+    print(f"15a: {held} member-axis knn_banded launch sets equal to their "
+          f"batched plain versions and to single launches (B=1: the "
+          f"single-swarm launch); a thin member flags overflow alone: "
+          f"{flagged}")
+    out = {}
+    for label, n, B in (("falsifier", VERIFY_N, VERIFY_BATCH),
+                        ("phase 7", BANDED_N, BANDED_MEMBERS)):
+        w = swarm.banded_window_blocks(swarm.Config(n=n))
+        x = member_inputs(swarm, n, B, seed0=100)
+        count = knn.knn_banded(x, RADIUS, K, window_blocks=w)[-1]
+        bound, by = banded_member_bound(knn, x, w, K, count)
+        t = time_call(lambda: knn.knn_banded(x, RADIUS, K, window_blocks=w))
+        t.pop("device_op_names")
+        single = time_call(lambda: knn.knn_banded(
+            x[0].contiguous(), RADIUS, K, window_blocks=w))
+        out[label] = {
+            "b": B, "n": n, "window_blocks": w, **t,
+            "single_member_ms": single["ms"],
+            "single_member_device_ms": single["kernel_device_ms"],
+            "plain_ms": cuda_ms(lambda: knn.knn_neighbors_banded_plain(
+                x, RADIUS, K, window_blocks=w), reps=3 if n > 4096 else 10,
+                warmup=1)[0],
+            "bound_ms": bound, "bound_by": by}
+        print(f"15a: knn_banded member axis B={B} N={n} (W={w}): median "
+              f"{t['ms']:.4f} ms, device {t['kernel_device_ms']} ms, "
+              f"{t['device_ops_per_call']} device ops per launch set; one "
+              f"member alone {single['ms']:.4f} ms (device "
+              f"{single['kernel_device_ms']}); plain {out[label]['plain_ms']:.3f}"
+              f" ms; bound {bound:.5f} ms ({by})")
+    return out
+
+
+def drive_ensemble(engine, knn, swarm, ens, mesh, cfg, seeds, label,
+                   member_key, per_step=1, eager_prefix=None) -> dict:
+    """15c-f: ``sharded_swarm_rollout`` on the card (its first call for
+    this program, so the capture is inside), the launch and engine counts
+    zeroed just before and read just after, the peak device memory around
+    it; then the eager loop of the same step program from the same carry
+    (``engine.eager_rollout``), which the compiled run must equal — final
+    carry and every metric, ``torch.equal`` — over the whole horizon, or
+    over its first ``eager_prefix`` steps against a compiled run of that
+    length; then the compiled run timed again (graphs cached). Checks
+    ``member_key`` launched ``per_step`` times per step (more only where a
+    chunk was redone) and no kernel outside ``member_key``'s family.
+    Returns a dict of the run."""
+    import torch
+
+    E = len(seeds)
+    torch.cuda.synchronize()
+    zero_counts(engine, knn)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state, mets = ens.sharded_swarm_rollout(cfg, mesh, seeds)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    launches, counts = dict(knn.LAUNCHES), dict(engine.COUNTS)
+    peak = torch.cuda.max_memory_allocated()
+    kernel = member_key.removesuffix("_members")
+    others = {k: v for k, v in launches.items()
+              if v and not k.startswith(kernel)}
+    check(not others and launches[member_key] >= per_step * cfg.steps
+          and (counts["redos"] or launches[member_key]
+               == per_step * cfg.steps),
+          f"{label}: launches {launches}, want {member_key} "
+          f"{per_step * cfg.steps}")
+    cbf = swarm.default_cbf(cfg, device=mesh.device)
+    step = ens._rollout_executable(cfg, mesh, E, cbf)
+    carry = ens._initial_carry(cfg, mesh, seeds)
+    n_eager = cfg.steps if eager_prefix is None else eager_prefix
+    zero_counts(engine, knn)
+    eager = []
+    eager_s = timed(lambda: eager.extend(engine.eager_rollout(step, carry,
+                                                              n_eager)))
+    ef, eo = eager
+    if n_eager == cfg.steps:
+        co = ens.EnsembleMetrics(*(torch.swapaxes(m, 0, 1) for m in mets))
+        held = [same_tree(a, b) for a, b in zip(state, ef)]
+    else:
+        cf, co = engine.rollout(step, carry, n_eager)
+        held = [same_tree(cf, ef)]
+    check(all(held) and all(same_tree(a, b) for a, b in zip(co, eo)),
+          f"{label}: compiled differs from the eager loop over {n_eager} "
+          "steps")
+    again = []
+    wall = timed(lambda: again.extend(ens.sharded_swarm_rollout(
+        cfg, mesh, seeds)))
+    check(same_tree(tuple(again[0]), tuple(state))
+          and all(same_tree(a, b) for a, b in zip(again[1], mets)),
+          f"{label}: a timed compiled run differs from the first")
+    info = {
+        "e": E, "n": cfg.n, "steps": cfg.steps,
+        "relax_rounds_captured": step.relax_rounds,
+        "redos": counts["redos"], "redo_steps": counts["redo_steps"],
+        "captures": counts["captures"], "replays": counts["replays"],
+        "first_call_s": first, "compiled_s": wall,
+        "compiled_step_ms": wall / cfg.steps * 1e3,
+        "compiled_agent_qp_steps_per_s": E * cfg.n * cfg.steps / wall,
+        "eager_steps": n_eager, "eager_s": eager_s,
+        "eager_step_ms": eager_s / n_eager * 1e3,
+        "eager_agent_qp_steps_per_s": E * cfg.n * n_eager / eager_s,
+        "launches_per_step": launches[member_key] / cfg.steps,
+        "peak_over_held_mib": (peak - base) / 2**20}
+    print(f"{label}: compiled == eager over {n_eager} steps (final carry, "
+          f"every metric); launches {launches}; " + json.dumps(info))
+    # The member launches, and the same kernel's single launches beside
+    # them (the lockstep certificate searches each member alone).
+    record = {member_key: launches[member_key]}
+    if launches[kernel] > launches[member_key]:
+        record[kernel] = launches[kernel] - launches[member_key]
+    return {"state": state, "mets": mets, "info": info, "launches": record}
+
+
+def hold_ensemble_search(knn, name, cfg, positions, label) -> dict:
+    """15c/15d: the member-axis launch of ``name`` (``knn_fused`` or
+    ``knn_stream``) on an ensemble's own (E, N, 2) positions (label ->
+    tensor) at the step's radius and k, every output ``torch.equal`` to
+    its plain version and to single launches of members 0, 1, E/2 and
+    E-1; then one launch on the last positions timed beside its bound and
+    the plain version. Returns the member row's entry at this shape."""
+    import torch
+
+    fn = getattr(knn, name)
+    plain = (knn.knn_neighbors_plain if name == "knn_fused"
+             else knn.knn_neighbors_blocked_plain)
+    r, k = cfg.safety_distance, min(cfg.k_neighbors, cfg.n - 1)
+    for what, x in positions.items():
+        x = x.to(torch.float32).contiguous()
+        E = x.shape[0]
+        got = fn(x, r, k)
+        check(all(a.dtype == b.dtype and torch.equal(a, b)
+                  for a, b in zip(got, plain(x, r, k))),
+              f"{label}: {name} on the {what} positions differs from its "
+              "plain version")
+        for b in sorted({0, 1, E // 2, E - 1}):
+            single = fn(x[b].contiguous(), r, k)
+            check(all(torch.equal(a[b], c) for a, c in zip(got, single)),
+                  f"{label}: {name} member {b} on the {what} positions "
+                  "differs from its single launch")
+    count = got[-1]
+    bound, by = member_bound(x, k, count)
+    t = time_call(lambda: fn(x, r, k))
+    t.pop("device_op_names")
+    entry = {"b": E, "n": cfg.n, "k": k, "radius": r, **t,
+             "plain_ms": cuda_ms(lambda: plain(x, r, k), reps=5,
+                                 warmup=1)[0],
+             "bound_ms": bound, "bound_by": by,
+             "in_radius_candidates": int(count.sum())}
+    print(f"{label}: {name} member axis on the ensemble's "
+          f"{' and '.join(positions)} positions (B={E}, N={cfg.n}, k={k}, "
+          f"r={r}) equal to its plain version and to single launches; one "
+          f"launch median {t['ms']:.4f} ms, device {t['kernel_device_ms']} "
+          f"ms, plain {entry['plain_ms']:.3f} ms, bound {bound:.5f} ms "
+          f"({by})")
+    return entry
+
+
+def check_members(label, cfg, mets, floor=FLOOR, dips=None) -> float:
+    """Finite metrics (the nearest distance may be +inf: no neighbour in
+    the gating radius), 0 infeasible agent-steps, the floor (unless None)
+    in every member — except a member listed in ``dips`` (member ->
+    the reference's own minimum below the floor), held to that minimum
+    within CROSS_MD_ATOL. Returns the smallest member minimum."""
+    import torch
+
+    md = mets.nearest_distance
+    check(not bool(torch.isnan(md).any()) and all(
+        bool(torch.isfinite(m).all()) for m in
+        (mets.certificate_residual, mets.saturation_deficit)),
+          f"{label}: non-finite metrics")
+    per_member = md.amin(dim=1)
+    infeasible = int(mets.infeasible_count.sum())
+    check(infeasible == 0, f"{label}: {infeasible} infeasible agent-steps")
+    if floor is not None:
+        want = torch.full_like(per_member, floor)
+        for member, ref_min in (dips or {}).items():
+            want[member] = ref_min - CROSS_MD_ATOL
+        below = torch.nonzero(per_member < want).flatten().tolist()
+        check(not below, f"{label}: members {below} below the floor (or "
+              f"their reference minimum): "
+              f"{[float(per_member[m]) for m in below]}")
+        if dips:
+            print(f"{label}: {len(dips)} members held to the reference's "
+                  f"own dip below the floor; their minima "
+                  f"{[round(float(per_member[m]), 8) for m in dips]}")
+    print(f"{label}: member min distances {float(per_member.min()):.6f}-"
+          f"{float(per_member.max()):.6f} "
+          f"({'floor %.5f' % floor if floor is not None else 'not held'}), "
+          f"infeasible 0, dropped {int(mets.dropped_count.sum())}")
+    return float(per_member.min())
+
+
+def phase15(engine, knn, swarm, t_start) -> dict:
+    """15b-f: the falsifier on a banded swarm, and the ensembles on one
+    card (module docstring, phase 15). Returns each run's launches and
+    the numbers PERF.md keeps."""
+    import dataclasses
+
+    import torch
+
+    from cbf_tpu_torch import verify as V
+    from cbf_tpu_torch.parallel import ensemble as ens
+    from cbf_tpu_torch.parallel.mesh import make_mesh
+    from cbf_tpu_torch.utils import prng
+
+    out = {"runs": {}, "members": {"knn_fused": {}, "knn_stream": {}}}
+    mesh = make_mesh()
+    check(tuple(mesh) == (1, 1), f"15: the card's mesh is {tuple(mesh)}")
+
+    # 15b. the falsifier on gating="banded" at BENCH_VERIFY's shape
+    cfg_v = swarm.Config(n=VERIFY_N, steps=VERIFY_STEPS, gating="banded")
+    settings = V.SearchSettings(batch=VERIFY_BATCH, seed=0)
+    adapter = V.make_adapter("swarm", cfg_v, device="cuda")
+    eval_b = V.make_eval_batch(adapter, settings)
+    key = prng.prng_key(settings.seed)
+
+    def deltas_for(r):
+        return (settings.perturb_scale * prng.normal(
+            prng.fold_in(key, r), (VERIFY_BATCH, VERIFY_N, 2),
+            torch.float32)).to("cuda")
+
+    d0 = deltas_for(0)
+    zero_counts(engine, knn)
+    t0 = time.perf_counter()
+    m0 = eval_b(d0)
+    torch.cuda.synchronize()
+    fresh_s = time.perf_counter() - t0
+    fresh, counts = dict(knn.LAUNCHES), dict(engine.COUNTS)
+    check(fresh["knn_banded_members"] == VERIFY_STEPS
+          and fresh["knn_banded"] == VERIFY_STEPS
+          and not any(v for k, v in fresh.items() if "banded" not in k)
+          and counts["redos"] == 0,
+          f"15b: launches {fresh}, engine {counts}; want one banded "
+          f"launch set per step ({VERIFY_STEPS}) and no redo")
+    walls = []
+    for r in range(1, VERIFY_ROUNDS + 1):
+        d = deltas_for(r)
+        walls.append(timed(lambda: eval_b(d)))
+    one = V.make_eval_one(adapter, settings)
+    gaps = []
+    for b in (0, VERIFY_BATCH - 1):
+        alone = one(d0[b])
+        fin = torch.isfinite(alone)
+        check(torch.equal(torch.isfinite(m0[b]), fin),
+              f"15b: candidate {b}'s vacuous margins differ")
+        gaps.append(float((alone[fin] - m0[b][fin]).abs().max()))
+        check(gaps[-1] <= MEMBER_MARGIN_ATOL,
+              f"15b: candidate {b} alone {alone} vs batched {m0[b]}")
+    out["runs"]["phase 15b"] = {"launches": {
+        "knn_banded_members": fresh["knn_banded_members"]}}
+    out["15b"] = {"fresh_candidates_per_s": VERIFY_BATCH / fresh_s,
+                  "warm_candidates_per_s": VERIFY_BATCH / min(walls),
+                  "fresh_s": fresh_s, "warm_s": walls, "max_gap": max(gaps),
+                  "margin_min": float(m0[torch.isfinite(m0)].min())}
+    print(f"15b: falsifier, gating='banded', N={VERIFY_N} x {VERIFY_STEPS}, "
+          f"batch {VERIFY_BATCH}: fresh {VERIFY_BATCH / fresh_s:.3f} "
+          f"candidates/s ({fresh_s:.3f} s, capture included), warm "
+          f"{VERIFY_BATCH / min(walls):.3f} (rounds "
+          f"{[round(w, 4) for w in walls]} s); {VERIFY_STEPS} banded member "
+          f"launch sets, 0 redos; alone vs batched max gap {max(gaps):.3e}; "
+          f"margin min {out['15b']['margin_min']:.6f}")
+
+    # 15c. the Monte-Carlo sweep: 1024 seeds x 64 agents
+    cfg_c = swarm.Config(n=MC_N, steps=MC_STEPS)
+    run = drive_ensemble(engine, knn, swarm, ens, mesh, cfg_c,
+                         list(range(MC_E)), f"15c: E={MC_E} x N={MC_N}",
+                         "knn_fused_members", eager_prefix=MC_EAGER_STEPS)
+    check_members(f"15c: E={MC_E} x N={MC_N} x {MC_STEPS}", cfg_c,
+                  run["mets"], dips=MC_REFERENCE_DIPS)
+    out["members"]["knn_fused"]["at_phase_15c"] = hold_ensemble_search(
+        knn, "knn_fused", cfg_c,
+        {"spawn": ens._initial_carry(cfg_c, mesh, range(MC_E))[0],
+         "final": run["state"][0]}, "15c")
+    out["runs"]["phase 15c"] = run
+    print(f"  (script at {time.perf_counter() - t_start:.1f} s)")
+
+    # 15d. the north-star width: 8 members of 4096, fused and streaming
+    for gating in ("auto", "streaming"):
+        cfg_d = swarm.Config(n=MAIN_N, steps=ENS_STEPS, gating=gating)
+        key_d = ("knn_stream_members" if gating == "streaming"
+                 else "knn_fused_members")
+        run = drive_ensemble(engine, knn, swarm, ens, mesh, cfg_d,
+                             list(range(ENS_E)),
+                             f"15d: E={ENS_E} x N={MAIN_N}, {gating}", key_d)
+        check_members(f"15d: E={ENS_E} x N={MAIN_N} x {ENS_STEPS}, "
+                      f"{gating}", cfg_d, run["mets"],
+                      dips=ENS_REFERENCE_DIPS)
+        name = key_d.removesuffix("_members")
+        out["members"][name]["at_phase_15d"] = hold_ensemble_search(
+            knn, name, cfg_d,
+            {"spawn": ens._initial_carry(cfg_d, mesh, range(ENS_E))[0],
+             "final": run["state"][0]}, f"15d {gating}")
+        out["runs"][f"phase 15d {gating}"] = run
+    check(same_tree(out["runs"]["phase 15d auto"]["state"],
+                    out["runs"]["phase 15d streaming"]["state"]),
+          "15d: the streaming ensemble's trajectory differs from the fused "
+          "one")
+    print(f"15d: streaming trajectory torch.equal to the fused one  "
+          f"(script at {time.perf_counter() - t_start:.1f} s)")
+
+    # 15e. the lockstep batched certificate
+    cfg_e = swarm.Config(n=CERT_N, steps=LOCK_STEPS, certificate=True)
+    seeds_e = list(range(LOCK_E))
+    run = drive_ensemble(engine, knn, swarm, ens, mesh, cfg_e, seeds_e,
+                         f"15e: E={LOCK_E} x N={CERT_N}, lockstep sparse "
+                         "certificate", "knn_fused_members")
+    mets = run["mets"]
+    res = mets.certificate_residual.amax(dim=1)
+    check(bool((res < CERT_RESIDUAL_GATE).all()),
+          f"15e: member residuals {res.tolist()} past the gate")
+    check_members(f"15e: E={LOCK_E} x N={CERT_N} x {LOCK_STEPS}", cfg_e,
+                  mets, floor=CERT_FLOOR)
+    gap_x = gap_r = 0.0
+    for e, seed in enumerate(seeds_e):
+        (x1, _), m1 = ens.sharded_swarm_rollout(cfg_e, mesh, [seed])
+        gap_x = max(gap_x, float((run["state"][0][e] - x1[0]).abs().max()))
+        gap_r = max(gap_r, float((mets.certificate_residual[e]
+                                  - m1.certificate_residual[0]).abs().max()))
+    check(gap_x <= LOCK_X_ATOL and gap_r <= LOCK_RES_ATOL,
+          f"15e: lockstep vs members alone: x gap {gap_x}, residual gap "
+          f"{gap_r}")
+    step_e = ens._rollout_executable(
+        cfg_e, mesh, LOCK_E, swarm.default_cbf(cfg_e, device="cuda"))
+    carry_e = ens._initial_carry(cfg_e, mesh, seeds_e)
+    prof = profile_rollout(lambda: engine.rollout(step_e, carry_e,
+                                                  CERT_PROFILE_STEPS),
+                           CERT_PROFILE_STEPS)
+    run["info"].update(residual_max=float(res.max()), lockstep_x_gap=gap_x,
+                       lockstep_residual_gap=gap_r,
+                       device_ops_per_step=prof["device_ops_per_step"],
+                       device_busy_share=prof["device_busy_share"],
+                       iterations=int(mets.certificate_iterations.max()))
+    out["runs"]["phase 15e"] = run
+    print(f"15e: residual max {float(res.max()):.3e} per member "
+          f"{[f'{v:.2e}' for v in res.tolist()]}; lockstep vs each member "
+          f"alone: x gap {gap_x:.3e} (atol {LOCK_X_ATOL}), residual gap "
+          f"{gap_r:.3e}; {prof['device_ops_per_step']} device ops per step, "
+          f"busy {prof['device_busy_share']}  (script at "
+          f"{time.perf_counter() - t_start:.1f} s)")
+
+    # 15f. chunk and resume, and the Verlet cache at E = 1
+    cfg_f = swarm.Config(n=MAIN_N, steps=ENS_STEPS_F)
+    seeds_f = list(range(LOCK_E))
+    straight, mets_s = ens.sharded_swarm_rollout(cfg_f, mesh, seeds_f)
+    chunked, mets_c = ens.sharded_swarm_rollout(cfg_f, mesh, seeds_f,
+                                                chunk=ENS_CHUNK)
+    check(same_tree(tuple(chunked), tuple(straight))
+          and all(bool((torch.as_tensor(a) == b.cpu()).all())
+                  for a, b in zip(mets_c, mets_s)),
+          f"15f: chunk={ENS_CHUNK} differs from the unchunked run")
+    # The warm carry under certificate_tol: the lockstep loop runs to its
+    # slowest member, so its program takes the whole ADMM budget — no
+    # chunk may be redone (each redo is the eager loop, ~0.5 s per step).
+    cfg_w = swarm.Config(n=CERT_N, steps=ENS_STEPS_F, certificate=True,
+                         certificate_warm_start=True,
+                         certificate_tol=CERT_TOL)
+    zero_counts(engine, knn)
+    full, mets_w = ens.sharded_swarm_rollout(cfg_w, mesh, seeds_f,
+                                             with_solver_state=True)
+    half = ENS_STEPS_F // 2
+    head, _ = ens.sharded_swarm_rollout(cfg_w, mesh, seeds_f, steps=half,
+                                        with_solver_state=True)
+    tail, _ = ens.sharded_swarm_rollout(cfg_w, mesh, seeds_f, steps=half,
+                                        t0=half, initial_state=head,
+                                        with_solver_state=True)
+    check(same_tree(tuple(tail), tuple(full)),
+          "15f: the warm-carry resume differs from the straight run")
+    check(float(mets_w.certificate_residual.max()) < CERT_RESIDUAL_GATE,
+          "15f: warm certificate residual past the gate")
+    out["runs"]["phase 15f warm"] = {"launches": {
+        "knn_fused_members": knn.LAUNCHES["knn_fused_members"],
+        "knn_fused": (knn.LAUNCHES["knn_fused"]
+                      - knn.LAUNCHES["knn_fused_members"])}}
+    warm_counts = dict(engine.COUNTS)
+    iters, steps_at = torch.unique(mets_w.certificate_iterations[0],
+                                   return_counts=True)
+    histogram = dict(zip(iters.tolist(), steps_at.tolist()))
+    print(f"15f: warm start, tol {CERT_TOL}, E={LOCK_E} x N={CERT_N}: "
+          f"redos {warm_counts['redos']} (redone steps "
+          f"{warm_counts['redo_steps']}) over the three runs; lockstep "
+          f"iterations per step -> steps of the straight run {histogram}")
+    check(warm_counts["redos"] == 0, f"15f: the warm runs redid chunks "
+          f"{warm_counts}")
+    cfg_v1 = swarm.Config(n=MAIN_N, steps=ENS_STEPS_F,
+                          gating_rebuild_skin=VERLET_SKIN)
+    verlet = drive_ensemble(engine, knn, swarm, ens, mesh, cfg_v1, [0],
+                            f"15f: E=1 x N={MAIN_N}, Verlet skin "
+                            f"{VERLET_SKIN}", "knn_fused")
+    exact = ens.sharded_swarm_rollout(dataclasses.replace(
+        cfg_v1, gating_rebuild_skin=0.0), mesh, [0])
+    floor_v = verlet["mets"].nearest_distance[0]
+    near_e = exact[1].nearest_distance[0]
+    same = torch.equal(verlet["state"][0], exact[0][0])
+    check(int(verlet["mets"].infeasible_count.sum()) == 0
+          and (same or int(exact[1].dropped_count.sum()) > 0),
+          "15f: the Verlet run parts from the exact search below "
+          "truncation")
+    if same:
+        check(bool((floor_v <= near_e).all()),
+              "15f: the Verlet floor exceeds the exact separation")
+    out["runs"]["phase 15f verlet"] = verlet
+    out["15f"] = {"chunk": ENS_CHUNK, "verlet_equal_to_exact": same,
+                  "verlet_floor_min": float(floor_v.min()),
+                  "exact_min": float(near_e.min()),
+                  "exact_dropped": int(exact[1].dropped_count.sum()),
+                  "warm_iterations_max": int(
+                      mets_w.certificate_iterations.max()),
+                  "warm_iteration_histogram": histogram,
+                  "warm_redos": warm_counts["redos"]}
+    print(f"15f: chunk={ENS_CHUNK} torch.equal to the unchunked run "
+          f"(E={LOCK_E} x N={MAIN_N} x {ENS_STEPS_F}); the warm-carry "
+          f"resume at step {half} torch.equal to the straight run; Verlet "
+          f"E=1: trajectory equal to the exact search {same}, its floor "
+          f"{float(floor_v.min()):.6f} vs the exact minimum "
+          f"{float(near_e.min()):.6f} (exact dropped "
+          f"{out['15f']['exact_dropped']}); warm runs {warm_counts}  "
+          f"(script at "
+          f"{time.perf_counter() - t_start:.1f} s)")
+    for run in out["runs"].values():
+        run.pop("state", None)
+        run.pop("mets", None)
+    return out
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -1922,6 +2496,11 @@ def main(argv: list[str]) -> int:
     # 14. the differentiable path, the trainer and the falsifier
     p14 = phase14(engine, knn, swarm, t_start)
 
+    # 15. the member axis on one card: the banded kernel's, the falsifier
+    # on a banded swarm, the ensembles
+    p15a = phase15a(knn, swarm)
+    p15 = phase15(engine, knn, swarm, t_start)
+
     # 6. timings at the main-path shapes; launches are every compiled
     # main-path run's of this call, by phase (13f's run swarm included)
     all_runs = {"phase 3 N=256": runs[ENTRY_N], "phase 3 N=4096": main,
@@ -1932,7 +2511,7 @@ def main(argv: list[str]) -> int:
                 "phase 10": verlet,
                 **{f"phase 11 {kind}": run for kind, run in rta.items()},
                 **{f"phase 12{key}": run for key, run in cert.items()},
-                "phase 13f": scen["13f"], **p14["runs"]}
+                "phase 13f": scen["13f"], **p14["runs"], **p15["runs"]}
     by_phase = {name: {label: run["launches"][name]
                        for label, run in all_runs.items()
                        if run["launches"].get(name)}
@@ -2036,19 +2615,34 @@ def main(argv: list[str]) -> int:
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "in_radius_candidates": int(count_c.sum())}
         rows.append(row)
-    # The member-axis launches (phase 14): one launch for the falsifier's
-    # batch of VERIFY_BATCH candidates, held equal in 14a.
-    for name, src_line in (("knn_fused", "cbf_tpu/ops/pallas_knn.py:94"),
-                           ("knn_stream", "cbf_tpu/ops/pallas_knn.py:184")):
-        mem = dict(p14["members"][name])
+    # The member-axis launches: one launch (the banded form: one launch
+    # set) for a batch of members — the falsifier's VERIFY_BATCH
+    # candidates, the shape timed here, and the ensembles' members —
+    # held equal in 14a, 15a, 15c and 15d, and timed also at the
+    # ensembles' shapes; launches from every phase that ran them.
+    members = {"knn_fused": {**p14["members"]["knn_fused"],
+                             **p15["members"]["knn_fused"]},
+               "knn_stream": {**p14["members"]["knn_stream"],
+                              **p15["members"]["knn_stream"]},
+               "knn_banded": {**p15a["falsifier"],
+                              "at_phase_7_width": p15a["phase 7"]}}
+    vmaps = ("cbf_tpu/verify/search.py:327, "
+             "cbf_tpu/parallel/ensemble.py:757")
+    for name, src_line, where in (
+            ("knn_fused", "cbf_tpu/ops/pallas_knn.py:94", vmaps),
+            ("knn_stream", "cbf_tpu/ops/pallas_knn.py:184", vmaps),
+            ("knn_banded", "cbf_tpu/ops/pallas_knn.py:309",
+             "cbf_tpu/verify/search.py:327")):
+        mem = dict(members[name])
         mem.pop("device_op_names", None)
+        key = f"{name}_members"
         rows.append({
             "name": f"{name} (member axis)", "route": "cuda",
             "source": "cbf_tpu_torch/csrc/knn.cu",
-            "replaces": f"{src_line} under jax.vmap "
-                        "(cbf_tpu/verify/search.py:324)",
+            "replaces": f"{src_line} under jax.vmap ({where})",
             "max_abs_err": 0.0, "equal": True, "library_ms": None,
-            **mem, "launches_by_phase": {"phase 14e": mem["launches"]}})
+            **mem, "launches": sum(by_phase[key].values()),
+            "launches_by_phase": by_phase[key]})
     x4096 = state0.x.to(torch.float32).contiguous()
     stream_small = cuda_ms(lambda: knn.knn_stream(x4096, RADIUS, K),
                            reps=200, warmup=10)

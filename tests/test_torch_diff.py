@@ -24,7 +24,6 @@ from cbf_tpu.sim import certificates as jcert
 from cbf_tpu.solvers import sparse_admm as jadmm
 from cbf_tpu_torch import convert
 from cbf_tpu_torch.core import filter as tfil
-from cbf_tpu_torch.errors import OutOfSliceError
 from cbf_tpu_torch.ops import knn
 from cbf_tpu_torch.scenarios import swarm as tsw
 from cbf_tpu_torch.sim import certificates as tcert
@@ -122,12 +121,20 @@ def test_member_axis_plain_versions_match_single_calls(kernel, B, n, k):
 
 
 def test_banded_member_axis_raises():
-    x = torch.zeros((2, 64, 2))
-    with pytest.raises(OutOfSliceError, match="Queue A10"):
-        knn.knn_neighbors_banded(x, 0.4, 8, window_blocks=1)
-    with pytest.raises(OutOfSliceError, match="Queue A10"):
-        torch.func.vmap(lambda z: knn.knn_neighbors_banded(
-            z, 0.4, 8, window_blocks=1))(x)
+    """The banded search takes a member axis now — (B, N, 2) or vmapped —
+    and what it still raises is a gradient: the JAX package's banded
+    kernel has none (its gradient engine forces gating="jnp"), so a
+    backward through it, batched or vmapped, raises."""
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.uniform(-1, 1, (2, 64, 2)), dtype=torch.float32,
+                     requires_grad=True)
+    dist = knn.knn_neighbors_banded(x, 0.4, 8, window_blocks=1)[1]
+    with pytest.raises(RuntimeError, match="no gradient"):
+        torch.autograd.grad(dist[torch.isfinite(dist)].sum(), x)
+    dist = torch.func.vmap(lambda z: knn.knn_neighbors_banded(
+        z, 0.4, 8, window_blocks=1))(x)[1]
+    with pytest.raises(RuntimeError, match="no gradient"):
+        torch.autograd.grad(dist[torch.isfinite(dist)].sum(), x)
 
 
 # -- _solve_K's implicit gradient and the certificate --------------------------

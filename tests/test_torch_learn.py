@@ -26,6 +26,7 @@ from cbf_tpu_torch import convert
 from cbf_tpu_torch.errors import OutOfSliceError
 from cbf_tpu_torch.learn import tuning as tt
 from cbf_tpu_torch.parallel import ensemble as tens
+from cbf_tpu_torch.parallel.mesh import make_mesh as port_mesh
 from cbf_tpu_torch.scenarios import swarm as tsw
 
 N = 16
@@ -121,7 +122,11 @@ def test_trainer_sharded_paths_raise():
     with pytest.raises(ValueError, match="gating='streaming'"):
         tt.make_loss_fn(dataclasses.replace(cfg, gating="streaming"), (1, 2))
     with pytest.raises(OutOfSliceError, match="Queue A10"):
-        tens.sharded_swarm_rollout(cfg, None, [0])
+        tens.sharded_swarm_rollout(cfg, port_mesh(devices="cpu"), [0],
+                                   partition="spatial")
+    for dp, sp in ((2, 1), (1, 2)):
+        with pytest.raises(OutOfSliceError, match="Queue A10"):
+            port_mesh(n_dp=dp, n_sp=sp, devices="cpu")
 
 
 def test_remat_and_forced_streaming_keep_the_gradient():
