@@ -22,8 +22,12 @@ step differentiates with ``unroll_relax > 0``: the trainer (``learn/``,
 on ``parallel/ensemble.py``'s member step) fits the filter's parameters
 through the closed loop, and the falsifier (``verify/``) searches for
 initial states that break it over member-batched compiled rollouts, its
-engines drawing JAX's random streams (``utils/prng.py``). Knobs of later
-slices raise :class:`~cbf_tpu_torch.errors.OutOfSliceError`.
+engines drawing JAX's random streams (``utils/prng.py``). Long runs
+checkpoint and resume under integrity manifests (``utils/checkpoint.py``,
+``durable/``), stream heartbeats to a telemetry sink with a watchdog
+(``obs/``), and can be checked for NaN/inf, priced by a cost model and
+profiled. Knobs of later slices raise
+:class:`~cbf_tpu_torch.errors.OutOfSliceError`.
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (:func:`cbf_tpu_torch.scenarios.swarm.make`; ``--device cpu`` on the

@@ -5,6 +5,10 @@ cbf_tpu/__main__.py, its ``run``, ``list`` and ``verify`` subcommands).
     python -m cbf_tpu_torch run meet_at_center --steps 200 --video out.gif
     python -m cbf_tpu_torch run swarm --set n=4096 --steps 200 --traj run.cbt
     python -m cbf_tpu_torch run antipodal --device cpu
+    python -m cbf_tpu_torch run swarm --durable-dir runs/d --chunk 500
+    python -m cbf_tpu_torch run --resume runs/d
+    python -m cbf_tpu_torch run swarm --telemetry-dir runs/t
+    python -m cbf_tpu_torch obs summary runs/t
     python -m cbf_tpu_torch verify swarm --set n=16 --weaken dmin=0.16
 
 Scenarios are dataclass configs; ``--set field=value`` overrides any field
@@ -14,40 +18,52 @@ scenario calls its horizon (steps/iterations). A run is one compiled
 run raises — pass ``--device cpu`` for the CPU) and prints one JSON
 summary line, as the JAX package's ``run`` does.
 
-The durable, checked, telemetry and profiling options of the JAX
-package's ``run`` raise :class:`~cbf_tpu_torch.errors.OutOfSliceError`
-until the durability and observability slice ports them; the options
-that only qualify those (``--chunk``, ``--no-resume``,
-``--telemetry-every``) come with them.
+``run`` takes the JAX package's durability and observability options:
+``--checkpoint-dir`` (chunked, resumable, ``--chunk``/``--no-resume``),
+``--durable-dir``/``--resume DIR`` (the crash-recoverable runner,
+:mod:`cbf_tpu_torch.durable.rollout`; exit 2 on a missing or corrupt spec
+or a config that differs from the directory's), ``--checked`` (the
+finiteness-checked rollout), ``--telemetry-dir``/``--telemetry-every``
+(heartbeats, alerts and a summary into a run directory, with a watchdog;
+``--stall-timeout`` arms its stall alert) and ``--profile-dir`` (a
+``torch.profiler`` Chrome trace). ``obs tail`` prints a run directory's
+events (``--follow``; ``--stall-timeout`` exits 3 on a silent stream) and
+``obs summary`` aggregates one.
 
 ``verify`` is the falsification sweep (:mod:`cbf_tpu_torch.verify`): the
 engines search for initial-state perturbations that violate a safety
 property, a found one is shrunk and confirmed in float64 and, with
 ``--corpus-dir``, archived. Exit 0: the filter survived the budget; 3: a
 violation was found; 2: a persisted campaign does not match the
-settings. ``verify fleet`` (the serving slice) and ``--telemetry-dir``
-(the durability and observability slice) raise OutOfSliceError. The
-other subcommands (serve, loadgen, scenario, lint, obs, cluster, bench)
-are not ported yet.
+settings; ``--telemetry-dir`` streams its round and verdict events.
+``verify fleet`` (the serving slice) raises OutOfSliceError. The other
+subcommands (serve, loadgen, scenario, lint, ``obs top``/``incident``/
+``lanes``, cluster, bench) are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
 import sys
 
 import torch
 
-from cbf_tpu_torch.errors import SLICE_DURABLE, SLICE_SERVE, OutOfSliceError
+from cbf_tpu_torch.errors import SLICE_SERVE, OutOfSliceError
 
-# run's options that arrive with the durability and observability slice.
-_OUT_OF_SLICE = ("checkpoint_dir", "durable_dir", "resume", "checked",
-                 "telemetry_dir", "profile_dir", "stall_timeout")
 # Frames per append when streaming a trajectory to the native sink: keeps
 # the sink's copy and queue memory flat while disk writes overlap.
 _TRAJ_CHUNK = 1024
+
+
+def _np(v):
+    """A recorded output (a tensor, or numpy from a chunked run) as numpy."""
+    import numpy as np
+
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
 def _scenarios():
@@ -67,7 +83,7 @@ def _scenarios():
             obstacles = np.stack(
                 [swarm.obstacle_positions_at(cfg, start + t)
                  for t in range(T)])
-        return render_swarm(outs.trajectory.cpu().numpy(), path,
+        return render_swarm(_np(outs.trajectory), path,
                             obstacles=obstacles)
 
     # Last field: the recorded trajectory layout — "dims_major" = (T, 2, N)
@@ -75,18 +91,18 @@ def _scenarios():
     return {
         "meet_at_center": (meet_at_center, "iterations",
                            lambda outs, cfg, path, start=0: render_meet_at_center(
-                               outs.trajectory.cpu().numpy(), path,
+                               _np(outs.trajectory), path,
                                n_obstacles=cfg.n_obstacles),
                            "dims_major"),
         "cross_and_rescue": (cross_and_rescue, "iterations",
                              lambda outs, cfg, path, start=0: render_cross_and_rescue(
-                                 tuple(v.cpu().numpy() for v in outs.trajectory),
+                                 tuple(_np(v) for v in outs.trajectory),
                                  path, goal=cfg.goal),
                              "dims_major"),
         "swarm": (swarm, "steps", _render_swarm, "agent_major"),
         "antipodal": (antipodal, "steps",
                       lambda outs, cfg, path, start=0: render_swarm(
-                          outs.trajectory.cpu().numpy(), path),
+                          _np(outs.trajectory), path),
                       "agent_major"),
     }
 
@@ -141,21 +157,81 @@ def _apply_overrides(cfg, pairs: list[str], steps: int | None,
     return dataclasses.replace(cfg, **updates)
 
 
-def _reject_out_of_slice(args) -> None:
-    for name in _OUT_OF_SLICE:
-        if getattr(args, name) not in (None, False):
-            raise OutOfSliceError(f"run --{name.replace('_', '-')}",
-                                  SLICE_DURABLE)
+def _run_durable(args) -> int:
+    """``run --durable-dir D`` / ``run --resume D``: the crash-recoverable
+    runner. Exit 2 on a missing or corrupt run spec or a scenario/config
+    that differs from the directory's."""
+    from cbf_tpu_torch.durable import rollout as durable
+    from cbf_tpu_torch.utils.debug import summarize
+
+    directory = args.resume or args.durable_dir
+    if args.resume and args.durable_dir and \
+            os.path.abspath(args.resume) != os.path.abspath(args.durable_dir):
+        print("run: --resume and --durable-dir name different directories",
+              file=sys.stderr)
+        return 2
+    scenario = cfg = None
+    if args.resume:
+        try:
+            scenario = durable.load_spec(directory)["scenario"]
+        except (FileNotFoundError, ValueError) as e:
+            print(f"run: {e}", file=sys.stderr)
+            return 2
+    else:
+        if args.scenario is None:
+            print("run: a scenario is required with --durable-dir "
+                  "(or use --resume DIR)", file=sys.stderr)
+            return 2
+        scenario = args.scenario
+        module, steps_field, _, _ = _scenarios()[scenario]
+        cfg = _apply_overrides(module.Config(), args.set, args.steps,
+                               steps_field, need_trajectory=False)
+
+    sink = None
+    if args.telemetry_dir:
+        from cbf_tpu_torch import obs
+
+        sink = obs.TelemetrySink(
+            args.telemetry_dir,
+            manifest=obs.build_manifest(cfg, extra={
+                "scenario": scenario, "device": args.device,
+                "durable_dir": os.path.abspath(directory)}))
+    try:
+        out = durable.run_durable(
+            directory, scenario=None if args.resume else scenario, cfg=cfg,
+            chunk=args.chunk, telemetry=sink,
+            telemetry_every=args.telemetry_every, device=args.device)
+    except (FileNotFoundError, ValueError) as e:
+        print(f"run: {e}", file=sys.stderr)
+        return 2
+
+    record = {"scenario": scenario,
+              "durable_dir": os.path.abspath(directory),
+              "steps": out["steps"],
+              "resumed_from_step": out["resumed_from_step"],
+              "recovery_s": round(out["recovery_s"], 4),
+              "corrupt_skipped": out["corrupt_skipped"]}
+    if out["outputs"] is not None:
+        record.update(summarize(out["outputs"]))
+    if sink is not None:
+        sink.summary()
+        sink.close()
+        record["telemetry"] = sink.run_dir
+    print(json.dumps(record))
+    return 0
 
 
 def cmd_run(args) -> int:
-    _reject_out_of_slice(args)
+    if args.resume or args.durable_dir:
+        return _run_durable(args)
     if args.scenario is None:
-        print("run: a scenario is required", file=sys.stderr)
+        print("run: a scenario is required (or --resume DIR)",
+              file=sys.stderr)
         return 2
 
-    from cbf_tpu_torch.rollout.engine import rollout
-    from cbf_tpu_torch.utils.debug import summarize
+    from cbf_tpu_torch.rollout.engine import rollout, rollout_chunked
+    from cbf_tpu_torch.utils import profiling
+    from cbf_tpu_torch.utils.debug import checked_rollout, summarize
 
     module, steps_field, renderer, traj_layout = _scenarios()[args.scenario]
     need_traj = args.video is not None or args.traj is not None
@@ -167,14 +243,63 @@ def cmd_run(args) -> int:
     cfg = _apply_overrides(module.Config(), overrides, args.steps,
                            steps_field, need_trajectory=need_traj)
     state0, step = module.make(cfg, device=args.device)
-    final, outs = rollout(step, state0, getattr(cfg, steps_field))
+    steps = getattr(cfg, steps_field)
+
+    sink = watchdog = None
+    if args.telemetry_dir:
+        from cbf_tpu_torch import obs
+
+        sink = obs.TelemetrySink(
+            args.telemetry_dir,
+            manifest=obs.build_manifest(cfg, extra={
+                "scenario": args.scenario, "steps": steps,
+                "device": args.device}))
+        # The event-driven alerts always; the stall thread with a timeout
+        # (the first chunk's capture counts toward the first heartbeat).
+        watchdog = obs.Watchdog(sink, stall_timeout=args.stall_timeout)
+
+    prof = (profiling.trace(args.profile_dir) if args.profile_dir
+            else contextlib.nullcontext())
+    try:
+        with prof:
+            start = 0
+            if args.checked:
+                final, outs = checked_rollout(
+                    step, state0, steps, telemetry=sink,
+                    telemetry_every=args.telemetry_every)
+            elif args.checkpoint_dir:
+                final, outs, start = rollout_chunked(
+                    step, state0, steps, chunk=args.chunk,
+                    checkpoint_dir=args.checkpoint_dir,
+                    resume=not args.no_resume, telemetry=sink,
+                    telemetry_every=args.telemetry_every)
+            else:
+                final, outs = rollout(step, state0, steps, telemetry=sink,
+                                      telemetry_every=args.telemetry_every)
+    finally:
+        if watchdog is not None:
+            watchdog.stop()
 
     record = {"scenario": args.scenario, "config": {
         f.name: repr(getattr(cfg, f.name)) for f in dataclasses.fields(cfg)}}
     if outs is not None:
         record.update(summarize(outs))
+    if start:
+        record["resumed_from_step"] = start
+    if sink is not None:
+        if outs is not None and not isinstance(
+                getattr(outs, "rta_mode", ()), tuple):
+            from cbf_tpu_torch.rta.monitor import emit_rta_events
+
+            record["rta"] = emit_rta_events(sink, outs.rta_mode,
+                                            step_offset=start)
+        sink.summary()
+        sink.close()
+        record["telemetry"] = sink.run_dir
+        record["telemetry_heartbeats"] = sink.heartbeat_count
+        record["telemetry_alerts"] = [a.kind for a in watchdog.alerts]
     if args.video and outs is not None:
-        record["video"] = renderer(outs, cfg, args.video)
+        record["video"] = renderer(outs, cfg, args.video, start)
     if args.traj and outs is not None:
         record["traj"] = _write_traj(args.traj, outs, traj_layout)
     print(json.dumps(record))
@@ -192,7 +317,7 @@ def _write_traj(path: str, outs, layout: str) -> str:
     traj = outs.trajectory
     if isinstance(traj, tuple):          # scenarios recording several layers
         traj = traj[0]
-    traj = traj.cpu().numpy().astype(np.float32)
+    traj = _np(traj).astype(np.float32)
     if layout == "dims_major":           # (T, dims, N) -> (T, N, dims)
         traj = traj.transpose(0, 2, 1)
     if trajsink.available():
@@ -203,6 +328,70 @@ def _write_traj(path: str, outs, layout: str) -> str:
         return path
     np.save(path + ".npy", traj)
     return path + ".npy"
+
+
+def _resolve_run_dir(path: str, latest: bool, *, wait: bool = False) -> str:
+    """``--latest``: ``path`` is a root of run directories; pick the one
+    with the newest events.jsonl (waiting up to an hour for one with
+    ``wait``)."""
+    import time
+
+    from cbf_tpu_torch.obs import schema as obs_schema
+
+    if not latest:
+        return path
+    deadline = time.time() + (3600.0 if wait else 0.0)
+    while True:
+        candidates = []
+        if os.path.isdir(path):
+            for d in [os.path.join(path, n) for n in os.listdir(path)
+                      ] + [path]:
+                ev = os.path.join(d, obs_schema.EVENTS_FILENAME)
+                if os.path.isfile(ev):
+                    candidates.append((os.path.getmtime(ev), d))
+        if candidates:
+            return max(candidates)[1]
+        if time.time() >= deadline:
+            raise SystemExit(
+                f"no run directory with {obs_schema.EVENTS_FILENAME} "
+                f"under {path}")
+        time.sleep(1.0)
+
+
+def cmd_obs_tail(args) -> int:
+    """Print a run's JSONL events, one JSON line each; ``--follow`` tails
+    until the summary event; ``--stall-timeout`` turns a silent stream
+    into one synthetic stall alert and exit 3."""
+    from cbf_tpu_torch.obs.sink import tail_events
+
+    run_dir = _resolve_run_dir(args.run_dir, args.latest, wait=args.follow)
+    stalled = False
+    for event in tail_events(run_dir, follow=args.follow,
+                             stall_timeout=args.stall_timeout):
+        print(json.dumps(event), flush=True)
+        if event.get("event") == "alert" and event.get("kind") == "stall":
+            stalled = True
+    return 3 if stalled else 0
+
+
+def cmd_obs_summary(args) -> int:
+    """One aggregate JSON object for a run directory: its summary event,
+    else a recomputation from the heartbeats, with the manifest's run
+    identity. Exit 1 when the run holds no heartbeat."""
+    from cbf_tpu_torch.obs.sink import read_manifest, summarize_run
+
+    run_dir = _resolve_run_dir(args.run_dir, args.latest)
+    summary = summarize_run(run_dir)
+    manifest = read_manifest(run_dir)
+    if manifest is not None:
+        summary["manifest"] = {
+            k: manifest.get(k) for k in ("created", "git_sha",
+                                         "torch_version", "cuda_version",
+                                         "topology", "scenario", "steps")
+            if k in manifest}
+    summary["run_dir"] = os.path.abspath(run_dir)
+    print(json.dumps(summary, indent=2))
+    return 0 if summary.get("heartbeats") else 1
 
 
 def cmd_list(_args) -> int:
@@ -255,8 +444,6 @@ def cmd_verify(args) -> int:
     if args.scenario == "fleet":
         raise OutOfSliceError("verify fleet (the falsification fleet)",
                               SLICE_SERVE)
-    if args.telemetry_dir is not None:
-        raise OutOfSliceError("verify --telemetry-dir", SLICE_DURABLE)
     from cbf_tpu_torch import verify as V
     from cbf_tpu_torch.scenarios.platform import registry
     from cbf_tpu_torch.verify.search import json_scalar
@@ -283,6 +470,17 @@ def cmd_verify(args) -> int:
             if name not in selected})
     mesh = None if not args.mesh_dp else (args.mesh_dp, 1)
     engines = tuple(args.engine) if args.engine else ("random", "cem")
+    sink = None
+    if args.telemetry_dir:
+        from cbf_tpu_torch import obs
+
+        sink = obs.TelemetrySink(
+            args.telemetry_dir,
+            manifest=obs.build_manifest(cfg, extra={
+                "scenario": args.scenario, "device": args.device,
+                "verify": {"budget": settings.budget,
+                           "batch": settings.batch, "engines": args.engine,
+                           "seed": settings.seed}}))
     if args.state_dir and args.reset_state:
         removed = V.reset_campaign_state(args.state_dir)
         if removed and not args.json:
@@ -291,8 +489,8 @@ def cmd_verify(args) -> int:
     try:
         results = V.falsify(
             args.scenario, cfg, settings=settings, engines=engines, cbf=cbf,
-            thresholds=thresholds, mesh=mesh, state_dir=args.state_dir,
-            resume=args.resume, device=args.device)
+            thresholds=thresholds, telemetry=sink, mesh=mesh,
+            state_dir=args.state_dir, resume=args.resume, device=args.device)
     except ValueError as e:
         print(f"verify: {e}", file=sys.stderr)
         return 2
@@ -310,7 +508,7 @@ def cmd_verify(args) -> int:
     if found is not None and not args.no_shrink:
         sr = V.shrink(args.scenario, cfg, found.delta, cbf=cbf,
                       thresholds=thresholds, settings=settings,
-                      device=args.device)
+                      telemetry=sink, device=args.device)
         record["shrunk"] = {
             "property": sr.property, "steps": sr.steps,
             "earliest_step": sr.earliest_step, "scale": sr.scale,
@@ -321,6 +519,10 @@ def cmd_verify(args) -> int:
                                   engine=found.engine, settings=settings,
                                   cbf=cbf, thresholds=thresholds)
             record["corpus"] = V.append_entry(args.corpus_dir, entry_)
+    if sink is not None:
+        sink.summary({"violations_found": int(found is not None)})
+        sink.close()
+        record["telemetry"] = sink.run_dir
     if args.json:
         print(json.dumps(record))
     else:
@@ -399,7 +601,9 @@ def _add_verify_parser(sub) -> None:
                       help="delete persisted --state-dir campaign state "
                            "first")
     verp.add_argument("--telemetry-dir", default=None,
-                      help="not ported yet: raises (Queue A9)")
+                      help="stream the round and verdict events (and a "
+                           "manifest and summary) into this run "
+                           "directory")
     verp.add_argument("--budget-rounds", type=int, default=8,
                       help="fleet only (not ported yet)")
     verp.add_argument("--serve-idle", action="store_true",
@@ -432,18 +636,65 @@ def main(argv=None) -> int:
     runp.add_argument("--rta", action="store_true",
                       help="arm the runtime-assurance fallback ladder "
                            "(swarm scenario; shorthand for --set rta=true)")
-    for flag, kw in (("--checkpoint-dir", {}), ("--durable-dir", {}),
-                     ("--resume", {}), ("--profile-dir", {}),
-                     ("--telemetry-dir", {}),
-                     ("--stall-timeout", {"type": float}),
-                     ("--checked", {"action": "store_true"})):
-        runp.add_argument(flag, default=None, **kw,
-                          help="not ported yet: raises (Queue A9)")
+    runp.add_argument("--checkpoint-dir", default=None,
+                      help="checkpoint every chunk boundary here; a rerun "
+                           "resumes from the newest intact step")
+    runp.add_argument("--chunk", type=int, default=1000,
+                      help="steps per compiled chunk when checkpointing")
+    runp.add_argument("--no-resume", action="store_true")
+    runp.add_argument("--durable-dir", default=None, metavar="DIR",
+                      help="run through the crash-recoverable runner: run "
+                           "spec, integrity-checked checkpoints and "
+                           "per-chunk outputs land here; a killed run "
+                           "continues bit-exactly via `run --resume DIR`")
+    runp.add_argument("--resume", default=None, metavar="DIR",
+                      help="continue a killed durable run from its "
+                           "directory alone (exit 2 when the spec is "
+                           "missing or corrupt)")
+    runp.add_argument("--profile-dir", default=None,
+                      help="write a torch.profiler Chrome trace here")
+    runp.add_argument("--checked", action="store_true",
+                      help="check every step's state and outputs for "
+                           "NaN/inf and stop at the first")
+    runp.add_argument("--telemetry-dir", default=None,
+                      help="stream in-flight telemetry (manifest, JSONL "
+                           "heartbeats, alerts) into this run directory; "
+                           "tail it with `obs tail <dir> --follow`")
+    runp.add_argument("--telemetry-every", type=int, default=50,
+                      help="heartbeat sampling interval in steps "
+                           "(default 50)")
+    runp.add_argument("--stall-timeout", type=float, default=None,
+                      help="watchdog missed-heartbeat alert after this "
+                           "many silent seconds (default: off; the first "
+                           "heartbeat waits on the first capture)")
     runp.set_defaults(fn=cmd_run)
 
     listp = sub.add_parser("list", help="list scenarios and their knobs")
     listp.set_defaults(fn=cmd_list)
     _add_verify_parser(sub)
+
+    obsp = sub.add_parser("obs", help="telemetry run-dir tools (tail, "
+                                      "summary)")
+    obs_sub = obsp.add_subparsers(dest="obs_command", required=True)
+    tailp = obs_sub.add_parser(
+        "tail", help="print a run's JSONL events; -f follows live")
+    tailp.add_argument("run_dir")
+    tailp.add_argument("--follow", "-f", action="store_true",
+                       help="keep tailing until the summary event")
+    tailp.add_argument("--stall-timeout", type=float, default=None,
+                       help="with --follow: emit a synthetic stall alert "
+                            "and exit 3 after this many heartbeat-less "
+                            "seconds")
+    tailp.add_argument("--latest", action="store_true",
+                       help="run_dir is a root; tail its newest run "
+                            "(waits for one to appear with --follow)")
+    tailp.set_defaults(fn=cmd_obs_tail)
+    sump = obs_sub.add_parser(
+        "summary", help="aggregate a run directory into one JSON object")
+    sump.add_argument("run_dir")
+    sump.add_argument("--latest", action="store_true",
+                      help="run_dir is a root; summarize its newest run")
+    sump.set_defaults(fn=cmd_obs_summary)
 
     args = p.parse_args(argv)
     return args.fn(args)

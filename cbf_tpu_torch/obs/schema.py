@@ -1,0 +1,172 @@
+"""Telemetry event schema (counterpart: cbf_tpu/obs/schema.py): the one
+mapping from the port's observability records
+(:class:`cbf_tpu_torch.rollout.engine.StepOutputs`,
+:class:`cbf_tpu_torch.parallel.ensemble.EnsembleMetrics`) to the streamed
+heartbeat fields, with the JAX package's names, reductions and kinds.
+
+Events are JSON objects, one per line (JSONL), each carrying ``schema`` =
+:data:`SCHEMA_VERSION`:
+
+- ``heartbeat`` — a sampled snapshot: ``step`` (global step index),
+  ``t_wall`` (host receive time, s), ``step_rate`` (steps/s since the
+  previous heartbeat; null on the first), one key per tracked
+  :data:`HEARTBEAT_FIELDS` entry, and ``ensemble_members`` on the
+  ensemble path;
+- ``alert`` — a watchdog verdict: ``kind`` (``obs.watchdog.ALERT_KINDS``),
+  ``step`` (null for host-side alerts such as stalls), ``detail``,
+  ``severity`` and ``t_wall`` (plus ``rta_mode`` when the run streams it);
+- ``summary`` — the run-end registry snapshot (``metrics``) with the
+  ``heartbeats`` and ``alerts`` totals.
+
+The run manifest is ``manifest.json`` in the run directory. The event
+tables of the serving, HA, cluster, load-generator, lane-ledger, flight
+recorder and fleet layers arrive with their emitters (Queue A11), as do
+the request journal's ``durable.journal``/``durable.recover``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple
+
+SCHEMA_VERSION = 1
+
+EVENT_TYPES = ("heartbeat", "alert", "summary")
+
+#: Name of the per-run manifest file inside a run directory.
+MANIFEST_FILENAME = "manifest.json"
+#: Name of the event-stream file inside a run directory.
+EVENTS_FILENAME = "events.jsonl"
+
+
+class HeartbeatField(NamedTuple):
+    """One streamed heartbeat channel: its StepOutputs / EnsembleMetrics
+    twin (None where the struct has none), how member values fold into
+    the streamed scalar ("min" | "max" | "sum") and its registry kind
+    ("counter" sums across heartbeats, "gauge" keeps last/min/max and a
+    histogram)."""
+    name: str
+    step_output: str | None
+    ensemble: str | None
+    reduce: str
+    kind: str
+
+
+HEARTBEAT_FIELDS: tuple[HeartbeatField, ...] = (
+    HeartbeatField("min_pairwise_distance", "min_pairwise_distance",
+                   "nearest_distance", "min", "gauge"),
+    HeartbeatField("filter_active_count", "filter_active_count",
+                   "engaged_count", "sum", "counter"),
+    HeartbeatField("infeasible_count", "infeasible_count",
+                   "infeasible_count", "sum", "counter"),
+    HeartbeatField("max_relax_rounds", "max_relax_rounds",
+                   None, "max", "gauge"),
+    HeartbeatField("gating_overflow_count", "gating_overflow_count",
+                   None, "sum", "counter"),
+    HeartbeatField("gating_dropped_count", "gating_dropped_count",
+                   "dropped_count", "sum", "counter"),
+    HeartbeatField("certificate_residual", "certificate_residual",
+                   "certificate_residual", "max", "gauge"),
+    HeartbeatField("certificate_dropped_count", "certificate_dropped_count",
+                   "certificate_dropped", "max", "counter"),
+    HeartbeatField("saturation_deficit", "saturation_deficit",
+                   "saturation_deficit", "max", "gauge"),
+    HeartbeatField("certificate_iterations", "certificate_iterations",
+                   "certificate_iterations", "max", "gauge"),
+    # Tap-computed (no struct twin): the non-finite elements across the
+    # float leaves of the post-step state. Min/max reductions may swallow
+    # NaN, so no StepOutputs channel reliably goes non-finite; this one
+    # counts the corruption and the watchdog's `nan` alert reads it.
+    HeartbeatField("nonfinite_state_count", None, None, "sum", "gauge"),
+    HeartbeatField("certificate_carry_resets", "certificate_carry_resets",
+                   None, "sum", "counter"),
+    HeartbeatField("rta_mode", "rta_mode", None, "max", "gauge"),
+)
+
+#: StepOutputs fields deliberately not streamed, with the reason.
+EXCLUDED_STEP_OUTPUT_FIELDS: dict[str, str] = {
+    "trajectory": "bulk (N, 2) per-agent positions — recorded via "
+                  "record_trajectory/--traj and the native trajsink, not "
+                  "telemetry (a heartbeat is scalars)",
+}
+
+#: EnsembleMetrics fields deliberately not streamed (none).
+EXCLUDED_ENSEMBLE_FIELDS: dict[str, str] = {}
+
+#: The falsifier's events (``verify.search.EMITTED_EVENT_TYPES``).
+VERIFY_EVENT_TYPES: tuple[str, ...] = ("verify.round", "verify.margin")
+
+VERIFY_EVENT_FIELDS: dict[str, tuple[str, ...]] = {
+    "verify.round": ("engine", "round", "candidates", "best_margin",
+                     "violations", "evaluated"),
+    "verify.margin": ("engine", "scenario", "property", "margin",
+                      "found", "evaluated"),
+}
+
+#: The durable rollout's event (``durable.rollout.EMITTED_EVENT_TYPES``):
+#: one ``durable.resume`` whenever a durable run restarts from a
+#: checkpoint or skips a corrupt one.
+DURABLE_EVENT_TYPES: tuple[str, ...] = ("durable.resume",)
+
+DURABLE_EVENT_FIELDS: dict[str, tuple[str, ...]] = {
+    "durable.resume": ("directory", "resumed_from_step", "chunks_loaded",
+                       "steps"),
+}
+
+#: The runtime-assurance auditor's events (``rta.monitor``).
+RTA_EVENT_TYPES: tuple[str, ...] = ("rta.engage", "rta.recover")
+
+RTA_EVENT_FIELDS: dict[str, tuple[str, ...]] = {
+    "rta.engage": ("step", "rung", "prev_rung"),
+    "rta.recover": ("step", "peak_rung", "engaged_steps"),
+}
+
+
+def step_output_channels() -> dict[str, HeartbeatField]:
+    """StepOutputs field name -> HeartbeatField for every streamed field."""
+    return {f.step_output: f for f in HEARTBEAT_FIELDS
+            if f.step_output is not None}
+
+
+def ensemble_channels() -> dict[str, HeartbeatField]:
+    """EnsembleMetrics field name -> HeartbeatField for every streamed
+    field."""
+    return {f.ensemble: f for f in HEARTBEAT_FIELDS
+            if f.ensemble is not None}
+
+
+def field_by_name(name: str) -> HeartbeatField:
+    for f in HEARTBEAT_FIELDS:
+        if f.name == name:
+            return f
+    raise KeyError(name)
+
+
+_REDUCERS = {"min": min, "max": max, "sum": sum}
+
+
+def reduce_members(field: HeartbeatField, values) -> float:
+    """Fold one channel's per-member values into the streamed scalar, per
+    the field's declared reduction."""
+    vals = list(values)
+    if not vals:
+        raise ValueError(f"no values to reduce for {field.name}")
+    return _REDUCERS[field.reduce](vals)
+
+
+def json_scalar(v: Any):
+    """A JSON-encodable scalar: NaN and infinities as strings (strict JSON
+    has no non-finite numbers), integral floats as ints."""
+    f = float(v)
+    if math.isnan(f):
+        return "nan"
+    if math.isinf(f):
+        return "inf" if f > 0 else "-inf"
+    if f == int(f) and abs(f) < 2**53:
+        return int(f)
+    return f
+
+
+def scalar_value(v: Any) -> float:
+    """Parse an event value back to float (inverse of :func:`json_scalar`)."""
+    return float(v)

@@ -32,8 +32,8 @@ could take — the result the loop gives — so a compiled run equals the
 eager loop bit for bit.
 
 Not ported (ROADMAP.md Queue A10): agent sharding (sp > 1, the exchange
-search), dp across devices, and ``partition="spatial"``; ``telemetry``
-waits for Queue A9. Each raises :class:`OutOfSliceError`.
+search), dp across devices, and ``partition="spatial"``. Each raises
+:class:`OutOfSliceError`.
 """
 
 from __future__ import annotations
@@ -44,8 +44,7 @@ from typing import Any, NamedTuple
 import torch
 
 from cbf_tpu_torch.core.filter import CBFParams, safe_controls
-from cbf_tpu_torch.errors import (SLICE_DURABLE, SLICE_PARALLEL,
-                                  OutOfSliceError)
+from cbf_tpu_torch.errors import SLICE_PARALLEL, OutOfSliceError
 from cbf_tpu_torch.ops import knn
 from cbf_tpu_torch.parallel.mesh import Mesh, check_single_device
 from cbf_tpu_torch.rollout import engine
@@ -541,9 +540,14 @@ def sharded_swarm_rollout(cfg: swarm_scenario.Config, mesh: Mesh, seeds,
     solver carry included) threads through exactly, so a chunked run
     equals an unchunked one. Metrics then come back as numpy arrays.
 
-    ``partition="spatial"`` (one swarm tiled over the mesh) and
-    ``telemetry`` are not ported (Queue A10, Queue A9) and raise;
-    ``telemetry_every`` only qualifies the latter.
+    ``telemetry``: a :class:`cbf_tpu_torch.obs.TelemetrySink`; each
+    segment's host metrics emit the ``t % telemetry_every == 0``
+    heartbeats as the segment ends (``obs.tap.emit_ensemble_chunk``),
+    each channel reduced across members by the schema's reduction;
+    without ``chunk`` they are emitted when the one segment ends.
+
+    ``partition="spatial"`` (one swarm tiled over the mesh) is not ported
+    (Queue A10) and raises.
 
     Returns ((x_final, v_final) — plus theta_final in unicycle mode, plus
     the final solver carry with ``with_solver_state=True`` — with
@@ -559,9 +563,6 @@ def sharded_swarm_rollout(cfg: swarm_scenario.Config, mesh: Mesh, seeds,
                 "carries no solver state")
         raise OutOfSliceError("sharded_swarm_rollout(partition='spatial')",
                               SLICE_PARALLEL)
-    if telemetry is not None:
-        raise OutOfSliceError("sharded_swarm_rollout(telemetry=...)",
-                              SLICE_DURABLE)
     steps = cfg.steps if steps is None else steps
     if cbf is None:
         cbf = swarm_scenario.default_cbf(cfg, device=mesh.device)
@@ -612,14 +613,24 @@ def sharded_swarm_rollout(cfg: swarm_scenario.Config, mesh: Mesh, seeds,
             return EnsembleMetrics(*(m.cpu().numpy() for m in out))
         return out
 
+    def emit(mets_host, t_start):
+        if telemetry is not None:
+            from cbf_tpu_torch.obs.tap import emit_ensemble_chunk
+
+            emit_ensemble_chunk(telemetry, mets_host, t_start,
+                                every=telemetry_every)
+
     if chunk is None:
         carry, mets = engine.rollout_at(step, carry, steps, t0)
         mets = member_major(mets, to_host=False)
+        if telemetry is not None:
+            emit(EnsembleMetrics(*(m.cpu().numpy() for m in mets)), t0)
     else:
         host_parts = []
         for t, n in engine.plan_chunks(t0, t0 + steps, chunk):
             carry, mets_c = engine.rollout_at(step, carry, n, t)
             host_parts.append(member_major(mets_c, to_host=True))
+            emit(host_parts[-1], t)
         mets = engine.stack_host_chunks(host_parts, axis=1)
 
     state_out = tuple(carry[:parts])

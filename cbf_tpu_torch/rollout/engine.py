@@ -35,16 +35,26 @@ chunk's saved start and the redo like positions do.
 
 A capture or launch failure raises: no path runs the eager loop on the card
 except that counted redo.
+
+The durability and observability knobs are host-side and leave every
+value the rollout computes as it is: ``rollout_chunked(checkpoint_dir=)``
+snapshots the carry at each chunk boundary
+(:class:`cbf_tpu_torch.utils.checkpoint.CheckpointWriter`), ``telemetry=``
+wraps the step with the tap (:mod:`cbf_tpu_torch.obs.tap`), whose
+heartbeats the engine emits while the next chunk runs, and
+``cost_model=`` measures each program at its capture
+(:meth:`_Program.prepare`) and times its runs
+(:class:`cbf_tpu_torch.obs.resource.CostModel`).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from cbf_tpu_torch.errors import SLICE_DURABLE, OutOfSliceError
 from cbf_tpu_torch.ops import knn
 from cbf_tpu_torch.solvers import exact2d
 
@@ -71,6 +81,30 @@ class StepOutputs(NamedTuple):
     certificate_iterations: Any = ()
     certificate_carry_resets: Any = ()
     rta_mode: Any = ()
+
+
+class Extra(NamedTuple):
+    """A wrapped step's per-step outputs: the step's own ``outputs`` and
+    what the wrapper adds (the telemetry tap's non-finite count, the
+    checked rollout's flags). The rollout returns ``outputs`` alone."""
+    outputs: Any
+    extra: Any
+
+
+def strip_extra(outs):
+    """``outs`` without the wrappers' :class:`Extra` layers."""
+    while isinstance(outs, Extra):
+        outs = outs.outputs
+    return outs
+
+
+def forward_attributes(wrapped: Callable, step_fn: Callable) -> Callable:
+    """Give a step wrapper the step's compiled-rollout attributes
+    (``relax_rounds``, ``admm_blocks``, ``host_inputs``)."""
+    for name in ("relax_rounds", "admm_blocks", "host_inputs"):
+        if hasattr(step_fn, name):
+            setattr(wrapped, name, getattr(step_fn, name))
+    return wrapped
 
 
 def _tree_map(fn, *trees):
@@ -142,6 +176,7 @@ class _Program:
         self.outs = None          # StepOutputs of (n, ...) buffers
         self.graphs = {}          # body length -> (CUDAGraph, launches)
         self.pool = None
+        self.analysis = None      # prepare()'s measurements
 
     def load(self, state) -> None:
         """Copy ``state`` into the static carry (``state`` is not kept)."""
@@ -155,6 +190,8 @@ class _Program:
         self.flag.zero_()
         if self.host_inputs is not None:
             table = self.host_inputs(t0, self.n)
+            if table is None:             # a hook with nothing to copy
+                return
             if self.inputs is None:
                 self.inputs = torch.empty(table.shape, dtype=table.dtype,
                                           device=self.device)
@@ -214,9 +251,10 @@ class _Program:
         self.graphs[length] = (graph, recorded)
         COUNTS["captures"] += 1
 
-    def run(self, step_fn, t0: int) -> None:
+    def run(self, step_fn, t0: int, during=None) -> None:
         """The chunk [t0, t0 + n) from the carry: bodies of ``unroll``
-        steps, a trailing partial body, then the relax flag read once; the
+        steps, a trailing partial body, then ``during()`` (host work that
+        overlaps the chunk on the card), then the relax flag read once; the
         chunk is redone eagerly from its saved start where it is set."""
         self.start(t0)
         saved = _tree_map(torch.clone, self.carry)
@@ -225,12 +263,56 @@ class _Program:
             self._advance(step_fn, self.unroll)
         if tail:
             self._advance(step_fn, tail)
+        if during is not None:
+            during()
         if bool(self.flag):
             COUNTS["redos"] += 1
             COUNTS["redo_steps"] += self.n
             state, outs = eager_rollout(step_fn, saved, self.n, t0=t0)
             self.load(state)
             _tree_map(lambda buf, v: buf.copy_(v), self.outs, outs)
+
+    def prepare(self, step_fn, state, t0: int) -> "_Program":
+        """Capture every body the chunk [t0, t0 + n) needs (on the CPU: run
+        each once) from a copy of ``state``, put ``state`` back in the
+        carry, and measure the program: ``argument_bytes`` (the static
+        carry, clock, flag and input buffers), ``output_bytes`` (the
+        per-step output buffers) and, on the card when a body was captured
+        here, ``peak_bytes`` — the argument buffers plus the most device
+        memory allocated above them during the warm-up runs and the
+        captures (``torch.cuda.max_memory_allocated``). The cost model's
+        "compile"; the warm-up runs are discarded."""
+        start = _tree_map(torch.clone, state)   # state may be the carry
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+            base = torch.cuda.memory_allocated(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+        self.load(start)
+        self.start(t0)
+        tail = self.n % self.unroll
+        captured = False
+        for length in [self.unroll] + ([tail] if tail else []):
+            if cuda and length not in self.graphs:
+                captured = True
+                self._advance(step_fn, length)
+        if self.outs is None:          # the CPU: allocate the output buffers
+            self.body(step_fn, self.unroll)
+        self.load(start)
+
+        def nbytes(tree):
+            return sum(v.numel() * v.element_size() for v in _leaves(tree))
+
+        args = nbytes((self.carry, self.clock, self.flag)) + (
+            0 if self.inputs is None else nbytes(self.inputs))
+        peak = None
+        if captured:
+            torch.cuda.synchronize(self.device)
+            peak = args + torch.cuda.max_memory_allocated(self.device) - base
+        self.analysis = {"argument_bytes": args,
+                         "output_bytes": nbytes(self.outs),
+                         "peak_bytes": peak}
+        return self
 
     def outputs(self, to_host: bool):
         """The chunk's outputs: device copies, or numpy arrays (copies
@@ -269,10 +351,52 @@ def _program(step_fn, state, n: int, unroll) -> _Program:
     return cache[key]
 
 
-def _reject_later(fn: str, **later) -> None:
-    for name, value in later.items():
-        if value is not None:
-            raise OutOfSliceError(f"{fn}({name}=...)", SLICE_DURABLE)
+def _run_chunks(step_fn, state, spans, *, unroll, donate: bool,
+                to_host: bool, writer=None, wait_snapshot: bool = False,
+                durable_hook=None, cost_model=None, label=None,
+                observe_each: bool = True):
+    """The chunk loop of :func:`rollout` and :func:`rollout_chunked`: each
+    ``(t0, n)`` span runs as one program from the last one's state (in
+    place when ``donate``; the first span's state is copied in, never
+    written). After each chunk: ``durable_hook(t1, state, outputs)``, then
+    the boundary save; a tap's heartbeats of each chunk are emitted while
+    the next one runs, the last chunk's at the end. Returns (state — the
+    program's carry when donating —, the chunks' outputs)."""
+    read = None
+    if getattr(step_fn, "tap_sink", None) is not None:
+        from cbf_tpu_torch.obs.tap import chunk_heartbeats as read
+    prev, parts, total, pending = None, [], 0.0, None
+    for t0, n in spans:
+        prog = _program(step_fn, state, n, unroll)
+        if cost_model is not None:
+            cost_model.compile_and_record(
+                label, prog.prepare, (step_fn, state, t0),
+                cache_key=(label, step_fn, n, unroll, donate,
+                           _signature(state)))
+        t_exec = time.perf_counter()
+        if not (donate and prog is prev):
+            prog.load(state)
+        prog.run(step_fn, t0, during=pending)   # ends on the flag's read
+        outs = prog.outputs(to_host)
+        pending = None if read is None else read(step_fn, t0, outs)
+        total += time.perf_counter() - t_exec
+        if cost_model is not None and observe_each:
+            cost_model.observe_execute(label, total)
+            total = 0.0
+        parts.append(outs)
+        state = prog.carry if donate else _tree_map(torch.clone, prog.carry)
+        prev = prog
+        if durable_hook is not None:
+            durable_hook(t0 + n, state, strip_extra(outs))
+        if writer is not None:
+            writer.save(t0 + n, state)
+            if wait_snapshot:
+                writer.wait_snapshot()
+    if pending is not None:
+        pending()
+    if cost_model is not None and not observe_each and parts:
+        cost_model.observe_execute(label, total)
+    return state, parts
 
 
 def rollout(step_fn: Callable, state0, steps: int, *, unroll: int = 1,
@@ -281,12 +405,47 @@ def rollout(step_fn: Callable, state0, steps: int, *, unroll: int = 1,
     """Run ``steps`` iterations of ``step_fn`` as one compiled chunk
     (module docstring), ``unroll`` steps per captured body.
 
-    ``telemetry`` and ``cost_model`` are not ported yet and raise;
-    ``telemetry_every`` and ``cost_label`` only qualify them. ``state0`` is
-    never written. Returns (final_state, StepOutputs stacked over time, on
-    the state's device; None for no steps)."""
-    _reject_later("rollout", telemetry=telemetry, cost_model=cost_model)
-    return rollout_at(step_fn, state0, steps, 0, unroll=unroll)
+    ``telemetry``: a :class:`cbf_tpu_torch.obs.TelemetrySink`; the step is
+    wrapped with the tap (cached on the sink) and the rollout runs as
+    ``telemetry_every``-step chunks, each chunk's heartbeat emitted while
+    the next one runs, so heartbeats arrive while the run goes on.
+    ``cost_model``: a :class:`cbf_tpu_torch.obs.resource.CostModel`; each
+    program is prepared and measured under ``cost_label`` (default
+    ``rollout-s<steps>-u<unroll>``) before it runs, and the run's wall
+    feeds ``observe_execute``. Neither changes a value.
+
+    ``state0`` is never written. Returns (final_state, StepOutputs stacked
+    over time, on the state's device; None for no steps)."""
+    final, outs = rollout_extra(
+        step_fn, state0, steps, unroll=unroll, telemetry=telemetry,
+        telemetry_every=telemetry_every, cost_model=cost_model,
+        cost_label=cost_label)
+    return final, (None if outs is None else strip_extra(outs))
+
+
+def rollout_extra(step_fn: Callable, state0, steps: int, *, unroll: int = 1,
+                  telemetry=None, telemetry_every: int = 50,
+                  cost_model=None, cost_label: str | None = None):
+    """:func:`rollout` keeping the step wrappers' :class:`Extra` outputs
+    (the checked rollout reads its flags there)."""
+    if steps < 1:
+        return state0, None
+    spans = [(0, steps)]
+    if telemetry is not None:
+        from cbf_tpu_torch.obs.tap import instrument_step
+
+        step_fn = instrument_step(step_fn, telemetry, every=telemetry_every)
+        spans = plan_chunks(0, steps, telemetry_every)
+    state, parts = _run_chunks(
+        step_fn, state0, spans, unroll=unroll, donate=True, to_host=False,
+        cost_model=cost_model,
+        label=cost_label or f"rollout-s{steps}-u{unroll}",
+        observe_each=False)
+    outs = parts[0] if len(parts) == 1 else _tree_map(
+        lambda *xs: torch.cat(xs), *parts)
+    if telemetry is not None:
+        outs = outs.outputs             # the tap this call added
+    return _tree_map(torch.clone, state), outs
 
 
 def rollout_at(step_fn: Callable, state0, steps: int, t0: int, *,
@@ -313,34 +472,65 @@ def rollout_chunked(step_fn: Callable, state0, steps: int, *,
     chunk's outputs to the host (numpy) as it completes, so a long record
     never has to fit device memory.
 
-    ``donate_carry`` (None = auto = True, as no checkpoint writer runs):
-    the program's static state buffers carry the state from chunk to chunk
-    in place; False hands each chunk a fresh copy of the last one's state.
-    The caller's ``state0`` is never written either way. Checkpointing,
-    telemetry, the cost model and the durable hook are not ported yet and
-    raise; ``resume``, ``telemetry_every`` and ``cost_label`` only qualify
-    them. Returns (final_state, StepOutputs stacked over the executed
-    steps as numpy arrays, start_step)."""
+    ``checkpoint_dir``: the newest intact checkpoint there is restored
+    first (unless ``resume=False``) and the run continues from its step;
+    every chunk boundary is saved (:class:`cbf_tpu_torch.utils.checkpoint.
+    CheckpointWriter`, its snapshot taken before the next chunk runs).
+    Outputs cover only the steps run by this call.
+
+    ``telemetry``/``telemetry_every``: as :func:`rollout`, each chunk's
+    heartbeats emitted while the next runs, sampled on the global step, so
+    a resumed run's land on the steps an uninterrupted one's would.
+
+    ``donate_carry`` (None = donate exactly when no checkpoint writer
+    runs, as in the JAX package): the program's static state buffers carry
+    the state from chunk to chunk in place; False hands each chunk a fresh
+    copy of the last one's state. An explicit True with a writer also
+    waits for each boundary snapshot's copies before the next chunk. The
+    caller's ``state0`` is never written either way.
+
+    ``durable_hook``: called after every chunk as ``durable_hook(t1,
+    state, outs_host)`` — before the boundary save, so a committed
+    checkpoint at step t implies every output up to t is persisted
+    (:mod:`cbf_tpu_torch.durable.rollout`).
+
+    ``cost_model``/``cost_label``: as :func:`rollout`, each chunk size
+    prepared once under ``cost_label`` (default
+    ``rollout-c<chunk>-u<unroll>``) and every chunk's wall (run and host
+    offload) observed.
+
+    Returns (final_state, StepOutputs stacked over the executed steps as
+    numpy arrays or None, start_step)."""
+    from cbf_tpu_torch.utils import checkpoint as ckpt
+
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    _reject_later("rollout_chunked", checkpoint_dir=checkpoint_dir,
-                  telemetry=telemetry, cost_model=cost_model,
-                  durable_hook=durable_hook)
-    donate = True if donate_carry is None else bool(donate_carry)
-    state, prev, parts = state0, None, []
-    for t0, n in plan_chunks(0, steps, chunk):
-        prog = _program(step_fn, state, n, unroll)
-        if not (donate and prog is prev):
-            prog.load(state)
-        prog.run(step_fn, t0)
-        parts.append(prog.outputs(to_host=True))
-        state = prog.carry if donate else _tree_map(torch.clone, prog.carry)
-        prev = prog
+    if telemetry is not None:
+        from cbf_tpu_torch.obs.tap import instrument_step
+
+        step_fn = instrument_step(step_fn, telemetry, every=telemetry_every)
+    state, start = state0, 0
+    if checkpoint_dir and resume and \
+            ckpt.latest_step(checkpoint_dir) is not None:
+        state, start = ckpt.restore(checkpoint_dir, state0)
+    writer = ckpt.CheckpointWriter(checkpoint_dir) if checkpoint_dir \
+        else None
+    donate = writer is None if donate_carry is None else bool(donate_carry)
+    try:
+        state, parts = _run_chunks(
+            step_fn, state, plan_chunks(start, steps, chunk), unroll=unroll,
+            donate=donate, to_host=True, writer=writer,
+            wait_snapshot=donate, durable_hook=durable_hook,
+            cost_model=cost_model,
+            label=cost_label or f"rollout-c{chunk}-u{unroll}")
+    finally:
+        if writer is not None:
+            writer.close()
     if not parts:
-        return state, None, 0
+        return state, None, start
     if donate:
         state = _tree_map(torch.clone, state)
-    return state, stack_host_chunks(parts), 0
+    return state, strip_extra(stack_host_chunks(parts)), start
 
 
 def plan_chunks(start: int, steps: int, chunk: int,

@@ -38,7 +38,6 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
-import math
 import os
 import tempfile
 from typing import Any, Callable, NamedTuple
@@ -46,8 +45,8 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from cbf_tpu_torch.errors import (SLICE_DURABLE, SLICE_PARALLEL,
-                                  OutOfSliceError)
+from cbf_tpu_torch.errors import SLICE_PARALLEL, OutOfSliceError
+from cbf_tpu_torch.obs.schema import json_scalar
 from cbf_tpu_torch.rollout.engine import (_leaves, _tree_map, eager_rollout,
                                           rollout)
 from cbf_tpu_torch.solvers import exact2d
@@ -365,11 +364,11 @@ def make_eval_batch(adapter: Adapter, settings: SearchSettings,
     batch's perturbed states step together through :func:`member_step`
     in one compiled rollout (one CUDA graph per batch shape on the card,
     cached on the member step), then every candidate's margins. ``mesh``
-    must be None or dp-only of extent 1; ``cost_model`` is not ported."""
+    must be None or dp-only of extent 1. With ``cost_model`` (a
+    :class:`cbf_tpu_torch.obs.resource.CostModel`) each batch shape's
+    program is prepared and measured under ``verify-eval-b<B>-s<steps>``
+    and every batch's rollout wall is observed."""
     _check_mesh(mesh)
-    if cost_model is not None:
-        raise OutOfSliceError("make_eval_batch(cost_model=...)",
-                              SLICE_DURABLE)
     stepper = member_step(adapter.step)
     margins = torch.func.vmap(_margins_fn(adapter), in_dims=(0, 1))
 
@@ -380,7 +379,10 @@ def make_eval_batch(adapter: Adapter, settings: SearchSettings,
     def eval_batch(deltas):
         deltas = torch.as_tensor(deltas).to(adapter.device)
         s0 = torch.func.vmap(perturb_one)(deltas)
-        final, outs = rollout(stepper, s0, adapter.steps)
+        label = None if cost_model is None else \
+            f"verify-eval-b{deltas.shape[0]}-s{adapter.steps}"
+        final, outs = rollout(stepper, s0, adapter.steps,
+                              cost_model=cost_model, cost_label=label)
         return margins(final, outs)
 
     eval_batch.member_step = stepper
@@ -413,19 +415,6 @@ def _result(engine, adapter, settings, delta_np, margins_vec, evaluated,
         property=PROPERTY_NAMES[i], delta=np.asarray(delta_np),
         margins={name: float(v) for name, v in zip(PROPERTY_NAMES, m)},
         evaluated=int(evaluated), rounds=int(rounds), seed=settings.seed)
-
-
-def json_scalar(v):
-    """A JSON-encodable scalar (the JAX package's ``obs.schema``): NaN and
-    infinities as strings, integral floats as ints."""
-    f = float(v)
-    if math.isnan(f):
-        return "nan"
-    if math.isinf(f):
-        return "inf" if f > 0 else "-inf"
-    if f == int(f) and abs(f) < 2 ** 53:
-        return int(f)
-    return f
 
 
 def _emit_round(telemetry, engine, rnd, candidates, best_margin,

@@ -217,6 +217,35 @@ Phases (each raises, and the script exits non-zero, on any failure):
    against the exact search (equal trajectories below truncation, the
    sound floor at or below the exact separation).
 
+16. durability and observability at the flagship width
+   (``Config(n=4096)``, ``gating="auto"``: one ``knn_fused`` per step):
+   16a ``rollout_chunked`` x 2000 in 500-step chunks with
+   ``checkpoint_dir`` ``torch.equal`` to the run without (final state,
+   every StepOutputs field), both timed in turns, the synchronous save
+   and the verified restore timed per boundary, the bytes of a step,
+   every retained manifest verified against its boundary's state, the
+   damaged newest step walked back and a fully damaged directory
+   refused; 16b ``python3 -m cbf_tpu_torch run swarm --device cuda --set
+   n=4096 --steps 2000 --chunk 500 --durable-dir D`` SIGKILLed once its
+   first manifest is committed, ``run --resume D`` from a step > 0, its
+   stitched outputs and final state byte-identical to an uninterrupted
+   ``run_durable`` of the same spec, the MTTR from ``resume_log.jsonl``;
+   16c the compiled x 500 rollout with ``telemetry_every=50``: each
+   heartbeat equal to ``StepOutputs[t]``, the run ``torch.equal`` to the
+   one without, telemetry on and off timed in turns (off, on, on, off),
+   the overhead printed beside JAX's 3% budget and held under 10% (and
+   split: every-step chunks without the tap, the tap in one chunk, each
+   timed in turns beside the run without, device ops and busy share on
+   and off from torch.profiler), and the watchdog raising ``nan`` (``faults.nan_at_step``),
+   ``certificate_blowup`` (``faults.residual_blowup_at_step`` on the warm
+   sparse certificate at N=256) and ``stall`` (``faults.stall_at_step``,
+   2 s); 16d ``checked_rollout`` clean on the x 500 run and locating an
+   injected inf at its step, ``rollout(cost_model=)`` ``torch.equal`` to
+   the run without (peak bytes per agent and the warm drift printed), and
+   ``run --profile-dir`` writing a trace with the consensus, gating,
+   filter and integrate spans and ``knn_fused``. Every run's launches are
+   counted (zeroed just before, read just after) into the kernel table.
+
 Phases 7-13 run before phase 6, which times their kernels (``knn_fused``
 and ``knn_stream`` also at the certificate's k=16 shape) and profiles
 every phase of 1-12 over 20 steps (12a over 2, 12d over 5; phase 13
@@ -357,6 +386,25 @@ MEMBER_MARGIN_ATOL = 1e-5
 # operations in other summation orders over 150 steps.
 CORPUS_REPLAY_ATOL = 1e-9
 CORPUS_CFG = {"n": 16, "steps": 140, "k_neighbors": 4, "gating": "jnp"}
+# Phase 16, durability and observability at the flagship width: 16a/16b
+# run DUR_STEPS in DUR_CHUNK-step chunks (16b kills the CLI once its first
+# checkpoint is committed); 16c streams a heartbeat every TEL_EVERY steps
+# of TEL_STEPS and times telemetry on against off, held under
+# TEL_OVERHEAD_FAIL (the JAX package's budget, tests/test_telemetry.py:
+# 362-385, is TEL_OVERHEAD_BUDGET; noise alone must not fail the script);
+# its watchdog sees a NaN at WATCH_NAN_AT, the warm certificate's carry
+# blown up at CERT_WATCH_AT (N=CERT_WATCH_N) and a STALL_S host stall at
+# STALL_AT; 16d checks 16c's run for a NaN or an inf, finds one injected
+# at CHECKED_INF_AT, runs the cost model COST_REPS times and profiles
+# PROFILE_STEPS steps through the CLI.
+DUR_STEPS, DUR_CHUNK = 2000, 500
+TEL_STEPS, TEL_EVERY = 500, 50
+TEL_OVERHEAD_BUDGET, TEL_OVERHEAD_FAIL = 0.03, 0.10
+WATCH_STEPS, WATCH_NAN_AT = 200, 100
+CERT_WATCH_N, CERT_WATCH_STEPS, CERT_WATCH_AT = 256, 10, 4
+STALL_AT, STALL_S, STALL_TIMEOUT, STALL_EVERY = 100, 2.0, 0.5, 10
+CHECKED_INF_AT = 250
+COST_REPS, PROFILE_STEPS = 5, 50
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1995,6 +2043,406 @@ def phase15(engine, knn, swarm, t_start) -> dict:
     return out
 
 
+def phase16(engine, knn, swarm, t_start) -> dict:
+    """Phase 16: durability and observability on the card at the flagship
+    width (module docstring). Returns each run's launches and the
+    measurements."""
+    import contextlib
+    import glob
+    import io
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import cbf_tpu_torch
+    from cbf_tpu_torch import __main__ as cli
+    from cbf_tpu_torch import obs
+    from cbf_tpu_torch.durable import rollout as durable
+    from cbf_tpu_torch.utils import checkpoint as ckpt
+    from cbf_tpu_torch.utils import debug, faults, profiling
+
+    out = {"runs": {}, "info": {}}
+    info = out["info"]
+    t16 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase16-")
+
+    def counted(label, fn, steps, per_step=1, prepared=False):
+        """``fn()`` with the counts zeroed just before and read just
+        after: ``knn_fused`` launched per_step times per step — the
+        run's, the steps the engine redid eagerly and, where a cost model
+        ``prepared`` the program, each capture's warm-up step — and no
+        other kernel. Returns (result, wall)."""
+        torch.cuda.synchronize()
+        zero_counts(engine, knn)
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, counts = dict(knn.LAUNCHES), dict(engine.COUNTS)
+        want = dict.fromkeys(knn.LAUNCHES, 0)
+        want["knn_fused"] = per_step * (
+            steps + counts["redo_steps"]
+            + (counts["captures"] if prepared else 0))
+        check(launches == want, f"{label}: launches {launches}, want {want}")
+        out["runs"][label] = {"launches": launches}
+        return result, wall
+
+    def host_tree_equal(a, b) -> bool:
+        """numpy StepOutputs trees equal field by field (``()`` on both)."""
+        return all(x == () if isinstance(y, tuple) else
+                   np.array_equal(np.asarray(x), np.asarray(y))
+                   for x, y in zip(a, b))
+
+    def damage(directory, step):
+        path = os.path.join(directory, str(step), ckpt.DATA_NAME)
+        with open(path, "r+b") as fh:
+            b = fh.read(1)
+            fh.seek(0)
+            fh.write(bytes([b[0] ^ 0xFF]))
+
+    try:
+        # 16a. checkpointed chunked rollout
+        cfg = swarm.Config(n=MAIN_N, steps=DUR_STEPS)
+        state0, step = swarm.make(cfg)
+        d = os.path.join(tmp, "ckpt")
+        states = {}
+
+        def keep(t1, state, outs_host):
+            states[t1] = engine._tree_map(torch.clone, state)
+
+        (final_c, outs_c, _), wall_c = counted(
+            "phase 16a checkpointed", lambda: engine.rollout_chunked(
+                step, state0, DUR_STEPS, chunk=DUR_CHUNK, checkpoint_dir=d,
+                durable_hook=keep), DUR_STEPS)
+        (final_p, outs_p, _), wall_p = counted(
+            "phase 16a plain", lambda: engine.rollout_chunked(
+                step, state0, DUR_STEPS, chunk=DUR_CHUNK), DUR_STEPS)
+        check(same_tree(final_c, final_p) and host_tree_equal(outs_c, outs_p),
+              "16a: the checkpointed run differs from the run without")
+        # Both programs captured: the two timed in turns.
+        turns = {"plain": [], "checkpointed": []}
+        for kind in ("plain", "checkpointed", "checkpointed", "plain"):
+            kw = {} if kind == "plain" else {"checkpoint_dir": os.path.join(
+                tmp, f"turn{len(turns[kind])}")}
+            turns[kind].append(timed(lambda: engine.rollout_chunked(
+                step, state0, DUR_STEPS, chunk=DUR_CHUNK, **kw)))
+        check(float(outs_c.min_pairwise_distance.min()) >= FLOOR
+              and int(outs_c.infeasible_count.sum()) == 0
+              and bool(torch.isfinite(final_c.x).all()),
+              "16a: the run leaves the floor, is infeasible or non-finite")
+        kept = ckpt._steps(d)
+        check(kept == [DUR_STEPS - DUR_CHUNK, DUR_STEPS],
+              f"16a: retained steps {kept}")
+        restore_s = {}
+        for s_ in kept:
+            t0 = time.perf_counter()
+            restored, at = ckpt.restore(d, state0, step=s_)
+            torch.cuda.synchronize()
+            restore_s[s_] = time.perf_counter() - t0
+            check(at == s_ and same_tree(restored, states[s_]),
+                  f"16a: step {s_} does not restore its state")
+        save_s = {}
+        for t1, st in sorted(states.items()):
+            save_s[t1] = timed(lambda: ckpt.save(os.path.join(tmp, "sync"),
+                                                 t1, st))
+        step_bytes = sum(os.path.getsize(os.path.join(d, str(DUR_STEPS), f))
+                         for f in os.listdir(os.path.join(d, str(DUR_STEPS))))
+        damage(d, DUR_STEPS)
+        restored, at, skipped = ckpt.restore_intact(d, state0)
+        check(at == DUR_STEPS - DUR_CHUNK and skipped == [DUR_STEPS]
+              and same_tree(restored, states[at]),
+              f"16a: walk back gave step {at}, skipped {skipped}")
+        damage(d, DUR_STEPS - DUR_CHUNK)
+        try:
+            ckpt.restore(d, state0)
+            check(False, "16a: a fully damaged directory restored")
+        except ckpt.CheckpointCorrupt:
+            pass
+        info["16a"] = {
+            "steps": DUR_STEPS, "chunk": DUR_CHUNK,
+            "first_call_s": {"checkpointed": wall_c, "plain": wall_p},
+            "wall_s_in_turns": turns,
+            "checkpoint_overhead": sum(turns["checkpointed"])
+            / sum(turns["plain"]) - 1.0,
+            "save_wall_s_per_boundary": save_s,
+            "restore_wall_s_per_step": restore_s,
+            "checkpoint_bytes_per_step": step_bytes,
+            "retained_steps": kept, "walked_back_to": at,
+            "skipped": skipped}
+        print("phase 16a: checkpointed == plain (final state, every "
+              "StepOutputs field); every committed manifest verifies; the "
+              f"damaged newest step {skipped} walked back to {at}; a fully "
+              "damaged directory raises CheckpointCorrupt; "
+              + json.dumps(info["16a"]))
+
+        # 16b. kill and resume through the CLI
+        root = os.path.dirname(os.path.dirname(
+            os.path.abspath(cbf_tpu_torch.__file__)))
+        env = dict(os.environ, PYTHONPATH=root + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        kill_dir = os.path.join(tmp, "durable")
+        argv = [sys.executable, "-m", "cbf_tpu_torch", "run", "swarm",
+                "--device", "cuda", "--set", f"n={MAIN_N}", "--steps",
+                str(DUR_STEPS), "--chunk", str(DUR_CHUNK), "--durable-dir",
+                kill_dir]
+
+        def committed(_elapsed):
+            return bool(glob.glob(os.path.join(kill_dir, "ckpt", "*",
+                                               "integrity.json")))
+
+        rc, killed, kill_s = faults.run_process_until(
+            argv, committed, poll_s=0.05, timeout_s=300.0, env=env)
+        check(killed and rc == -9,
+              f"16b: the run ended (rc={rc}) before the kill armed")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "cbf_tpu_torch", "run", "--resume",
+             kill_dir, "--device", "cuda"], env=env, capture_output=True,
+            text=True, timeout=600)
+        resume_wall = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"16b: run --resume exited {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        record = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(record["resumed_from_step"] > 0,
+              f"16b: resumed from step {record['resumed_from_step']}")
+        ref, _ = counted(
+            "phase 16b uninterrupted", lambda: durable.run_durable(
+                os.path.join(tmp, "durable-ref"), scenario="swarm",
+                cfg=swarm.Config(n=MAIN_N, steps=DUR_STEPS),
+                chunk=DUR_CHUNK), DUR_STEPS)
+        res = durable.resume(kill_dir)
+        check(res["resumed_from_step"] == DUR_STEPS,
+              "16b: the resumed directory is not complete")
+        got = [np.asarray(v) for _, v in durable.integrity.tree_items(
+            res["outputs"])]
+        want = [np.asarray(v) for _, v in durable.integrity.tree_items(
+            ref["outputs"])]
+        check(len(got) == len(want) and all(
+            a.dtype == b.dtype and a.tobytes() == b.tobytes()
+            for a, b in zip(got, want)) and same_tree(
+                res["final_state"], ref["final_state"]),
+            "16b: the killed-and-resumed run differs from the uninterrupted "
+            "one")
+        with open(os.path.join(kill_dir, durable.RESUME_LOG_NAME)) as fh:
+            log = [json.loads(line) for line in fh]
+        info["16b"] = {"killed_after_s": kill_s,
+                       "resumed_from_step": record["resumed_from_step"],
+                       "mttr_s": log[-1]["recovery_s"],
+                       "resume_process_wall_s": resume_wall,
+                       "min_pairwise_distance":
+                           record["min_pairwise_distance"]}
+        print("phase 16b: SIGKILLed at the first committed checkpoint, run "
+              "--resume byte-identical to the uninterrupted --durable-dir "
+              "run (outputs and final state); " + json.dumps(info["16b"]))
+
+        # 16c. telemetry, its overhead, and the watchdog's alerts
+        cfg = swarm.Config(n=MAIN_N, steps=TEL_STEPS)
+        state0, step = swarm.make(cfg)
+        run_dir = os.path.join(tmp, "telemetry")
+        sink = obs.TelemetrySink(run_dir)
+        (final_t, outs_t), _ = counted(
+            "phase 16c telemetry", lambda: engine.rollout(
+                step, state0, TEL_STEPS, telemetry=sink,
+                telemetry_every=TEL_EVERY), TEL_STEPS)
+        (final_0, outs_0), _ = counted(
+            "phase 16c without telemetry",
+            lambda: engine.rollout(step, state0, TEL_STEPS), TEL_STEPS)
+        check(same_tree(final_t, final_0)
+              and same_tree(tuple(outs_t), tuple(outs_0)),
+              "16c: the run with telemetry differs from the run without")
+        beats = [e for e in obs.read_events(run_dir)
+                 if e.get("event") == "heartbeat"]
+        check([e["step"] for e in beats] == list(range(0, TEL_STEPS,
+                                                       TEL_EVERY)),
+              f"16c: heartbeats at {[e['step'] for e in beats]}")
+        for e in beats:
+            t = e["step"]
+            for f in obs.HEARTBEAT_FIELDS:
+                if f.step_output is None:
+                    check(e[f.name] == 0, f"16c: {f.name} at step {t}")
+                    continue
+                leaf = getattr(outs_0, f.step_output)
+                if isinstance(leaf, tuple):
+                    continue
+                check(obs.schema.scalar_value(e[f.name]) == float(leaf[t]),
+                      f"16c: heartbeat {f.name} at step {t} differs from "
+                      "StepOutputs")
+        walls = {"off": [], "on": []}
+        for kind in ("off", "on", "on", "off"):
+            kw = ({"telemetry": sink, "telemetry_every": TEL_EVERY}
+                  if kind == "on" else {})
+            walls[kind].append(timed(lambda: engine.rollout(
+                step, state0, TEL_STEPS, **kw)))
+        overhead = sum(walls["on"]) / sum(walls["off"]) - 1.0
+        check(overhead <= TEL_OVERHEAD_FAIL,
+              f"16c: telemetry overhead {overhead:.2%} > "
+              f"{TEL_OVERHEAD_FAIL:.0%}")
+        # Where it goes: the chunking alone (every-step chunks, no tap)
+        # and the tap alone (one chunk, heartbeats at its end), timed in
+        # turns with the run without; then device ops and busy share.
+        tap = obs.instrument_step(step, sink, every=TEL_EVERY)
+
+        def chunked():
+            s_ = state0
+            for t_ in range(0, TEL_STEPS, TEL_EVERY):
+                s_, _ = engine.rollout_at(step, s_, TEL_EVERY, t_)
+
+        split = {"off": lambda: engine.rollout(step, state0, TEL_STEPS),
+                 "chunks_only": chunked,
+                 "tap_only": lambda: engine.rollout(tap, state0, TEL_STEPS),
+                 "on": lambda: engine.rollout(
+                     step, state0, TEL_STEPS, telemetry=sink,
+                     telemetry_every=TEL_EVERY)}
+        for fn in split.values():
+            fn()
+        split_s = {k: [] for k in split}
+        for order in (list(split), list(split)[::-1]):
+            for k in order:
+                split_s[k].append(timed(split[k]))
+        split_profile = {k: profile_rollout(split[k], TEL_STEPS)
+                         for k in ("off", "on")}
+        sink.close()
+
+        def watched(label, step_fn, state, steps, every, per_step=1, **kw):
+            wdir = os.path.join(tmp, label.replace(" ", "_"))
+            wsink = obs.TelemetrySink(wdir)
+            with obs.Watchdog(wsink, **kw) as wd:
+                counted(label, lambda: engine.rollout(
+                    step_fn, state, steps, telemetry=wsink,
+                    telemetry_every=every), steps, per_step)
+            wsink.close()
+            return wd.alerts, {e["step"]: e for e in obs.read_events(wdir)
+                               if e.get("event") == "heartbeat"}
+
+        cfg_w = swarm.Config(n=MAIN_N, steps=WATCH_STEPS)
+        state_w, step_w = swarm.make(cfg_w)
+        alerts, _ = watched("phase 16c nan", faults.nan_at_step(
+            step_w, WATCH_NAN_AT), state_w, WATCH_STEPS, TEL_EVERY)
+        nan = [a for a in alerts if a.kind == obs.ALERT_NAN]
+        check(nan and nan[0].step == WATCH_NAN_AT,
+              f"16c: NaN at step {WATCH_NAN_AT} raised {alerts}")
+        cfg_b = swarm.Config(n=CERT_WATCH_N, steps=CERT_WATCH_STEPS,
+                             certificate=True, certificate_backend="sparse",
+                             certificate_warm_start=True)
+        state_b, step_b = swarm.make(cfg_b)
+        alerts, _ = watched("phase 16c certificate blow-up",
+                            faults.residual_blowup_at_step(step_b,
+                                                           CERT_WATCH_AT),
+                            state_b, CERT_WATCH_STEPS, 1, per_step=2)
+        blow = [a for a in alerts if a.kind == obs.ALERT_CERT_BLOWUP]
+        check(blow and blow[0].step == CERT_WATCH_AT,
+              f"16c: the blown-up carry raised {alerts}")
+        stalled = faults.stall_at_step(step_w, STALL_AT, STALL_S)
+        psink = obs.TelemetrySink(os.path.join(tmp, "stall-warm-up"))
+        psink.pause()        # capture the programs before the watch
+        engine.rollout(stalled, state_w, WATCH_STEPS, telemetry=psink,
+                       telemetry_every=STALL_EVERY)
+        psink.close()
+        t0 = time.time()
+        alerts, hbs = watched("phase 16c stall", stalled, state_w,
+                              WATCH_STEPS, STALL_EVERY,
+                              stall_timeout=STALL_TIMEOUT)
+        stall = [a for a in alerts if a.kind == obs.ALERT_STALL]
+        beats_w = [hbs[t]["t_wall"] for t in sorted(hbs)]
+        gap = max(np.diff(beats_w))
+        check(stall and stall[0].t_wall <= beats_w[-1] and gap >= STALL_S
+              and len(beats_w) == WATCH_STEPS // STALL_EVERY,
+              f"16c: the {STALL_S} s stall raised {alerts}, gap {gap}")
+        info["16c"] = {
+            "heartbeats": len(beats), "every": TEL_EVERY,
+            "off_s": walls["off"], "on_s": walls["on"],
+            "overhead": overhead, "budget": TEL_OVERHEAD_BUDGET,
+            "met_budget": overhead <= TEL_OVERHEAD_BUDGET,
+            "split_s": split_s,
+            "split_vs_off": {k: sum(v) / sum(split_s["off"]) - 1.0
+                             for k, v in split_s.items()},
+            "profile": {k: {key: p[key] for key in (
+                "device_ops_per_step", "device_busy_ms_per_step",
+                "device_busy_share", "wall_ms_per_step")}
+                for k, p in split_profile.items()},
+            "alerts": {"nan_step": nan[0].step,
+                       "certificate_blowup_step": blow[0].step,
+                       "stall_after_s": stall[0].t_wall - t0,
+                       "stall_heartbeat_gap_s": gap}}
+        print(f"phase 16c: {len(beats)} heartbeats equal to StepOutputs, "
+              "the trajectory equal to the run without telemetry; overhead "
+              f"{overhead:.2%} (JAX's budget {TEL_OVERHEAD_BUDGET:.0%}, "
+              f"held under {TEL_OVERHEAD_FAIL:.0%}); alerts nan, "
+              "certificate_blowup, stall raised; " + json.dumps(info["16c"]))
+
+        # 16d. the checked rollout, the cost model, the profiler
+        (final_k, outs_k), _ = counted(
+            "phase 16d checked", lambda: debug.checked_rollout(
+                step, state0, TEL_STEPS), TEL_STEPS)
+        check(same_tree(final_k, final_0)
+              and same_tree(tuple(outs_k), tuple(outs_0)),
+              "16d: the checked run differs from the plain run")
+        try:
+            debug.checked_rollout(faults.inf_at_step(step, CHECKED_INF_AT),
+                                  state0, TEL_STEPS)
+            check(False, "16d: the injected inf was not found")
+        except debug.NonFiniteError as e:
+            check(e.step == CHECKED_INF_AT and e.field == "state.x",
+                  f"16d: the inf located at {e.step} {e.field}")
+            located = str(e)
+        _, step_m = swarm.make(cfg)
+        model = obs.CostModel()
+        label = f"n{MAIN_N}-s{TEL_STEPS}"
+        for rep in range(COST_REPS):
+            (final_m, outs_m), _ = counted(
+                f"phase 16d cost model {rep}", lambda: engine.rollout(
+                    step_m, state0, TEL_STEPS, cost_model=model,
+                    cost_label=label), TEL_STEPS, prepared=rep == 0)
+            check(same_tree(final_m, final_0)
+                  and same_tree(tuple(outs_m), tuple(outs_0)),
+                  "16d: the run with a cost model differs")
+        entry = model.entries[label]
+        peak = entry["cost"]["peak_bytes"]
+        check(entry["compiles"] == 1 and entry["executes"] == COST_REPS
+              and peak, f"16d: cost model entry {entry}")
+        pdir = os.path.join(tmp, "profile")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            (rc, _) = counted("phase 16d profile", lambda: cli.main(
+                ["run", "swarm", "--set", f"n={MAIN_N}", "--steps",
+                 str(PROFILE_STEPS), "--profile-dir", pdir]), PROFILE_STEPS)
+        check(rc == 0, f"16d: run --profile-dir exited {rc}")
+        with open(os.path.join(pdir, profiling.TRACE_NAME)) as fh:
+            trace = fh.read()
+        lacks = [n for n in ("consensus", "gating", "filter", "integrate")
+                 if not re.search(r'"name":\s*"%s"' % n, trace)]
+        if not re.search(r'"name":\s*"[^"]*knn_fused', trace):
+            lacks.append("knn_fused")
+        check(not lacks, f"16d: the trace lacks {lacks}")
+        info["16d"] = {
+            "checked": "clean", "located": located,
+            "cost_model": {"label": label, "peak_bytes": peak,
+                           "peak_bytes_per_agent": peak / MAIN_N,
+                           "argument_bytes": entry["cost"]["argument_bytes"],
+                           "output_bytes": entry["cost"]["output_bytes"],
+                           "capture_s": entry["compile_s"],
+                           "execute_ewma_s": entry["execute_ewma_s"],
+                           "drift_recent": entry["drift_recent"],
+                           "warm_drift_median":
+                               model.drift_summary()[label]},
+            "trace_bytes": len(trace)}
+        print("phase 16d: checked_rollout clean and the inf located ("
+              f"{located}); the cost-model runs bit-identical; the trace "
+              "holds the consensus/gating/filter/integrate spans and "
+              "knn_fused; " + json.dumps(info["16d"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    info["wall_s"] = time.perf_counter() - t16
+    print(f"phase 16 done in {info['wall_s']:.1f} s (script at "
+          f"{time.perf_counter() - t_start:.1f} s)")
+    return out
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -2501,6 +2949,9 @@ def main(argv: list[str]) -> int:
     p15a = phase15a(knn, swarm)
     p15 = phase15(engine, knn, swarm, t_start)
 
+    # 16. durability and observability at the flagship width
+    p16 = phase16(engine, knn, swarm, t_start)
+
     # 6. timings at the main-path shapes; launches are every compiled
     # main-path run's of this call, by phase (13f's run swarm included)
     all_runs = {"phase 3 N=256": runs[ENTRY_N], "phase 3 N=4096": main,
@@ -2511,7 +2962,8 @@ def main(argv: list[str]) -> int:
                 "phase 10": verlet,
                 **{f"phase 11 {kind}": run for kind, run in rta.items()},
                 **{f"phase 12{key}": run for key, run in cert.items()},
-                "phase 13f": scen["13f"], **p14["runs"], **p15["runs"]}
+                "phase 13f": scen["13f"], **p14["runs"], **p15["runs"],
+                **p16["runs"]}
     by_phase = {name: {label: run["launches"][name]
                        for label, run in all_runs.items()
                        if run["launches"].get(name)}

@@ -2,7 +2,8 @@
 in process on the CPU, against the JAX package's ``run`` (``--platform
 cpu``): the same record keys (and config fields), values to the scenario
 tolerance (float32: distances atol 1e-5, counts exact). The durable,
-checked, telemetry and profiling options raise, naming Queue A9."""
+checked, telemetry and profiling options each run and leave their
+artefact."""
 
 import json
 
@@ -98,11 +99,43 @@ def test_run_outputs(scenario, extra, tmp_path, capsys):
     ["--checkpoint-dir", "ck"], ["--durable-dir", "d"], ["--resume", "d"],
     ["--checked"], ["--telemetry-dir", "t"], ["--profile-dir", "p"],
     ["--stall-timeout", "1"]])
-def test_out_of_slice_flags_raise(flag):
-    from cbf_tpu_torch.errors import OutOfSliceError
+def test_out_of_slice_flags_raise(flag, tmp_path, monkeypatch, capsys):
+    """Each durability and observability flag of ``run`` (all raised until
+    Queue A9) runs on the CPU and leaves its artefact: a committed
+    manifest, a durable run directory, a resumed run, a clean check, a
+    heartbeat stream, a trace with the step's spans, a watchdog."""
+    import os
 
-    with pytest.raises(OutOfSliceError, match="Queue A9"):
-        main(["run", "swarm", "--steps", "2", "--set", "n=4"] + flag + CPU)
+    monkeypatch.chdir(tmp_path)
+    base = ["run", "swarm", "--steps", "4", "--set", "n=8"] + CPU
+    if flag[0] == "--resume":
+        assert main(base + ["--durable-dir", "d", "--chunk", "2"]) == 0
+        first = _record(capsys)
+        import shutil
+        shutil.rmtree(os.path.join("d", "ckpt", "4"))
+    extra = ["--telemetry-dir", "w"] if flag[0] == "--stall-timeout" else []
+    assert main(base + flag + extra) == 0
+    rec = _record(capsys)
+    if flag[0] == "--checkpoint-dir":
+        assert os.path.isfile(os.path.join("ck", "4", "integrity.json"))
+    elif flag[0] == "--durable-dir":
+        assert rec["resumed_from_step"] == 0 and rec["steps"] == 4
+        assert os.path.isfile(os.path.join("d", "run.json"))
+    elif flag[0] == "--resume":
+        assert rec["resumed_from_step"] == 2
+        assert rec["min_pairwise_distance"] == first["min_pairwise_distance"]
+    elif flag[0] == "--checked":
+        assert rec["steps"] == 4 and np.isfinite(rec["min_pairwise_distance"])
+    elif flag[0] == "--telemetry-dir":
+        assert rec["telemetry_heartbeats"] == 1
+        assert os.path.isfile(os.path.join("t", "events.jsonl"))
+    elif flag[0] == "--profile-dir":
+        with open(os.path.join("p", "trace.json")) as fh:
+            trace = fh.read()
+        assert all(span in trace for span in ("consensus", "gating",
+                                              "filter", "integrate"))
+    else:
+        assert rec["telemetry_alerts"] == []
 
 
 def test_bad_input(capsys):

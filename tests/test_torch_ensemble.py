@@ -406,9 +406,17 @@ def test_rejections_match_jax(override, kwargs):
     assert str(terr.value) == str(jerr.value)
 
 
+class _ListSink:
+    def __init__(self):
+        self.beats = []
+
+    def heartbeat(self, step, values, ensemble_members=None):
+        self.beats.append((step, values, ensemble_members))
+
+
 def test_mesh_and_what_still_raises():
-    """One device holds only the (1, 1) mesh; a wider one, the spatial
-    partition (Queue A10) and telemetry (Queue A9) raise."""
+    """One device holds only the (1, 1) mesh; a wider one and the spatial
+    partition (Queue A10) raise; telemetry runs."""
     assert MESH.shape == {"dp": 1, "sp": 1} and tuple(MESH) == (1, 1)
     assert MESH.device == torch.device("cpu")
     assert make_mesh(n_dp=1, n_sp=1, devices=["cpu"]) == MESH
@@ -423,8 +431,12 @@ def test_mesh_and_what_still_raises():
                                    [0, 1])
     with pytest.raises(OutOfSliceError, match="Queue A10"):
         tens.sharded_swarm_rollout(cfg, MESH, [0], partition="spatial")
-    with pytest.raises(OutOfSliceError, match="Queue A9"):
-        tens.sharded_swarm_rollout(cfg, MESH, [0], telemetry=object())
+    # Telemetry (Queue A9) runs: heartbeats from the host metrics.
+    sink = _ListSink()
+    tens.sharded_swarm_rollout(cfg, MESH, [0, 1], telemetry=sink,
+                               telemetry_every=1)
+    assert [(step, members) for step, _, members in sink.beats] == [
+        (0, 2), (1, 2)]
 
 
 def test_make_mesh_default_is_the_current_card(monkeypatch):

@@ -46,7 +46,6 @@ import torch
 from cbf_tpu.rollout import engine as jeng
 from cbf_tpu.scenarios import swarm as jsw
 from cbf_tpu_torch import convert
-from cbf_tpu_torch.errors import OutOfSliceError
 from cbf_tpu_torch.rollout import engine as teng
 from cbf_tpu_torch.scenarios import swarm as tsw
 from cbf_tpu_torch.solvers import exact2d as tqp
@@ -312,7 +311,12 @@ def test_programs_are_cached_on_the_step():
     assert teng.rollout(step, state0, 0) == (state0, None)
 
 
-def test_engine_arguments_follow_jax():
+def test_engine_arguments_follow_jax(tmp_path):
+    """The engine's signatures are JAX's, and the telemetry and cost-model
+    knobs run: the values of the run without them, a heartbeat every
+    ``telemetry_every`` steps, one measured capture and one execute."""
+    from cbf_tpu_torch import obs
+
     for name in ("rollout", "rollout_chunked", "plan_chunks",
                  "stack_host_chunks"):
         want = inspect.signature(getattr(jeng, name)).parameters
@@ -321,19 +325,22 @@ def test_engine_arguments_follow_jax():
         assert [p.default for p in got.values()] == [
             p.default for p in want.values()], name
     cfg, state0, step = _make("kernel")
-    with pytest.raises(OutOfSliceError, match="Queue A9"):
-        teng.rollout(step, state0, 2, telemetry=object())
-    with pytest.raises(OutOfSliceError, match="Queue A9"):
-        teng.rollout(step, state0, 2, cost_model=object())
     with pytest.raises(ValueError, match="unroll"):
         teng.rollout(step, state0, 2, unroll=0)
-    # Inert until Queue A9, as in JAX without a sink, a model or a
-    # checkpoint directory.
     f1, o1 = teng.rollout(step, state0, 3, telemetry_every=7,
                           cost_label="x")
     f2, o2, _ = teng.rollout_chunked(step, state0, 3, chunk=2, resume=False,
                                      telemetry_every=7, cost_label="x")
     _assert_same((f1, o1), (f2, o2))
+    sink = obs.TelemetrySink(str(tmp_path))
+    _assert_same(teng.rollout(step, state0, 3, telemetry=sink,
+                              telemetry_every=2), (f1, o1), "telemetry")
+    assert [e["step"] for e in obs.read_events(str(tmp_path))] == [0, 2]
+    model = obs.CostModel()
+    _assert_same(teng.rollout(step, state0, 3, cost_model=model,
+                              cost_label="x"), (f1, o1), "cost model")
+    assert model.entries["x"]["compiles"] == 1
+    assert model.entries["x"]["executes"] == 1
 
 
 class _Metrics(NamedTuple):

@@ -366,11 +366,43 @@ def test_rollout_chunked_matches_rollout():
                                 {"telemetry": object()},
                                 {"cost_model": object()},
                                 {"durable_hook": print}])
-def test_rollout_chunked_rejects_later_slices(kw):
-    cfg = tsw.Config(n=16, steps=2)
+def test_rollout_chunked_rejects_later_slices(kw, tmp_path):
+    """The knobs of ``rollout_chunked`` that raised until the durability
+    slice now run: each run equals the run without its knob and leaves
+    its artefact (a restorable checkpoint, heartbeats, a measured
+    capture per chunk size, the hook's boundaries)."""
+    from cbf_tpu_torch import obs
+    from cbf_tpu_torch.utils import checkpoint as ckpt
+
+    (name,) = kw
+    cfg = tsw.Config(n=16, steps=6)
     state0, step = tsw.make(cfg, device="cpu")
-    with pytest.raises(OutOfSliceError, match="Queue A9"):
-        teng.rollout_chunked(step, state0, cfg.steps, **kw)
+    want_final, want, _ = teng.rollout_chunked(step, state0, cfg.steps,
+                                               chunk=4)
+    seen = []
+    live = {"checkpoint_dir": str(tmp_path / "ckpt"),
+            "telemetry": obs.TelemetrySink(str(tmp_path / "run")),
+            "cost_model": obs.CostModel(),
+            "durable_hook": lambda t1, state, outs: seen.append(
+                (t1, outs.min_pairwise_distance.shape[0]))}[name]
+    extra = {"telemetry_every": 2} if name == "telemetry" else {}
+    final, outs, start = teng.rollout_chunked(
+        step, state0, cfg.steps, chunk=4, **{name: live}, **extra)
+    assert start == 0 and torch.equal(final.x, want_final.x)
+    for field, a, b in zip(teng.StepOutputs._fields, outs, want):
+        if not isinstance(b, tuple):
+            np.testing.assert_array_equal(a, b, err_msg=field)
+    if name == "checkpoint_dir":
+        assert ckpt.latest_step(live) == 6
+        restored, at = ckpt.restore(live, state0)
+        assert at == 6 and torch.equal(restored.x, final.x)
+    elif name == "telemetry":
+        assert [e["step"] for e in obs.read_events(live.run_dir)] == [0, 2, 4]
+    elif name == "cost_model":
+        entry = live.entries["rollout-c4-u1"]
+        assert entry["compiles"] == 2 and entry["executes"] == 2
+    else:
+        assert seen == [(4, 4), (6, 2)]
 
 
 def test_engine_helpers_match_jax():

@@ -219,7 +219,7 @@ class _Sink:
         self.events.append((kind, payload))
 
 
-def test_telemetry_events_and_out_of_slice():
+def test_telemetry_events_and_out_of_slice(tmp_path, capsys):
     cfg = tsw.Config(n=16, steps=5)
     a = TV.make_adapter("swarm", cfg, device="cpu")
     sink = _Sink()
@@ -230,8 +230,17 @@ def test_telemetry_events_and_out_of_slice():
         TV.make_eval_batch(a, TV.SearchSettings(), mesh=(2, 1))
     with pytest.raises(OutOfSliceError, match="Queue A11"):
         tcli.main(["verify", "fleet", "--device", "cpu"])
-    with pytest.raises(OutOfSliceError, match="Queue A9"):
-        tcli.main(["verify", "--device", "cpu", "--telemetry-dir", "x"])
+    # verify --telemetry-dir (Queue A9) streams the sweep's events.
+    from cbf_tpu_torch import obs
+
+    run_dir = str(tmp_path / "x")
+    assert tcli.main(["verify", "--device", "cpu", "--set", "n=8",
+                      "--steps", "5", "--budget", "4", "--batch", "4",
+                      "--engine", "random", "--json",
+                      "--telemetry-dir", run_dir]) == 0
+    assert json.loads(capsys.readouterr().out)["telemetry"] == run_dir
+    assert [e["event"] for e in obs.read_events(run_dir)] == [
+        "verify.round", "verify.margin", "summary"]
 
 
 @pytest.mark.parametrize("weaken,want", [(["--weaken", "dmin=0.16"], 3),
