@@ -26,7 +26,10 @@ engines drawing JAX's random streams (``utils/prng.py``). Long runs
 checkpoint and resume under integrity manifests (``utils/checkpoint.py``,
 ``durable/``), stream heartbeats to a telemetry sink with a watchdog
 (``obs/``), and can be checked for NaN/inf, priced by a cost model and
-profiled. Knobs of later slices raise
+profiled. The serving layer's compute path (``serve/`` buckets and
+packing, ``parallel/ensemble.py``'s lockstep traced-config programs) runs
+batches of heterogeneous requests as one captured program, the k-NN
+kernels reading each member's radius. Knobs of later slices raise
 :class:`~cbf_tpu_torch.errors.OutOfSliceError`.
 
 Entry points run on the card unless the caller passes ``device="cpu"``

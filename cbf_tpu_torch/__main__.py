@@ -36,9 +36,9 @@ property, a found one is shrunk and confirmed in float64 and, with
 ``--corpus-dir``, archived. Exit 0: the filter survived the budget; 3: a
 violation was found; 2: a persisted campaign does not match the
 settings; ``--telemetry-dir`` streams its round and verdict events.
-``verify fleet`` (the serving slice) raises OutOfSliceError. The other
-subcommands (serve, loadgen, scenario, lint, ``obs top``/``incident``/
-``lanes``, cluster, bench) are not ported yet.
+``verify fleet`` and ``serve`` (the serving slice's scheduler) raise
+OutOfSliceError. The other subcommands (loadgen, scenario, lint, ``obs
+top``/``incident``/``lanes``, cluster, bench) are not ported yet.
 """
 
 from __future__ import annotations
@@ -438,6 +438,13 @@ _VACUOUS = {"separation": ("separation_floor", -float("inf")),
             "rta_soundness": ("rta_floor", -float("inf"))}
 
 
+def cmd_serve(args) -> int:
+    """``serve``: the ServeEngine's CLI, which comes with the scheduler
+    (the bucket and packing layer and the lockstep programs are ported:
+    :mod:`cbf_tpu_torch.serve`)."""
+    raise OutOfSliceError("the serve CLI (ServeEngine)", SLICE_SERVE)
+
+
 def cmd_verify(args) -> int:
     """Falsification sweep (module docstring); exit 0 = survived, 3 =
     violation found."""
@@ -696,7 +703,13 @@ def main(argv=None) -> int:
                       help="run_dir is a root; summarize its newest run")
     sump.set_defaults(fn=cmd_obs_summary)
 
-    args = p.parse_args(argv)
+    servep = sub.add_parser(
+        "serve", help="the serving engine (not ported yet: Queue A11)")
+    servep.set_defaults(fn=cmd_serve)
+
+    args, extra = p.parse_known_args(argv)
+    if extra and args.command != "serve":   # serve raises whatever it gets
+        p.error(f"unrecognized arguments: {' '.join(extra)}")
     return args.fn(args)
 
 

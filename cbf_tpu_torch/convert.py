@@ -142,3 +142,24 @@ def ensemble_metrics_from_reference(mets):
     return EnsembleMetrics(*(
         np.array(v.cpu() if isinstance(v, torch.Tensor) else v)
         for v in (getattr(mets, name) for name in EnsembleMetrics._fields)))
+
+
+def traced_from_reference(traced, *, device, dtype) -> dict:
+    """A JAX traced dict (``swarm.split_static_traced``'s or
+    ``serve.pack.stack_batch``'s: floats or (B,) arrays) as the port's:
+    each field a ``dtype`` tensor on ``device``, ``n_active`` int32."""
+    return {k: torch.as_tensor(np.array(v),
+                               dtype=torch.int32 if k == "n_active"
+                               else dtype, device=device)
+            for k, v in traced.items()}
+
+
+def batch_from_reference(states, traced, steps, *, device, dtype):
+    """A JAX serving batch — ``serve.pack.stack_batch``'s member-stacked
+    ``State`` ((B, ...) leaves), traced dict and (B,) horizons — as the
+    port's (states, traced, steps), ready for
+    ``parallel.ensemble.lockstep_traced_rollout``'s program."""
+    return (state_from_reference(states, device=device, dtype=dtype),
+            traced_from_reference(traced, device=device, dtype=dtype),
+            torch.as_tensor(np.array(steps), dtype=torch.int32,
+                            device=device))

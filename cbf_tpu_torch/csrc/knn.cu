@@ -8,7 +8,13 @@
 //        (knn_fused and knn_stream: B members of N rows, (B, N, 2), each
 //        member's rows scanned against its own columns only — the member
 //        is a grid dimension and every pointer steps by the member's
-//        stride, which is what jax.vmap makes of one pallas_call);
+//        stride, which is what jax.vmap makes of one pallas_call); they
+//        also take an optional device array ``radius`` of B float32 radii,
+//        one per member, in place of the host r2: member b forms its own
+//        r2 = __fmul_rn(radius[b], radius[b]), the TPU kernels'
+//        float32(radius) ** 2 read from SMEM (pallas_knn.py:90), so one
+//        launch serves B members at B radii (jax.vmap of the traced-config
+//        step); a null pointer keeps the host r2;
 //   out: idx (N, k) int32 — the k nearest in-radius neighbours, nearest
 //        first, ties to the lower column index, 0 on empty slots;
 //        dist (N, k) float32 — their distances, +inf on empty slots;
@@ -456,15 +462,25 @@ __device__ __forceinline__ void write_merged_rows(
   }
 }
 
+// A member's squared radius from the radius array: one load and one
+// correctly rounded f32 multiply, jnp.asarray(radius, jnp.float32) ** 2.
+__device__ __forceinline__ float member_r2(const float* __restrict__ radius,
+                                           size_t member) {
+  const float r = radius[member];
+  return __fmul_rn(r, r);
+}
+
 template <int K>
 __global__ void __launch_bounds__(kFusedWarps * 32)
     knn_fused_kernel(const float* __restrict__ x, int n, float r2,
+                     const float* __restrict__ radius,
                      int aligned16, int* __restrict__ idx,
                      float* __restrict__ dist, float* __restrict__ nearest,
                      int* __restrict__ count) {
   // 32 * steps columns, then the second half's merge slots.
   extern __shared__ __align__(16) float2 pts[];
   const size_t member = blockIdx.y;
+  if (radius != nullptr) r2 = member_r2(radius, member);
   x += 2 * n * member;
   idx += K * n * member;
   dist += K * n * member;
@@ -611,7 +627,8 @@ __device__ __forceinline__ void half_sync(int half) {
 // [c0, c1). S = 1 writes the outputs; S > 1 the (row, range) partials.
 template <int K>
 __global__ void __launch_bounds__(kFusedWarps * 32) knn_stream_partial_kernel(
-    const float* __restrict__ x, int n, float r2, int cols_per_split,
+    const float* __restrict__ x, int n, float r2,
+    const float* __restrict__ radius, int cols_per_split,
     int splits, int aligned16, float* __restrict__ part_d2,
     int* __restrict__ part_idx, float* __restrict__ part_near,
     int* __restrict__ part_cnt, int* __restrict__ idx,
@@ -621,6 +638,7 @@ __global__ void __launch_bounds__(kFusedWarps * 32) knn_stream_partial_kernel(
       ring[kStreamStages][kFusedHalves][kStreamPiece * 32];
   __shared__ HalfMerge<K> hm;
   const size_t member = blockIdx.z;
+  if (radius != nullptr) r2 = member_r2(radius, member);
   x += 2 * n * member;
   if (splits > 1) {
     part_d2 += K * splits * n * member;
@@ -981,8 +999,8 @@ int aligned16_of(const float* x, int members, int n) {
 
 template <int K>
 cudaError_t launch_fused(const float* x, int members, int n, float r2,
-                         int* idx, float* dist, float* nearest, int* count,
-                         cudaStream_t stream) {
+                         const float* radius, int* idx, float* dist,
+                         float* nearest, int* count, cudaStream_t stream) {
   const size_t steps = (static_cast<size_t>(n) + 31) / 32;
   const size_t smem = sizeof(float2) * 32 * steps + sizeof(HalfMerge<K>);
   if (smem > 48 * 1024) {
@@ -995,7 +1013,7 @@ cudaError_t launch_fused(const float* x, int members, int n, float r2,
   const int aligned16 = aligned16_of(x, members, n);
   knn_fused_kernel<K><<<dim3(blocks, members), kFusedWarps * 32, smem,
                         stream>>>(
-      x, n, r2, aligned16, idx, dist, nearest, count);
+      x, n, r2, radius, aligned16, idx, dist, nearest, count);
   return cudaGetLastError();
 }
 
@@ -1093,7 +1111,7 @@ cudaError_t launch_merge(int members, int n, int splits, const float* part_d2,
 // be the plan's. With one range the partials are not used (may be null).
 template <int K>
 cudaError_t launch_stream(const float* x, int members, int n, float r2,
-                          int splits,
+                          const float* radius, int splits,
                           float* part_d2, int* part_idx, float* part_near,
                           int* part_cnt, int* idx, float* dist,
                           float* nearest, int* count, cudaStream_t stream) {
@@ -1106,7 +1124,7 @@ cudaError_t launch_stream(const float* x, int members, int n, float r2,
   const int aligned16 = aligned16_of(x, members, n);
   knn_stream_partial_kernel<K><<<dim3(row_blocks, splits, members),
                                  kFusedWarps * 32, 0, stream>>>(
-      x, n, r2, cols_per_split, splits, aligned16, part_d2, part_idx,
+      x, n, r2, radius, cols_per_split, splits, aligned16, part_d2, part_idx,
       part_near, part_cnt, idx, dist, nearest, count);
   if (splits == 1) return cudaGetLastError();
   return launch_merge<K>(members, n, splits, part_d2, part_idx, part_near,
@@ -1207,16 +1225,17 @@ cudaError_t launch_banded_agents(const void* x, int x_f64,
 extern "C" {
 
 // Returns a cudaError_t code (0 = launched); the wrapper raises otherwise.
-// ``members`` >= 1 members of n rows each, one launch (x (B, N, 2)).
-int knn_fused_launch(const float* x, int members, int n, float r2, int k,
-                     int* idx, float* dist, float* nearest, int* count,
-                     void* stream) {
+// ``members`` >= 1 members of n rows each, one launch (x (B, N, 2));
+// ``radius``: null (every member at the host r2) or B device radii.
+int knn_fused_launch(const float* x, int members, int n, float r2,
+                     const float* radius, int k, int* idx, float* dist,
+                     float* nearest, int* count, void* stream) {
   if (members < 1 || members > 65535) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define KNN_FUSED_CASE(KV)                                               \
   case KV:                                                               \
-    return launch_fused<KV>(x, members, n, r2, idx, dist, nearest, count, \
-                            st);
+    return launch_fused<KV>(x, members, n, r2, radius, idx, dist, nearest, \
+                            count, st);
   switch (k) {
     KNN_K_CASES(KNN_FUSED_CASE)
     default:
@@ -1232,7 +1251,8 @@ int knn_stream_plan(int n, int* cols_per_split, int* splits) {
 }
 
 // As knn_fused_launch; the partials are (B, N, splits, k) and (B, N, splits).
-int knn_stream_launch(const float* x, int members, int n, float r2, int k,
+int knn_stream_launch(const float* x, int members, int n, float r2,
+                      const float* radius, int k,
                       int splits, float* part_d2, int* part_idx,
                       float* part_near, int* part_cnt, int* idx, float* dist,
                       float* nearest, int* count, void* stream) {
@@ -1240,7 +1260,8 @@ int knn_stream_launch(const float* x, int members, int n, float r2, int k,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define KNN_STREAM_CASE(KV)                                                 \
   case KV:                                                                  \
-    return launch_stream<KV>(x, members, n, r2, splits, part_d2, part_idx,  \
+    return launch_stream<KV>(x, members, n, r2, radius, splits, part_d2,    \
+                             part_idx,                                      \
                              part_near, part_cnt, idx, dist, nearest, count, \
                              st);
   switch (k) {

@@ -49,12 +49,18 @@ def instrument_step(step_fn: Callable, sink: TelemetrySink, *,
     def wrapped(state, t, inputs=None):
         state, out = (step_fn(state, t) if inputs is None
                       else step_fn(state, t, inputs=inputs))
-        leaves = [v.reshape(-1) for v in _leaves(state)
-                  if v.is_floating_point()]
+        leaves = [v for v in _leaves(state) if v.is_floating_point()]
+        if len({v.shape[1:] for v in leaves}) > 1:
+            leaves = [v.reshape(-1) for v in leaves]
+        # Leaves of one row shape are joined as they lie (a strided one
+        # is not copied first). x * 0 is 0 for a finite x and NaN
+        # otherwise, and the 0-norm counts the nonzero elements in one
+        # reduction (exact while fewer than 2**24 are non-finite): three
+        # kernels per step with the join, where isfinite alone issues
+        # four.
         flat = torch.cat(leaves) if len(leaves) > 1 else leaves[0]
-        # x * 0 is 0 for a finite x and NaN otherwise: three kernels per
-        # step, where isfinite alone issues four.
-        return state, Extra(out, flat.mul(0).ne(0).sum())
+        count = torch.linalg.vector_norm(flat.mul(0), ord=0)
+        return state, Extra(out, count)
 
     forward_attributes(wrapped, step_fn)
     wrapped.tap_sink, wrapped.tap_every = sink, every

@@ -45,6 +45,16 @@ graph capture, where nothing launches, the compiled rollout takes back
 what the wrappers added and adds it again at every replay
 (:mod:`cbf_tpu_torch.rollout.engine`).
 
+Radius: ``knn_fused`` and ``knn_stream`` take a float, or a float tensor
+on the positions' device — 0-dim, or one radius per member (B,), which
+the kernels read from a device array, member by member, so
+``torch.func.vmap`` of a step whose radius is per member (the serving
+layer's traced configs, :func:`cbf_tpu_torch.scenarios.swarm.
+make_step_traced`) still makes one launch; the plain versions take the
+same. ``knn_banded`` keeps one host float: its window rule is host math
+over the radius, and a per-member radius raises, as the JAX package
+refuses banded traced configs.
+
 Two contracts coexist and both are kept: the kernels compare
 ``d^2 < r^2`` in float32 with r^2 formed from float32(radius) (the TPU
 kernels' ``_pad_coords``), while :func:`cbf_tpu_torch.rollout.gating.
@@ -81,10 +91,12 @@ KNN_MAX_K = 16       # csrc/knn.cu kMaxK: k is a template parameter there
 _FAR = 1.0e6         # padding coordinate (pallas_knn._pad_coords)
 
 # Launches per kernel; "<kernel>_members" counts the launches of it that
-# took a member axis ((B, N, 2) input), which count under the kernel too.
+# took a member axis ((B, N, 2) input), which count under the kernel too,
+# "<kernel>_radii" those that took a per-member radius array.
 LAUNCHES = {"knn_fused": 0, "knn_stream": 0, "knn_banded": 0,
             "knn_fused_members": 0, "knn_stream_members": 0,
-            "knn_banded_members": 0}
+            "knn_banded_members": 0, "knn_fused_radii": 0,
+            "knn_stream_radii": 0}
 MAX_MEMBERS = 65535  # csrc/knn.cu: the member axis is a grid dimension
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -145,12 +157,12 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(build_library())
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.knn_fused_launch.argtypes = [p, i, i, f, i, p, p, p, p, p]
+        lib.knn_fused_launch.argtypes = [p, i, i, f, p, i, p, p, p, p, p]
         lib.knn_fused_launch.restype = i
         lib.knn_stream_plan.argtypes = [i, p, p]
         lib.knn_stream_plan.restype = i
-        lib.knn_stream_launch.argtypes = [p, i, i, f, i, i, p, p, p, p,
-                                          p, p, p, p, p]
+        lib.knn_stream_launch.argtypes = [p, i, i, f, p, i, i, p, p, p,
+                                          p, p, p, p, p, p]
         lib.knn_stream_launch.restype = i
         lib.knn_banded_plan.argtypes = [i, i, i, p, p]
         lib.knn_banded_plan.restype = i
@@ -182,6 +194,54 @@ def _radius_sq(radius) -> float:
 def _radius_f32(radius) -> float:
     """float32(radius), as JAX's weak-typed scalar meets float32 ys."""
     return float(np.float32(radius))
+
+
+# JAX's words for a per-member radius on the banded path
+# (swarm.split_static_traced).
+BANDED_TRACED_RADIUS = (
+    'gating="banded" cannot ride the traced-config path: its window sizing '
+    "is host-side float math over safety_distance (a traced scalar here) "
+    "— use auto/pallas/jnp/streaming")
+
+
+def _radius_array(radius, x):
+    """A tensor radius as the kernels' per-member radius array: float32,
+    one value per member of ``x`` ((N, 2): one member; (B, N, 2): B), on
+    x's device — a 0-dim radius serves every member. Never read on the
+    host."""
+    members = x.shape[0] if x.dim() == 3 else 1
+    if radius.device != x.device:
+        raise ValueError(f"the radius tensor lies on {radius.device}, the "
+                         f"positions on {x.device}")
+    if radius.dim() == 0:
+        radius = radius.expand(members)
+    if tuple(radius.shape) != (members,):
+        raise ValueError(f"a radius tensor is 0-dim or one value per "
+                         f"member ({members},), got {tuple(radius.shape)}")
+    return radius.to(torch.float32).contiguous()
+
+
+def _radius_sq_t(radius, x):
+    """The plain versions' r^2 for (..., N, 2) positions ``x``: a 0-dim
+    float32 tensor from a float radius (:func:`_radius_sq`), or, from a
+    tensor radius (0-dim, or (B,) for a (B, N, 2) ``x``), float32(r) *
+    float32(r) per member, shaped to meet the (B, R, C) pair slab."""
+    if not torch.is_tensor(radius):
+        return torch.full((), _radius_sq(radius), dtype=torch.float32,
+                          device=x.device)
+    r = radius.to(device=x.device, dtype=torch.float32)
+    lead = tuple(x.shape[:-2])
+    if r.dim() and tuple(r.shape) != lead:
+        raise ValueError(f"a radius tensor is 0-dim or one value per "
+                         f"member {lead}, got {tuple(r.shape)}")
+    return (r * r).reshape(lead + (1, 1)) if r.dim() else r * r
+
+
+def _member_radius(radius, b: int):
+    """Member ``b``'s radius of a float or a 0-dim / (B,) tensor."""
+    if torch.is_tensor(radius) and radius.dim():
+        return radius[b]
+    return radius
 
 
 def _check_launch(name: str, x, k: int | None, max_n: int,
@@ -236,24 +296,44 @@ def _raise_on(name: str, code: int) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {code}")
 
 
+def _radius_args(radius, x):
+    """(host r^2, radius array or None) for a launch: a float radius goes
+    as the host r^2 (:func:`_radius_sq`), a tensor one as the per-member
+    array (:func:`_radius_array`)."""
+    if torch.is_tensor(radius):
+        return 0.0, _radius_array(radius, x)
+    return _radius_sq(radius), None
+
+
+def _count(name: str, lead, radii) -> None:
+    LAUNCHES[name] += 1
+    if lead:
+        LAUNCHES[f"{name}_members"] += 1
+    if radii is not None:
+        LAUNCHES[f"{name}_radii"] += 1
+
+
 def knn_fused(x, radius, k: int):
     """Launch ``knn_fused`` on (N, 2) — or, one launch for B members,
-    (B, N, 2) — float32 CUDA positions. Returns (idx, dist, nearest,
-    count) — see :func:`knn_neighbors` — with the same leading axes."""
+    (B, N, 2) — float32 CUDA positions. ``radius``: a float, or a float
+    tensor on x's device, 0-dim or one radius per member (B,), which the
+    kernel reads per member (never the host). Returns (idx, dist,
+    nearest, count) — see :func:`knn_neighbors` — with the same leading
+    axes."""
     _check_launch("knn_fused", x, k, MAX_N_FUSED, members=True)
     lib = _library()
     lead, n = tuple(x.shape[:-2]), x.shape[-2]
+    r2, radii = _radius_args(radius, x)
     idx, dist, nearest, count = _outputs(n, k, x.device, lead)
     with torch.cuda.device(x.device):
         code = lib.knn_fused_launch(
-            x.data_ptr(), math.prod(lead), n, _radius_sq(radius), k,
+            x.data_ptr(), math.prod(lead), n, r2,
+            None if radii is None else radii.data_ptr(), k,
             idx.data_ptr(),
             dist.data_ptr(), nearest.data_ptr(), count.data_ptr(),
             _stream_ptr(x.device))
     _raise_on("knn_fused", code)
-    LAUNCHES["knn_fused"] += 1
-    if lead:
-        LAUNCHES["knn_fused_members"] += 1
+    _count("knn_fused", lead, radii)
     return idx, dist, nearest, count
 
 
@@ -284,23 +364,24 @@ def stream_plan(n: int, device) -> tuple[int, int]:
 def knn_stream(x, radius, k: int):
     """Launch ``knn_stream`` (range partials + merge, or one range written
     straight to the outputs) on (N, 2) or (B, N, 2) float32 CUDA
-    positions. Same contract as :func:`knn_fused`."""
+    positions. Same contract as :func:`knn_fused`, the radius array
+    included."""
     _check_launch("knn_stream", x, k, MAX_N_BLOCKED, members=True)
     lib = _library()
     lead, n = tuple(x.shape[:-2]), x.shape[-2]
+    r2, radii = _radius_args(radius, x)
     _, splits = stream_plan(n, x.device)
     outs = _outputs(n, k, x.device, lead)
     parts = _partials(n, splits, k, x.device, lead) if splits > 1 else ()
     part_ptrs = [t.data_ptr() for t in parts] or [None] * 4
     with torch.cuda.device(x.device):
         code = lib.knn_stream_launch(
-            x.data_ptr(), math.prod(lead), n, _radius_sq(radius), k, splits,
+            x.data_ptr(), math.prod(lead), n, r2,
+            None if radii is None else radii.data_ptr(), k, splits,
             *part_ptrs,
             *(t.data_ptr() for t in outs), _stream_ptr(x.device))
     _raise_on("knn_stream", code)
-    LAUNCHES["knn_stream"] += 1
-    if lead:
-        LAUNCHES["knn_stream_members"] += 1
+    _count("knn_stream", lead, radii)
     return outs
 
 
@@ -450,7 +531,11 @@ def knn_banded(x, radius, k: int, *, window_blocks: int):
     CUDA positions: the y-sort (one batched ``torch.argsort``), then one
     call into csrc/knn.cu that launches the prologue, the window partials
     and the merge into agent order, each over every member — no PyTorch
-    op after the sort. Outputs carry ``x``'s leading axes."""
+    op after the sort. Outputs carry ``x``'s leading axes. The radius is
+    a host float: a tensor radius raises (no per-member radius here)."""
+    if torch.is_tensor(radius):
+        raise ValueError("knn_banded takes its radius as a host float; "
+                         + BANDED_TRACED_RADIUS)
     _check_launch("knn_banded", x, k, MAX_N_BLOCKED,
                   dtypes=(torch.float32, torch.float64), members=True)
     lib = _library()
@@ -518,8 +603,7 @@ def knn_neighbors_plain(x, radius, k: int):
     (N, 2) or, with the kernel's member axis, (B, N, 2)."""
     x = x.to(torch.float32)
     n = x.shape[-2]
-    r2 = torch.full((), _radius_sq(radius), dtype=torch.float32,
-                    device=x.device)
+    r2 = _radius_sq_t(radius, x)
     d2 = _pair_d2(x, x)
     is_self = torch.eye(n, dtype=torch.bool, device=x.device)
     nearest = _sqrt_rn(torch.amin(torch.where(is_self, torch.inf, d2),
@@ -539,7 +623,7 @@ def knn_neighbors_blocked_plain(x, radius, k: int):
     x = x.to(torch.float32)
     lead, n = tuple(x.shape[:-2]), x.shape[-2]
     dev = x.device
-    r2 = torch.full((), _radius_sq(radius), dtype=torch.float32, device=dev)
+    r2 = _radius_sq_t(radius, x)
     rows = torch.arange(n, device=dev)
     run_i = torch.zeros(lead + (n, k), dtype=torch.int32, device=dev)
     run_d2 = torch.full(lead + (n, k), torch.inf, dtype=torch.float32,
@@ -579,11 +663,15 @@ def stream_partials_plain(x, radius, k: int, cols_per_split: int,
     range, the k lexicographically smallest (d^2, column) in-radius keys
     (+inf / 0 on empty slots), the nearest d^2 with self excluded and the
     in-radius count. Returns (d2 (N, S, k) float32, idx (N, S, k) int32,
-    near (N, S) float32, count (N, S) int32)."""
+    near (N, S) float32, count (N, S) int32); (B, N, 2) positions, with a
+    float or a (B,) radius, give each member's, stacked."""
+    if x.dim() == 3:
+        return _stacked(stream_partials_plain(
+            m, _member_radius(radius, b), k, cols_per_split, splits)
+            for b, m in enumerate(x))
     x = x.to(torch.float32)
     n = x.shape[0]
-    r2 = torch.full((), _radius_sq(radius), dtype=torch.float32,
-                    device=x.device)
+    r2 = _radius_sq_t(radius, x)
     rows = torch.arange(n, device=x.device)
     parts = ([], [], [], [])
     for c0, c1 in _ranges(n, cols_per_split, splits):
@@ -652,10 +740,15 @@ def _warp_lists_model(x, radius, k: int, c0: int, c1: int):
     half's 32 lane lists meet by k lexicographic minima, then the two
     halves' k-lists by k more. Returns (d2 (N, k), idx (N, k) int32,
     near (N,), count (N,) int32), equal to :func:`stream_partials_plain`'s
-    slice for the range."""
+    slice for the range; (B, N, 2) positions, with a float or a (B,)
+    radius, give each member's, stacked."""
+    if x.dim() == 3:
+        return _stacked(_warp_lists_model(m, _member_radius(radius, b), k,
+                                          c0, c1)
+                        for b, m in enumerate(x))
     x = x.to(torch.float32)
     n, dev = x.shape[0], x.device
-    r2 = torch.full((), _radius_sq(radius), dtype=torch.float32, device=dev)
+    r2 = _radius_sq_t(radius, x)
     rows = torch.arange(n, device=dev)
     lanes = torch.arange(32, device=dev)
     steps = -(-(c1 - c0) // 32)
@@ -868,7 +961,11 @@ def knn_neighbors_blocked(x, radius, k: int):
 
 def _banded_dispatch(x, radius, k: int, window_blocks: int):
     """The banded search on (N, 2) or (B, N, 2) positions: the kernels on
-    a CUDA tensor, the plain version on a CPU one."""
+    a CUDA tensor, the plain version on a CPU one. The radius is one host
+    float (its window rule is host math over it): a per-member radius
+    raises, as the JAX package refuses banded traced configs."""
+    if torch.is_tensor(radius) and radius.dim():
+        raise ValueError(BANDED_TRACED_RADIUS)
     x = x.contiguous()
     if x.device.type == "cpu":
         return knn_neighbors_banded_plain(x, radius, k,
@@ -901,6 +998,8 @@ class _KnnBanded(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, x, radius, k, window_blocks):
+        if in_dims[1] is not None:
+            raise ValueError(BANDED_TRACED_RADIUS)
         if in_dims[0] is None:
             return _banded_dispatch(x, radius, k, window_blocks), (None,) * 5
         x = x.movedim(in_dims[0], 0)
@@ -981,9 +1080,18 @@ class _KnnSelect(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, x, radius, k, kernel):
-        if in_dims[0] is None:
+        x_dim, r_dim = in_dims[0], in_dims[1]
+        if x_dim is None and r_dim is None:
             return _kernel_dispatch(x, radius, k, kernel), (None,) * 4
-        x = x.movedim(in_dims[0], 0)
+        if r_dim is not None:
+            # A radius per member (the traced-config step): the kernels
+            # read it as their radius array, B members at B radii.
+            radius = radius.movedim(r_dim, 0)
+            if radius.dim() != 1:
+                raise ValueError(f"knn_select maps over a scalar radius, "
+                                 f"got a batch of {tuple(radius.shape[1:])}")
+        x = (x.expand((info.batch_size,) + tuple(x.shape)) if x_dim is None
+             else x.movedim(x_dim, 0))
         if x.dim() != 3:
             raise ValueError(f"knn_select maps over (N, 2) positions, got a "
                              f"batch of {tuple(x.shape[1:])}")

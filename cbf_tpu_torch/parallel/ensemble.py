@@ -31,6 +31,15 @@ and, where a member needs more, again with every round the relax loop
 could take — the result the loop gives — so a compiled run equals the
 eager loop bit for bit.
 
+The serving layer's programs, :func:`lockstep_traced_rollout` and
+:func:`lockstep_traced_chunk`, vmap the traced-config step
+(:func:`swarm.make_step_traced`) over a batch of HETEROGENEOUS requests of
+one bucket — each member with its own traced values, padded-agent count,
+horizon and (chunk) clock, all carried as per-lane tensors through the
+engine's static buffers, so one captured program per (bucket, horizon or
+chunk, B) serves any of them; the k-NN kernels read each member's radius
+from their radius array.
+
 Not ported (ROADMAP.md Queue A10): agent sharding (sp > 1, the exchange
 search), dp across devices, and ``partition="spatial"``. Each raises
 :class:`OutOfSliceError`.
@@ -295,12 +304,6 @@ def _finish_swarm_step(cfg: swarm_scenario.Config, x, u, aux: _PendingStep,
     return (x_new, v_new, theta_new, metrics, aux.nearest1)
 
 
-# Relax rounds asked of the eager vmapped step's second try: more than the
-# relax loop can take (``relax_guarded`` runs min(rounds, max_relax)), so
-# it gives what the loop gives.
-_ALL_ROUNDS = 1 << 30
-
-
 def _vmap_guarded(fn, args, rounds: int, blocks):
     """``torch.func.vmap(fn)`` over the leading member axis of ``args``,
     each member inside its own relax guard. Returns (outputs, (E,) flags
@@ -328,7 +331,7 @@ def _over_members(fn, args, rounds: int):
         return out
     out, flags = _vmap_guarded(fn, args, rounds, None)
     if bool(torch.any(flags)):
-        out, _ = _vmap_guarded(fn, args, _ALL_ROUNDS, None)
+        out, _ = _vmap_guarded(fn, args, exact2d.ALL_ROUNDS, None)
     return out
 
 
@@ -638,3 +641,153 @@ def sharded_swarm_rollout(cfg: swarm_scenario.Config, mesh: Mesh, seeds,
         state_out += (carry[-1],)
     return state_out, mets
 
+
+# ------------------------------------------------------- serving batch ----
+
+# The traced inputs' order in a program's carry: the traced config fields,
+# then the padded-bucket count.
+TRACED_KEYS = swarm_scenario.TRACED_CONFIG_FIELDS + ("n_active",)
+
+
+class _Lanes(NamedTuple):
+    """A serving program's per-lane inputs, carried unchanged through its
+    static buffers (one captured program for any values): the traced
+    values in :data:`TRACED_KEYS` order, each (B,); the horizons ``steps``
+    (B,) int32; the lane clocks ``t0`` (B,) int32."""
+    traced: tuple
+    steps: torch.Tensor
+    t0: torch.Tensor
+
+
+@functools.lru_cache(maxsize=64)
+def _traced_program(static_cfg: swarm_scenario.Config, cbf, device):
+    """The step program the serving programs of ``static_cfg`` share on
+    ``device``: ``program((states, lanes), t) -> ((states, lanes),
+    StepOutputs of (B, ...))``, lane b stepping at its own clock ``t0_b +
+    t`` with its own traced values, frozen (every carry leaf re-selected
+    unchanged) once that clock reaches its horizon. Cached, so the engine's
+    programs (one per chunk length and batch, on the step) are captured
+    once and replayed by every later call."""
+    step = swarm_scenario.make_step_traced(static_cfg, cbf, device=device)
+    rounds = step.relax_rounds
+
+    def lane(state, traced, steps_i, t0_i, t):
+        t_i = t0_i + t
+        new, out = step(state, t_i, dict(zip(TRACED_KEYS, traced)))
+        live = t_i < steps_i
+        return engine._tree_map(lambda a, b: torch.where(live, a, b), new,
+                                state), out
+
+    def program(carry, t, inputs=None):
+        states, lanes = carry
+        new, outs = _over_members(
+            lambda st, tr, s_i, t0_i: lane(st, tr, s_i, t0_i, t),
+            (states, lanes.traced, lanes.steps, lanes.t0), rounds)
+        return (new, lanes), outs
+
+    program.relax_rounds = rounds
+    program.admm_blocks = step.admm_blocks
+    return program
+
+
+def _lanes(states, traced, steps, t0) -> _Lanes:
+    """The per-lane inputs of one call, on the states' device: ``traced``
+    a dict of (B,) values (:func:`cbf_tpu_torch.serve.pack.stack_batch`'s
+    keys)."""
+    dev = states.x.device
+    missing = [k for k in TRACED_KEYS if k not in traced]
+    if missing:
+        raise ValueError(f"traced lacks {missing}")
+    return _Lanes(tuple(torch.as_tensor(traced[k], device=dev)
+                        for k in TRACED_KEYS),
+                  torch.as_tensor(steps, dtype=torch.int32, device=dev),
+                  torch.as_tensor(t0, dtype=torch.int32, device=dev))
+
+
+def _run_lanes(static_cfg, cbf, states, lanes: _Lanes, n: int):
+    """``n`` steps of the serving program from the stacked ``states``.
+    Returns (the program's final states — its buffers —, StepOutputs with
+    (B, n, ...) leaves, new tensors)."""
+    program = _traced_program(static_cfg, cbf, states.x.device)
+    carry = (states, lanes)
+    prog = engine._program(program, carry, n, 1)
+    prog.load(carry)
+    prog.run(program, 0)
+    outs = engine._tree_map(lambda v: torch.swapaxes(v, 0, 1).clone(),
+                            prog.outs)
+    return prog.carry[0], outs
+
+
+def lockstep_traced_rollout(static_cfg: swarm_scenario.Config,
+                            horizon: int, *,
+                            cbf: CBFParams | None = None,
+                            donate_states: bool = True):
+    """The serving layer's per-member traced-config program: a micro-batch
+    of HETEROGENEOUS requests of one bucket run as one compiled program
+    (the batch size is the inputs' leading axis; one captured program per
+    (bucket, horizon, B)).
+
+    Each member carries its own traced scalars
+    (:func:`swarm.split_static_traced`: radius, gains, dt, ...), its own
+    padded-agent count (``n_active``) and its own horizon (``steps``), all
+    as per-lane tensors through one program: ``torch.func.vmap`` of
+    :func:`swarm.make_step_traced` over the members (the k-NN kernels
+    launch once per step for the batch, each member at its own radius).
+    The program always runs ``horizon`` steps; a member whose ``steps`` is
+    spent FREEZES — its carry is re-selected unchanged — so its later
+    StepOutputs rows are repeats the caller trims. Each member has its own
+    relax flag; where one is raised the engine redoes the chunk eagerly
+    through the same vmapped step (every round, every branch).
+
+    Returns ``run(states, traced, steps) -> (final_states, outs)``:
+    ``states`` a member-stacked State ((B, ...) leaves), ``traced`` a dict
+    of (B,) values (``split_static_traced``'s keys), ``steps`` (B,) int32;
+    ``outs`` StepOutputs of (B, horizon, ...). With ``donate_states`` (the
+    default) the final states are written into ``states``' own tensors
+    and returned — the buffers are consumed, as JAX's donation allows;
+    ``donate_states=False`` leaves them alone and returns new tensors."""
+    if horizon < 1:
+        raise ValueError(f"horizon must be >= 1, got {horizon}")
+
+    def run(states, traced, steps):
+        B = states.x.shape[0]
+        lanes = _lanes(states, traced, steps,
+                       torch.zeros(B, dtype=torch.int32))
+        final, outs = _run_lanes(static_cfg, cbf, states, lanes, horizon)
+        if donate_states:
+            engine._tree_map(lambda dst, src: dst.copy_(src), states, final)
+            return states, outs
+        return engine._tree_map(torch.clone, final), outs
+
+    return run
+
+
+def lockstep_traced_chunk(static_cfg: swarm_scenario.Config, chunk: int, *,
+                          cbf: CBFParams | None = None):
+    """The continuous-batching hook: one CHUNK of the program above, each
+    lane at its own clock.
+
+    Every lane advances ``chunk`` steps from its own local time ``t0``
+    (its step counter is ``t0_b + i``), so one captured program serves
+    every chunk boundary of every horizon of the bucket (one per
+    (static_cfg, chunk, B)). The horizon mask applies as above: a lane
+    whose clock reaches its ``steps`` freezes, so lanes at different
+    phases of different horizons — and vacant lanes, ``steps = 0`` —
+    share one batch, and a lane's outputs are bit-identical whether it
+    joined an in-flight batch at a chunk boundary or ran the same chunks
+    with every other lane vacant.
+
+    Returns ``run(states, traced, steps, t0) -> (final_states, outs)``
+    with (B, chunk, ...) outputs (the caller slices each lane's live
+    prefix). Never donates: a failed chunk must be able to retry from the
+    same carry, so ``states`` stay intact and the results are new
+    tensors."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+
+    def run(states, traced, steps, t0):
+        final, outs = _run_lanes(static_cfg, cbf, states,
+                                 _lanes(states, traced, steps, t0), chunk)
+        return engine._tree_map(torch.clone, final), outs
+
+    return run

@@ -31,7 +31,11 @@ host-guarded relax loop and host branches, the same kernels), counted in
 The carried state is any tree of tensors and (named) tuples — the swarm's
 headings, Verlet cache (int32 indices) and RTA carry (int32 mode and
 streak, with ``()`` leaves nested inside) ride in the static buffers, the
-chunk's saved start and the redo like positions do.
+chunk's saved start and the redo like positions do. So do per-call inputs
+that a step reads and hands back unchanged (the serving programs' traced
+values, horizons and clocks, :func:`cbf_tpu_torch.parallel.ensemble.
+lockstep_traced_rollout`): ``load`` fills their buffers before each run,
+so one captured program serves any values of them.
 
 A capture or launch failure raises: no path runs the eager loop on the card
 except that counted redo.
@@ -41,7 +45,9 @@ value the rollout computes as it is: ``rollout_chunked(checkpoint_dir=)``
 snapshots the carry at each chunk boundary
 (:class:`cbf_tpu_torch.utils.checkpoint.CheckpointWriter`), ``telemetry=``
 wraps the step with the tap (:mod:`cbf_tpu_torch.obs.tap`), whose
-heartbeats the engine emits while the next chunk runs, and
+heartbeats the engine emits while the next chunk runs (in ``rollout``
+that chunk is queued before the one before it is settled, so the card
+does not wait at a boundary: :func:`_run_tapped`), and
 ``cost_model=`` measures each program at its capture
 (:meth:`_Program.prepare`) and times its runs
 (:class:`cbf_tpu_torch.obs.resource.CostModel`).
@@ -58,11 +64,13 @@ import torch
 from cbf_tpu_torch.ops import knn
 from cbf_tpu_torch.solvers import exact2d
 
-# Engine-level counts: CUDA graphs captured and replayed, and chunks (and
+# Engine-level counts: CUDA graphs captured and replayed, chunks (and
 # their steps) redone with the eager loop because the guarded relax rounds
 # did not settle every QP or the step asked for a branch the body leaves
-# out.
-COUNTS = {"captures": 0, "replays": 0, "redos": 0, "redo_steps": 0}
+# out, and the steps of a tapped rollout's queued chunks run again because
+# the chunk before them was redone (:func:`_run_tapped`).
+COUNTS = {"captures": 0, "replays": 0, "redos": 0, "redo_steps": 0,
+          "rerun_steps": 0}
 
 
 class StepOutputs(NamedTuple):
@@ -218,7 +226,10 @@ class _Program:
                                               device=v.device), out)
                 _tree_map(lambda buf, v: buf.index_copy_(0, j, v[None]),
                           self.outs, out)
-        _tree_map(lambda dst, src: dst.copy_(src), self.carry, state)
+        # A leaf the step hands back unchanged (the carry's own tensor: the
+        # serving programs' per-lane inputs) is not copied onto itself.
+        _tree_map(lambda dst, src: None if dst is src else dst.copy_(src),
+                  self.carry, state)
         self.clock.add_(length)
 
     def _advance(self, step_fn, length: int) -> None:
@@ -256,6 +267,17 @@ class _Program:
         steps, a trailing partial body, then ``during()`` (host work that
         overlaps the chunk on the card), then the relax flag read once; the
         chunk is redone eagerly from its saved start where it is set."""
+        ticket = self.launch(step_fn, t0)
+        if during is not None:
+            during()
+        self.settle(step_fn, ticket)
+
+    def launch(self, step_fn, t0: int, host_flag: bool = False) -> tuple:
+        """Queue the chunk [t0, t0 + n) from the carry and return what
+        :meth:`settle` needs: the start clock, the saved start state and
+        the relax flag — with ``host_flag``, a host copy of it started on
+        the stream, so reading it waits for this chunk alone and not for
+        work queued after it."""
         self.start(t0)
         saved = _tree_map(torch.clone, self.carry)
         full, tail = divmod(self.n, self.unroll)
@@ -263,14 +285,31 @@ class _Program:
             self._advance(step_fn, self.unroll)
         if tail:
             self._advance(step_fn, tail)
-        if during is not None:
-            during()
-        if bool(self.flag):
-            COUNTS["redos"] += 1
-            COUNTS["redo_steps"] += self.n
-            state, outs = eager_rollout(step_fn, saved, self.n, t0=t0)
-            self.load(state)
-            _tree_map(lambda buf, v: buf.copy_(v), self.outs, outs)
+        flag, event = self.flag, None
+        if host_flag and self.device.type == "cuda":
+            flag = torch.empty((), dtype=torch.bool, pin_memory=True)
+            flag.copy_(self.flag, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        elif host_flag:
+            flag = self.flag.clone()
+        return t0, saved, flag, event
+
+    def settle(self, step_fn, ticket) -> bool:
+        """Read a launched chunk's relax flag; where it is set, redo the
+        chunk eagerly from its saved start into the carry and the output
+        buffers. Returns whether it was redone."""
+        t0, saved, flag, event = ticket
+        if event is not None:
+            event.synchronize()
+        if not bool(flag):
+            return False
+        COUNTS["redos"] += 1
+        COUNTS["redo_steps"] += self.n
+        state, outs = eager_rollout(step_fn, saved, self.n, t0=t0)
+        self.load(state)
+        _tree_map(lambda buf, v: buf.copy_(v), self.outs, outs)
+        return True
 
     def prepare(self, step_fn, state, t0: int) -> "_Program":
         """Capture every body the chunk [t0, t0 + n) needs (on the CPU: run
@@ -399,6 +438,57 @@ def _run_chunks(step_fn, state, spans, *, unroll, donate: bool,
     return state, parts
 
 
+def _run_tapped(step_fn, state, spans, *, unroll, cost_model=None,
+                label=None):
+    """:func:`_run_chunks` for a tapped rollout on the programs' own
+    carry, with no host wait at a chunk boundary: each chunk is queued
+    before the one before it is settled, its relax flag and sampled rows
+    copied to the host on the stream, so the card runs on while the host
+    reads them. Heartbeats come from settled chunks only: where a chunk's
+    flag is set it is redone eagerly, and the chunk queued after it runs
+    again from the redone state. ``state`` is never written."""
+    from cbf_tpu_torch.obs.tap import chunk_heartbeats as read
+
+    def launch(prog, t0):
+        ticket = prog.launch(step_fn, t0, host_flag=True)
+        outs = prog.outputs(to_host=False)
+        return ticket, outs, read(step_fn, t0, outs)
+
+    t_exec = time.perf_counter()
+    parts, prog, queued = [], None, None
+    for t0, n in spans:
+        nxt = _program(step_fn, state, n, unroll)
+        if cost_model is not None:
+            cost_model.compile_and_record(
+                label, nxt.prepare, (step_fn, state, t0),
+                cache_key=(label, step_fn, n, unroll, True,
+                           _signature(state)))
+        if nxt is not prog:
+            nxt.load(state)
+        ticket, outs, emit = launch(nxt, t0)
+        parts.append(outs)
+        if queued is not None:
+            q_prog, q_ticket, q_emit = queued
+            if q_prog.settle(step_fn, q_ticket):
+                parts[-2] = q_prog.outputs(to_host=False)
+                q_emit = read(step_fn, q_ticket[0], parts[-2])
+                if nxt is not q_prog:
+                    nxt.load(q_prog.carry)
+                COUNTS["rerun_steps"] += n
+                ticket, parts[-1], emit = launch(nxt, t0)
+            q_emit()
+        prog, state, queued = nxt, nxt.carry, (nxt, ticket, emit)
+    if queued is not None:
+        q_prog, q_ticket, q_emit = queued
+        if q_prog.settle(step_fn, q_ticket):
+            parts[-1] = q_prog.outputs(to_host=False)
+            q_emit = read(step_fn, q_ticket[0], parts[-1])
+        q_emit()
+    if cost_model is not None and parts:
+        cost_model.observe_execute(label, time.perf_counter() - t_exec)
+    return state, parts
+
+
 def rollout(step_fn: Callable, state0, steps: int, *, unroll: int = 1,
             telemetry=None, telemetry_every: int = 50,
             cost_model=None, cost_label: str | None = None):
@@ -430,17 +520,19 @@ def rollout_extra(step_fn: Callable, state0, steps: int, *, unroll: int = 1,
     (the checked rollout reads its flags there)."""
     if steps < 1:
         return state0, None
-    spans = [(0, steps)]
+    label = cost_label or f"rollout-s{steps}-u{unroll}"
     if telemetry is not None:
         from cbf_tpu_torch.obs.tap import instrument_step
 
         step_fn = instrument_step(step_fn, telemetry, every=telemetry_every)
-        spans = plan_chunks(0, steps, telemetry_every)
-    state, parts = _run_chunks(
-        step_fn, state0, spans, unroll=unroll, donate=True, to_host=False,
-        cost_model=cost_model,
-        label=cost_label or f"rollout-s{steps}-u{unroll}",
-        observe_each=False)
+        state, parts = _run_tapped(
+            step_fn, state0, plan_chunks(0, steps, telemetry_every),
+            unroll=unroll, cost_model=cost_model, label=label)
+    else:
+        state, parts = _run_chunks(
+            step_fn, state0, [(0, steps)], unroll=unroll, donate=True,
+            to_host=False, cost_model=cost_model, label=label,
+            observe_each=False)
     outs = parts[0] if len(parts) == 1 else _tree_map(
         lambda *xs: torch.cat(xs), *parts)
     if telemetry is not None:

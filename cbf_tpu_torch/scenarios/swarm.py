@@ -25,8 +25,10 @@ reverse-differentiable (the trainer, :mod:`cbf_tpu_torch.learn`, and the
 falsifier's gradient engine, :mod:`cbf_tpu_torch.verify`, differentiate
 through it; the kernels select through :func:`cbf_tpu_torch.ops.knn.
 knn_select`'s zero-gradient Function, and the sparse certificate's K solve
-carries its implicit gradient). The serving layer's ``active`` mask and
-the row-partitioned certificate are later slices' and raise
+carries its implicit gradient). The serving layer's traced-config step
+(:func:`split_static_traced`, :func:`make_step_traced`: per-request
+value fields as tensors, the ``active`` mask over padded agents) is
+ported; the row-partitioned certificate is a later slice's and raises
 :class:`~cbf_tpu_torch.errors.OutOfSliceError`.
 
 Branches of the reference step that depend on device data (the Verlet
@@ -46,13 +48,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from cbf_tpu_torch.core.filter import CBFParams, safe_controls
-from cbf_tpu_torch.errors import SLICE_PARALLEL, SLICE_SERVE, OutOfSliceError
+from cbf_tpu_torch.errors import SLICE_PARALLEL, OutOfSliceError
 from cbf_tpu_torch.ops import knn
 from cbf_tpu_torch.ops.pairwise import pairwise_distances
 from cbf_tpu_torch.rollout.engine import StepOutputs, rollout
@@ -144,6 +147,10 @@ class Config:
     @property
     def pack_radius(self) -> float:
         return self.pack_spacing * float(np.sqrt(self.n))
+
+    def split_static_traced(self):
+        """``(static_cfg, traced)``: :func:`split_static_traced`."""
+        return split_static_traced(self)
 
 
 class State(NamedTuple):
@@ -669,11 +676,36 @@ def validate_config(cfg: Config) -> None:
                 f"{cfg.vel_tracking_tau}")
 
 
-def reject_out_of_slice(cfg: Config, *, active=None) -> None:
-    """Raise OutOfSliceError for every valid knob this slice does not
-    port — never ignore one silently."""
-    if active is not None:
-        raise OutOfSliceError("the serving layer's active mask", SLICE_SERVE)
+class _DynamicsRows(NamedTuple):
+    """The constant patterns of the barrier dynamics: the drift coupling
+    (pos <- vel), the position control rows [[I], [0]] and the double
+    rows [[I], [I]]."""
+    coupling: torch.Tensor
+    position: torch.Tensor
+    double: torch.Tensor
+
+
+@functools.lru_cache(maxsize=None)
+def _dynamics_rows(dtype: torch.dtype, device: torch.device) -> _DynamicsRows:
+    """Built once per (dtype, device) and kept: the traced step scales them
+    by per-request tensors inside a captured body, which may copy nothing
+    from the host."""
+    def rows(values):
+        return torch.tensor(values, dtype=dtype, device=device)
+    return _DynamicsRows(
+        rows([[0, 0, 1, 0], [0, 0, 0, 1], [0, 0, 0, 0], [0, 0, 0, 0]]),
+        rows([[1, 0], [0, 1], [0, 0], [0, 0]]),
+        rows([[1, 0], [0, 1], [1, 0], [0, 1]]))
+
+
+def discrete_barrier(cfg: Config) -> bool:
+    """Whether the single/unicycle rows are the exact discrete ones
+    (``barrier="auto"``: with obstacles); double and mixed rows always
+    are."""
+    if cfg.dynamics in ("double", "mixed"):
+        return True
+    return (cfg.n_obstacles > 0 if cfg.barrier == "auto"
+            else cfg.barrier == "discrete")
 
 
 def barrier_dynamics(cfg: Config, dtype, validate: bool = True, *,
@@ -689,31 +721,34 @@ def barrier_dynamics(cfg: Config, dtype, validate: bool = True, *,
     (f = 0, g = dyn_scale * I on the position slots), "discrete" f = dt *
     (pos <- vel), g = dt * I — the exact discrete-time CBF condition
     h_{k+1} >= (1-gamma) h_k; "auto" = discrete when obstacles are
-    present, else continuous."""
+    present, else continuous. ``dt`` and ``dyn_scale`` may be 0-dim
+    tensors (the traced step): the rows are then built on the device from
+    cached constant patterns, capture-safe."""
     if validate:
         validate_config(cfg)
     dev = resolve_device(device)
-
-    def rows(values):
-        return torch.tensor(values, dtype=dtype, device=dev)
-
-    coupling = rows([[0, 0, 1, 0], [0, 0, 0, 1], [0, 0, 0, 0], [0, 0, 0, 0]])
+    pat = _dynamics_rows(dtype, dev)
     if cfg.dynamics in ("double", "mixed"):
         dt = cfg.dt
-        f = dt * coupling
-        g_dbl = (rows([[1, 0], [0, 1], [1, 0], [0, 1]])
-                 * rows([dt * dt, dt * dt, dt, dt])[:, None])
+        f = dt * pat.coupling
+        # Row-scale form: dt may be a per-request tensor (the traced step),
+        # whose products round in the working dtype, as JAX's traced dt.
+        if torch.is_tensor(dt):
+            scales = torch.stack([dt * dt, dt * dt, dt, dt]).to(dtype)
+        else:
+            scales = torch.tensor([dt * dt, dt * dt, dt, dt], dtype=dtype,
+                                  device=dev)
+        g_dbl = pat.double * scales[:, None]
         if cfg.dynamics == "double":
             return f, g_dbl, True
         m = dynamics_mask(cfg, device=dev)
-        g_sgl = dt * rows([[1, 0], [0, 1], [0, 0], [0, 0]])
+        g_sgl = dt * pat.position
         return (f[None].expand(cfg.n, 4, 4),
                 torch.where(m[:, None, None], g_dbl[None], g_sgl[None]), True)
-    discrete = (cfg.n_obstacles > 0 if cfg.barrier == "auto"
-                else cfg.barrier == "discrete")
+    discrete = discrete_barrier(cfg)
     scale = cfg.dt if discrete else cfg.dyn_scale
-    g = scale * rows([[1, 0], [0, 1], [0, 0], [0, 0]])
-    f = (cfg.dt * coupling if discrete
+    g = scale * pat.position
+    f = (cfg.dt * pat.coupling if discrete
          else cfg.dyn_scale * torch.zeros((4, 4), dtype=dtype, device=dev))
     return f, g, discrete
 
@@ -769,7 +804,11 @@ def complete_nominal(cfg: Config, u0, x, v, obs_slab, mask):
     double = cfg.dynamics == "double"
     mixed = cfg.dynamics == "mixed"
     dmask = dynamics_mask(cfg, device=x.device) if mixed else None
-    if (double or mixed) and cfg.sep_gain:
+    # sep_gain is a per-request tensor on the traced path, where the term
+    # is always computed (it scales by sep_gain); skipping it is a static
+    # zero's shortcut only.
+    sep_off = not torch.is_tensor(cfg.sep_gain) and not cfg.sep_gain
+    if (double or mixed) and not sep_off:
         bias = separation_bias(cfg, x, obs_slab, mask)
         if mixed:
             bias = torch.where(dmask[:, None], bias, 0.0)
@@ -948,10 +987,40 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
     it replays and hands each step its row as ``inputs``; without
     ``inputs`` the step computes the row itself from ``t``, on the host.
     ``unroll_relax > 0`` solves every QP with that many unrolled relax
-    rounds (the differentiable step; module docstring). ``active`` (the
-    serving layer's padded-bucket mask) is not ported."""
+    rounds (the differentiable step; module docstring).
+
+    ``active``: optional (N,) bool, the serving layer's padded-bucket
+    mask. Pad agents (False rows) leave the consensus centroid (taken over
+    the active rows, at least one) and get a zero nominal, so they stay
+    where the packer parked them (:mod:`cbf_tpu_torch.serve.pack`); every
+    other exclusion follows from distance."""
     dev = resolve_device(device)
     validate_config(cfg)
+    body = _step_body(cfg, unroll_relax=unroll_relax, device=dev)
+    f, g, _ = barrier_dynamics(cfg, cfg.dtype, validate=False, device=dev)
+    if cbf is None:
+        cbf = default_cbf(cfg, device=dev)
+
+    def step(state: State, t, inputs=None):
+        return body(cfg, state, t, inputs, f, g, cbf, active)
+
+    step.relax_rounds = relax_rounds(cfg)
+    step.admm_blocks = CERTIFICATE_BLOCKS
+    if cfg.n_obstacles:
+        step.host_inputs = lambda t0, n: obstacle_table(cfg, t0, n,
+                                                        cfg.dtype)
+    return step
+
+
+def _step_body(cfg: Config, *, unroll_relax: int = 0, device):
+    """The step of ``cfg``'s structure: ``body(cfg, state, t, inputs, f,
+    g, cbf, active)``. The structural fields are read here, once; the
+    body reads the value fields from the config it is handed — ``cfg``
+    itself, or (:func:`make_step_traced`) a copy whose
+    :data:`TRACED_CONFIG_FIELDS` are 0-dim tensors — and takes the
+    dynamics ``f``, ``g`` and the filter parameters built from that
+    config, and ``active`` (None, or the (N,) padded-bucket mask)."""
+    dev = device
     if cfg.gating not in ("auto", "pallas", "jnp", "banded", "streaming"):
         raise ValueError(f"gating must be auto|pallas|jnp|banded|streaming, "
                          f"got {cfg.gating!r}")
@@ -965,11 +1034,10 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
             "gating_rebuild_skin requires the pallas/jnp gating backends "
             "(the banded kernel's window bookkeeping has no cached form, "
             "and the cache's rebuild search keeps the auto kernel choice)")
-    reject_out_of_slice(cfg, active=active)
     if unroll_relax < 0:
         raise ValueError(f"unroll_relax must be >= 0, got {unroll_relax}")
     dt_ = cfg.dtype
-    f, g, discrete = barrier_dynamics(cfg, dt_, validate=False, device=dev)
+    discrete = discrete_barrier(cfg)
     double = cfg.dynamics == "double"
     unicycle = cfg.dynamics == "unicycle"
     mixed = cfg.dynamics == "mixed"
@@ -980,8 +1048,6 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
     goals_np = goal_layout(cfg)
     goals_c = (None if goals_np is None
                else torch.as_tensor(goals_np, dtype=dt_, device=dev))
-    if cbf is None:
-        cbf = default_cbf(cfg, device=dev)
     K = cfg.k_neighbors
     M = cfg.n_obstacles
     # "streaming" forces the streaming kernel below the fused bound.
@@ -999,7 +1065,7 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
     filter_kw = dict(reference_layout=not plain_box,
                      vel_box_rows=not plain_box, unroll_relax=unroll_relax)
 
-    def step(state: State, t, inputs=None):
+    def step(cfg: Config, state: State, t, inputs, f, g, cbf, active):
         scrub_bit = None
         if cfg.rta:
             # Rung-3 entry half (lane scrub): a non-finite carried row is
@@ -1021,7 +1087,14 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
             if goals_c is not None:
                 u0 = cfg.consensus_gain * (goals_c - x)
             else:
-                centroid = torch.mean(x, dim=0)
+                if active is None:
+                    centroid = torch.mean(x, dim=0)
+                else:
+                    # A padded bucket: the real agents' centroid (parked
+                    # pads would drag it off the swarm).
+                    n_act = torch.clamp(torch.sum(active.to(dt_)), min=1.0)
+                    centroid = torch.sum(torch.where(active[:, None], x,
+                                                     0.0), dim=0) / n_act
                 to_c = centroid[None] - x                      # (N, 2)
                 d_c = torch.linalg.norm(to_c, dim=1, keepdim=True)
                 # Pull toward the centroid only outside the packing disk.
@@ -1033,6 +1106,10 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
                               if inputs is None else inputs)
                 dodge, d_o = lane_dodge(x, obstacles4, cfg.safety_distance)
                 u0 = u0 + 2.0 * dodge
+            if active is not None:
+                # Pads hold station: zero nominal, nothing engages their
+                # filter, so u == 0 keeps them parked.
+                u0 = torch.where(active[:, None], u0, 0.0)
         # Discrete single rows zero the agents' velocity slots (u is the
         # unknown the row solves for); double rows and continuous rows
         # carry the actual velocities.
@@ -1098,7 +1175,15 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
             # change a row, so the eager loop runs that chunk again.
             bit_infeas = ~info.feasible & engaged
             boost = (bit_infeas | (mode_prev == RUNG_RESOLVE)) & engaged
-            if exact2d.in_guarded_body():
+            if exact2d.takes_every_branch():
+                # A vmapped member's eager pass: the re-solve for every
+                # row, picked per row (JAX's cond under vmap).
+                u_boost, _ = safe_controls(
+                    states4, obs_slab, mask, f, g, u0, cbf,
+                    priority_mask=priority, relax_cap=None,
+                    max_relax=cfg.rta_boost_budget, **filter_kw)
+                u = torch.where(boost[:, None], u_boost, u)
+            elif exact2d.in_guarded_body():
                 exact2d.request_redo(torch.any(boost))
             elif bool(torch.any(boost)):
                 u_boost, _ = safe_controls(
@@ -1213,10 +1298,110 @@ def _build_step(cfg: Config, cbf: CBFParams | None = None, *, active=None,
                               certificate_solver_state=new_sstate,
                               rta=rta_carry), out
 
-    step.relax_rounds = relax_rounds(cfg)
+    return step
+
+
+# Float Config fields the serving layer varies PER REQUEST inside one
+# compiled bucket program (the JAX package's list): each is read only by
+# tensor arithmetic on the step path — never by shapes, Python control
+# flow or kernel sizing — so a per-request 0-dim tensor (one per member
+# under ``torch.func.vmap``) replays one captured program for any values.
+# The structural knobs (n, dynamics, gating, certificate backend and
+# budgets, skins, relax_cap's None-ness, dtype) stay static: they are the
+# bucket signature. speed_limit and max_speed stay static too (the
+# certificate's binding-pair radius is host math over the speed limit, and
+# so is the unicycle's wheel-speed check).
+TRACED_CONFIG_FIELDS: tuple[str, ...] = (
+    "safety_distance", "consensus_gain", "pack_spacing", "dt",
+    "dyn_scale", "sep_gain", "sep_target",
+    "accel_limit", "vel_tracking_tau", "projection_distance",
+    "obstacle_orbit_frac", "obstacle_omega",
+)
+
+
+def split_static_traced(cfg: Config):
+    """Split a request config into its bucket-static part and its traced
+    per-request scalars (``Config.split_static_traced()``).
+
+    Returns ``(static_cfg, traced)``: ``static_cfg`` is ``cfg`` with every
+    :data:`TRACED_CONFIG_FIELDS` value (and ``seed`` and ``steps``: spawn
+    data and the horizon mask) at its default, so two requests that differ
+    only in traced scalars give EQUAL static configs — the serving layer's
+    bucket equality. ``traced`` maps field name -> float, plus
+    ``"n_active"`` (= ``cfg.n``; the packer keeps it when it pads ``n`` up
+    to the bucket size).
+
+    The request is validated here, on the host; :func:`make_step_traced`
+    skips validation on the traced substitute. ``gating="banded"`` is
+    rejected: its window sizing is host math over ``safety_distance``."""
+    validate_config(cfg)
+    if cfg.gating == "banded":
+        raise ValueError(knn.BANDED_TRACED_RADIUS)
+    traced = {k: float(getattr(cfg, k)) for k in TRACED_CONFIG_FIELDS}
+    traced["n_active"] = cfg.n
+    defaults = {f.name: f.default for f in dataclasses.fields(Config)}
+    static_cfg = dataclasses.replace(
+        cfg, seed=defaults["seed"], steps=defaults["steps"],
+        **{k: defaults[k] for k in TRACED_CONFIG_FIELDS})
+    return static_cfg, traced
+
+
+def obstacle_states_traced(cfg: Config, t):
+    """(M, 4) obstacle rows at step ``t`` on the device, closed form from
+    the config's (possibly per-request tensor) fields — the traced step's
+    rows, where each member has its own orbit and clock. ``t`` is a 0-dim
+    tensor; the arithmetic is :func:`_orbit_ring`'s. CUDA's and the host's
+    cos and sin may part by an ulp, so these rows may differ from
+    :func:`obstacle_states_at`'s (and JAX's) by an ulp or two."""
+    pos, vel = _orbit_ring(cfg, t.to(cfg.dtype))
+    return torch.cat([pos, vel], dim=1).to(cfg.dtype)
+
+
+def make_step_traced(static_cfg: Config, cbf: CBFParams | None = None, *,
+                     device=None):
+    """Step factory for the serving layer's traced-config buckets.
+
+    Returns ``step(state, t, traced) -> (state, StepOutputs)``: ``traced``
+    holds :data:`TRACED_CONFIG_FIELDS` and ``"n_active"`` (what
+    :func:`split_static_traced` gives, as floats or 0-dim tensors in the
+    working dtype — under ``torch.func.vmap`` one per member). The first
+    ``n_active`` agents are real; the trailing pads are masked out of the
+    consensus and the nominal (see :func:`_build_step`'s ``active``).
+    Everything built from a traced value — the barrier dynamics, the
+    filter's box bound, the obstacle ring, the gating radius the kernels
+    read per member — is built inside the step from tensors on the device,
+    so one captured program serves any traced values. ``t``: an int or a
+    0-dim integer tensor (per member under vmap).
+
+    Validation ran on each request (:func:`split_static_traced`); the
+    static config is validated once here. Carries ``relax_rounds`` and
+    ``admm_blocks`` as :func:`_build_step`'s step does; the obstacle rows
+    are computed on the device (:func:`obstacle_states_traced`), so there
+    is no ``host_inputs`` hook."""
+    dev = resolve_device(device)
+    validate_config(static_cfg)
+    if static_cfg.gating == "banded":
+        raise ValueError("banded gating is rejected on the traced path "
+                         "(see split_static_traced)")
+    body = _step_body(static_cfg, device=dev)
+    rows = torch.arange(static_cfg.n, device=dev)
+
+    def step(state: State, t, traced):
+        cfg_t = dataclasses.replace(
+            static_cfg, **{k: traced[k] for k in TRACED_CONFIG_FIELDS})
+        active = rows < traced["n_active"]
+        f, g, _ = barrier_dynamics(cfg_t, cfg_t.dtype, validate=False,
+                                   device=dev)
+        cbf_t = default_cbf(cfg_t, device=dev) if cbf is None else cbf
+        obstacles4 = None
+        if static_cfg.n_obstacles:
+            t_dev = t if torch.is_tensor(t) else torch.as_tensor(t,
+                                                                 device=dev)
+            obstacles4 = obstacle_states_traced(cfg_t, t_dev)
+        return body(cfg_t, state, t, obstacles4, f, g, cbf_t, active)
+
+    step.relax_rounds = relax_rounds(static_cfg)
     step.admm_blocks = CERTIFICATE_BLOCKS
-    if M:
-        step.host_inputs = lambda t0, n: obstacle_table(cfg, t0, n, dt_)
     return step
 
 

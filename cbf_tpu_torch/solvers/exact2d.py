@@ -238,6 +238,24 @@ def in_guarded_body() -> bool:
     return _GUARD.get() is not None
 
 
+# Guarded rounds that ask for what the relax loop gives: more than it can
+# take (``relax_guarded`` runs min(rounds, max_relax)). A guard at this
+# many rounds is a vmapped member's eager pass (the ensembles' and the
+# serving programs' redo), which also takes every data-dependent branch
+# in branch-free form (:func:`takes_every_branch`).
+ALL_ROUNDS = 1 << 30
+
+
+def takes_every_branch() -> bool:
+    """Whether the caller runs inside a guard of :data:`ALL_ROUNDS`: the
+    eager pass of a member under ``torch.func.vmap``, which cannot branch
+    on the host per member. A step computes a branch it would take on the
+    host for every row there and selects it per row — ``lax.cond`` under
+    ``jax.vmap`` — instead of raising the redo flag."""
+    guard = _GUARD.get()
+    return guard is not None and guard.rounds >= ALL_ROUNDS
+
+
 def guard_settings() -> tuple[int, int | None]:
     """Inside :func:`guarded_relax`: its (rounds, blocks), for a caller
     that opens a guard of its own with the same settings (the falsifier's

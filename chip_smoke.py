@@ -53,7 +53,7 @@ Phases (each raises, and the script exits non-zero, on any failure):
    column plan and the scan's and the merge's device times apart,
    ``knn_banded`` as the whole
    wrapper, as its sorted-input launch alone and as its prologue alone,
-   with the device ops one call issues (profiler); then profile 20 steps
+   with the device ops one call issues (profiler); then profile 10 steps
    of every phase's run, eager and compiled side by side: device ops, device
    ms and busy share per step, the knn kernels seen inside the replay;
 7. the banded path at full width — ``Config(n=65536, gating="banded")``,
@@ -102,7 +102,7 @@ Phases (each raises, and the script exits non-zero, on any failure):
 12. the joint barrier certificate, each run compiled and held to the
    eager loop as in phase 3 (both certificate carries included), with
    ``knn_fused`` launched twice per step (the gating search and the
-   certificate's): 12a ``Config(n=4096, certificate=True)`` x 50 (the
+   certificate's): 12a ``Config(n=4096, certificate=True)`` x 30 (the
    sparse backend, k=16, 100 ADMM iterations x 8 CG); 12b the same warm
    started with ``certificate_tol=1e-5`` (the adaptive budget's guarded
    blocks), and again x 10 with one guarded block, which must redo its
@@ -119,7 +119,8 @@ Phases (each raises, and the script exits non-zero, on any failure):
    and on the CPU as in phase 5, the certificate's counts included. (12a-c
    ran 100/100/50 steps before phase 13 came; they were cut to 50/50/30,
    with the 12a profile from 3 steps to 2, to keep the script near ten
-   minutes: an eager sparse step takes 0.26-0.38 s on an H100 80GB HBM3
+   minutes, and to 30/30/30, the 12a profile to 1 step and 12d's from 5
+   to 2, when phase 17 came, to keep it under 850 s: an eager sparse step takes 0.26-0.38 s on an H100 80GB HBM3
    at 700 W, PERF.md §5.)
 13. the reference scenarios, the CLI and the compat layer: 13a
    ``meet_at_center`` (10 robots x 1000 iterations), 13b
@@ -127,7 +128,7 @@ Phases (each raises, and the script exits non-zero, on any failure):
    certificate, x 3000) and 13c ``antipodal`` (N=32 x 1500), each at its
    default Config through its ``make`` and the compiled rollout, held
    ``torch.equal`` to the eager loop over the whole horizon (13b: its
-   first 300 steps, as an eager step takes 54-107 ms on an H100 80GB
+   first 200 steps, as an eager step takes 54-107 ms on an H100 80GB
    HBM3 at 700 W, PERF.md §5; the compiled run goes the full 3000),
    launching no knn kernel, each with the bounds of
    tests/test_scenarios.py (13a: free-agent spread < 0.35, min distance >
@@ -135,7 +136,7 @@ Phases (each raises, and the script exits non-zero, on any failure):
    goal distances min < 0.15 and max < 0.6, min distance > 0.1, residual
    < 1e-4; 13c: all 32 within 0.2 m of their antipodes, min distance >
    0.2/sqrt(2) - 5e-3) and 0 infeasible, R, redos, the relax histogram,
-   the step walls eager and compiled in turns (13b over 100 steps), the
+   the step walls eager and compiled in turns (13b over 50 steps), the
    device ops per step and the first call's seconds printed; 13d the
    golden anchor: float64 ``meet_at_center`` on the card for 5 steps
    within 5e-5 of the float64 numpy replay through the port's SLSQP
@@ -246,14 +247,42 @@ Phases (each raises, and the script exits non-zero, on any failure):
    filter and integrate spans and ``knn_fused``. Every run's launches are
    counted (zeroed just before, read just after) into the kernel table.
 
+17. the traced-config serving path: 17a the radius array — ``knn_fused``
+   at B=16 x N=256 (radii 0.4 + 0.003 (i % 5), 0.0 and 1.0), B=8 x
+   N=4096 and at k=16 (r = 0.5707 +- 0.01), ``knn_stream`` at B=8 x
+   N=4096 (forced) and B=4 x N=1000 (several ranges, the merge too), each
+   launch with one radius per member ``torch.equal`` to B single launches
+   at each member's radius and to the batched plain version, the launch
+   with every radius equal to the scalar launch, each timed beside the
+   scalar launch of its shape; 17b ``bench.py``'s ``serve_workload``
+   (copied here) through ``parallel.ensemble.lockstep_traced_rollout``,
+   one program per bucket, at full width (base 4096, B=8, 128 steps,
+   max_batch 4: buckets 4096 and 2048) and at the serve bench's default
+   (base 128, B=16, 512 steps, max_batch 8): one ``knn_fused`` launch per
+   step per batch with the radius array, compiled ``torch.equal`` to the
+   eager loop of the same vmapped step, each trimmed request held to its
+   own ``swarm.make`` + ``rollout`` run (trajectory within 2e-4, 0
+   infeasible, the first step where a count differs printed), then the
+   batched programs timed against the same requests one after another
+   (graphs cached) in turns, requests/s and member agent-QP-steps/s for
+   both and their ratio beside the JAX package's 1.5x gate; 17c
+   ``lockstep_traced_chunk`` (bucket 256, chunk 32, B=8): lanes at clocks
+   0, 32 and 64 and two vacant, a lane joining at a chunk boundary
+   ``torch.equal`` to it running alone, pads parked, one capture for
+   every chunk call with the traced values changed between calls; 17d a
+   B=4 bucket-64 batch x 64 steps on ``gating="streaming"`` (the
+   ``knn_stream`` radius array) on the card and on the CPU, within
+   CROSS_X_ATOL and CROSS_MD_ATOL, every count equal.
+
 Phases 7-13 run before phase 6, which times their kernels (``knn_fused``
 and ``knn_stream`` also at the certificate's k=16 shape) and profiles
-every phase of 1-12 over 20 steps (12a over 2, 12d over 5; phase 13
+every phase of 1-12 over 10 steps (12a over 1, 12d over 2; phase 13
 profiles its own runs, 13b over 3).
 
-Stdout ends with the ``{"kernels": [...]}`` line, each phase's compiled
-and eager agent-QP-steps/s, the card line, and, last, the result line
-``{"ok": true, "device": {...}}``. Without a card it exits 2 and prints
+Stdout ends with the ``{"kernels": [...]}`` line (the radius-array
+launches in rows of their own, and in their kernel's launches), each
+phase's compiled and eager agent-QP-steps/s, the card line, and, last,
+the result line ``{"ok": true, "device": {...}}``. Without a card it exits 2 and prints
 no result.
 """
 
@@ -299,10 +328,13 @@ THIN_N = 4096   # phase 2's thin band: 8 blocks of rows in one 1e-3 m band
 # width (k=16 rows per agent, its search at the binding-pair radius), the
 # dense backend at its largest auto size, and card vs CPU at N=256. The
 # sparse step's ~28 k device ops per step are profiled over
-# CERT_PROFILE_STEPS steps (the dense step's ~6 k over 5): a 20-step
-# profile of them takes minutes of the script's time (PERF.md §5).
-CERT_N, CERT_STEPS, CERT_FUSED_STEPS = 4096, 50, 30
-CERT_PROFILE_STEPS = 2
+# CERT_PROFILE_STEPS steps (the dense step's ~6 k over
+# CERT_DENSE_PROFILE_STEPS): a 20-step profile of them takes minutes of
+# the script's time (PERF.md §5). Cut from 2 and 5 steps when phase 17
+# came, to keep the script under 850 s: the two profiles took 35 and 14 s;
+# 12a and 12b then went from 50 steps to 30.
+CERT_N, CERT_STEPS, CERT_FUSED_STEPS = 4096, 30, 30
+CERT_PROFILE_STEPS, CERT_DENSE_PROFILE_STEPS = 1, 2
 # 12b again with one guarded block, which the warm solves outgrow: the
 # chunk is redone by the eager loop and must still equal it.
 CERT_REDO_STEPS = 10
@@ -320,11 +352,11 @@ CROSS_STEPS = 20
 # series (values ~0.2 m, ulp ~1.5e-8) gets 1e-5.
 CROSS_X_ATOL, CROSS_MD_ATOL = 1e-4, 1e-5
 # Phase 13, the reference scenarios at their own sizes. cross_and_rescue's
-# 3000 steps run compiled; the eager loop holds them on the first 300
+# 3000 steps run compiled; the eager loop holds them on the first 200
 # (an eager step of its dense certificate takes 54-107 ms on an H100 80GB
-# HBM3 at 700 W, PERF.md §5), and the walls
-# are timed over 100.
-SCEN_CAR_PREFIX, SCEN_CAR_TIMED = 300, 100
+# HBM3 at 700 W, PERF.md §5; 300 until phase 17 came), and the walls
+# are timed over 50 (100 until then).
+SCEN_CAR_PREFIX, SCEN_CAR_TIMED = 200, 50
 SCEN_ANCHOR_STEPS = 5          # tests/test_scenarios.py's golden anchor
 SCEN_CROSS_STEPS = 50
 SCEN_CLI_STEPS = 200
@@ -337,7 +369,10 @@ SCEN_COMPAT_STEPS = 200
 # (k=4, pack spacing 0.02, spacing 0.15 m), E members, horizon, Adam
 # steps; the two-layer bar of tests/test_sparse_certificate.py:487-520.
 TRAIN_N, TRAIN_E, TRAIN_HORIZON, TRAIN_OPT_STEPS = 4096, 2, 8, 3
-TWO_N, TWO_HORIZON = 512, 4
+# The two-layer trainer's Adam steps: 3 until phase 17 came (9.6-15.6 s
+# each on an H100 80GB HBM3 at 700 W, PERF.md §5), cut to keep the script
+# under 850 s; the descent check needs two.
+TWO_N, TWO_HORIZON, TWO_OPT_STEPS = 512, 4, 2
 TRAIN_CROSS_N = 256
 # Card vs CPU of one float32 loss and gradient over the 8-step horizon:
 # the devices reduce the centroid in other orders (CROSS_X_ATOL's ulps per
@@ -389,22 +424,38 @@ CORPUS_CFG = {"n": 16, "steps": 140, "k_neighbors": 4, "gating": "jnp"}
 # Phase 16, durability and observability at the flagship width: 16a/16b
 # run DUR_STEPS in DUR_CHUNK-step chunks (16b kills the CLI once its first
 # checkpoint is committed); 16c streams a heartbeat every TEL_EVERY steps
-# of TEL_STEPS and times telemetry on against off, held under
-# TEL_OVERHEAD_FAIL (the JAX package's budget, tests/test_telemetry.py:
-# 362-385, is TEL_OVERHEAD_BUDGET; noise alone must not fail the script);
+# of TEL_STEPS and times telemetry on against off in TEL_TURNS turns of
+# (off, on, on, off), the summed walls held under TEL_OVERHEAD_FAIL (the
+# JAX package's budget, tests/test_telemetry.py:362-385, is
+# TEL_OVERHEAD_BUDGET; noise alone must not fail the script);
 # its watchdog sees a NaN at WATCH_NAN_AT, the warm certificate's carry
 # blown up at CERT_WATCH_AT (N=CERT_WATCH_N) and a STALL_S host stall at
 # STALL_AT; 16d checks 16c's run for a NaN or an inf, finds one injected
 # at CHECKED_INF_AT, runs the cost model COST_REPS times and profiles
 # PROFILE_STEPS steps through the CLI.
 DUR_STEPS, DUR_CHUNK = 2000, 500
-TEL_STEPS, TEL_EVERY = 500, 50
+TEL_STEPS, TEL_EVERY, TEL_TURNS = 500, 50, 3
 TEL_OVERHEAD_BUDGET, TEL_OVERHEAD_FAIL = 0.03, 0.10
 WATCH_STEPS, WATCH_NAN_AT = 200, 100
 CERT_WATCH_N, CERT_WATCH_STEPS, CERT_WATCH_AT = 256, 10, 4
 STALL_AT, STALL_S, STALL_TIMEOUT, STALL_EVERY = 100, 2.0, 0.5, 10
 CHECKED_INF_AT = 250
 COST_REPS, PROFILE_STEPS = 5, 50
+# Phase 6's (and the scenarios') eager-vs-compiled profiles: steps per
+# profiled run (20 until phase 17 came; cut to keep the script under
+# 850 s).
+PROFILE_RUN_STEPS = 10
+# Phase 17, the traced-config serving path: 17b's workloads (bench.py's
+# serve_workload at full width and at the serve bench's default), each
+# trimmed request held to its own run within the reference's atol
+# (tests/test_serve.py) and the batched/sequential ratio printed beside
+# the JAX package's gate (tests/test_serve.py:322); 17c the chunk
+# program; 17d card vs CPU.
+SERVE_FULL, SERVE_FULL_BATCH = dict(base=4096, B=8, steps=128), 4
+SERVE_DEFAULT, SERVE_DEFAULT_BATCH = dict(base=128, B=16, steps=512), 8
+SERVE_X_ATOL, SERVE_GATE = 2e-4, 1.5
+CHUNK_B, CHUNK_BUCKET, CHUNK, CHUNK_CALLS = 8, 256, 32, 3
+CROSS_SERVE_STEPS = 64
 
 
 def check(cond: bool, msg: str) -> None:
@@ -799,7 +850,8 @@ def profile_rollout(run, steps: int) -> dict:
     return out
 
 
-def profile_both(engine, run, label: str, steps: int = 20) -> dict:
+def profile_both(engine, run, label: str,
+                 steps: int = PROFILE_RUN_STEPS) -> dict:
     """One eager and one compiled run of ``steps`` steps from the run's
     initial state, profiled side by side (the compiled one's graphs
     captured by the warm-up call)."""
@@ -815,7 +867,7 @@ def profile_both(engine, run, label: str, steps: int = 20) -> dict:
 
 
 def drive_scenario(engine, knn, module, cfg, label, horizon, prefix=None,
-                   timed_steps=None, profile_steps=20):
+                   timed_steps=None, profile_steps=PROFILE_RUN_STEPS):
     """13a-c: a reference scenario through its ``make`` on the card and
     the compiled ``rollout`` over the whole ``horizon`` (its first call on
     this step, so the capture is inside), the engine and launch counts
@@ -824,7 +876,7 @@ def drive_scenario(engine, knn, module, cfg, label, horizon, prefix=None,
     None): every StepOutputs field, and the final state of a compiled run
     of that length. Eager and compiled are timed in turns over
     ``timed_steps`` steps (default: those), each timed run held to the
-    eager loop, and 20 steps (``profile_steps``) profiled eager and
+    eager loop, and 10 steps (``profile_steps``) profiled eager and
     compiled.
     The per-step relax histogram is the compiled run's (equal to the eager
     loop's wherever both ran: a step past R rounds would have redone its
@@ -1354,7 +1406,7 @@ def phase14(engine, knn, swarm, t_start) -> dict:
     params2, st2 = p0, opt2.init(p0)
     losses2, walls2 = [], []
     zero_counts(engine, knn)
-    for _ in range(TRAIN_OPT_STEPS):
+    for _ in range(TWO_OPT_STEPS):
         t0 = time.perf_counter()
         params2, st2, loss = ts2(params2, st2, *state_2)
         torch.cuda.synchronize()
@@ -2073,9 +2125,10 @@ def phase16(engine, knn, swarm, t_start) -> dict:
     def counted(label, fn, steps, per_step=1, prepared=False):
         """``fn()`` with the counts zeroed just before and read just
         after: ``knn_fused`` launched per_step times per step — the
-        run's, the steps the engine redid eagerly and, where a cost model
-        ``prepared`` the program, each capture's warm-up step — and no
-        other kernel. Returns (result, wall)."""
+        run's, the steps the engine redid eagerly, the steps of a tapped
+        run's queued chunks it ran again after such a redo and, where a
+        cost model ``prepared`` the program, each capture's warm-up step
+        — and no other kernel. Returns (result, wall)."""
         torch.cuda.synchronize()
         zero_counts(engine, knn)
         t0 = time.perf_counter()
@@ -2085,7 +2138,7 @@ def phase16(engine, knn, swarm, t_start) -> dict:
         launches, counts = dict(knn.LAUNCHES), dict(engine.COUNTS)
         want = dict.fromkeys(knn.LAUNCHES, 0)
         want["knn_fused"] = per_step * (
-            steps + counts["redo_steps"]
+            steps + counts["redo_steps"] + counts["rerun_steps"]
             + (counts["captures"] if prepared else 0))
         check(launches == want, f"{label}: launches {launches}, want {want}")
         out["runs"][label] = {"launches": launches}
@@ -2273,7 +2326,7 @@ def phase16(engine, knn, swarm, t_start) -> dict:
                       f"16c: heartbeat {f.name} at step {t} differs from "
                       "StepOutputs")
         walls = {"off": [], "on": []}
-        for kind in ("off", "on", "on", "off"):
+        for kind in ("off", "on", "on", "off") * TEL_TURNS:
             kw = ({"telemetry": sink, "telemetry_every": TEL_EVERY}
                   if kind == "on" else {})
             walls[kind].append(timed(lambda: engine.rollout(
@@ -2440,6 +2493,371 @@ def phase16(engine, knn, swarm, t_start) -> dict:
     info["wall_s"] = time.perf_counter() - t16
     print(f"phase 16 done in {info['wall_s']:.1f} s (script at "
           f"{time.perf_counter() - t_start:.1f} s)")
+    return out
+
+
+def serve_workload(swarm, rep: int, *, base: int, B: int, steps: int,
+                   gating: str = "auto"):
+    """bench.py:1101-1125's mixed-traffic request generator, copied (the
+    script imports nothing of the JAX package, and bench.py does): B
+    requests of mixed sizes (n, 3n/4, n/2, 3n/8: two buckets of the
+    power-of-two ladder), mixed horizons and fresh per-request radius and
+    gain every rep; each records its trajectory, which the checks
+    compare."""
+    sizes = [base, (3 * base) // 4] * (B // 4) + \
+            [base // 2, (3 * base) // 8] * (B // 4)
+    sizes += [base] * (B - len(sizes))
+    return [swarm.Config(
+        n=sizes[i], steps=max(steps - 7 * (i % 4), 1), seed=i,
+        gating=gating, record_trajectory=True,
+        safety_distance=0.4 + 0.003 * ((rep * B + i) % 5),
+        consensus_gain=1.0 + 0.01 * ((rep * B + i) % 16))
+        for i in range(B)]
+
+
+def radius_launches(knn, swarm) -> dict:
+    """Phase 17a: the radius array. Each member-batched launch with one
+    radius per member held ``torch.equal`` to B single launches at each
+    member's radius and to the batched plain version; the launch with
+    every radius equal held to the scalar launch; each timed (median and
+    device time) beside the scalar launch of the same shape and its
+    bound (B single launches' work)."""
+    import torch
+
+    out = {}
+    for label, name, n, B, k, radii in (
+            ("fused B=16 N=256", "knn_fused", 256, 16, K,
+             [0.4 + 0.003 * (i % 5) for i in range(14)] + [0.0, 1.0]),
+            ("fused B=8 N=4096", "knn_fused", MAIN_N, 8, K,
+             [0.4 + 0.003 * (i % 5) for i in range(8)]),
+            ("stream B=8 N=4096", "knn_stream", MAIN_N, 8, K,
+             [0.4 + 0.003 * (i % 5) for i in range(8)]),
+            ("stream B=4 N=1000", "knn_stream", 1000, 4, K,
+             [0.4, 0.403, 0.0, 1.0]),
+            ("fused k=16 B=4 N=4096", "knn_fused", MAIN_N, 4, CERT_K,
+             [0.5707, 0.5607, 0.5807, 0.5707])):
+        fn = getattr(knn, name)
+        plain = (knn.knn_neighbors_plain if name == "knn_fused"
+                 else knn.knn_neighbors_blocked_plain)
+        x = member_inputs(swarm, n, B, seed0=17)
+        r = torch.tensor(radii, dtype=torch.float32, device="cuda")
+        got = fn(x, r, k)
+        want = plain(x, r, k)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            check(torch.equal(a, b), f"17a {label}: radius array differs "
+                  "from the batched plain version")
+        for b, rb in enumerate(radii):
+            for a, s in zip(got, fn(x[b].contiguous(), rb, k)):
+                check(torch.equal(a[b], s), f"17a {label}: member {b} "
+                      f"differs from its single launch at r={rb}")
+        same = fn(x, torch.full((B,), 0.403, device="cuda"), k)
+        for a, s in zip(same, fn(x, 0.403, k)):
+            check(torch.equal(a, s), f"17a {label}: equal radii differ "
+                  "from the scalar launch")
+        timed_r = time_call(lambda: fn(x, r, k))
+        timed_r.pop("device_op_names")
+        timed_s = time_call(lambda: fn(x, radii[0], k))
+        timed_s.pop("device_op_names")
+        bound, by = member_bound(x, k, got[3])
+        out[label] = {
+            "name": name, "n": n, "members": B, "k": k, "radii": radii,
+            "ms": timed_r["ms"], "device_ms": timed_r["kernel_device_ms"],
+            "scalar_ms": timed_s["ms"],
+            "scalar_device_ms": timed_s["kernel_device_ms"],
+            "plain_ms": cuda_ms(lambda: plain(x, r, k), reps=10,
+                                warmup=2)[0],
+            "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0,
+            "in_radius_candidates": int(got[3].sum())}
+        print(f"phase 17a: {label} radius array equal to {B} single "
+              f"launches and the plain version; median "
+              f"{timed_r['ms']:.4f} ms (device "
+              f"{timed_r['kernel_device_ms']}) vs scalar "
+              f"{timed_s['ms']:.4f} ms (device "
+              f"{timed_s['kernel_device_ms']}), bound {bound:.4f} ms "
+              f"({by})")
+    return out
+
+
+def phase17(engine, knn, swarm, t_start) -> dict:
+    """Phase 17: the traced-config serving path (module docstring).
+    Returns each driven run's launches, the radius-array rows and the
+    measurements."""
+    import numpy as np
+    import torch
+
+    from cbf_tpu_torch.parallel import ensemble as ens
+    from cbf_tpu_torch.serve import buckets, pack
+
+    out = {"runs": {}, "info": {}}
+    info = out["info"]
+    t17 = time.perf_counter()
+    out["radius"] = radius_launches(knn, swarm)
+    print(f"  (script at {time.perf_counter() - t_start:.1f} s)")
+
+    def batches(cfgs, max_batch, device="cuda"):
+        """The workload's bucket batches, in bucket order: (key, real
+        requests, their traced dicts, stacked inputs)."""
+        groups = {}
+        for cfg in cfgs:
+            key, traced = buckets.bucket_key(cfg)
+            groups.setdefault(key, []).append((cfg, traced))
+        out_b = []
+        for key, members in groups.items():
+            for i in range(0, len(members), max_batch):
+                part = members[i:i + max_batch]
+                reqs = [c for c, _ in part]
+                trs = [t for _, t in part]
+                out_b.append((key, reqs, trs, pack.stack_batch(
+                    key, reqs, trs, max_batch, device=device)))
+        return out_b
+
+    def same_outs(a, b):
+        return all(same_tree(x, y) for x, y in zip(a, b))
+
+    def drain(label, cfgs, max_batch):
+        """17b: the workload through one lockstep_traced_rollout program
+        per bucket, compiled (first call captures) and held to the eager
+        loop of the same vmapped step; each trimmed request held to its
+        own single-request run; then timed against those runs one after
+        another, in turns."""
+        bs = batches(cfgs, max_batch)
+        res = {"buckets": [b[0].label() for b in bs]}
+        runs = [ens.lockstep_traced_rollout(key.static_cfg, key.horizon,
+                                            donate_states=False)
+                for key, _, _, _ in bs]
+        torch.cuda.synchronize()
+        zero_counts(engine, knn)
+        t0 = time.perf_counter()
+        results = [run(*inputs) for run, (_, _, _, inputs) in zip(runs, bs)]
+        torch.cuda.synchronize()
+        res["first_call_s"] = time.perf_counter() - t0
+        launches, counts = dict(knn.LAUNCHES), dict(engine.COUNTS)
+        steps_run = sum(key.horizon for key, _, _, _ in bs)
+        want = dict.fromkeys(knn.LAUNCHES, 0)
+        want["knn_fused"] = want["knn_fused_members"] = \
+            want["knn_fused_radii"] = steps_run + counts["redo_steps"]
+        check(launches == want, f"{label}: launches {launches}, want "
+              f"{want}")
+        check(counts["captures"] == len(bs), f"{label}: {counts}")
+        out["runs"][label] = {"launches": launches}
+        res["counts"] = counts
+        for (key, reqs, trs, inputs), (fin, outs) in zip(bs, results):
+            program = ens._traced_program(key.static_cfg, None,
+                                          torch.device("cuda"))
+            lanes = ens._lanes(inputs[0], inputs[1], inputs[2],
+                               torch.zeros(len(inputs[2]),
+                                           dtype=torch.int32))
+            (efin, _), eouts = engine.eager_rollout(
+                program, (inputs[0], lanes), key.horizon)
+            check(same_tree(fin, efin) and same_outs(
+                outs, engine._tree_map(lambda v: torch.swapaxes(v, 0, 1),
+                                       eouts)),
+                  f"{label} {key.label()}: compiled != eager")
+        # Each request against its own single-request run.
+        singles = []
+        res["requests"] = []
+        for (key, reqs, trs, inputs), (fin, outs) in zip(bs, results):
+            for slot, cfg in enumerate(reqs):
+                state0, step = swarm.make(cfg)
+                sfin, souts = engine.rollout(step, state0, cfg.steps)
+                singles.append((step, state0, cfg.steps))
+                tfin, touts = pack.trim_result(fin, outs, slot, cfg.n,
+                                               cfg.steps)
+                x_err = float(np.abs(tfin.x - sfin.x.cpu().numpy()).max())
+                traj_err = float(np.abs(
+                    touts.trajectory - souts.trajectory.cpu().numpy()).max())
+                infeasible = int(touts.infeasible_count.sum())
+                first = None
+                for f in ("filter_active_count", "infeasible_count",
+                          "gating_dropped_count", "max_relax_rounds"):
+                    diff = np.nonzero(np.asarray(getattr(touts, f))
+                                      != getattr(souts, f).cpu().numpy())[0]
+                    if diff.size and (first is None
+                                      or diff[0] < first[1]):
+                        first = (f, int(diff[0]))
+                rec = {"n": cfg.n, "steps": cfg.steps, "bucket": key.n,
+                       "x_err": x_err, "trajectory_err": traj_err,
+                       "infeasible": infeasible,
+                       "counts_equal": first is None,
+                       "first_count_difference": first}
+                res["requests"].append(rec)
+                print(f"  {label} n={cfg.n} x{cfg.steps} in bucket "
+                      f"{key.n}: trajectory err {traj_err:.3g}, final x "
+                      f"err {x_err:.3g}, infeasible {infeasible}, counts "
+                      + ("equal" if first is None else
+                         f"differ first at step {first[1]} ({first[0]})"))
+                check(traj_err <= SERVE_X_ATOL and x_err <= SERVE_X_ATOL,
+                      f"{label} n={cfg.n}: trajectory off its own run by "
+                      f"{traj_err}")
+                check(infeasible == 0, f"{label} n={cfg.n}: infeasible")
+        # Timed in turns: sequential, batched, batched, sequential.
+        inputs_all = [(run, b[3]) for run, b in zip(runs, bs)]
+
+        def batched():
+            for run, inputs in inputs_all:
+                run(*inputs)
+
+        def sequential():
+            for step, state0, n_steps in singles:
+                engine.rollout(step, state0, n_steps)
+
+        walls = {"sequential": [], "batched": []}
+        for leg in ("sequential", "batched", "batched", "sequential"):
+            walls[leg].append(timed(batched if leg == "batched"
+                                    else sequential))
+        qp = sum(c.n * c.steps for c in cfgs)
+        res["walls"] = walls
+        res["requests_per_s"] = {leg: len(cfgs) / min(w)
+                                 for leg, w in walls.items()}
+        res["agent_qp_steps_per_s"] = {leg: qp / min(w)
+                                       for leg, w in walls.items()}
+        res["batched_over_sequential"] = (min(walls["sequential"])
+                                          / min(walls["batched"]))
+        print(f"phase 17b {label}: {len(cfgs)} requests in {len(bs)} "
+              f"programs {res['buckets']}; first call "
+              f"{res['first_call_s']:.2f} s; best of two: batched "
+              f"{res['requests_per_s']['batched']:.2f} req/s "
+              f"{res['agent_qp_steps_per_s']['batched']:.4g} member "
+              f"agent-QP-steps/s, sequential "
+              f"{res['requests_per_s']['sequential']:.2f} req/s "
+              f"{res['agent_qp_steps_per_s']['sequential']:.4g}; batched/"
+              f"sequential {res['batched_over_sequential']:.3f}x (the JAX "
+              f"package's gate: {SERVE_GATE}x); walls {walls}")
+        return res
+
+    info["17b full"] = drain("phase 17b full width", serve_workload(
+        swarm, 0, **SERVE_FULL), SERVE_FULL_BATCH)
+    print(f"  (script at {time.perf_counter() - t_start:.1f} s)")
+    info["17b default"] = drain("phase 17b serve default", serve_workload(
+        swarm, 0, **SERVE_DEFAULT), SERVE_DEFAULT_BATCH)
+    print(f"  (script at {time.perf_counter() - t_start:.1f} s)")
+
+    # 17c. the chunk program: lanes at clocks 0, 32, 64 and two vacant; a
+    # lane that joins at a chunk boundary equals it run alone.
+    B, n_b = CHUNK_B, CHUNK_BUCKET
+    reqs = [swarm.Config(n=n, steps=st, seed=40 + i, gating="auto",
+                         safety_distance=0.4 + 0.004 * i,
+                         dt=0.033 - 0.001 * i)
+            for i, (n, st) in enumerate([(256, 160), (200, 128), (256, 96),
+                                         (180, 150), (230, 140),
+                                         (150, 120)])]
+    keyed = [buckets.bucket_key(c, sizes=(n_b,)) for c in reqs]
+    key = keyed[0][0]
+    run = ens.lockstep_traced_chunk(key.static_cfg, CHUNK)
+    joiner = reqs[5]
+    live = list(range(5))
+    table = pack.seed_lane_table(key, reqs[0], B)
+    for i in live:
+        table = pack.join_lane(table, i, pack.padded_initial_state(reqs[i],
+                                                                   key))
+    phase0 = {0: 0, 1: CHUNK, 2: 2 * CHUNK, 3: 0, 4: CHUNK}
+
+    def traced_of(lane_traced):
+        return {k: torch.tensor([t[k] for t in lane_traced],
+                                dtype=torch.int32 if k == "n_active"
+                                else key.static_cfg.dtype, device="cuda")
+                for k in lane_traced[0]}
+
+    lane_tr = [keyed[i][1] if i in live else keyed[0][1] for i in range(B)]
+    joined, alone = [], []
+    torch.cuda.synchronize()
+    zero_counts(engine, knn)
+    for c in range(CHUNK_CALLS):
+        if c == 1:    # the joiner takes vacant lane 5 at this boundary
+            table = pack.join_lane(table, 5, pack.padded_initial_state(
+                joiner, key))
+            lane_tr[5] = keyed[5][1]
+        steps = [reqs[i].steps if i in live or (i == 5 and c >= 1) else 0
+                 for i in range(B)]
+        t0 = [phase0.get(i, 0) + c * CHUNK if i in live
+              else (c - 1) * CHUNK if i == 5 and c >= 1 else 0
+              for i in range(B)]
+        # Vacant lanes get other traced values every call: still one
+        # program.
+        for i in (6, 7):
+            lane_tr[i] = dict(keyed[0][1], safety_distance=0.4 + 0.01 * c)
+        table, outs = run(table, traced_of(lane_tr),
+                          torch.tensor(steps, dtype=torch.int32,
+                                       device="cuda"),
+                          torch.tensor(t0, dtype=torch.int32, device="cuda"))
+        if c >= 1:
+            joined.append(pack.slice_lane_chunk(outs, 5, CHUNK))
+    torch.cuda.synchronize()
+    launches, counts = dict(knn.LAUNCHES), dict(engine.COUNTS)
+    check(counts["captures"] == 1, f"phase 17c: one capture for every "
+          f"chunk, got {counts}")
+    out["runs"]["phase 17c chunk"] = {"launches": launches}
+    # Pads of every live lane parked, v zero.
+    for i in live + [5]:
+        n_real = reqs[i].n
+        check(torch.equal(table.x[i, n_real:], torch.as_tensor(
+            pack.parking_rows(n_b - n_real, key.static_cfg.dtype),
+            device="cuda")) and not bool(table.v[i, n_real:].any()),
+            f"phase 17c lane {i}: pads moved")
+    # The joiner alone: every other lane vacant.
+    solo = pack.seed_lane_table(key, joiner, B)
+    solo_tr = traced_of([keyed[5][1]] * B)
+    for c in range(CHUNK_CALLS - 1):
+        steps = [joiner.steps if i == 5 else 0 for i in range(B)]
+        t0 = [c * CHUNK if i == 5 else 0 for i in range(B)]
+        solo, outs = run(solo, solo_tr,
+                         torch.tensor(steps, dtype=torch.int32,
+                                      device="cuda"),
+                         torch.tensor(t0, dtype=torch.int32, device="cuda"))
+        alone.append(pack.slice_lane_chunk(outs, 5, CHUNK))
+    for a, b in zip(joined, alone):
+        check(all(np.array_equal(x, y) for x, y in zip(a, b)
+                  if not isinstance(x, tuple)),
+              "phase 17c: the joined lane differs from it running alone")
+    check(torch.equal(solo.x[5], table.x[5]),
+          "phase 17c: the joined lane's state differs from it alone")
+    counts = dict(engine.COUNTS)
+    check(counts["captures"] == 1, f"phase 17c: {counts}")
+    info["17c"] = {"counts": counts, "chunks": CHUNK_CALLS,
+                   "launches": launches}
+    print(f"phase 17c: chunk program B={B} bucket {n_b} chunk {CHUNK}: "
+          f"{CHUNK_CALLS} chunks with lanes at clocks 0/{CHUNK}/"
+          f"{2 * CHUNK} and two vacant, one capture for every call "
+          f"({counts}), the joiner equal to it alone, pads parked")
+
+    # 17d. card vs CPU on the streaming kernel's radius array.
+    cfgs = [swarm.Config(n=n, steps=CROSS_SERVE_STEPS, seed=60 + i,
+                         gating="streaming",
+                         safety_distance=0.4 + 0.005 * i,
+                         spawn_half_width_override=1.2)
+            for i, n in enumerate((64, 50, 40, 64))]
+    keyed = [buckets.bucket_key(c, sizes=(64,)) for c in cfgs]
+    key = keyed[0][0]
+    trs = [t for _, t in keyed]
+    run = ens.lockstep_traced_rollout(key.static_cfg, key.horizon,
+                                      donate_states=False)
+    torch.cuda.synchronize()
+    zero_counts(engine, knn)
+    fin_c, outs_c = run(*pack.stack_batch(key, cfgs, trs, len(cfgs)))
+    torch.cuda.synchronize()
+    launches, counts = dict(knn.LAUNCHES), dict(engine.COUNTS)
+    want = dict.fromkeys(knn.LAUNCHES, 0)
+    want["knn_stream"] = want["knn_stream_members"] = \
+        want["knn_stream_radii"] = key.horizon + counts["redo_steps"]
+    check(launches == want, f"phase 17d: launches {launches}, want {want}")
+    out["runs"]["phase 17d streaming"] = {"launches": launches}
+    fin_h, outs_h = run(*pack.stack_batch(key, cfgs, trs, len(cfgs),
+                                          device="cpu"))
+    x_err = float(torch.amax(torch.abs(fin_c.x.cpu() - fin_h.x)))
+    md_err = float(torch.amax(torch.abs(
+        outs_c.min_pairwise_distance.cpu() - outs_h.min_pairwise_distance)))
+    check(x_err <= CROSS_X_ATOL and md_err <= CROSS_MD_ATOL,
+          f"phase 17d: card vs CPU x {x_err}, min distance {md_err}")
+    for f in ("filter_active_count", "infeasible_count",
+              "gating_dropped_count", "max_relax_rounds"):
+        check(torch.equal(getattr(outs_c, f).cpu(), getattr(outs_h, f)),
+              f"phase 17d: {f} differs card vs CPU")
+    info["17d"] = {"x_err": x_err, "md_err": md_err}
+    print(f"phase 17d: B=4 bucket 64 x {key.horizon} streaming, card vs "
+          f"CPU: x {x_err:.3g}, min distance {md_err:.3g}, counts equal")
+    info["seconds"] = time.perf_counter() - t17
+    print(f"phase 17: {info['seconds']:.1f} s")
     return out
 
 
@@ -2952,6 +3370,10 @@ def main(argv: list[str]) -> int:
     # 16. durability and observability at the flagship width
     p16 = phase16(engine, knn, swarm, t_start)
 
+    # 17. the traced-config serving path: the radius array, the drain and
+    # chunk programs, card vs CPU
+    p17 = phase17(engine, knn, swarm, t_start)
+
     # 6. timings at the main-path shapes; launches are every compiled
     # main-path run's of this call, by phase (13f's run swarm included)
     all_runs = {"phase 3 N=256": runs[ENTRY_N], "phase 3 N=4096": main,
@@ -2963,7 +3385,7 @@ def main(argv: list[str]) -> int:
                 **{f"phase 11 {kind}": run for kind, run in rta.items()},
                 **{f"phase 12{key}": run for key, run in cert.items()},
                 "phase 13f": scen["13f"], **p14["runs"], **p15["runs"],
-                **p16["runs"]}
+                **p16["runs"], **p17["runs"]}
     by_phase = {name: {label: run["launches"][name]
                        for label, run in all_runs.items()
                        if run["launches"].get(name)}
@@ -3095,6 +3517,27 @@ def main(argv: list[str]) -> int:
             "max_abs_err": 0.0, "equal": True, "library_ms": None,
             **mem, "launches": sum(by_phase[key].values()),
             "launches_by_phase": by_phase[key]})
+    # The radius-array launches (phase 17a's shapes; held equal there), one
+    # row per kernel at the serving program's full-width shape, with the
+    # launches of every phase-17 run that took a radius array.
+    for name, label in (("knn_fused", "fused B=8 N=4096"),
+                        ("knn_stream", "stream B=8 N=4096")):
+        rad = dict(p17["radius"][label])
+        key = f"{name}_radii"
+        rows.append({
+            "name": f"{name} (radius array)", "route": "cuda",
+            "source": "cbf_tpu_torch/csrc/knn.cu",
+            "replaces": ("cbf_tpu/ops/pallas_knn.py:90 (r2 read from SMEM) "
+                         "under jax.vmap of cbf_tpu/parallel/ensemble.py:"
+                         "780-872"),
+            "equal": True, "library_ms": None,
+            "launches": sum(by_phase[key].values()),
+            "launches_by_phase": by_phase[key],
+            "at": {k: v for k, v in p17["radius"].items()
+                   if v["name"] == name}, **{k: rad[k] for k in (
+                       "ms", "device_ms", "scalar_ms", "scalar_device_ms",
+                       "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                       "n", "members")}})
     x4096 = state0.x.to(torch.float32).contiguous()
     stream_small = cuda_ms(lambda: knn.knn_stream(x4096, RADIUS, K),
                            reps=200, warmup=10)
@@ -3121,7 +3564,9 @@ def main(argv: list[str]) -> int:
                         cert["d"])):
         prof = profile_both(engine, run, label,
                             steps=(CERT_PROFILE_STEPS if run is cert["a"]
-                                   else 5 if run is cert["d"] else 20))
+                                   else CERT_DENSE_PROFILE_STEPS
+                                   if run is cert["d"]
+                                   else PROFILE_RUN_STEPS))
         print(f"  (script at {time.perf_counter() - t_start:.1f} s)")
         check(prof["compiled"]["knn_kernels"] != {}
               or prof["compiled"]["device_ops_per_step"] == 0,

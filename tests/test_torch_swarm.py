@@ -147,22 +147,47 @@ def test_make_without_card_needs_device_cpu(monkeypatch):
     assert state.x.device.type == "cpu"
 
 
-@pytest.mark.parametrize("override,make_kw,slice_name", [
+def _masked_steps_match_jax(jcfg, n_active, steps=3):
+    """``_build_step(active=)`` of the port against JAX's, the first
+    ``n_active`` agents real, from the same state (float32: final x and
+    v atol 1e-5, min distance rtol 1e-6, counts exact)."""
+    import jax
+
+    state, _ = jsw.make(jcfg)
+    active = np.arange(jcfg.n) < n_active
+    jstep = jax.jit(jsw._build_step(jcfg, active=jnp.asarray(active)))
+    tstep = tsw._build_step(_port_config(jcfg),
+                            active=torch.as_tensor(active), device="cpu")
+    ts = convert.state_from_reference(state, device="cpu",
+                                      dtype=torch.float32)
+    jouts, touts = [], []
+    for t in range(steps):
+        state, jo = jstep(state, t)
+        ts, to = tstep(ts, t)
+        jouts.append(jo)
+        touts.append(to)
+    _assert_counts(jax.tree.map(lambda *a: jnp.stack(a), *jouts),
+                   teng._stack_steps(touts))
+    np.testing.assert_allclose(ts.x.numpy(), np.asarray(state.x), atol=1e-5)
+    np.testing.assert_allclose(ts.v.numpy(), np.asarray(state.v), atol=1e-5)
+    return ts
+
+
+@pytest.mark.parametrize("override,n_active", [
     # The Queue A5, A6 and A8 knobs build now (test_queue_a5_knobs_build_
     # and_match_jax, tests/test_torch_certificate.py,
-    # test_unroll_relax_knobs_step_and_match_jax); paired with a later
-    # slice's knob, that one still raises.
-    ({"rta": True, "certificate": True}, {"active": True}, "Queue A11"),
+    # test_unroll_relax_knobs_step_and_match_jax); the serving layer's
+    # active mask (Queue A11's compute path, ported with the traced step)
+    # builds on them too.
+    ({"rta": True, "certificate": True}, 12),
 ])
-def test_out_of_slice_knobs_raise(override, make_kw, slice_name):
-    cfg = tsw.Config(n=16, **override)
-    with pytest.raises(OutOfSliceError, match=slice_name):
-        if make_kw.get("active"):
-            # The serving layer's mask reaches the step factory only.
-            tsw._build_step(cfg, active=torch.ones(16, dtype=torch.bool),
-                            device="cpu")
-        else:
-            tsw.make(cfg, device="cpu", **make_kw)
+def test_out_of_slice_knobs_raise(override, n_active):
+    """The knob pairs that raised until their slice came — here the
+    ``active`` mask with RTA and the certificate — build and hold JAX's
+    step."""
+    _masked_steps_match_jax(
+        jsw.Config(n=16, gating="jnp", spawn_half_width_override=0.5,
+                   **override), n_active)
 
 
 @pytest.mark.parametrize("override,unroll", [
@@ -275,9 +300,20 @@ def test_queue_a5_knobs_build_and_match_jax(override):
 
 
 def test_serving_active_mask_is_out_of_slice():
-    with pytest.raises(OutOfSliceError, match="Queue A11"):
-        tsw._build_step(tsw.Config(n=16), active=torch.ones(16, dtype=bool),
-                        device="cpu")
+    """The serving layer's active mask, once out of this slice, builds:
+    the centroid over the active rows, pads with a zero nominal — held
+    to JAX's ``_build_step(active=)``; an all-True mask is the unmasked
+    step."""
+    ts = _masked_steps_match_jax(
+        jsw.Config(n=16, gating="jnp", spawn_half_width_override=0.5), 10)
+    assert ts.x.shape == (16, 2)
+    cfg = tsw.Config(n=16, spawn_half_width_override=0.5)
+    s0, plain = tsw.make(cfg, device="cpu")
+    masked = tsw._build_step(cfg, active=torch.ones(16, dtype=torch.bool),
+                             device="cpu")
+    a, _ = plain(s0, 0)
+    b, _ = masked(s0, 0)
+    np.testing.assert_allclose(a.x.numpy(), b.x.numpy(), atol=1e-6)
 
 
 @pytest.mark.parametrize("override", [

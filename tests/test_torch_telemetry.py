@@ -230,6 +230,33 @@ def test_compile_event_counts_count_the_engine():
     assert profiling.compile_event_counts() == {}
 
 
+@pytest.mark.parametrize("steps", [6, 7])
+def test_tapped_rollout_redoes_queued_chunks(steps, tmp_path):
+    """The tapped rollout queues each chunk before settling the one
+    before it: where every chunk's relax flag is set (no guarded rounds),
+    each is redone and the chunk queued after it runs again from the
+    redone state — a trailing shorter chunk (7 steps) on a program of its
+    own — so the result equals the eager loop and every heartbeat its
+    StepOutputs row."""
+    cfg = tsw.Config(n=16, steps=steps, dynamics="mixed", n_double=8,
+                     spawn_half_width_override=0.25)
+    state0, step = tsw.make(cfg, device="cpu")
+    step.relax_rounds = 0
+    want_final, want = teng.eager_rollout(step, state0, steps)
+    before = dict(teng.COUNTS)
+    sink = obs.TelemetrySink(str(tmp_path))
+    final, outs = teng.rollout(step, state0, steps, telemetry=sink,
+                               telemetry_every=2)
+    sink.close()
+    assert teng.COUNTS["redos"] - before["redos"] == (steps + 1) // 2
+    assert teng.COUNTS["redo_steps"] - before["redo_steps"] == steps
+    assert teng.COUNTS["rerun_steps"] - before["rerun_steps"] == steps - 2
+    for a, b in zip(teng._leaves((final, outs)),
+                    teng._leaves((want_final, want))):
+        assert torch.equal(a, b)
+    _assert_bitmatch(str(tmp_path), outs, every=2, steps=steps)
+
+
 def _registry_ops(mod):
     a, b = mod.MetricsRegistry(), mod.MetricsRegistry()
     a.counter("c").add(2)
