@@ -36,9 +36,25 @@ property, a found one is shrunk and confirmed in float64 and, with
 ``--corpus-dir``, archived. Exit 0: the filter survived the budget; 3: a
 violation was found; 2: a persisted campaign does not match the
 settings; ``--telemetry-dir`` streams its round and verdict events.
-``verify fleet`` and ``serve`` (the serving slice's scheduler) raise
-OutOfSliceError. The other subcommands (loadgen, scenario, lint, ``obs
-top``/``incident``/``lanes``, cluster, bench) are not ported yet.
+``verify fleet`` raises OutOfSliceError.
+
+``serve`` batch-serves a request file through the serve engine's drain
+mode (:mod:`cbf_tpu_torch.serve.engine`) on ``--device``, with the JAX
+package's JSON record and exit codes: ``--prewarm``/``--prewarm-only``
+capture every bucket first, ``--journal`` writes the write-ahead request
+journal and ``--recover`` re-runs what a killed process left unresolved
+(exit 2 on a missing or unreadable journal), ``--telemetry-dir`` writes
+the run directory with the cost model and the flight recorder's capsules,
+``--pace-s`` submits in queue mode, and the fault-policy flags set the
+``FaultPolicy``. ``--continuous``, ``--lease``, ``--supervised``,
+``--ha-standby`` and ``--metrics-dir`` raise OutOfSliceError (Queue A11).
+``obs incident`` summarises a capsule and ``--replay`` re-runs its
+request through the port. The other subcommands (loadgen, scenario, lint,
+``obs top``/``lanes``, cluster, bench) are not ported yet.
+
+    python -m cbf_tpu_torch serve requests.json --prewarm --journal J
+    python -m cbf_tpu_torch serve --journal J --recover
+    python -m cbf_tpu_torch obs incident runs/t/capsules --latest --replay
 """
 
 from __future__ import annotations
@@ -438,11 +454,389 @@ _VACUOUS = {"separation": ("separation_floor", -float("inf")),
             "rta_soundness": ("rta_floor", -float("inf"))}
 
 
+def _resolve_capsule_dir(path: str, latest: bool) -> str:
+    """``--latest``: treat ``path`` as a root (a flight recorder's
+    out_dir) and pick the newest capsule-* directory by manifest
+    mtime."""
+    from cbf_tpu_torch.obs import flight as obs_flight
+
+    if not latest:
+        return path
+    candidates = []
+    if os.path.isdir(path):
+        for d in [os.path.join(path, n) for n in sorted(os.listdir(path))
+                  ] + [path]:
+            m = os.path.join(d, obs_flight.CAPSULE_FILENAME)
+            if os.path.isfile(m):
+                candidates.append((os.path.getmtime(m), d))
+    if not candidates:
+        raise FileNotFoundError(
+            f"no capsule ({obs_flight.CAPSULE_FILENAME}) under {path}")
+    return max(candidates)[1]
+
+
+def _replay_stanza(stanza: dict, device) -> dict:
+    """Re-run one captured request stanza standalone through the port:
+    rebuild the config via the verify-corpus loader, run its rollout once
+    on ``device``, and judge the outcome — ``violates`` when the run goes
+    non-finite or agents collide (min pairwise distance <= 0), ``safe``
+    otherwise."""
+    import importlib
+
+    import numpy as np
+
+    from cbf_tpu_torch.rollout.engine import _leaves, rollout
+    from cbf_tpu_torch.verify import corpus
+
+    scenario = stanza.get("scenario", "swarm")
+    cfg = corpus.rebuild_config(scenario, stanza.get("overrides", {}))
+    module = importlib.import_module(f"cbf_tpu_torch.scenarios.{scenario}")
+    state0, step = module.make(cfg, device=device)
+    steps = getattr(cfg, "steps", None) or getattr(cfg, "iterations")
+    final, outs = rollout(step, state0, int(steps))
+    finite = all(bool(torch.isfinite(leaf).all()) for leaf in _leaves(final)
+                 if leaf.is_floating_point())
+    mpd = float(np.min(_np(outs.min_pairwise_distance)))
+    finite = finite and bool(np.isfinite(mpd))
+    violates = (not finite) or mpd <= 0.0
+    return {"scenario": scenario, "steps": int(steps),
+            "finite": finite,
+            "min_pairwise_distance": (round(mpd, 6)
+                                      if np.isfinite(mpd) else None),
+            "outcome": "violates" if violates else "safe"}
+
+
+def cmd_obs_incident(args) -> int:
+    """Summarize one incident capsule directory (``--latest``: the
+    newest capsule under a recorder root). ``--replay`` re-runs the
+    captured offending request through a standalone rollout on
+    ``--device`` and exits 0 iff the observed outcome matches the
+    stanza's ``expect`` (1 on mismatch, 2 when the capsule carries no
+    request.json)."""
+    from cbf_tpu_torch.obs import flight as obs_flight
+
+    cap_dir = args.capsule_dir
+    try:
+        cap_dir = _resolve_capsule_dir(args.capsule_dir, args.latest)
+        doc = obs_flight.read_capsule(cap_dir)
+    except FileNotFoundError as e:
+        print(f"obs incident: {e}", file=sys.stderr)
+        return 2
+    except ValueError as e:
+        print(f"obs incident: {cap_dir}: corrupt capsule ({e})",
+              file=sys.stderr)
+        return 2
+    summary = {
+        "capsule": os.path.abspath(cap_dir),
+        "flight_schema": doc.get("flight_schema"),
+        "reason": doc.get("reason"),
+        "detail": doc.get("detail"),
+        "t_wall": doc.get("t_wall"),
+        "environment": doc.get("environment"),
+        "ring_events": doc.get("ring_events"),
+        "ring_tail": [e.get("event") for e in doc.get("ring", [])[-8:]],
+        "trigger_event": (doc.get("trigger_event") or {}).get("event"),
+        "recent_requests": len(doc.get("recent_requests") or []),
+        "has_request": doc.get("has_request"),
+    }
+    if args.replay:
+        request = doc.get("request")
+        if request is None:
+            print(f"obs incident: {cap_dir} has no "
+                  f"{obs_flight.REQUEST_FILENAME} to replay",
+                  file=sys.stderr)
+            return 2
+        replay = _replay_stanza(request, args.device)
+        replay["expect"] = request.get("expect", "violates")
+        replay["matches_expect"] = replay["outcome"] == replay["expect"]
+        summary["replay"] = replay
+        print(json.dumps(summary, indent=None if args.json else 2))
+        return 0 if replay["matches_expect"] else 1
+    print(json.dumps(summary, indent=None if args.json else 2))
+    return 0
+
+
+def _load_requests(path: str):
+    """Parse a serve request file into swarm Configs.
+
+    Format: a JSON list (or ``{"requests": [...]}``) of objects, each
+    with optional ``steps``/``seed`` shorthands and an ``overrides``
+    object of typed swarm.Config field values (JSON carries the types —
+    no string re-parsing like --set). An integer ``repeat`` clones the
+    entry (mixed-workload files stay short)."""
+    from cbf_tpu_torch.scenarios import swarm
+
+    with open(path) as fh:
+        spec = json.load(fh)
+    if isinstance(spec, dict):
+        spec = spec["requests"]
+    fields = {f.name for f in dataclasses.fields(swarm.Config)}
+    cfgs = []
+    for i, entry in enumerate(spec):
+        overrides = dict(entry.get("overrides", {}))
+        for shorthand in ("steps", "seed"):
+            if shorthand in entry:
+                overrides[shorthand] = entry[shorthand]
+        unknown = set(overrides) - fields
+        if unknown:
+            raise SystemExit(f"request {i}: unknown config fields "
+                             f"{sorted(unknown)}")
+        cfg = dataclasses.replace(swarm.Config(), **overrides)
+        cfgs.extend([cfg] * int(entry.get("repeat", 1)))
+    if not cfgs:
+        raise SystemExit(f"{path}: no requests")
+    return cfgs
+
+
+def _add_fault_policy_args(parser) -> None:
+    """The serving fault-tolerance knobs. Defaults mirror
+    serve.resilience.FaultPolicy: retries/bisection/finite-checking on,
+    admission control and deadlines off."""
+    parser.add_argument("--max-retries", type=int, default=2,
+                        help="bounded backoff retries per transient batch "
+                             "failure (default 2)")
+    parser.add_argument("--queue-limit", type=int, default=None,
+                        help="bound the total queued request count; "
+                             "beyond it, submits shed per --shed-policy "
+                             "(default: unbounded)")
+    parser.add_argument("--shed-policy", default="reject-newest",
+                        choices=("reject-newest", "reject-oldest"),
+                        help="what to shed when the bounded queue is "
+                             "full (default reject-newest)")
+    parser.add_argument("--queue-bytes-budget", type=int, default=None,
+                        help="bound the predicted device bytes of queued "
+                             "work via the measured cost model; beyond "
+                             "it, submits shed with reason bytes_budget "
+                             "(fail-open for unpriced shapes; default: "
+                             "unbounded)")
+    parser.add_argument("--deadline", type=float, default=None,
+                        help="per-request deadline in seconds; expired "
+                             "requests fail fast with DeadlineExceeded "
+                             "(default: none)")
+    parser.add_argument("--rta-fallback", action="store_true",
+                        help="re-run a non-finite request alone under the "
+                             "runtime-assurance ladder (rta=true) for a "
+                             "degraded completion instead of a "
+                             "NonFiniteResult")
+
+
+def _fault_policy_from(args):
+    from cbf_tpu_torch.serve import FaultPolicy
+
+    return FaultPolicy(max_retries=args.max_retries,
+                       queue_limit=args.queue_limit,
+                       queue_bytes_budget=args.queue_bytes_budget,
+                       shed_policy=args.shed_policy,
+                       deadline_s=args.deadline,
+                       rta_fallback=args.rta_fallback)
+
+
 def cmd_serve(args) -> int:
-    """``serve``: the ServeEngine's CLI, which comes with the scheduler
-    (the bucket and packing layer and the lockstep programs are ported:
-    :mod:`cbf_tpu_torch.serve`)."""
-    raise OutOfSliceError("the serve CLI (ServeEngine)", SLICE_SERVE)
+    """Batch-serve a request file through the serving engine's drain mode:
+    bucket by static signature, pack same-bucket requests into one
+    lockstep program, optionally capture every bucket first
+    (``--prewarm``). Prints one JSON record (per-request summaries +
+    aggregate throughput/latency + capture counters), as the JAX
+    package's ``serve`` does, with its exit codes (the fenced exit 4
+    needs ``--lease``). ``--continuous``,
+    ``--lease``, ``--supervised``, ``--ha-standby`` and ``--metrics-dir``
+    raise OutOfSliceError (Queue A11)."""
+    import statistics
+    import time as _time
+
+    for flag, what in (("continuous", "serve --continuous (continuous "
+                        "batching)"),
+                       ("lease", "serve --lease (the HA primary)"),
+                       ("supervised", "serve --supervised (the HA "
+                        "supervisor)"),
+                       ("ha_standby", "serve --ha-standby (the HA "
+                        "standby)"),
+                       ("metrics_dir", "serve --metrics-dir (the metrics "
+                        "exporter)")):
+        if getattr(args, flag):
+            raise OutOfSliceError(what, SLICE_SERVE)
+
+    import numpy as np
+
+    from cbf_tpu_torch.serve import ServeEngine
+    from cbf_tpu_torch.utils import profiling
+
+    if args.recover and not args.journal:
+        print("serve: --recover requires --journal", file=sys.stderr)
+        return 2
+    if args.pace_s is not None and args.pace_s < 0:
+        print(f"serve: --pace-s must be >= 0, got {args.pace_s}",
+              file=sys.stderr)
+        return 2
+    if args.requests is None and not args.recover:
+        print("serve: a requests file is required (or --journal PATH "
+              "--recover)", file=sys.stderr)
+        return 2
+
+    request_ids = None
+    recovered = []
+    if args.recover:
+        # Fold the previous process's journal FIRST (fail fast, exit 2)
+        # — the engine below then journals the re-run outcomes to the
+        # same file, closing the at-least-once loop.
+        from cbf_tpu_torch.durable.journal import replay_journal
+        from cbf_tpu_torch.serve import RecoveryError
+
+        try:
+            replay = replay_journal(args.journal)
+        except (OSError, RecoveryError) as e:
+            print(f"serve: {e}", file=sys.stderr)
+            return 2
+        recovered = replay.unresolved_configs()
+        cfgs = [cfg for _, cfg in recovered]
+        request_ids = [rid for rid, _ in recovered]
+        if args.requests:
+            # Fresh requests ride along under a distinct id prefix so
+            # they can never collide with (and silently reopen) ids the
+            # previous process already journaled.
+            extra = _load_requests(args.requests)
+            cfgs.extend(extra)
+            request_ids.extend(f"n{i}" for i in range(len(extra)))
+        if not cfgs:
+            print(json.dumps({"requests": 0, "recovered": 0,
+                              "journal": os.path.abspath(args.journal)}))
+            return 0
+    else:
+        cfgs = _load_requests(args.requests)
+
+    sink = cost_model = flight = None
+    if args.telemetry_dir:
+        from cbf_tpu_torch import obs
+        from cbf_tpu_torch.obs import flight as obs_flight
+        from cbf_tpu_torch.obs import resource as obs_resource
+
+        sink = obs.TelemetrySink(args.telemetry_dir)
+        cost_model = obs_resource.CostModel(os.path.join(
+            sink.run_dir, obs_resource.COSTMODEL_FILENAME))
+        flight = obs_flight.FlightRecorder(
+            os.path.join(sink.run_dir, "capsules"),
+            cost_model=cost_model).attach(sink)
+    journal_obj = args.journal
+    if args.journal and args.rotate_bytes:
+        from cbf_tpu_torch.durable.journal import RequestJournal
+
+        journal_obj = RequestJournal(args.journal, telemetry=sink,
+                                     rotate_bytes=args.rotate_bytes)
+    engine = ServeEngine(max_batch=args.max_batch,
+                         flush_deadline_s=args.flush_deadline,
+                         cache_dir=args.cache_dir, telemetry=sink,
+                         fault_policy=_fault_policy_from(args),
+                         journal=journal_obj, cost_model=cost_model,
+                         flight=flight, device=args.device)
+    prewarm_s = None
+    if args.prewarm or args.prewarm_only:
+        prewarm_s = engine.prewarm(cfgs)
+    if sink is not None:
+        from cbf_tpu_torch import obs
+
+        # Manifest AFTER prewarm: its compile_event_counts snapshot then
+        # carries the per-bucket program hit/miss + prewarm counters.
+        sink.write_manifest(obs.build_manifest(
+            None, extra=engine.manifest_extra()))
+    record = {"requests": len(cfgs), "cache_dir": engine.cache_dir,
+              "max_batch": args.max_batch}
+    if args.journal:
+        record["journal"] = os.path.abspath(args.journal)
+    if args.recover:
+        record["recovered"] = len(recovered)
+        record["recovered_request_ids"] = [rid for rid, _ in recovered]
+    if prewarm_s is not None:
+        record["prewarm_s"] = prewarm_s
+        record["buckets"] = engine.manifest_extra()["serve"]["buckets"]
+    if args.prewarm_only:
+        record["stats"] = engine.stats
+        print(json.dumps(record))
+        if sink is not None:
+            sink.close()
+        return 0
+
+    # Preemption notice (SIGTERM) becomes a graceful drain: every
+    # acknowledged request resolves (and journals its terminal record)
+    # before the process dies. ValueError = embedded off the main
+    # thread, where the signal module refuses handlers — skip quietly.
+    prev_term = None
+    try:
+        prev_term = engine.install_sigterm_handler()
+    except ValueError:
+        pass
+    req_errors: dict[str, str] = {}
+    t0 = _time.perf_counter()
+    try:
+        if args.pace_s is not None:
+            # Queue-mode submits, paced: one request at a time with a
+            # fixed inter-arrival gap, so a kill can land BETWEEN
+            # acknowledged requests.
+            engine.start()
+            pendings = []
+            for i, cfg in enumerate(cfgs):
+                rid = request_ids[i] if request_ids is not None else None
+                pendings.append(engine.submit(cfg, request_id=rid))
+                if args.pace_s:
+                    _time.sleep(args.pace_s)
+            results = []
+            for p in pendings:
+                try:
+                    results.append(p.result(timeout=300.0))
+                except Exception as e:
+                    req_errors[p.request_id] = type(e).__name__
+            engine.stop(drain=True)
+        else:
+            results = engine.run(cfgs, request_ids=request_ids)
+    finally:
+        if prev_term is not None:
+            import signal as _signal
+
+            _signal.signal(_signal.SIGTERM, prev_term)
+    wall = _time.perf_counter() - t0
+    if cost_model is not None:
+        try:                     # offline run() never stop()s the engine
+            cost_model.save()
+        except OSError:
+            pass
+    lat = sorted(r.latency_s for r in results)
+    qwait = sorted(r.queue_wait_s for r in results)
+    qp_steps = sum(r.n * r.steps for r in results)
+    if req_errors:
+        record["request_errors"] = req_errors
+    if lat:
+        record.update({
+            "agent_qp_steps_per_sec": round(qp_steps / wall, 1),
+            "latency_p50_s": round(statistics.median(lat), 4),
+            "latency_p99_s": round(lat[min(len(lat) - 1,
+                                           int(0.99 * len(lat)))], 4),
+            "queue_wait_p50_s": round(statistics.median(qwait), 4),
+            "queue_wait_p99_s": round(qwait[min(len(qwait) - 1,
+                                                int(0.99 * len(qwait)))],
+                                      4),
+        })
+    record.update({
+        "wall_s": round(wall, 3),
+        "stats": engine.stats,
+        "compile_counters": {k: v for k, v in
+                             profiling.compile_event_counts().items()
+                             if k.startswith("serve.")},
+        "results": [{
+            "request_id": r.request_id, "bucket": r.bucket, "n": r.n,
+            "steps": r.steps, "latency_s": r.latency_s,
+            "queue_wait_s": r.queue_wait_s, "execute_s": r.execute_s,
+            "min_pairwise_distance": round(float(
+                np.min(r.outputs.min_pairwise_distance)), 4),
+            "infeasible_count": int(np.sum(r.outputs.infeasible_count)),
+        } for r in results],
+    })
+    if flight is not None and flight.capsules:
+        record["capsules"] = list(flight.capsules)
+    if sink is not None:
+        sink.summary({"requests_served": len(results)})
+        sink.close()
+        record["telemetry"] = sink.run_dir
+    print(json.dumps(record))
+    return 0
 
 
 def cmd_verify(args) -> int:
@@ -681,7 +1075,7 @@ def main(argv=None) -> int:
     _add_verify_parser(sub)
 
     obsp = sub.add_parser("obs", help="telemetry run-dir tools (tail, "
-                                      "summary)")
+                                      "summary, incident)")
     obs_sub = obsp.add_subparsers(dest="obs_command", required=True)
     tailp = obs_sub.add_parser(
         "tail", help="print a run's JSONL events; -f follows live")
@@ -703,13 +1097,95 @@ def main(argv=None) -> int:
                       help="run_dir is a root; summarize its newest run")
     sump.set_defaults(fn=cmd_obs_summary)
 
+    incp = obs_sub.add_parser(
+        "incident", help="summarize an incident capsule written by the "
+                         "flight recorder; --replay re-runs the captured "
+                         "request")
+    incp.add_argument("capsule_dir")
+    incp.add_argument("--latest", action="store_true",
+                      help="capsule_dir is a recorder root; pick its "
+                           "newest capsule")
+    incp.add_argument("--replay", action="store_true",
+                      help="re-run the captured request.json standalone; "
+                           "exit 0 iff the outcome matches its 'expect'")
+    incp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                      help="where --replay runs (default: the card)")
+    incp.add_argument("--json", action="store_true",
+                      help="one-line machine-readable output")
+    incp.set_defaults(fn=cmd_obs_incident)
+
     servep = sub.add_parser(
-        "serve", help="the serving engine (not ported yet: Queue A11)")
+        "serve", help="batch-serve a rollout request file through the "
+                      "shape-bucketed serving engine (drain mode)")
+    servep.add_argument("requests", nargs="?", default=None,
+                        help="JSON request file: a list (or {'requests': "
+                             "[...]}) of {steps, seed, overrides{...}, "
+                             "repeat} objects over swarm.Config fields "
+                             "(optional with --recover)")
+    servep.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                        help="where the programs run (default: the card; "
+                             "without one the engine raises)")
+    servep.add_argument("--max-batch", type=int, default=8,
+                        help="lockstep micro-batch size per bucket "
+                             "(default 8; the batch axis is padded to it)")
+    servep.add_argument("--flush-deadline", type=float, default=0.05,
+                        help="queue-mode flush deadline in seconds "
+                             "(recorded; offline drain batches eagerly)")
+    servep.add_argument("--prewarm", action="store_true",
+                        help="capture every bucket's program before "
+                             "serving")
+    servep.add_argument("--prewarm-only", action="store_true",
+                        help="capture the request file's buckets and "
+                             "exit")
+    servep.add_argument("--cache-dir", default=None,
+                        help="the CBF_TPU_CACHE_DIR knob, recorded in the "
+                             "manifest (CUDA graphs do not persist across "
+                             "processes; the kernels' objects in "
+                             "csrc/_build/ do)")
+    servep.add_argument("--telemetry-dir", default=None,
+                        help="write a serve run directory: manifest with "
+                             "bucket/capture attribution, one 'request' "
+                             "event per served request, the cost model "
+                             "and flight-recorder capsules")
+    servep.add_argument("--journal", default=None, metavar="PATH",
+                        help="write-ahead request journal: every accepted "
+                             "request is fsynced to this JSONL file "
+                             "before it is acknowledged, every outcome "
+                             "before the caller unblocks")
+    servep.add_argument("--recover", action="store_true",
+                        help="with --journal: re-run every acknowledged-"
+                             "but-unresolved request from a previous "
+                             "process's journal instead of (or before) a "
+                             "requests file; exit 2 when the journal is "
+                             "missing or unreadable")
+    servep.add_argument("--rotate-bytes", type=int, default=None,
+                        metavar="N",
+                        help="with --journal: rotate the active journal "
+                             "file to an immutable .segNNNNNN segment "
+                             "once it crosses N bytes (fully-resolved "
+                             "segments are compacted away)")
+    servep.add_argument("--pace-s", type=float, default=None,
+                        metavar="S",
+                        help="queue-mode paced submits: one request every "
+                             "S seconds instead of an all-at-once offline "
+                             "drain")
+    _add_fault_policy_args(servep)
+    # Queue A11's later parts: accepted so that they raise OutOfSliceError.
+    servep.add_argument("--continuous", action="store_true",
+                        help="continuous batching (not ported yet)")
+    servep.add_argument("--chunk", type=int, default=16,
+                        help="steps per chunk in continuous mode")
+    servep.add_argument("--lease", default=None, metavar="PATH",
+                        help="serve as an HA primary (not ported yet)")
+    servep.add_argument("--supervised", action="store_true",
+                        help="the HA supervisor (not ported yet)")
+    servep.add_argument("--ha-standby", action="store_true",
+                        help="the HA standby (not ported yet)")
+    servep.add_argument("--metrics-dir", default=None,
+                        help="the metrics exporter (not ported yet)")
     servep.set_defaults(fn=cmd_serve)
 
-    args, extra = p.parse_known_args(argv)
-    if extra and args.command != "serve":   # serve raises whatever it gets
-        p.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = p.parse_args(argv)
     return args.fn(args)
 
 

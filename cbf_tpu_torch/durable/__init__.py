@@ -7,10 +7,11 @@
   last intact step;
 - ``durable.rollout`` — resumable long rollouts: a run directory holds the
   run spec, per-chunk StepOutputs and integrity-checked checkpoints, and
-  :func:`resume` continues a killed run bit-exactly.
-
-The serving engine's request journal (``durable.journal``) arrives with
-the serving layer (Queue A11).
+  :func:`resume` continues a killed run bit-exactly;
+- ``durable.journal`` — the serve engine's schema-versioned write-ahead
+  request journal (the JAX package's file format):
+  :func:`replay_journal` folds it into the acknowledged-but-unresolved
+  requests and :func:`recover_into` re-enqueues them on a fresh engine.
 """
 
 from cbf_tpu_torch.durable.integrity import (CheckpointCorrupt, MANIFEST_NAME,
@@ -18,10 +19,15 @@ from cbf_tpu_torch.durable.integrity import (CheckpointCorrupt, MANIFEST_NAME,
                                              read_manifest, verify_restored,
                                              write_manifest)
 
-# rollout resolves lazily: utils/checkpoint.py imports this package for
-# the integrity layer, and durable.rollout imports the engine back.
+# journal/rollout resolve lazily: utils/checkpoint.py imports this
+# package for the integrity layer, and durable.rollout imports the engine
+# back.
 _LAZY = {"load_spec": "rollout", "resume": "rollout",
-         "run_durable": "rollout"}
+         "run_durable": "rollout",
+         "JOURNAL_SCHEMA_VERSION": "journal", "JournalReplay": "journal",
+         "RequestJournal": "journal", "recover_into": "journal",
+         "repair_torn_tail": "journal", "replay_journal": "journal",
+         "compact_segments": "journal", "ship_segments": "journal"}
 
 __all__ = [
     "CheckpointCorrupt", "MANIFEST_NAME", "MANIFEST_SCHEMA_VERSION",

@@ -19,9 +19,10 @@ infeasibility, stalls — while the run goes on (``obs.watchdog``).
     $ python -m cbf_tpu_torch obs summary runs/demo
 
 ``obs.resource`` measures each program at its capture and keeps an EWMA
-execute-time cost model (``costmodel.json``). The lane ledger, flight
-recorder, metrics exporter and request tracer arrive with the serving
-layer (Queue A11).
+execute-time cost model (``costmodel.json``). The serve engine's request
+lifecycle tracer (``obs.trace``) and the incident flight recorder
+(``obs.flight``) come with its drain mode; the lane ledger and the
+metrics exporter arrive with the rest of the serving layer (Queue A11).
 """
 
 from cbf_tpu_torch.obs.resource import CostModel, analyze_compiled, \

@@ -18,10 +18,12 @@ Events are JSON objects, one per line (JSONL), each carrying ``schema`` =
 - ``summary`` — the run-end registry snapshot (``metrics``) with the
   ``heartbeats`` and ``alerts`` totals.
 
-The run manifest is ``manifest.json`` in the run directory. The event
-tables of the serving, HA, cluster, load-generator, lane-ledger, flight
-recorder and fleet layers arrive with their emitters (Queue A11), as do
-the request journal's ``durable.journal``/``durable.recover``.
+The run manifest is ``manifest.json`` in the run directory. The serve
+engine's drain mode, its tracer, the request journal and the flight
+recorder declare their events here (:data:`SERVE_EVENT_TYPES`,
+:data:`DURABLE_EVENT_TYPES`, :data:`FLIGHT_EVENT_TYPES`); the event tables
+of the HA, cluster, load-generator, lane-ledger and fleet layers arrive
+with their emitters (Queue A11).
 """
 
 from __future__ import annotations
@@ -103,14 +105,69 @@ VERIFY_EVENT_FIELDS: dict[str, tuple[str, ...]] = {
                       "found", "evaluated"),
 }
 
-#: The durable rollout's event (``durable.rollout.EMITTED_EVENT_TYPES``):
-#: one ``durable.resume`` whenever a durable run restarts from a
-#: checkpoint or skips a corrupt one.
-DURABLE_EVENT_TYPES: tuple[str, ...] = ("durable.resume",)
+#: The serving layer's events: the emitters' ``EMITTED_EVENT_TYPES``
+#: (serve.engine + obs.trace) union to this tuple. ``request`` once per
+#: served request, ``serve.span`` once per finished lifecycle span, and
+#: the fault-tolerance family one event per recovery decision.
+#: ``serve.partial`` is continuous mode's (Queue A11, item 11.2).
+SERVE_EVENT_TYPES: tuple[str, ...] = (
+    "request", "serve.span", "serve.partial", "serve.retry", "serve.shed",
+    "serve.quarantine", "serve.degrade", "serve.scheduler_crash",
+    "serve.cost")
+
+SERVE_EVENT_FIELDS: dict[str, tuple[str, ...]] = {
+    "request": ("request_id", "bucket", "n", "steps", "latency_s",
+                "queue_wait_s", "execute_s", "batch_fill", "degraded",
+                "rta_engaged", "min_pairwise_distance", "infeasible_count",
+                "ttfp_s"),
+    "serve.span": ("trace_id", "span_id", "parent_id", "name", "bucket",
+                   "t0_s", "dur_s", "track"),
+    "serve.partial": ("request_id", "bucket", "steps_done", "steps_total",
+                      "chunk", "min_pairwise_distance", "infeasible_count"),
+    # action: "retry" | "bisect" | "demote" | "rta_rescue"; attempt is
+    # 1-based for retries.
+    "serve.retry": ("bucket", "action", "attempt", "batch_size",
+                    "backoff_s", "error"),
+    # reason: "queue_full" | "oldest_evicted" | "deadline" |
+    # "bytes_budget" | "background_queue_full" | "background_evicted".
+    "serve.shed": ("request_id", "bucket", "reason", "queue_depth",
+                   "predicted_bytes"),
+    # scope: "request" (signature breaker) | "bucket" (capture breaker).
+    "serve.quarantine": ("scope", "signature", "state", "failures",
+                         "bucket"),
+    "serve.degrade": ("state", "queue_depth", "steps_frac"),
+    "serve.scheduler_crash": ("error", "resolved"),
+    # The cost model's execute prediction against the measured wall, and
+    # the bucket program's measurements (flops and bytes accessed are
+    # None in the port: a captured graph reports neither).
+    "serve.cost": ("bucket", "batch_fill", "execute_s", "predicted_s",
+                   "drift", "flops", "bytes_accessed", "peak_bytes"),
+}
+
+#: The durable-execution layer's events: ``durable.journal`` once when a
+#: write-ahead request journal opens, ``durable.recover`` once per journal
+#: replay onto an engine, ``durable.resume`` whenever a durable rollout
+#: restarts from a checkpoint or skips a corrupt one. The emitters'
+#: ``EMITTED_EVENT_TYPES`` (durable.journal + durable.rollout) union to
+#: this tuple.
+DURABLE_EVENT_TYPES: tuple[str, ...] = (
+    "durable.journal", "durable.recover", "durable.resume")
 
 DURABLE_EVENT_FIELDS: dict[str, tuple[str, ...]] = {
+    "durable.journal": ("path", "records", "unresolved", "repaired_bytes",
+                        "epoch", "segments"),
+    "durable.recover": ("path", "records", "reenqueued", "refused"),
     "durable.resume": ("directory", "resumed_from_step", "chunks_loaded",
                        "steps"),
+}
+
+#: The incident flight recorder's event (``obs.flight``): one
+#: ``flight.capsule`` per capsule written.
+FLIGHT_EVENT_TYPES: tuple[str, ...] = ("flight.capsule",)
+
+FLIGHT_EVENT_FIELDS: dict[str, tuple[str, ...]] = {
+    "flight.capsule": ("reason", "detail", "capsule", "events",
+                       "trigger_event"),
 }
 
 #: The runtime-assurance auditor's events (``rta.monitor``).

@@ -19,9 +19,9 @@ Alert classes, each trippable through ``utils.faults``:
   live (``faults.stall_at_step`` holds the host before the chunk that
   holds its step);
 - ``slo_burn`` and ``sustained_low_occupancy`` — the serving layer's
-  queue-wait and lane-occupancy objectives (``SLOTargets``); their
-  producers, the serve engine's ``request`` and ``serve.lanes.window``
-  events, arrive with Queue A11.
+  queue-wait and lane-occupancy objectives (``SLOTargets``), fed by the
+  serve engine's ``request`` events (its drain mode) and the lane
+  ledger's ``serve.lanes.window`` (continuous mode, Queue A11).
 
 Alerts are appended to the run's JSONL stream, collected in
 ``Watchdog.alerts`` and forwarded to ``on_alert``. Edge-triggered: each

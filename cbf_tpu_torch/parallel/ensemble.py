@@ -762,6 +762,26 @@ def lockstep_traced_rollout(static_cfg: swarm_scenario.Config,
     return run
 
 
+def prepare_traced_rollout(static_cfg: swarm_scenario.Config, horizon: int,
+                           states, traced, steps, *,
+                           cbf: CBFParams | None = None):
+    """Prepare the program :func:`lockstep_traced_rollout` runs for these
+    inputs' shapes (the serve engine's "compile"): on the card a warm-up
+    step and the CUDA graph capture of its body, unless an earlier call in
+    this process captured it; on the CPU one step that allocates its
+    buffers. ``states`` are left as they were. Returns the engine's
+    program, whose ``analysis`` holds its measurements
+    (:meth:`cbf_tpu_torch.rollout.engine._Program.prepare`)."""
+    if horizon < 1:
+        raise ValueError(f"horizon must be >= 1, got {horizon}")
+    B = states.x.shape[0]
+    lanes = _lanes(states, traced, steps, torch.zeros(B, dtype=torch.int32))
+    program = _traced_program(static_cfg, cbf, states.x.device)
+    carry = (states, lanes)
+    return engine._program(program, carry, horizon, 1).prepare(
+        program, carry, 0)
+
+
 def lockstep_traced_chunk(static_cfg: swarm_scenario.Config, chunk: int, *,
                           cbf: CBFParams | None = None):
     """The continuous-batching hook: one CHUNK of the program above, each

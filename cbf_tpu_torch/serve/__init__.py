@@ -1,13 +1,16 @@
-"""The serving layer's compute path (counterpart: cbf_tpu/serve/).
+"""The serving layer (counterpart: cbf_tpu/serve/).
 
-Ported: shape-bucketed request signatures (:mod:`.buckets`) and request
-packing (:mod:`.pack`), which turn requests into the padded member tensors
-of one bucket batch for the lockstep traced-config programs
-(:func:`cbf_tpu_torch.parallel.ensemble.lockstep_traced_rollout` and
-``lockstep_traced_chunk``). The scheduler — ``ServeEngine`` with its
-queue, prewarm, continuous lanes and fault policy — and the load
-generator come with the next serving slice (ROADMAP.md Queue A11): those
-names raise :class:`~cbf_tpu_torch.errors.OutOfSliceError` here.
+Shape-bucketed request signatures (:mod:`.buckets`) and request packing
+(:mod:`.pack`) turn requests into the padded member tensors of one bucket
+batch for the lockstep traced-config programs
+(:func:`cbf_tpu_torch.parallel.ensemble.lockstep_traced_rollout`);
+:mod:`.engine` is the scheduler's drain mode — ``ServeEngine`` with its
+queue, micro-batch formation, prewarm (the bucket programs' CUDA graph
+captures) and the fault policy of :mod:`.resilience` (typed error
+taxonomy, retry/bisect/shed/quarantine/degrade). Continuous batching and
+the load generator arrive with the rest of ROADMAP.md Queue A11: the load
+generator's names raise :class:`~cbf_tpu_torch.errors.OutOfSliceError`
+here.
 """
 
 from cbf_tpu_torch.errors import SLICE_SERVE, OutOfSliceError
@@ -16,22 +19,32 @@ from cbf_tpu_torch.serve.buckets import (DEFAULT_BUCKET_SIZES,
                                          PARKING_ARENA_HALF, BucketKey,
                                          bucket_horizon, bucket_key,
                                          bucket_n, chunk_label)
+from cbf_tpu_torch.serve.engine import (PendingRequest, RequestResult,
+                                        ServeEngine,
+                                        configure_compilation_cache)
+from cbf_tpu_torch.serve.resilience import (CircuitBreaker,
+                                            DeadlineExceeded, FaultPolicy,
+                                            FencedError, NonFiniteResult,
+                                            QuarantinedError, RecoveryError,
+                                            RequestCancelled,
+                                            SchedulerCrashed, ServeError,
+                                            ShedError, is_retryable,
+                                            request_signature)
 
 __all__ = [
-    "BucketKey", "DEFAULT_BUCKET_SIZES", "DEFAULT_HORIZON_QUANTUM",
-    "PARKING_ARENA_HALF", "bucket_horizon", "bucket_key", "bucket_n",
-    "chunk_label",
+    "BucketKey", "CircuitBreaker", "DEFAULT_BUCKET_SIZES",
+    "DEFAULT_HORIZON_QUANTUM", "DeadlineExceeded", "FaultPolicy",
+    "FencedError", "NonFiniteResult", "PARKING_ARENA_HALF",
+    "PendingRequest", "QuarantinedError", "RecoveryError",
+    "RequestCancelled", "RequestResult", "SchedulerCrashed", "ServeEngine",
+    "ServeError", "ShedError", "bucket_horizon", "bucket_key", "bucket_n",
+    "chunk_label", "configure_compilation_cache", "is_retryable",
+    "request_signature",
 ]
 
-# The JAX package's serve names of later slices.
-_NOT_PORTED = (
-    "ServeEngine", "PendingRequest", "RequestResult",
-    "configure_compilation_cache", "LoadSpec", "build_schedule",
-    "parse_sweep", "run_loadgen", "sweep_rps", "CircuitBreaker",
-    "DeadlineExceeded", "FaultPolicy", "FencedError", "NonFiniteResult",
-    "QuarantinedError", "RecoveryError", "RequestCancelled",
-    "SchedulerCrashed", "ServeError", "ShedError", "is_retryable",
-    "request_signature")
+# The JAX package's serve names of a later slice (the load generator).
+_NOT_PORTED = ("LoadSpec", "build_schedule", "parse_sweep", "run_loadgen",
+               "sweep_rps")
 
 
 def __getattr__(name: str):

@@ -18,11 +18,22 @@ so it holds the host before the chunk that holds its step (the program's
 ``host_inputs`` hook, which the engine calls before each chunk) — no
 heartbeat at or after that step can arrive before the stall has passed.
 
+The serving injectors plug into ``ServeEngine.fault_hook`` — a callable
+``hook(key, entries, attempt, phase)`` the engine invokes before the
+"compile" (the bucket program's capture) and "execute" stage of every
+batch attempt:
+
+    engine.fault_hook = faults.serve_executor_fault(times=2)
+    # the first two batches raise InjectedExecutorFault -> engine retries
+
+:func:`poison_config` is the data-plane poison: a request that passes
+validation but blows its own lane up to non-finite values at runtime.
+
 The process-level injectors (:func:`kill_schedule`,
 :func:`run_process_until`, :func:`run_until_killed`, :func:`pause_after`,
 :func:`resume`, :func:`wait_for_file`) drive kill-and-resume runs of the
-CLI. The serving injectors arrive with Queue A11, ``leak_host_callback``
-and ``promote_f64`` with the graph-break audit of Queue A12.
+CLI. ``leak_host_callback`` and ``promote_f64`` arrive with the graph-break
+audit of Queue A12.
 """
 
 from __future__ import annotations
@@ -222,6 +233,79 @@ def poison_config(cfg):
     overflows the position integration to inf, and the next step's
     pairwise math to NaN."""
     return dataclasses.replace(cfg, dt=1e30)
+
+
+# ------------------------------------------------- serve-level chaos ----
+
+
+class InjectedExecutorFault(RuntimeError):
+    """The chaos harness's transient executor failure. A RuntimeError on
+    purpose: `serve.resilience.is_retryable` classifies RuntimeErrors as
+    transient, so the engine's backoff-retry path — not the bisect/fail
+    path — is what these exercise."""
+
+
+def serve_executor_fault(times: int, exc: BaseException | None = None
+                         ) -> Callable:
+    """Engine fault hook raising at the EXECUTE phase for the first
+    ``times`` batch attempts it sees, then going quiet — the transient
+    executor fault (preempted device, flaky interconnect). Default
+    exception is :class:`InjectedExecutorFault` (retryable); pass e.g.
+    a ``ValueError`` to simulate a permanent fault that must bisect."""
+    remaining = [times]
+
+    def hook(key, entries, attempt, phase):
+        if phase == "execute" and remaining[0] > 0:
+            remaining[0] -= 1
+            raise exc if exc is not None else InjectedExecutorFault(
+                f"injected executor fault ({remaining[0]} left) for bucket "
+                f"{key.label()}")
+
+    return hook
+
+
+def serve_compile_failure(times: int) -> Callable:
+    """Engine fault hook raising at the COMPILE phase for the first
+    ``times`` batch attempts — the transient compile/lowering failure
+    (cache race, OOM during lowering). Retryable; when the retry budget
+    is exhausted the engine charges the BUCKET breaker (no request is at
+    fault when the bucket cannot build)."""
+    remaining = [times]
+
+    def hook(key, entries, attempt, phase):
+        if phase == "compile" and remaining[0] > 0:
+            remaining[0] -= 1
+            raise InjectedExecutorFault(
+                f"injected compile failure ({remaining[0]} left) for bucket "
+                f"{key.label()}")
+
+    return hook
+
+
+def serve_latency_spike(seconds: float, every: int = 1) -> Callable:
+    """Engine fault hook sleeping ``seconds`` before every ``every``-th
+    execute — the latency-spike fault (GC pause, noisy neighbor). Never
+    raises: it exercises deadline expiry and queue growth, not the
+    retry path."""
+    count = [0]
+
+    def hook(key, entries, attempt, phase):
+        if phase == "execute":
+            count[0] += 1
+            if count[0] % every == 0:
+                _time.sleep(seconds)
+
+    return hook
+
+
+def serve_chaos_hook(*hooks: Callable) -> Callable:
+    """Compose several serve fault hooks into one (each called in order;
+    the first to raise wins)."""
+    def hook(key, entries, attempt, phase):
+        for h in hooks:
+            h(key, entries, attempt, phase)
+
+    return hook
 
 
 # ------------------------------------------------ process-level kills ----

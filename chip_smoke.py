@@ -273,6 +273,35 @@ Phases (each raises, and the script exits non-zero, on any failure):
    B=4 bucket-64 batch x 64 steps on ``gating="streaming"`` (the
    ``knn_stream`` radius array) on the card and on the CPU, within
    CROSS_X_ATOL and CROSS_MD_ATOL, every count equal.
+18. the serve engine's drain mode (``cbf_tpu_torch.serve.ServeEngine``):
+   18a phase 17b's full-width workload (base 4096, B=8, 128 steps,
+   ``max_batch`` 4) through ``prewarm`` (its captures and wall printed;
+   phase 17b's programs are reused through the process-wide cache) and
+   ``run()``: one ``knn_fused`` launch per step per batch, each result
+   ``np.array_equal`` to its packed batch run through
+   ``lockstep_traced_rollout`` directly, then ``run()`` and the direct
+   programs timed in turns (requests/s both) and one ``run()``'s host
+   spans per lifecycle phase printed; 18b queue mode at the serve default
+   (base 128, B=16, 512 steps, ``max_batch`` 8): ``start``, 16 submits,
+   ``stop``, equal to ``run()``'s results, p50/p99 latency, queue wait
+   against execute and requests/s beside phase 17b's legs and the 1.5x
+   gate, and a second engine without ``prewarm`` (the program cache
+   cleared) that captures on its scheduler thread while this thread waits
+   in ``result(timeout)``, equal too; 18c the fault ladder in bucket 256
+   x 64 steps: a poisoned request (``faults.poison_config``) in a full
+   batch of 8 fails alone with ``NonFiniteResult`` in one batch, its 7
+   mates ``np.array_equal`` to a clean batch's lanes, one transient
+   fault retried once, a permanent one bisected 3 times, a capture
+   failure charging the bucket breaker with no capture, and
+   ``rta_fallback`` rescuing a poisoned request (its outcome printed
+   beside the JAX package's on the CPU, RESCUE_JAX_CPU); 18d ``python -m
+   cbf_tpu_torch serve --journal J`` on 16 requests SIGKILLed once the
+   first ``resolved`` record lands, then ``serve --journal J --recover``:
+   every acknowledged request resolved exactly once, none lost, each
+   recovered result's min distance and infeasible count equal to an
+   uninterrupted run's, and the time from the kill to the first
+   recovered result split into import and CUDA init, capture and
+   execute.
 
 Phases 7-13 run before phase 6, which times their kernels (``knn_fused``
 and ``knn_stream`` also at the certificate's k=16 shape) and profiles
@@ -456,6 +485,21 @@ SERVE_DEFAULT, SERVE_DEFAULT_BATCH = dict(base=128, B=16, steps=512), 8
 SERVE_X_ATOL, SERVE_GATE = 2e-4, 1.5
 CHUNK_B, CHUNK_BUCKET, CHUNK, CHUNK_CALLS = 8, 256, 32, 3
 CROSS_SERVE_STEPS = 64
+# Phase 18, the serve engine's drain mode: 18a and 18b run phase 17b's two
+# workloads through ServeEngine; 18c the fault ladder and 18d the journal
+# across a kill in bucket FAULT_BUCKET x FAULT_STEPS (18d: 16 requests).
+# 18c's rta_fallback rescue of poison_config(Config(**RESCUE_FIELDS)) is
+# printed beside the JAX package's outcome for that request on the CPU,
+# RESCUE_JAX_CPU (tests/test_torch_serve_faults.py::
+# test_rta_rescue_outcome_of_the_jax_package holds this constant to it).
+# The rescue's engine runs a horizon quantum of RESCUE_QUANTUM (its two
+# programs, the poisoned and the rta=True one, each redo their chunk
+# eagerly: 64 steps of those took 39 s of 18c in this PR's first call).
+FAULT_BUCKET, FAULT_STEPS = 256, 64
+RESCUE_FIELDS, RESCUE_QUANTUM = dict(n=256, steps=16, seed=3), 16
+RESCUE_JAX_CPU = {"resolved": "result", "rta_engaged": True, "finite": True,
+                  "bucket": "n256-t16-single-cert_off-gauto",
+                  "min_distance": 0.230559}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2861,6 +2905,445 @@ def phase17(engine, knn, swarm, t_start) -> dict:
     return out
 
 
+def fault_requests(swarm, n_b: int, steps: int, gating: str = "auto"):
+    """Phase 18c/18d's requests: one full batch of 8 in bucket ``n_b``
+    (n from n_b down to 3 n_b / 4), each with its own seed, radius and
+    gain."""
+    return [swarm.Config(n=n_b - (n_b // 32) * i, steps=steps, seed=80 + i,
+                         gating=gating, record_trajectory=True,
+                         safety_distance=0.4 + 0.003 * (i % 5),
+                         consensus_gain=1.0 + 0.01 * i)
+            for i in range(8)]
+
+
+def same_result(a, b) -> bool:
+    """Two RequestResults' host arrays bit-equal: the final x and v and
+    every StepOutputs field (``()`` fields ``()`` on both)."""
+    import numpy as np
+
+    def eq(x, y):
+        if isinstance(x, tuple) or isinstance(y, tuple):
+            return isinstance(x, tuple) and isinstance(y, tuple) and len(
+                x) == len(y) and all(map(eq, x, y))
+        return x.shape == y.shape and np.array_equal(x, y)
+
+    return (eq(a.final_state.x, b.final_state.x)
+            and eq(a.final_state.v, b.final_state.v)
+            and eq(tuple(a.outputs), tuple(b.outputs)))
+
+
+def direct_results(ens, pack, cfgs, bucket_of, max_batch, dev):
+    """The engine's batches formed by hand — requests grouped by bucket in
+    order of arrival, ``max_batch`` at a time — packed, run through
+    ``lockstep_traced_rollout`` and trimmed: the results the engine must
+    equal bit for bit (it adds no arithmetic)."""
+    groups = {}
+    for i, cfg in enumerate(cfgs):
+        key, traced = bucket_of(cfg)
+        groups.setdefault(key, []).append((i, cfg, traced))
+    out = [None] * len(cfgs)
+    for key, members in groups.items():
+        run = ens.lockstep_traced_rollout(key.static_cfg, key.horizon)
+        for b in range(0, len(members), max_batch):
+            part = members[b:b + max_batch]
+            fin, outs = run(*pack.stack_batch(
+                key, [c for _, c, _ in part], [t for _, _, t in part],
+                max_batch, device=dev))
+            fin = pack._tree(lambda a: a.cpu().numpy(), fin)
+            outs = pack._tree(lambda a: a.cpu().numpy(), outs)
+            for slot, (i, cfg, _) in enumerate(part):
+                out[i] = pack.trim_result(fin, outs, slot, cfg.n, cfg.steps)
+    return out
+
+
+def phase18(engine, knn, swarm, t_start, p17, dev="cuda") -> dict:
+    """Phase 18: the serve engine's drain mode (module docstring).
+    Returns each driven run's launches and the measurements."""
+    import os
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from cbf_tpu_torch.durable import journal as dj
+    from cbf_tpu_torch.obs.trace import Tracer
+    from cbf_tpu_torch.parallel import ensemble as ens
+    from cbf_tpu_torch.serve import (FaultPolicy, NonFiniteResult,
+                                     ServeEngine, pack)
+    from cbf_tpu_torch.utils import faults
+
+    def sync():
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+
+    out = {"runs": {}, "info": {}}
+    info = out["info"]
+    t18 = time.perf_counter()
+
+    # 18a. run() at full width: phase 17b's workload through the engine,
+    # prewarmed; each result bit-equal to its packed batch run directly;
+    # then the engine and the direct programs timed in turns.
+    cfgs = serve_workload(swarm, 0, **SERVE_FULL)
+    tracer = Tracer()
+    eng = ServeEngine(max_batch=SERVE_FULL_BATCH, device=dev,
+                      tracer=tracer)
+    zero_counts(engine, knn)
+    t0 = time.perf_counter()
+    eng.prewarm(cfgs)
+    sync()
+    prewarm_s = time.perf_counter() - t0
+    prewarm_captures = engine.COUNTS["captures"]
+    buckets_a = eng.manifest_extra()["serve"]["buckets"]
+    print(f"phase 18a: prewarm of {buckets_a} in {prewarm_s:.3f} s with "
+          f"{prewarm_captures} captures: "
+          + (f"all {len(buckets_a)} programs reused from phase 17b's "
+             "caches (same bucket, horizon and batch)"
+             if prewarm_captures == 0 else
+             f"{len(buckets_a) - prewarm_captures} reused from phase 17b's "
+             "caches"))
+    zero_counts(engine, knn)
+    results = eng.run(cfgs)
+    sync()
+    launches, counts = dict(knn.LAUNCHES), dict(engine.COUNTS)
+    check(counts["captures"] == 0, f"18a: run() after prewarm captured "
+          f"{counts}")
+    want = dict.fromkeys(knn.LAUNCHES, 0)
+    n_batches = eng.stats["batches"]
+    horizon_a = eng.bucket_of(cfgs[0])[0].horizon
+    want["knn_fused"] = want["knn_fused_members"] = \
+        want["knn_fused_radii"] = n_batches * horizon_a \
+        + counts["redo_steps"]
+    check(launches == want, f"18a: launches {launches}, want {want}")
+    out["runs"]["phase 18a run"] = {"launches": launches}
+    direct = direct_results(ens, pack, cfgs, eng.bucket_of,
+                            SERVE_FULL_BATCH, dev)
+    for i, (res, (fin, outs)) in enumerate(zip(results, direct)):
+        check(np.array_equal(res.final_state.x, fin.x)
+              and np.array_equal(res.final_state.v, fin.v)
+              and all(np.array_equal(a, b) for a, b in
+                      zip(res.outputs, outs) if not isinstance(a, tuple)),
+              f"18a: request {i} differs from its batch run directly")
+        check(int(np.sum(res.outputs.infeasible_count)) == 0,
+              f"18a: request {i} infeasible")
+    print(f"phase 18a: {len(results)} results np.array_equal to their "
+          f"packed batches run through lockstep_traced_rollout directly; "
+          f"{n_batches} batches x {horizon_a} steps, launches {launches}")
+
+    bs = []
+    for cfg in cfgs:
+        key, _ = eng.bucket_of(cfg)
+        if key not in [k for k, _ in bs]:
+            bs.append((key, ens.lockstep_traced_rollout(key.static_cfg,
+                                                        key.horizon)))
+
+    def direct_leg():
+        groups = {}
+        for cfg in cfgs:
+            key, traced = eng.bucket_of(cfg)
+            groups.setdefault(key, []).append((cfg, traced))
+        for key, run in bs:
+            members = groups[key]
+            for b in range(0, len(members), SERVE_FULL_BATCH):
+                part = members[b:b + SERVE_FULL_BATCH]
+                run(*pack.stack_batch(key, [c for c, _ in part],
+                                      [t for _, t in part],
+                                      SERVE_FULL_BATCH, device=dev))
+
+    walls = {"engine": [], "direct": []}
+    spans_before = 0
+    for leg in ("engine", "direct", "direct", "engine"):
+        if leg == "engine":
+            spans_before = len(tracer.spans)
+        walls[leg].append(timed(lambda: eng.run(cfgs) if leg == "engine"
+                                else direct_leg()))
+        if leg == "engine":
+            last_spans = tracer.spans[spans_before:]
+    per_phase = {}
+    for s in last_spans:
+        per_phase[s.name] = per_phase.get(s.name, 0.0) + s.dur_s
+    rps = {leg: len(cfgs) / min(w) for leg, w in walls.items()}
+    info["18a"] = {"prewarm_s": prewarm_s,
+                   "prewarm_captures": prewarm_captures,
+                   "buckets": buckets_a, "walls": walls,
+                   "requests_per_s": rps,
+                   "engine_over_direct": rps["engine"] / rps["direct"],
+                   "phase_totals_s": per_phase, "batches_per_run":
+                   n_batches, "launches": launches}
+    print(f"phase 18a: best of two: engine {rps['engine']:.3f} req/s, "
+          f"direct programs {rps['direct']:.3f} req/s "
+          f"(engine/direct {rps['engine'] / rps['direct']:.4f}); walls "
+          f"{walls}; one run()'s host spans (s, {n_batches} batches): "
+          + ", ".join(f"{k} {per_phase.get(k, 0.0):.6f}" for k in (
+              "enqueue", "queue_wait", "pack", "executable_hit", "execute",
+              "unpack", "resolve")))
+    print(f"  (script at {time.perf_counter() - t_start:.1f} s)")
+
+    # 18b. queue mode at the serve default: submit all, stop; equal to
+    # run()'s results; a second engine, not prewarmed, captures on the
+    # scheduler thread (the process's program cache cleared first) while
+    # this thread waits in result(timeout).
+    cfgs = serve_workload(swarm, 0, **SERVE_DEFAULT)
+    eng_b = ServeEngine(max_batch=SERVE_DEFAULT_BATCH,
+                        flush_deadline_s=0.05, device=dev)
+    eng_b.prewarm(cfgs)
+    ref = eng_b.run(cfgs)
+    sync()
+
+    def queue_run(e):
+        e.start()
+        try:
+            t0 = time.perf_counter()
+            pend = [e.submit(c) for c in cfgs]
+            res = [p.result(timeout=600) for p in pend]
+            wall = time.perf_counter() - t0
+        finally:
+            e.stop()
+        return res, wall
+
+    zero_counts(engine, knn)
+    got, wall_q = queue_run(eng_b)
+    sync()
+    out["runs"]["phase 18b queue"] = {"launches": dict(knn.LAUNCHES)}
+    check(engine.COUNTS["captures"] == 0, f"18b: {engine.COUNTS}")
+    for i, (a, b) in enumerate(zip(got, ref)):
+        check(same_result(a, b), f"18b: queued request {i} differs from "
+              "run()'s")
+    ens._traced_program.cache_clear()
+    eng_c = ServeEngine(max_batch=SERVE_DEFAULT_BATCH,
+                        flush_deadline_s=0.05, device=dev)
+    zero_counts(engine, knn)
+    got_c, wall_c = queue_run(eng_c)
+    sync()
+    check(engine.COUNTS["captures"] >= 1, f"18b: the engine without "
+          f"prewarm captured nothing: {engine.COUNTS}")
+    for i, (a, b) in enumerate(zip(got_c, ref)):
+        check(same_result(a, b), f"18b: request {i} of the engine that "
+              "captured on its scheduler thread differs from run()'s")
+    lat = sorted(r.latency_s for r in got)
+    qw = [r.queue_wait_s for r in got]
+    ex = [r.execute_s for r in got]
+    p17_default = p17["info"]["17b default"]["requests_per_s"]
+    rps_q = len(cfgs) / wall_q
+    info["18b"] = {
+        "latency_p50_s": statistics.median(lat),
+        "latency_p99_s": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+        "queue_wait_mean_s": statistics.mean(qw),
+        "execute_mean_s": statistics.mean(ex), "requests_per_s": rps_q,
+        "phase17_batched_requests_per_s": p17_default["batched"],
+        "phase17_sequential_requests_per_s": p17_default["sequential"],
+        "over_sequential": rps_q / p17_default["sequential"],
+        "scheduler_capture": {"wall_s": wall_c,
+                              "captures": engine.COUNTS["captures"],
+                              "compile_miss": eng_c.stats["compile_miss"]},
+        "stats": {k: eng_b.stats[k] for k in ("requests", "batches",
+                                               "pad_slots")}}
+    print(f"phase 18b: queue mode, {len(cfgs)} requests, max_batch "
+          f"{SERVE_DEFAULT_BATCH}: equal to run()'s; latency p50 "
+          f"{info['18b']['latency_p50_s']:.4f} s p99 "
+          f"{info['18b']['latency_p99_s']:.4f} s, queue wait mean "
+          f"{info['18b']['queue_wait_mean_s']:.4f} s vs execute mean "
+          f"{info['18b']['execute_mean_s']:.4f} s; {rps_q:.3f} req/s "
+          f"(phase 17b batched {p17_default['batched']:.3f}, sequential "
+          f"{p17_default['sequential']:.3f}: {rps_q / p17_default['sequential']:.3f}x"
+          f" beside the JAX package's {SERVE_GATE}x gate); without "
+          f"prewarm: {engine.COUNTS['captures']} captures on the scheduler "
+          f"thread, wall {wall_c:.3f} s, equal to run()'s")
+    print(f"  (script at {time.perf_counter() - t_start:.1f} s)")
+
+    # 18c. the fault ladder in bucket FAULT_BUCKET.
+    cfgs = fault_requests(swarm, FAULT_BUCKET, FAULT_STEPS)
+    policy_kw = dict(max_batch=8, bucket_sizes=(FAULT_BUCKET,),
+                     flush_deadline_s=0.05, device=dev,
+                     tracer=Tracer(enabled=False))
+    eng_f = ServeEngine(**policy_kw)
+    eng_f.prewarm(cfgs)
+    zero_counts(engine, knn)
+    clean = eng_f.run(cfgs)
+    sync()
+    out["runs"]["phase 18c clean"] = {"launches": dict(knn.LAUNCHES)}
+    poisoned = list(cfgs)
+    poisoned[3] = faults.poison_config(cfgs[3])
+    e = ServeEngine(**policy_kw)
+    e._execs = eng_f._execs
+    e.start()
+    try:
+        pend = [e.submit(c) for c in poisoned]
+        outcome = []
+        for i, p in enumerate(pend):
+            try:
+                outcome.append(p.result(timeout=600))
+            except NonFiniteResult:
+                outcome.append("NonFiniteResult")
+    finally:
+        e.stop()
+    check(outcome[3] == "NonFiniteResult", f"18c: the poisoned request "
+          f"resolved {outcome[3]!r}")
+    check(e.stats["batches"] == 1 and e.stats["nonfinite"] == 1
+          and e.stats["requests"] == 7, f"18c: poison stats {e.stats}")
+    for i in range(8):
+        if i != 3:
+            check(same_result(outcome[i], clean[i]), f"18c: mate {i} of "
+                  "the poisoned lane differs from the clean batch")
+    e = ServeEngine(**policy_kw)
+    e._execs = eng_f._execs
+    e.fault_hook = faults.serve_executor_fault(times=1)
+    retried = e.run(cfgs)
+    check(e.stats["retries"] == 1 and all(
+        same_result(a, b) for a, b in zip(retried, clean)),
+        f"18c: transient retry {e.stats}")
+    e = ServeEngine(**policy_kw)
+    e._execs = eng_f._execs
+    bad = cfgs[5].seed
+
+    def permanent(key, entries, attempt, phase):
+        if phase == "execute" and any(x[1].seed == bad for x in entries):
+            raise ValueError("request breaks the batch")
+
+    e.fault_hook = permanent
+    try:
+        e.run(cfgs)
+        check(False, "18c: the permanent fault did not surface")
+    except ValueError:
+        pass
+    check(e.stats["bisects"] == 3 and e.stats["failed"] == 1
+          and e.stats["requests"] == 7, f"18c: bisect stats {e.stats}")
+    e = ServeEngine(**{**policy_kw, "fault_policy": FaultPolicy(
+        max_retries=0)})
+    e.fault_hook = faults.serve_compile_failure(times=1)
+    captures0 = engine.COUNTS["captures"]
+    try:
+        e.run(cfgs[:1])
+        check(False, "18c: the capture failure did not surface")
+    except faults.InjectedExecutorFault:
+        pass
+    check(engine.COUNTS["captures"] == captures0 and e._bucket_breakers
+          and e.stats["bisects"] == 0, f"18c: capture failure {e.stats}")
+    e = ServeEngine(**{**policy_kw, "horizon_quantum": RESCUE_QUANTUM,
+                       "fault_policy": FaultPolicy(rta_fallback=True)})
+    rescued = e.run([faults.poison_config(swarm.Config(**RESCUE_FIELDS))])[0]
+    fin_ok = bool(np.all(np.isfinite(rescued.final_state.x)))
+    md = float(np.min(rescued.outputs.min_pairwise_distance))
+    card_outcome = {"resolved": "result", "rta_engaged": rescued.rta_engaged,
+                    "finite": fin_ok, "bucket": rescued.bucket,
+                    "min_distance": round(md, 6)}
+    check(e.stats["rta_rescued"] == 1 and rescued.rta_engaged and fin_ok,
+          f"18c: rta rescue {card_outcome}")
+    info["18c"] = {"rescue": {**card_outcome, "min_distance": md},
+                   "jax_cpu": RESCUE_JAX_CPU}
+    check({k: v for k, v in card_outcome.items() if k != "min_distance"}
+          == {k: v for k, v in RESCUE_JAX_CPU.items()
+              if k != "min_distance"},
+          f"18c: the rescue's outcome {card_outcome} differs from the JAX "
+          f"package's {RESCUE_JAX_CPU}")
+    print(f"phase 18c: bucket {FAULT_BUCKET} x {FAULT_STEPS}: the poisoned "
+          f"request fails alone (NonFiniteResult, 1 batch, the 7 mates "
+          f"np.array_equal to the clean batch); one transient fault "
+          f"retried once, equal to the clean run; a permanent fault "
+          f"bisected 3 times to its request; a capture failure charged "
+          f"the bucket breaker with no capture; rta_fallback on "
+          f"{RESCUE_FIELDS}: card {card_outcome}; the JAX package on the "
+          f"CPU: {RESCUE_JAX_CPU}")
+    print(f"  (script at {time.perf_counter() - t_start:.1f} s)")
+
+    # 18d. the journal across a kill.
+    root = os.path.abspath(os.path.dirname(__file__) or ".")
+    work = os.path.join(root, "chiprun_out", "phase18d")
+    os.makedirs(work, exist_ok=True)
+    journal = os.path.join(work, "j.jsonl")
+    for stale in [journal, journal + ".resilience",
+                  *dj.journal_segments(journal)]:
+        if os.path.exists(stale):
+            os.remove(stale)
+    cfgs = fault_requests(swarm, FAULT_BUCKET, FAULT_STEPS) + \
+        fault_requests(swarm, FAULT_BUCKET, FAULT_STEPS - 8)
+    reqs = os.path.join(work, "requests.json")
+    with open(reqs, "w") as fh:
+        json.dump([{"steps": c.steps, "seed": c.seed, "overrides": {
+            "n": c.n, "gating": c.gating, "record_trajectory": True,
+            "safety_distance": c.safety_distance,
+            "consensus_gain": c.consensus_gain}} for c in cfgs], fh)
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    cli = [sys.executable, "-m", "cbf_tpu_torch", "serve", "--device", dev,
+           "--max-batch", "8", "--journal", journal]
+
+    def resolved_landed(_elapsed):
+        try:
+            with open(journal) as fh:
+                return '"resolved"' in fh.read()
+        except OSError:
+            return False
+
+    rc, killed, t_first = faults.run_process_until(
+        cli + [reqs], resolved_landed, poll_s=0.005, timeout_s=300.0,
+        env=env)
+    t_kill = time.perf_counter()
+    check(killed and rc is not None, f"18d: the first child was not "
+          f"killed (rc {rc})")
+    before = dj.replay_journal(journal)
+    acked = set(before.submitted)
+    check(len(acked) == len(cfgs) and before.unresolved, f"18d: after the "
+          f"kill {len(acked)} acknowledged, {len(before.unresolved)} "
+          "unresolved")
+    tel = os.path.join(work, "telemetry")
+    proc = subprocess.run(cli + ["--recover", "--telemetry-dir", tel],
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    t_done = time.perf_counter()
+    check(proc.returncode == 0, f"18d: recover exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    after = dj.replay_journal(journal)
+    check(after.unresolved == [] and set(after.resolved) == acked
+          and all(after.resolved_counts.get(r, 0) == 1 for r in acked),
+          f"18d: fold after recovery: unresolved {after.unresolved}, "
+          f"counts {after.resolved_counts}")
+    check(sorted(rec["recovered_request_ids"]) == sorted(
+        r for r, _ in before.unresolved), "18d: recovered ids")
+    # Each recovered result against an uninterrupted run in this process.
+    from cbf_tpu_torch import obs
+
+    by_id = {e_["request_id"]: e_ for e_ in obs.read_events(
+        rec["telemetry"]) if e_["event"] == "request"}
+    uninterrupted = ServeEngine(max_batch=8, device=dev).run(
+        cfgs, request_ids=[f"r{i}" for i in range(len(cfgs))])
+    for r in uninterrupted:
+        if r.request_id in by_id:
+            ev = by_id[r.request_id]
+            check(ev["min_pairwise_distance"] == float(np.min(
+                r.outputs.min_pairwise_distance)) and ev[
+                    "infeasible_count"] == int(np.sum(
+                        r.outputs.infeasible_count)),
+                  f"18d: recovered {r.request_id} differs from the "
+                  "uninterrupted run")
+    spans = [e_ for e_ in obs.read_events(rec["telemetry"])
+             if e_["event"] == "serve.span"]
+    capture_s = sum(e_["dur_s"] for e_ in spans if e_["name"] == "compile")
+    execute_s = sum(e_["dur_s"] for e_ in spans if e_["name"] == "execute")
+    child_s = t_done - t_kill
+    init_s = child_s - rec["wall_s"]
+    first_s = init_s + min(ev["latency_s"] for ev in by_id.values())
+    info["18d"] = {
+        "requests": len(cfgs),
+        "resolved_before_kill": len(before.resolved),
+        "recovered": len(rec["recovered_request_ids"]),
+        "kill_to_first_result_s": first_s, "kill_to_exit_s": child_s,
+        "import_and_cuda_init_s": init_s, "capture_s": capture_s,
+        "execute_s": execute_s, "run_wall_s": rec["wall_s"],
+        "first_child_s": t_first}
+    print(f"phase 18d: killed the serve child at {t_first:.2f} s with "
+          f"{len(before.resolved)} of {len(cfgs)} resolved; the recover "
+          f"child re-ran {len(rec['recovered_request_ids'])} under their "
+          f"ids: every acknowledged request resolved once, none lost, "
+          f"each equal to an uninterrupted run; kill -> first recovered "
+          f"result {first_s:.2f} s (import and CUDA init {init_s:.2f} s, "
+          f"capture {capture_s:.3f} s, execute {execute_s:.3f} s in all; "
+          f"run wall {rec['wall_s']:.3f} s; kill -> exit {child_s:.2f} s)")
+    info["seconds"] = time.perf_counter() - t18
+    print(f"phase 18: {info['seconds']:.1f} s")
+    return out
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -3374,6 +3857,10 @@ def main(argv: list[str]) -> int:
     # chunk programs, card vs CPU
     p17 = phase17(engine, knn, swarm, t_start)
 
+    # 18. the serve engine's drain mode: run() and queue mode on phase
+    # 17b's workloads, the fault ladder, the journal across a kill
+    p18 = phase18(engine, knn, swarm, t_start, p17)
+
     # 6. timings at the main-path shapes; launches are every compiled
     # main-path run's of this call, by phase (13f's run swarm included)
     all_runs = {"phase 3 N=256": runs[ENTRY_N], "phase 3 N=4096": main,
@@ -3385,7 +3872,7 @@ def main(argv: list[str]) -> int:
                 **{f"phase 11 {kind}": run for kind, run in rta.items()},
                 **{f"phase 12{key}": run for key, run in cert.items()},
                 "phase 13f": scen["13f"], **p14["runs"], **p15["runs"],
-                **p16["runs"], **p17["runs"]}
+                **p16["runs"], **p17["runs"], **p18["runs"]}
     by_phase = {name: {label: run["launches"][name]
                        for label, run in all_runs.items()
                        if run["launches"].get(name)}

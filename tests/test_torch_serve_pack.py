@@ -14,8 +14,9 @@ the JAX package's (cbf_tpu.serve.buckets, cbf_tpu.serve.pack), on the CPU.
   lane-table join and the result trims (``join_lane``,
   ``slice_lane_chunk``, ``assemble_lane_result``, ``trim_result``) equal
   to JAX's on the same arrays.
-- ``ServeEngine`` and the ``serve`` CLI still raise OutOfSliceError
-  naming Queue A11.
+- The serving parts of later slices raise OutOfSliceError naming Queue
+  A11: ``ServeEngine(continuous=True)``, ``attach_background``, ``serve
+  --continuous``, ``serve --lease`` and the load generator's names.
 """
 
 import dataclasses
@@ -275,8 +276,18 @@ def test_parking_rows_match_jax():
         np.testing.assert_array_equal(got, want)
 
 
-def test_serve_engine_and_cli_still_raise():
+def test_serve_out_of_slice_parts_raise(tmp_path):
+    from cbf_tpu_torch.serve import ServeEngine
+
     with pytest.raises(OutOfSliceError, match="Queue A11"):
-        from cbf_tpu_torch.serve import ServeEngine  # noqa: F401
+        ServeEngine(continuous=True, device="cpu")
     with pytest.raises(OutOfSliceError, match="Queue A11"):
-        tcli(["serve", "--device", "cpu"])
+        ServeEngine(device="cpu").attach_background(object())
+    requests = tmp_path / "requests.json"
+    requests.write_text('[{"steps": 8, "overrides": {"n": 10}}]')
+    for flag in (["--continuous"], ["--lease", str(tmp_path / "lease")]):
+        with pytest.raises(OutOfSliceError, match="Queue A11"):
+            tcli(["serve", str(requests), "--device", "cpu",
+                  "--journal", str(tmp_path / "j.jsonl"), *flag])
+    with pytest.raises(OutOfSliceError, match="Queue A11"):
+        from cbf_tpu_torch.serve import LoadSpec  # noqa: F401
