@@ -1,5 +1,6 @@
 """CLI frontend: ``python -m cbf_tpu_torch <command>`` (counterpart:
-cbf_tpu/__main__.py, its ``run``, ``list`` and ``verify`` subcommands).
+cbf_tpu/__main__.py, its ``run``, ``list``, ``verify``, ``serve``,
+``loadgen`` and ``obs`` subcommands).
 
     python -m cbf_tpu_torch list
     python -m cbf_tpu_torch run meet_at_center --steps 200 --video out.gif
@@ -38,23 +39,34 @@ violation was found; 2: a persisted campaign does not match the
 settings; ``--telemetry-dir`` streams its round and verdict events.
 ``verify fleet`` raises OutOfSliceError.
 
-``serve`` batch-serves a request file through the serve engine's drain
-mode (:mod:`cbf_tpu_torch.serve.engine`) on ``--device``, with the JAX
+``serve`` batch-serves a request file through the serve engine
+(:mod:`cbf_tpu_torch.serve.engine`) on ``--device``, with the JAX
 package's JSON record and exit codes: ``--prewarm``/``--prewarm-only``
 capture every bucket first, ``--journal`` writes the write-ahead request
 journal and ``--recover`` re-runs what a killed process left unresolved
 (exit 2 on a missing or unreadable journal), ``--telemetry-dir`` writes
 the run directory with the cost model and the flight recorder's capsules,
-``--pace-s`` submits in queue mode, and the fault-policy flags set the
-``FaultPolicy``. ``--continuous``, ``--lease``, ``--supervised``,
-``--ha-standby`` and ``--metrics-dir`` raise OutOfSliceError (Queue A11).
-``obs incident`` summarises a capsule and ``--replay`` re-runs its
-request through the port. The other subcommands (loadgen, scenario, lint,
-``obs top``/``lanes``, cluster, bench) are not ported yet.
+``--pace-s`` submits in queue mode, ``--continuous``/``--chunk`` serve
+through the continuous scheduler's lane tables (queue mode),
+``--metrics-dir``/``--metrics-every`` rewrite ``metrics.prom`` and
+``metrics.json`` while serving, and the fault-policy flags set the
+``FaultPolicy``. ``--lease``, ``--supervised`` and ``--ha-standby`` raise
+OutOfSliceError (Queue A11). ``loadgen`` drives the engine with seeded
+open-loop traffic (:mod:`cbf_tpu_torch.serve.loadgen`; ``--sweep-rps``
+finds the latency knee). ``obs top`` renders a metrics directory
+(``--merge``/``--glob`` fold several; exit 2 on a missing surface, 3 on
+a stalled one), ``obs lanes`` the lane ledger's occupancy table
+(``--export-timeline`` rebuilds the per-lane Perfetto timeline from a
+run directory), ``obs incident`` summarises a capsule and ``--replay``
+re-runs its request through the port. The other subcommands (scenario,
+lint, cluster, bench) are not ported yet.
 
     python -m cbf_tpu_torch serve requests.json --prewarm --journal J
     python -m cbf_tpu_torch serve --journal J --recover
     python -m cbf_tpu_torch obs incident runs/t/capsules --latest --replay
+    python -m cbf_tpu_torch serve requests.json --continuous --metrics-dir M
+    python -m cbf_tpu_torch obs lanes M
+    python -m cbf_tpu_torch loadgen --continuous --gating pallas --rps 16
 """
 
 from __future__ import annotations
@@ -410,6 +422,341 @@ def cmd_obs_summary(args) -> int:
     return 0 if summary.get("heartbeats") else 1
 
 
+def _resolve_metrics_dir(path: str, latest: bool) -> str:
+    """``--latest``: treat ``path`` as a root holding metrics directories
+    and pick the one with the newest metrics.json (the directory itself
+    also counts — a root that IS a metrics dir resolves to itself)."""
+    from cbf_tpu_torch.obs import export as obs_export
+
+    if not latest:
+        return path
+    candidates = []
+    if os.path.isdir(path):
+        for d in [os.path.join(path, n) for n in sorted(os.listdir(path))
+                  ] + [path]:
+            m = os.path.join(d, obs_export.JSON_FILENAME)
+            if os.path.isfile(m):
+                candidates.append((os.path.getmtime(m), d))
+    if not candidates:
+        raise FileNotFoundError(
+            f"no {obs_export.JSON_FILENAME} under {path}")
+    return max(candidates)[1]
+
+
+def _render_top(doc: dict) -> str:
+    """One metrics.json snapshot as an aligned terminal table."""
+    from cbf_tpu_torch.obs.export import split_bucket
+
+    lines = []
+    extra = doc.get("extra") or {}
+    for k in sorted(extra):
+        lines.append(f"{k}: {json.dumps(extra[k], sort_keys=True)}")
+    rows = []
+    for name, snap in sorted((doc.get("metrics") or {}).items()):
+        base, bucket = split_bucket(name)
+        kind = snap.get("type", "?")
+        if kind == "counter":
+            val = f"total={snap.get('total')}"
+        elif kind == "gauge":
+            val = (f"last={snap.get('last')} min={snap.get('min')} "
+                   f"max={snap.get('max')}")
+        else:
+            val = (f"p50={snap.get('p50')} p95={snap.get('p95')} "
+                   f"p99={snap.get('p99')} n={snap.get('samples')}")
+        rows.append((base, bucket or "-", kind, val))
+    w = max((len(r[0]) for r in rows), default=1)
+    wb = max((len(r[1]) for r in rows), default=1)
+    for base, bucket, kind, val in rows:
+        lines.append(f"{base:<{w}}  {bucket:<{wb}}  {kind:<9}  {val}")
+    return "\n".join(lines)
+
+
+def _obs_top_merge(args) -> int:
+    """``obs top --merge DIR... / --glob PATTERN``: fold several
+    engines' metrics.json surfaces into ONE table through
+    `MetricsRegistry.merge` (counters and histograms add, gauges
+    min/max-merge — the same reduction multi-host runs use). The stall
+    contract stays per-dir: each dir's metrics.json age is judged
+    against --stall-timeout independently, and any stalled dir emits
+    its own alert and exits 3 — a merged table must never average away
+    one dead engine."""
+    import glob as _glob
+    import time as _time
+
+    from cbf_tpu_torch.obs import export as obs_export
+    from cbf_tpu_torch.obs.sink import MetricsRegistry
+
+    dirs = list(args.merge or [])
+    if args.glob:
+        dirs.extend(sorted(d for d in _glob.glob(args.glob)
+                           if os.path.isdir(d)))
+    dirs = list(dict.fromkeys(dirs))      # dedupe, keep order
+    if not dirs:
+        print("obs top: --merge/--glob matched no directories",
+              file=sys.stderr)
+        return 2
+    t_start = _time.time()
+    while True:
+        reg = MetricsRegistry()
+        ages, missing, stalled = {}, [], []
+        for d in dirs:
+            path = os.path.join(d, obs_export.JSON_FILENAME)
+            if not os.path.isfile(path):
+                missing.append(d)
+                if args.stall_timeout is not None and \
+                        _time.time() - t_start > args.stall_timeout:
+                    stalled.append((d, f"{path} never appeared in "
+                                       f"{args.stall_timeout}s"))
+                continue
+            age = _time.time() - os.path.getmtime(path)
+            ages[d] = age
+            if args.stall_timeout is not None \
+                    and age > args.stall_timeout:
+                stalled.append((d, f"{path} not rewritten for "
+                                   f"{age:.1f}s "
+                                   f"(> {args.stall_timeout}s)"))
+            try:
+                with open(path) as fh:
+                    doc = json.load(fh)
+            except ValueError:
+                continue               # replaced mid-read: next tick
+            reg.merge(doc.get("metrics") or {})
+        for d, detail in stalled:
+            print(json.dumps({"event": "alert", "kind": "stall",
+                              "dir": d, "detail": detail}), flush=True)
+        if stalled:
+            return 3
+        if not ages and not args.follow:
+            print(f"obs top: no {obs_export.JSON_FILENAME} under any "
+                  f"of {dirs}", file=sys.stderr)
+            return 2
+        if ages:
+            head = "  ".join(f"{d} age={ages[d]:.1f}s" for d in ages)
+            print(f"== merged {len(ages)}/{len(dirs)} dirs  {head} ==",
+                  flush=True)
+            print(_render_top({"metrics": reg.snapshot()}), flush=True)
+        if not args.follow:
+            return 0
+        _time.sleep(args.every)
+
+
+def cmd_obs_top(args) -> int:
+    """Live terminal view over the metrics surface: renders the
+    metrics.json twin that ``MetricsExporter`` (serve/loadgen
+    ``--metrics-dir``) rewrites atomically. --follow re-renders at
+    --every cadence; --stall-timeout turns a metrics file that stops
+    being rewritten into a synthetic stall alert and exit 3 (mirroring
+    ``obs tail``). With --merge/--glob
+    the table aggregates MULTIPLE metrics dirs (see
+    :func:`_obs_top_merge`)."""
+    import time as _time
+
+    from cbf_tpu_torch.obs import export as obs_export
+
+    if getattr(args, "merge", None) or getattr(args, "glob", None):
+        return _obs_top_merge(args)
+    if args.run_dir is None:
+        print("obs top: a run_dir (or --merge/--glob) is required",
+              file=sys.stderr)
+        return 2
+    try:
+        mdir = _resolve_metrics_dir(args.run_dir, args.latest)
+    except FileNotFoundError as e:
+        print(f"obs top: {e}", file=sys.stderr)
+        return 2
+    path = os.path.join(mdir, obs_export.JSON_FILENAME)
+    t_start = _time.time()
+    while True:
+        if not os.path.isfile(path):
+            if not args.follow:
+                print(f"obs top: no {obs_export.JSON_FILENAME} in {mdir}",
+                      file=sys.stderr)
+                return 2
+            # --follow waits for the exporter's first write; a bounded
+            # wait (--stall-timeout) that expires is the same stall.
+            if args.stall_timeout is not None and \
+                    _time.time() - t_start > args.stall_timeout:
+                print(json.dumps({
+                    "event": "alert", "kind": "stall",
+                    "detail": f"{path} never appeared in "
+                              f"{args.stall_timeout}s"}), flush=True)
+                return 3
+            _time.sleep(min(args.every, 1.0))
+            continue
+        age = _time.time() - os.path.getmtime(path)
+        if args.stall_timeout is not None and age > args.stall_timeout:
+            print(json.dumps({
+                "event": "alert", "kind": "stall",
+                "detail": f"{path} not rewritten for {age:.1f}s "
+                          f"(> {args.stall_timeout}s)"}), flush=True)
+            return 3
+        try:
+            with open(path) as fh:
+                doc = json.load(fh)
+        except ValueError:
+            doc = None                     # replaced mid-read: next tick
+        if doc is not None:
+            print(f"== {path}  age={age:.1f}s ==", flush=True)
+            print(_render_top(doc), flush=True)
+        if not args.follow:
+            return 0
+        _time.sleep(args.every)
+
+
+def _render_lanes(doc: dict) -> str:
+    """One metrics.json snapshot as the lane-occupancy table: a global
+    row plus one row per bucket, fed by the ledger's ``serve.lanes.*``
+    registry twins."""
+    from cbf_tpu_torch.obs.export import split_bucket
+
+    metrics = doc.get("metrics") or {}
+    per: dict = {}
+
+    def row(bucket):
+        key = bucket if bucket is not None else "(all)"
+        return per.setdefault(key, {})
+
+    for name, snap in metrics.items():
+        hist = name.endswith(".hist")
+        base, bucket = split_bucket(name[:-5] if hist else name)
+        if base == "serve.lanes.chunks":
+            row(bucket)["chunks"] = int(snap.get("total") or 0)
+        elif base == "serve.lanes.occupancy_pct":
+            row(bucket)["occ%"] = snap.get("last")
+        elif base == "serve.lanes.bubble_pct":
+            row(bucket)["bubble%"] = snap.get("last")
+        elif base == "serve.lanes.dispatch_pct":
+            row(bucket)["disp%"] = snap.get("last")
+        elif base == "serve.lanes.joins":
+            row(bucket)["joins"] = int(snap.get("total") or 0)
+        elif base == "serve.lanes.vacates":
+            row(bucket)["vacates"] = int(snap.get("total") or 0)
+        elif base == "serve.lanes.preempted":
+            row(bucket)["preempted"] = int(snap.get("total") or 0)
+        elif base == "serve.lanes.fill":
+            row(bucket)["fill_p50"] = snap.get("p50")
+        elif base == "serve.lanes.lane_age_s":
+            row(bucket)["age_p95_s"] = snap.get("p95")
+        elif base == "serve.ttfp_s":
+            row(bucket)["ttfp_p99_s"] = snap.get("p99")
+    if not per:
+        return ("no serve.lanes.* metrics in this snapshot — ledger "
+                "disarmed? (ServeEngine arms it when continuous=True "
+                "with a telemetry sink, or pass lane_ledger=True)")
+    cols = ("chunks", "occ%", "bubble%", "disp%", "joins", "vacates",
+            "preempted", "fill_p50", "age_p95_s", "ttfp_p99_s")
+    names = sorted(per, key=lambda b: (b != "(all)", b))
+    wb = max(len(b) for b in names + ["bucket"])
+    lines = ["  ".join(["bucket".ljust(wb)] + [c.rjust(9) for c in cols])]
+    for b in names:
+        vals = []
+        for c in cols:
+            v = per[b].get(c)
+            vals.append(("-" if v is None else str(v)).rjust(9))
+        lines.append("  ".join([b.ljust(wb)] + vals))
+    g = per.get("(all)", {})
+    for k in ("serve.chunks_executed", "serve.lanes_joined",
+              "serve.lanes_vacated"):
+        snap = metrics.get(k)
+        if snap is not None:
+            lines.append(f"{k}: total={int(snap.get('total') or 0)}")
+    if g.get("occ%") is not None and g.get("disp%") is not None:
+        lines.append(
+            f"identity: busy {g.get('occ%')}% + bubble {g.get('bubble%')}% "
+            f"+ dispatch {g.get('disp%')}% of lane-time (exact in ns — "
+            "see serve.lanes.window events)")
+    return "\n".join(lines)
+
+
+def _export_lane_timeline(run_dir: str, out_path: str) -> int:
+    """Rebuild the Perfetto timeline (per-lane tracks + flow links) from
+    a run directory's ``serve.span`` events and write it to
+    ``out_path``. Exit 2 when the run dir has no event stream."""
+    from cbf_tpu_torch.obs import schema as obs_schema
+    from cbf_tpu_torch.obs import trace as obs_trace
+    from cbf_tpu_torch.obs.sink import read_events
+
+    # read_events tolerates a missing stream (live-tail semantics); a
+    # one-shot export over nothing is an operator error instead.
+    if not os.path.isfile(os.path.join(run_dir,
+                                       obs_schema.EVENTS_FILENAME)):
+        print(f"obs lanes: no {obs_schema.EVENTS_FILENAME} in {run_dir}",
+              file=sys.stderr)
+        return 2
+    events = read_events(run_dir)
+    spans = [e for e in events if e.get("event") == "serve.span"]
+    doc = obs_trace.build_chrome_trace(spans)
+    with open(out_path, "w") as fh:
+        json.dump(doc, fh)
+    print(json.dumps({"timeline": os.path.abspath(out_path),
+                      "spans": len(spans),
+                      "tracks": len({s.get('track') for s in spans
+                                     if s.get('track') is not None})}))
+    return 0
+
+
+def cmd_obs_lanes(args) -> int:
+    """Live lane-occupancy table over a ``--metrics-dir`` surface: the
+    scheduler observatory's ``serve.lanes.*`` registry twins rendered
+    per bucket (occupancy/bubble/dispatch %, join/vacate/preempt
+    totals, fill and lane-age percentiles). Same follow/stall contract
+    as ``obs top``: --follow re-renders at --every cadence, a
+    metrics.json that stops being rewritten past --stall-timeout emits
+    a synthetic stall alert and exits 3, a missing surface exits 2.
+    ``--export-timeline PATH`` instead rebuilds the Perfetto per-lane
+    timeline from the run directory's serve.span events."""
+    import time as _time
+
+    from cbf_tpu_torch.obs import export as obs_export
+
+    if args.export_timeline is not None:
+        try:
+            run_dir = _resolve_run_dir(args.run_dir, args.latest)
+        except SystemExit:
+            run_dir = args.run_dir
+        return _export_lane_timeline(run_dir, args.export_timeline)
+    try:
+        mdir = _resolve_metrics_dir(args.run_dir, args.latest)
+    except FileNotFoundError as e:
+        print(f"obs lanes: {e}", file=sys.stderr)
+        return 2
+    path = os.path.join(mdir, obs_export.JSON_FILENAME)
+    t_start = _time.time()
+    while True:
+        if not os.path.isfile(path):
+            if not args.follow:
+                print(f"obs lanes: no {obs_export.JSON_FILENAME} in {mdir}",
+                      file=sys.stderr)
+                return 2
+            if args.stall_timeout is not None and \
+                    _time.time() - t_start > args.stall_timeout:
+                print(json.dumps({
+                    "event": "alert", "kind": "stall",
+                    "detail": f"{path} never appeared in "
+                              f"{args.stall_timeout}s"}), flush=True)
+                return 3
+            _time.sleep(min(args.every, 1.0))
+            continue
+        age = _time.time() - os.path.getmtime(path)
+        if args.stall_timeout is not None and age > args.stall_timeout:
+            print(json.dumps({
+                "event": "alert", "kind": "stall",
+                "detail": f"{path} not rewritten for {age:.1f}s "
+                          f"(> {args.stall_timeout}s)"}), flush=True)
+            return 3
+        try:
+            with open(path) as fh:
+                doc = json.load(fh)
+        except ValueError:
+            doc = None                     # replaced mid-read: next tick
+        if doc is not None:
+            print(f"== lanes {path}  age={age:.1f}s ==", flush=True)
+            print(_render_lanes(doc), flush=True)
+        if not args.follow:
+            return 0
+        _time.sleep(args.every)
+
+
 def cmd_list(_args) -> int:
     for name, (module, steps_field, *_rest) in sorted(_scenarios().items()):
         cfg = module.Config()
@@ -620,6 +967,43 @@ def _add_fault_policy_args(parser) -> None:
                              "NonFiniteResult")
 
 
+def _add_continuous_args(parser) -> None:
+    parser.add_argument("--continuous", action="store_true",
+                        help="continuous batching: advance lane tables one "
+                             "chunk at a time so arrivals JOIN free lanes "
+                             "and finished requests LEAVE at chunk "
+                             "boundaries")
+    parser.add_argument("--chunk", type=int, default=16,
+                        help="steps per scheduling chunk in continuous "
+                             "mode (default 16)")
+
+
+def _add_metrics_args(parser) -> None:
+    parser.add_argument("--metrics-dir", default=None,
+                        help="atomically rewrite metrics.prom (Prometheus "
+                             "text exposition) + metrics.json here at a "
+                             "fixed cadence while serving; watch with "
+                             "`obs top <dir> --follow`")
+    parser.add_argument("--metrics-every", type=float, default=2.0,
+                        help="metrics rewrite cadence in seconds "
+                             "(default 2)")
+
+
+def _add_follow_args(parser) -> None:
+    """``obs top``/``obs lanes``: the follow/stall contract."""
+    parser.add_argument("--follow", "-f", action="store_true",
+                        help="keep re-rendering at --every cadence")
+    parser.add_argument("--every", type=float, default=2.0,
+                        help="re-render cadence in seconds (default 2)")
+    parser.add_argument("--stall-timeout", type=float, default=None,
+                        help="emit a synthetic stall alert and exit 3 when "
+                             "metrics.json stops being rewritten for this "
+                             "many seconds")
+    parser.add_argument("--latest", action="store_true",
+                        help="run_dir is a root; watch the directory with "
+                             "the newest metrics.json")
+
+
 def _fault_policy_from(args):
     from cbf_tpu_torch.serve import FaultPolicy
 
@@ -631,6 +1015,38 @@ def _fault_policy_from(args):
                        rta_fallback=args.rta_fallback)
 
 
+def _serve_sink(args):
+    """(sink, cost model, flight recorder) of a ``serve``/``loadgen``
+    run: all None without ``--telemetry-dir`` or ``--metrics-dir`` (the
+    latter alone still needs a populated registry: the sink doubles as
+    the run directory then)."""
+    if not (args.telemetry_dir or args.metrics_dir):
+        return None, None, None
+    from cbf_tpu_torch import obs
+    from cbf_tpu_torch.obs import flight as obs_flight
+    from cbf_tpu_torch.obs import resource as obs_resource
+
+    sink = obs.TelemetrySink(args.telemetry_dir or args.metrics_dir)
+    cost_model = obs_resource.CostModel(os.path.join(
+        sink.run_dir, obs_resource.COSTMODEL_FILENAME))
+    flight = obs_flight.FlightRecorder(
+        os.path.join(sink.run_dir, "capsules"),
+        cost_model=cost_model).attach(sink)
+    return sink, cost_model, flight
+
+
+def _metrics_exporter(args, sink, engine):
+    """The ``--metrics-dir`` exporter, started (None without the flag):
+    the registry plus the engine's stats as the JSON twin's extra."""
+    if not args.metrics_dir:
+        return None
+    from cbf_tpu_torch.obs import export as obs_export
+
+    return obs_export.MetricsExporter(
+        sink.registry, args.metrics_dir, every_s=args.metrics_every,
+        extra_fn=lambda: {"stats": dict(engine.stats)}).start()
+
+
 def cmd_serve(args) -> int:
     """Batch-serve a request file through the serving engine's drain mode:
     bucket by static signature, pack same-bucket requests into one
@@ -638,21 +1054,19 @@ def cmd_serve(args) -> int:
     (``--prewarm``). Prints one JSON record (per-request summaries +
     aggregate throughput/latency + capture counters), as the JAX
     package's ``serve`` does, with its exit codes (the fenced exit 4
-    needs ``--lease``). ``--continuous``,
-    ``--lease``, ``--supervised``, ``--ha-standby`` and ``--metrics-dir``
-    raise OutOfSliceError (Queue A11)."""
+    needs ``--lease``). ``--continuous`` serves through the lane tables
+    in queue mode; ``--metrics-dir`` keeps ``metrics.prom`` and
+    ``metrics.json`` current while serving. ``--lease``,
+    ``--supervised`` and ``--ha-standby`` raise OutOfSliceError (Queue
+    A11)."""
     import statistics
     import time as _time
 
-    for flag, what in (("continuous", "serve --continuous (continuous "
-                        "batching)"),
-                       ("lease", "serve --lease (the HA primary)"),
+    for flag, what in (("lease", "serve --lease (the HA primary)"),
                        ("supervised", "serve --supervised (the HA "
                         "supervisor)"),
                        ("ha_standby", "serve --ha-standby (the HA "
-                        "standby)"),
-                       ("metrics_dir", "serve --metrics-dir (the metrics "
-                        "exporter)")):
+                        "standby)")):
         if getattr(args, flag):
             raise OutOfSliceError(what, SLICE_SERVE)
 
@@ -704,18 +1118,7 @@ def cmd_serve(args) -> int:
     else:
         cfgs = _load_requests(args.requests)
 
-    sink = cost_model = flight = None
-    if args.telemetry_dir:
-        from cbf_tpu_torch import obs
-        from cbf_tpu_torch.obs import flight as obs_flight
-        from cbf_tpu_torch.obs import resource as obs_resource
-
-        sink = obs.TelemetrySink(args.telemetry_dir)
-        cost_model = obs_resource.CostModel(os.path.join(
-            sink.run_dir, obs_resource.COSTMODEL_FILENAME))
-        flight = obs_flight.FlightRecorder(
-            os.path.join(sink.run_dir, "capsules"),
-            cost_model=cost_model).attach(sink)
+    sink, cost_model, flight = _serve_sink(args)
     journal_obj = args.journal
     if args.journal and args.rotate_bytes:
         from cbf_tpu_torch.durable.journal import RequestJournal
@@ -727,7 +1130,9 @@ def cmd_serve(args) -> int:
                          cache_dir=args.cache_dir, telemetry=sink,
                          fault_policy=_fault_policy_from(args),
                          journal=journal_obj, cost_model=cost_model,
-                         flight=flight, device=args.device)
+                         flight=flight, continuous=args.continuous,
+                         chunk_steps=args.chunk, device=args.device)
+    exporter = _metrics_exporter(args, sink, engine)
     prewarm_s = None
     if args.prewarm or args.prewarm_only:
         prewarm_s = engine.prewarm(cfgs)
@@ -750,6 +1155,9 @@ def cmd_serve(args) -> int:
         record["buckets"] = engine.manifest_extra()["serve"]["buckets"]
     if args.prewarm_only:
         record["stats"] = engine.stats
+        if exporter is not None:
+            exporter.stop()
+            record["metrics_dir"] = os.path.abspath(args.metrics_dir)
         print(json.dumps(record))
         if sink is not None:
             sink.close()
@@ -767,10 +1175,12 @@ def cmd_serve(args) -> int:
     req_errors: dict[str, str] = {}
     t0 = _time.perf_counter()
     try:
-        if args.pace_s is not None:
-            # Queue-mode submits, paced: one request at a time with a
+        if args.pace_s is not None or args.continuous:
+            # Queue-mode submits: paced (one request at a time with a
             # fixed inter-arrival gap, so a kill can land BETWEEN
-            # acknowledged requests.
+            # acknowledged requests) or continuous (the lane tables
+            # exist only on the scheduler thread; the offline run() path
+            # would drain instead).
             engine.start()
             pendings = []
             for i, cfg in enumerate(cfgs):
@@ -829,10 +1239,95 @@ def cmd_serve(args) -> int:
             "infeasible_count": int(np.sum(r.outputs.infeasible_count)),
         } for r in results],
     })
+    if exporter is not None:
+        exporter.stop()
+        record["metrics_dir"] = os.path.abspath(args.metrics_dir)
     if flight is not None and flight.capsules:
         record["capsules"] = list(flight.capsules)
     if sink is not None:
         sink.summary({"requests_served": len(results)})
+        sink.close()
+        record["telemetry"] = sink.run_dir
+    print(json.dumps(record))
+    return 0
+
+
+def cmd_loadgen(args) -> int:
+    """Open-loop SLO load generation against the serving engine: a
+    seeded Poisson-arrival, bounded-Pareto-size traffic run
+    (serve.loadgen), reported as sustained RPS + p50/p95/p99 end-to-end
+    latency with queue-wait vs execute breakdown. Optional exports: the
+    request-lifecycle Chrome trace (--chrome-trace, Perfetto-loadable),
+    a device profile with matching phase names (--xla-trace), and the
+    serve.span/loadgen.summary JSONL stream (--telemetry-dir). The
+    device profile is torch.profiler's (``utils.profiling.trace``);
+    ``--device`` picks where the programs run (default: the card)."""
+    from cbf_tpu_torch.serve import (LoadSpec, ServeEngine, build_schedule,
+                                     parse_sweep, run_loadgen, sweep_rps)
+    from cbf_tpu_torch.utils import profiling
+
+    try:
+        steps_choices = tuple(int(s) for s in args.steps.split(","))
+    except ValueError:
+        raise SystemExit(f"--steps must be comma-separated ints, "
+                         f"got {args.steps!r}")
+    spec = LoadSpec(rps=args.rps, duration_s=args.duration, seed=args.seed,
+                    n_min=args.n_min, n_max=args.n_max,
+                    pareto_alpha=args.pareto_alpha,
+                    steps_choices=steps_choices, gating=args.gating)
+    sink, cost_model, flight = _serve_sink(args)
+    engine = ServeEngine(max_batch=args.max_batch,
+                         flush_deadline_s=args.flush_deadline,
+                         cache_dir=args.cache_dir, telemetry=sink,
+                         fault_policy=_fault_policy_from(args),
+                         cost_model=cost_model, flight=flight,
+                         continuous=args.continuous,
+                         chunk_steps=args.chunk, device=args.device)
+    exporter = _metrics_exporter(args, sink, engine)
+    schedule = build_schedule(spec)
+    prewarm_s = engine.prewarm([cfg for _, cfg in schedule])
+    if sink is not None:
+        from cbf_tpu_torch import obs
+
+        sink.write_manifest(obs.build_manifest(
+            None, extra=engine.manifest_extra()))
+    trace_ctx = (profiling.trace(args.xla_trace) if args.xla_trace
+                 else contextlib.nullcontext())
+    with trace_ctx:
+        if args.sweep_rps:
+            try:
+                grid = parse_sweep(args.sweep_rps)
+            except ValueError as exc:
+                raise SystemExit(f"--sweep-rps: {exc}")
+            sweep = sweep_rps(engine, spec, grid,
+                              slo_p99_s=args.slo_p99, telemetry=sink)
+            report = {"completed": sum(l["completed"]
+                                       for l in sweep["legs"])}
+            record = {"sweep": sweep}
+        else:
+            report = run_loadgen(engine, spec, telemetry=sink)
+            record = dict(report)
+    record.update({
+        "rps_target": args.rps, "max_batch": args.max_batch,
+        "flush_deadline_s": args.flush_deadline,
+        "n_min": args.n_min, "n_max": args.n_max,
+        "pareto_alpha": args.pareto_alpha,
+        "prewarm_s": prewarm_s,
+        "buckets": engine.manifest_extra()["serve"]["buckets"],
+        "stats": engine.stats,
+    })
+    if args.chrome_trace:
+        record["chrome_trace"] = engine.tracer.export_chrome_trace(
+            args.chrome_trace)
+    if args.xla_trace:
+        record["xla_trace"] = args.xla_trace
+    if exporter is not None:
+        exporter.stop()
+        record["metrics_dir"] = os.path.abspath(args.metrics_dir)
+    if flight is not None and flight.capsules:
+        record["capsules"] = list(flight.capsules)
+    if sink is not None:
+        sink.summary({"requests_served": report["completed"]})
         sink.close()
         record["telemetry"] = sink.run_dir
     print(json.dumps(record))
@@ -1075,7 +1570,7 @@ def main(argv=None) -> int:
     _add_verify_parser(sub)
 
     obsp = sub.add_parser("obs", help="telemetry run-dir tools (tail, "
-                                      "summary, incident)")
+                                      "summary, top, lanes, incident)")
     obs_sub = obsp.add_subparsers(dest="obs_command", required=True)
     tailp = obs_sub.add_parser(
         "tail", help="print a run's JSONL events; -f follows live")
@@ -1097,6 +1592,34 @@ def main(argv=None) -> int:
                       help="run_dir is a root; summarize its newest run")
     sump.set_defaults(fn=cmd_obs_summary)
 
+    topp = obs_sub.add_parser(
+        "top", help="live terminal view over a --metrics-dir surface "
+                    "(reads the metrics.json twin of metrics.prom)")
+    topp.add_argument("run_dir", nargs="?", default=None)
+    topp.add_argument("--merge", nargs="+", default=None, metavar="DIR",
+                      help="aggregate MULTIPLE metrics dirs into one "
+                           "merged table; counters/histograms add, "
+                           "gauges min/max-merge; the stall contract is "
+                           "judged PER dir (any stalled dir exits 3)")
+    topp.add_argument("--glob", default=None, metavar="PATTERN",
+                      help="like --merge with the dir list expanded "
+                           "from a shell glob pattern (quote it)")
+    _add_follow_args(topp)
+    topp.set_defaults(fn=cmd_obs_top)
+    lanesp = obs_sub.add_parser(
+        "lanes", help="lane occupancy table over a --metrics-dir surface "
+                      "(serve.lanes.* twins); --export-timeline rebuilds "
+                      "the Perfetto per-lane timeline from a run "
+                      "directory's serve.span events")
+    lanesp.add_argument("run_dir")
+    _add_follow_args(lanesp)
+    lanesp.add_argument("--export-timeline", default=None, metavar="PATH",
+                        help="write the Chrome/Perfetto trace JSON "
+                             "(per-lane tracks + enqueue->lane flow "
+                             "links) rebuilt from run_dir's events.jsonl, "
+                             "then exit")
+    lanesp.set_defaults(fn=cmd_obs_lanes)
+
     incp = obs_sub.add_parser(
         "incident", help="summarize an incident capsule written by the "
                          "flight recorder; --replay re-runs the captured "
@@ -1116,7 +1639,7 @@ def main(argv=None) -> int:
 
     servep = sub.add_parser(
         "serve", help="batch-serve a rollout request file through the "
-                      "shape-bucketed serving engine (drain mode)")
+                      "shape-bucketed serving engine")
     servep.add_argument("requests", nargs="?", default=None,
                         help="JSON request file: a list (or {'requests': "
                              "[...]}) of {steps, seed, overrides{...}, "
@@ -1169,21 +1692,77 @@ def main(argv=None) -> int:
                         help="queue-mode paced submits: one request every "
                              "S seconds instead of an all-at-once offline "
                              "drain")
+    _add_metrics_args(servep)
+    _add_continuous_args(servep)
     _add_fault_policy_args(servep)
     # Queue A11's later parts: accepted so that they raise OutOfSliceError.
-    servep.add_argument("--continuous", action="store_true",
-                        help="continuous batching (not ported yet)")
-    servep.add_argument("--chunk", type=int, default=16,
-                        help="steps per chunk in continuous mode")
     servep.add_argument("--lease", default=None, metavar="PATH",
                         help="serve as an HA primary (not ported yet)")
     servep.add_argument("--supervised", action="store_true",
                         help="the HA supervisor (not ported yet)")
     servep.add_argument("--ha-standby", action="store_true",
                         help="the HA standby (not ported yet)")
-    servep.add_argument("--metrics-dir", default=None,
-                        help="the metrics exporter (not ported yet)")
     servep.set_defaults(fn=cmd_serve)
+
+    loadp = sub.add_parser(
+        "loadgen", help="open-loop SLO load generation against the "
+                        "serving engine: sustained RPS + latency "
+                        "percentiles")
+    loadp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                       help="where the programs run (default: the card; "
+                            "without one the engine raises)")
+    loadp.add_argument("--rps", type=float, default=8.0,
+                       help="offered Poisson arrival rate, requests/s "
+                            "(default 8)")
+    loadp.add_argument("--duration", type=float, default=5.0,
+                       help="arrival window in seconds (default 5)")
+    loadp.add_argument("--seed", type=int, default=0,
+                       help="schedule seed (same seed = same traffic)")
+    loadp.add_argument("--n-min", type=int, default=8,
+                       help="bounded-Pareto request-size lower bound")
+    loadp.add_argument("--n-max", type=int, default=96,
+                       help="bounded-Pareto request-size upper bound")
+    loadp.add_argument("--pareto-alpha", type=float, default=1.3,
+                       help="size-distribution tail index (smaller = "
+                            "heavier tail; default 1.3)")
+    loadp.add_argument("--steps", default="20,40,60",
+                       help="comma-separated horizon mix (default "
+                            "20,40,60)")
+    loadp.add_argument("--gating", default="jnp",
+                       help="gating backend for generated requests "
+                            "(default jnp: the dense path, no kernel; "
+                            "pallas runs knn_fused)")
+    loadp.add_argument("--max-batch", type=int, default=8,
+                       help="engine micro-batch size (default 8)")
+    loadp.add_argument("--flush-deadline", type=float, default=0.05,
+                       help="engine queue flush deadline in seconds "
+                            "(default 0.05)")
+    loadp.add_argument("--cache-dir", default=None,
+                       help="the CBF_TPU_CACHE_DIR knob, recorded in the "
+                            "manifest")
+    loadp.add_argument("--telemetry-dir", default=None,
+                       help="write a run directory with serve.span + "
+                            "request + loadgen.summary JSONL events")
+    _add_metrics_args(loadp)
+    loadp.add_argument("--chrome-trace", default=None,
+                       help="export the request-lifecycle spans as "
+                            "Chrome trace-event JSON here (load in "
+                            "Perfetto / chrome://tracing)")
+    loadp.add_argument("--xla-trace", default=None,
+                       help="also write a torch.profiler trace (the "
+                            "card's activity too) into this directory")
+    loadp.add_argument("--sweep-rps", default=None, metavar="LO:HI:STEP",
+                       help="sweep offered rps over an inclusive grid "
+                            "(one loadgen leg per point, same seed) and "
+                            "report the knee: the highest swept rps whose "
+                            "latency p99 stays within --slo-p99")
+    loadp.add_argument("--slo-p99", type=float, default=1.0,
+                       help="end-to-end latency p99 bound in seconds "
+                            "used by --sweep-rps knee detection "
+                            "(default 1.0)")
+    _add_continuous_args(loadp)
+    _add_fault_policy_args(loadp)
+    loadp.set_defaults(fn=cmd_loadgen)
 
     args = p.parse_args(argv)
     return args.fn(args)

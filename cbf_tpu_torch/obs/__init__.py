@@ -21,10 +21,17 @@ infeasibility, stalls — while the run goes on (``obs.watchdog``).
 ``obs.resource`` measures each program at its capture and keeps an EWMA
 execute-time cost model (``costmodel.json``). The serve engine's request
 lifecycle tracer (``obs.trace``) and the incident flight recorder
-(``obs.flight``) come with its drain mode; the lane ledger and the
-metrics exporter arrive with the rest of the serving layer (Queue A11).
+(``obs.flight``) come with its drain mode; the continuous scheduler's
+lane ledger (``obs.lanes``: exact integer-nanosecond lane-time
+attribution, ``serve.lanes.*`` metrics, ``serve.lanes.window`` events)
+and the metrics exporter (``obs.export``: ``metrics.prom`` and
+``metrics.json``, read by ``obs top`` and ``obs lanes``) with its
+continuous mode.
 """
 
+from cbf_tpu_torch.obs.export import (MetricsExporter, render_prom,
+                                      split_bucket, write_metrics)
+from cbf_tpu_torch.obs.lanes import LANE_STATES, LaneLedger
 from cbf_tpu_torch.obs.resource import CostModel, analyze_compiled, \
     environment
 from cbf_tpu_torch.obs.schema import HEARTBEAT_FIELDS, SCHEMA_VERSION
@@ -47,4 +54,6 @@ __all__ = [
     "ALERT_CERT_BLOWUP", "ALERT_INFEASIBLE", "ALERT_STALL",
     "ALERT_SLO_BURN", "ALERT_LOW_OCCUPANCY",
     "CostModel", "analyze_compiled", "environment",
+    "LaneLedger", "LANE_STATES",
+    "MetricsExporter", "render_prom", "split_bucket", "write_metrics",
 ]

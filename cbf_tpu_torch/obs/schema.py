@@ -20,10 +20,11 @@ Events are JSON objects, one per line (JSONL), each carrying ``schema`` =
 
 The run manifest is ``manifest.json`` in the run directory. The serve
 engine's drain mode, its tracer, the request journal and the flight
-recorder declare their events here (:data:`SERVE_EVENT_TYPES`,
-:data:`DURABLE_EVENT_TYPES`, :data:`FLIGHT_EVENT_TYPES`); the event tables
-of the HA, cluster, load-generator, lane-ledger and fleet layers arrive
-with their emitters (Queue A11).
+recorder, the load generator and the lane ledger declare their events
+here (:data:`SERVE_EVENT_TYPES`, :data:`DURABLE_EVENT_TYPES`,
+:data:`FLIGHT_EVENT_TYPES`, :data:`LOADGEN_EVENT_TYPES`,
+:data:`LANES_EVENT_TYPES`); the event tables of the HA, cluster and fleet
+layers arrive with their emitters (Queue A11).
 """
 
 from __future__ import annotations
@@ -159,6 +160,44 @@ DURABLE_EVENT_FIELDS: dict[str, tuple[str, ...]] = {
     "durable.recover": ("path", "records", "reenqueued", "refused"),
     "durable.resume": ("directory", "resumed_from_step", "chunks_loaded",
                        "steps"),
+}
+
+#: The load generator's run-end record (``serve.loadgen``): offered vs
+#: achieved rates and the end-to-end latency percentiles of one open-loop
+#: traffic run. One event per loadgen run.
+LOADGEN_EVENT_TYPES: tuple[str, ...] = ("loadgen.summary",)
+
+LOADGEN_EVENT_FIELDS: dict[str, tuple[str, ...]] = {
+    # by_bucket: per-bucket SLO split — {bucket label: {completed, errors,
+    # queue_wait_p50_s/p95_s/p99_s, execute_p50_s/p95_s/p99_s,
+    # ttfp_p50_s/p95_s/p99_s}}; by_scenario: per-scenario split for mixed
+    # feeds ({scenario: {completed, errors, latency_p50_s/p95_s/p99_s}});
+    # ttfp_*: time-to-first-partial percentiles over completed requests
+    # that streamed at least one serve.partial (null in drain mode).
+    "loadgen.summary": ("seed", "offered_rps", "achieved_rps", "requests",
+                        "completed", "errors", "duration_s",
+                        "latency_p50_s", "latency_p95_s", "latency_p99_s",
+                        "queue_wait_p99_s", "execute_p99_s",
+                        "ttfp_p50_s", "ttfp_p95_s", "ttfp_p99_s",
+                        "by_bucket", "by_scenario"),
+}
+
+#: The lane ledger's event (``obs.lanes``): ``serve.lanes.window`` once
+#: every ``LaneLedger.emit_every`` executed chunks — the window's exact
+#: integer-nanosecond accounting (``busy_ns + padding_ns + vacancy_ns +
+#: dispatch_ns == total_ns`` == lanes x wall; ``identity_ok`` is that
+#: integer equality), the derived occupancy/bubble/dispatch percentages,
+#: the window's join/vacate/preempt counts and rates, and a per-bucket
+#: ``by_bucket`` split ({bucket label: {chunks, occupancy_pct,
+#: dispatch_pct}}).
+LANES_EVENT_TYPES: tuple[str, ...] = ("serve.lanes.window",)
+
+LANES_EVENT_FIELDS: dict[str, tuple[str, ...]] = {
+    "serve.lanes.window": ("chunks", "busy_ns", "padding_ns", "vacancy_ns",
+                           "dispatch_ns", "total_ns", "occupancy_pct",
+                           "bubble_pct", "dispatch_pct", "identity_ok",
+                           "joins", "vacates", "preempted", "join_rate",
+                           "vacate_rate", "by_bucket"),
 }
 
 #: The incident flight recorder's event (``obs.flight``): one

@@ -1,6 +1,5 @@
-"""Request-serving engine, drain mode: queue, micro-batch formation,
-prewarm, fault tolerance (counterpart: cbf_tpu/serve/engine.py, its drain
-scheduler).
+"""Request-serving engine: queue, micro-batch formation, prewarm, fault
+tolerance, continuous batching (counterpart: cbf_tpu/serve/engine.py).
 
 The throughput layer over the compiled rollout machinery: many
 independent rollout requests (each a `scenarios.swarm.Config`) are
@@ -20,20 +19,38 @@ graphs, and only the nvcc objects in ``csrc/_build/`` persist across
 processes (`configure_compilation_cache` records a directory for the
 manifest, as the JAX package's does, and changes nothing else).
 
+Queue mode has two scheduling disciplines. DRAIN (default): a bucket
+flushes into a full-horizon program and every batch member waits for the
+slowest mate. CONTINUOUS (``continuous=True``): the scheduler advances a
+per-static-config LANE TABLE one CHUNK at a time
+(`parallel.ensemble.lockstep_traced_chunk`, each lane at its own clock),
+and at every chunk boundary newly-arrived same-config requests JOIN free
+lanes while finished/deadline-expired requests LEAVE: per-lane remaining
+horizon rides the horizon mask (one chunk program serves every horizon
+of a static config — it is the drain program of horizon ``chunk_steps``,
+so the two share one capture) and vacant lanes are inert pads (steps 0
+freezes them — `serve.pack`). Completed lanes resolve immediately;
+in-flight lanes stream `serve.partial` progress events (and host
+StepOutputs chunk slices via the ``partial_hook`` seam), so clients
+observe time-to-first-partial (`RequestResult.ttfp_s`). A lane table
+owns its carry (the chunk program returns new tensors), so a failed
+chunk retries from an intact carry. ``run()`` always drains.
+
 The captured programs are shared, stateful objects (their carry and
 output buffers are reused by every replay; the step programs are cached
 process-wide), so every capture and replay of a serving program — and the
-pack and unpack around it — runs under one process-wide lock
+pack, lane joins and unpack around it — runs under one process-wide lock
 (``_PROGRAM_LOCK``): two engines, or ``run()`` on a caller's thread beside
-the scheduler, never interleave on one program's buffers. In queue mode
-all device work (pack, capture, replay, unpack) happens on the scheduler
-thread; ``submit`` is host-only.
+the scheduler, never interleave on one program's buffers, and no capture
+sees another thread's device work. In queue mode all device work
+happens on the scheduler thread; ``submit`` is host-only.
 
 Failures are first-class (`serve.resilience`): a failed batch retries
 with bounded exponential backoff when transient, then BISECTS so only
 the offending request(s) fail (lanes are independent — a poisoned
-batch-mate cannot fail the other seven); non-finite per-slot results
-fail alone with `NonFiniteResult` — or, with
+batch-mate cannot fail the other seven); a failed chunk retries on its
+carry, then DEMOTES each live lane to a solo drain run; non-finite
+per-slot results fail alone with `NonFiniteResult` — or, with
 ``FaultPolicy.rta_fallback``, are re-run solo under the runtime-
 assurance ladder (``rta=True``) for a degraded completion
 (`RequestResult.rta_engaged`); repeat offenders are quarantined per
@@ -45,14 +62,14 @@ new capture). Every recovery decision emits a schema-versioned telemetry
 event (`serve.retry` / `serve.shed` / `serve.quarantine` /
 `serve.degrade` / `serve.scheduler_crash`) and a registry counter.
 
-A batch's results reach the host in one copy per tree (the "unpack"
-span), and the "execute" span synchronises the card, so ``execute_s`` is
-the card's time and not the launch's. A scheduler-thread crash resolves
-every queued request with `SchedulerCrashed` instead of hanging them.
+A batch's (a chunk's) results reach the host in one copy per tree (the
+"unpack" span), and the "execute" span synchronises the card, so
+``execute_s`` is the card's time and not the launch's. A scheduler-thread
+crash resolves every queued request — and every in-flight lane — with
+`SchedulerCrashed` instead of hanging them.
 
-The continuous scheduler (``continuous=True``, lane tables), the lane
-ledger and the background tenant (``attach_background``) arrive with
-Queue A11 item 11.2 and raise :class:`~cbf_tpu_torch.errors.OutOfSliceError`.
+The background tenant (``attach_background``) arrives with Queue A11
+item 11.4 and raises :class:`~cbf_tpu_torch.errors.OutOfSliceError`.
 """
 
 from __future__ import annotations
@@ -153,6 +170,110 @@ class RequestResult:
     # completed within their first chunk advance (no partial streamed).
     ttfp_s: float | None = None
 
+
+class _Lane:
+    """One occupied lane's host-side bookkeeping (scheduler-thread
+    state; the device half lives in the table's stacked tensors)."""
+
+    __slots__ = ("pending", "cfg", "traced", "t_enq", "deadline_t",
+                 "t_join", "eff_steps", "parts", "execute_s", "ttfp_s",
+                 "degraded")
+
+    def __init__(self, pending, cfg, traced, t_enq, deadline_t, t_join,
+                 eff_steps, degraded):
+        self.pending = pending
+        self.cfg = cfg
+        self.traced = traced
+        self.t_enq = t_enq
+        self.deadline_t = deadline_t
+        self.t_join = t_join
+        self.eff_steps = eff_steps
+        self.parts: list = []       # per-chunk host StepOutputs slices
+        self.execute_s = 0.0        # accumulated chunk device wall
+        self.ttfp_s: float | None = None
+        self.degraded = degraded
+
+
+class _LaneTable:
+    """One static config's continuous-batching lane table: ``max_batch``
+    lanes on ``device`` advanced one chunk at a time by ONE shared
+    program (`parallel.ensemble.lockstep_traced_chunk`). An occupied lane
+    carries a request's state plus its per-lane local clock (``t_np``)
+    and horizon-mask bound (``steps_np``); a vacant lane is an inert pad
+    (steps 0 freezes it at its local t=0 — the `serve.pack` contract),
+    overwritten by the next join. ``states`` are the table's own tensors
+    (the chunk program returns new ones), never a program's buffers. All
+    mutation happens on the scheduler thread (or stop()'s finish loop,
+    which runs only after that thread has exited) — the table itself
+    needs no lock; its device work runs under ``_PROGRAM_LOCK``."""
+
+    def __init__(self, static_cfg: swarm.Config, chunk: int,
+                 max_batch: int, device):
+        self.static_cfg = static_cfg
+        self.chunk = chunk
+        self.max_batch = max_batch
+        self.device = device
+        self.label = _buckets.chunk_label(static_cfg, chunk)
+        self.states = None          # stacked State, batch axis first
+        self.traced: list = [None] * max_batch   # per-slot host dicts
+        self.lanes: list = [None] * max_batch    # per-slot _Lane | None
+        self.steps_np = np.zeros(max_batch, np.int32)
+        self.t_np = np.zeros(max_batch, np.int32)
+
+    def free_lanes(self) -> int:
+        return sum(1 for lane in self.lanes if lane is None)
+
+    def occupied(self) -> bool:
+        return any(lane is not None for lane in self.lanes)
+
+    def live_slots(self) -> list[int]:
+        return [i for i, lane in enumerate(self.lanes)
+                if lane is not None]
+
+    def join(self, key, pending, cfg, traced, t_enq, deadline_t, t_join,
+             eff_steps: int, degraded: bool) -> int:
+        """Scatter one request into the first free lane (chunk-boundary
+        JOIN; device work — call under ``_PROGRAM_LOCK``). The lane's
+        local clock starts at 0 regardless of how far its batch-mates
+        have advanced — lanes are data-independent, so a joined request's
+        rows are bit-identical to the same config run solo."""
+        slot = self.lanes.index(None)
+        kb = _buckets.BucketKey(self.static_cfg, key.horizon)
+        if self.states is None:
+            self.states = _pack.seed_lane_table(kb, cfg, self.max_batch,
+                                                device=self.device)
+        else:
+            self.states = _pack.join_lane(
+                self.states, slot,
+                _pack.padded_initial_state(cfg, kb, device=self.device))
+        for i in range(self.max_batch):
+            if self.traced[i] is None:
+                self.traced[i] = dict(traced)
+        self.traced[slot] = dict(traced)
+        self.lanes[slot] = _Lane(pending, cfg, traced, t_enq, deadline_t,
+                                 t_join, eff_steps, degraded)
+        self.steps_np[slot] = eff_steps
+        self.t_np[slot] = 0
+        return slot
+
+    def vacate(self, slot: int) -> None:
+        """Free a lane (LEAVE): zeroing its mask bound makes the chunk
+        program freeze it, so batch-mates' rows are untouched."""
+        self.lanes[slot] = None
+        self.steps_np[slot] = 0
+        self.t_np[slot] = 0
+
+    def stacked_traced(self) -> dict:
+        """Batched traced-scalar tensors for the chunk call, in
+        `serve.pack.stack_batch`'s dtypes (so the chunk program is the
+        one its capture prepared); vacant slots keep their last dict —
+        their lanes are masked off anyway."""
+        dtype = self.static_cfg.dtype
+        ref = next(t for t in self.traced if t is not None)
+        return {k: torch.tensor([t[k] for t in self.traced],
+                                dtype=torch.int32 if k == "n_active"
+                                else dtype, device=self.device)
+                for k in ref}
 
 
 class PendingRequest:
@@ -260,9 +381,14 @@ class ServeEngine:
     optionally replaces the built-in horizon cap: called as
     ``hook(key, steps_b) -> steps_b`` while degraded.
 
-    ``continuous=True`` and a lane ledger (``lane_ledger`` other than
-    None/False) raise OutOfSliceError: continuous batching arrives with
-    Queue A11 item 11.2.
+    ``continuous=True`` switches queue mode to the continuous-batching
+    scheduler (see the module docstring): per-static-config lane tables
+    advance ``chunk_steps`` steps per pass with join/leave at chunk
+    boundaries, ONE chunk program per static config regardless of
+    horizon, completions resolving immediately, `serve.partial` events
+    (+ the ``partial_hook`` seam) streaming in-flight progress, and
+    `RequestResult.ttfp_s` reporting time-to-first-partial. ``run()``
+    and recovery replay keep the drain discipline either way.
     """
 
     def __init__(self, *, max_batch: int = 8, flush_deadline_s: float = 0.05,
@@ -273,13 +399,6 @@ class ServeEngine:
                  journal=None, cost_model=None, flight=None,
                  continuous: bool = False, chunk_steps: int = 16,
                  backlog_chunks: int = 4, lane_ledger=None, device=None):
-        if continuous:
-            raise OutOfSliceError("ServeEngine(continuous=True) (continuous "
-                                  "batching)", SLICE_SERVE)
-        if lane_ledger not in (None, False):
-            raise OutOfSliceError("ServeEngine(lane_ledger=...) (the "
-                                  "scheduler observatory, obs.lanes)",
-                                  SLICE_SERVE)
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if chunk_steps < 1:
@@ -290,8 +409,19 @@ class ServeEngine:
         self.device = swarm.resolve_device(device)
         self.max_batch = max_batch
         self.flush_deadline_s = flush_deadline_s
-        self.continuous = False
+        # Continuous batching (queue mode only): advance per-static-
+        # config lane tables one chunk_steps-long chunk at a time with
+        # join/leave at every chunk boundary, instead of draining full-
+        # horizon batches. run() always drains (the caller IS the queue).
+        self.continuous = continuous
         self.chunk_steps = chunk_steps
+        # Deep-backlog burst: with the foreground queue past the degrade
+        # high watermark, each occupied table advances up to this many
+        # chunks per scheduler pass before joins are re-checked (every
+        # joinable request is already behind a full table there, so the
+        # re-scan buys nothing and per-chunk dispatch is pure loss). 1
+        # disables bursting.
+        self.backlog_chunks = backlog_chunks
         self.bucket_sizes = tuple(bucket_sizes)
         self.horizon_quantum = horizon_quantum
         self.cache_dir = configure_compilation_cache(cache_dir)
@@ -307,6 +437,13 @@ class ServeEngine:
             else resilience.FaultPolicy()
         self.fault_hook = None
         self.degrade_hook = None
+        # Streaming seam (continuous mode): called as
+        # ``partial_hook(request_id, steps_done, outs_slice)`` with each
+        # in-flight lane's host StepOutputs chunk slice (numpy) — the
+        # rows a streaming layer would forward. The serve.partial event
+        # carries aggregates of the SAME slice, so the two views cannot
+        # diverge. A raising hook is detached.
+        self.partial_hook = None
         # Write-ahead request journal (durable execution): a path string
         # opens/appends a `durable.journal.RequestJournal` there; a
         # ready-made journal object is used as-is; None (default)
@@ -326,7 +463,22 @@ class ServeEngine:
         # capsule on NonFiniteResult, quarantine/breaker opens, scheduler
         # crashes, and SIGTERM drains. None (default) disables.
         self.flight = flight
-        self.lanes = None
+        # Scheduler observatory (obs.lanes.LaneLedger): chunk-boundary
+        # occupancy/attribution ledger. None (default) arms it iff
+        # continuous AND a telemetry sink is attached; True forces a
+        # ledger (standalone, still readable via engine.lanes); False
+        # disables; a ready-made LaneLedger is used as-is. Off, the
+        # scheduler takes zero extra clock reads and stays bit-neutral.
+        if lane_ledger is None:
+            lane_ledger = bool(continuous and telemetry is not None)
+        if lane_ledger is True:
+            from cbf_tpu_torch.obs.lanes import LaneLedger
+
+            self.lanes = LaneLedger(sink=telemetry)
+        elif lane_ledger is False:
+            self.lanes = None
+        else:
+            self.lanes = lane_ledger
         # Every incident capsule embeds "what was running": unless the
         # caller already installed a context seam, wire the recorder's
         # context_fn to this engine's in-flight snapshot.
@@ -346,6 +498,12 @@ class ServeEngine:
         # bucket key -> the bucket's runner (the captured program is the
         # step program's, cached process-wide by parallel.ensemble).
         self._execs: dict[_buckets.BucketKey, Any] = {}
+        # Continuous-mode state: chunk runners and lane tables are keyed
+        # by STATIC CONFIG (one chunk program serves every horizon of
+        # it); tables are scheduler-thread-only.
+        self._chunk_execs: dict[swarm.Config, Any] = {}
+        self._tables: dict[swarm.Config, _LaneTable] = {}
+        self._bg_tables: dict[swarm.Config, _LaneTable] = {}
         self._ids = itertools.count()
         self._batch_ids = itertools.count()
         self._lock = lockwitness.make_lock("ServeEngine._lock")
@@ -469,24 +627,79 @@ class ServeEngine:
             record_exec(label, _resource.analyze_compiled(runner))
         return runner
 
+    def _chunk_executable(self, static_cfg: swarm.Config):
+        """Get-or-capture the static config's CHUNK runner (continuous
+        mode): `lockstep_traced_chunk` at this engine's ``chunk_steps``,
+        shared across every horizon of the config (the per-lane horizon
+        bound is a mask). Call under ``_PROGRAM_LOCK``. The capture
+        prepares the program on a dummy batch of the chunk's bucket
+        (`ensemble.prepare_traced_rollout` at horizon ``chunk_steps`` —
+        the very program the chunk runner replays, so a drain bucket of
+        that horizon shares it); its wall is ``serve.compile_ms[<chunk
+        label>]``. The runner never donates: a failed chunk retries from
+        the same carry."""
+        runner = self._chunk_execs.get(static_cfg)
+        label = _buckets.chunk_label(static_cfg, self.chunk_steps)
+        if runner is not None:
+            self._bump("compile_hit")
+            profiling.add_event_count(f"serve.executable_hit[{label}]")
+            return runner
+        self._bump("compile_miss")
+        profiling.add_event_count(f"serve.executable_miss[{label}]")
+        t0 = time.perf_counter()
+        ckey = _buckets.BucketKey(static_cfg, self.chunk_steps)
+        program = ensemble.prepare_traced_rollout(
+            static_cfg, self.chunk_steps, *self._dummy_batch(ckey))
+        runner = ensemble.lockstep_traced_chunk(static_cfg,
+                                                self.chunk_steps)
+        runner.analysis = program.analysis
+        _sync(self.device)
+        wall = time.perf_counter() - t0
+        profiling.add_event_count(f"serve.compile_ms[{label}]",
+                                  int(wall * 1000))
+        self._chunk_execs[static_cfg] = runner
+        if self.cost_model is not None:
+            self.cost_model.record_compile(label, runner, wall)
+        record_exec = getattr(self.telemetry, "record_executable", None)
+        if record_exec is not None:
+            from cbf_tpu_torch.obs import resource as _resource
+
+            record_exec(label, _resource.analyze_compiled(runner))
+        return runner
+
     def prewarm(self, configs) -> float:
         """Capture every bucket the given request configs map to AND
         execute each distinct program once on a dummy batch (startup
         cost paid before traffic), after packing each config once (the
-        per-request pack path's first run). Returns — and records — the
-        total prewarm wall. Each process captures its own programs
-        (module docstring)."""
+        per-request pack path's first run: a continuous engine seeds a
+        lane table and joins one lane). A continuous engine prewarms
+        CHUNK programs — one per distinct static config, not per
+        horizon. Returns — and records — the total prewarm wall. Each
+        process captures its own programs (module docstring)."""
         t0 = time.perf_counter()
         warmed: set = set()
         for cfg in configs:
             key, traced = self.bucket_of(cfg)
             with _PROGRAM_LOCK:
-                runner = self._executable(key)
-                _pack.stack_batch(key, [cfg], [traced], self.max_batch,
-                                  device=self.device)
-                if key not in warmed:
-                    warmed.add(key)
-                    runner(*self._dummy_batch(key))
+                if self.continuous:
+                    scfg = key.static_cfg
+                    runner = self._chunk_executable(scfg)
+                    table = _pack.seed_lane_table(key, cfg, self.max_batch,
+                                                  device=self.device)
+                    _pack.join_lane(table, 0, _pack.padded_initial_state(
+                        cfg, key, device=self.device))
+                    if scfg not in warmed:
+                        warmed.add(scfg)
+                        ckey = _buckets.BucketKey(scfg, self.chunk_steps)
+                        runner(*self._dummy_batch(ckey),
+                               np.zeros(self.max_batch, np.int32))
+                else:
+                    runner = self._executable(key)
+                    _pack.stack_batch(key, [cfg], [traced], self.max_batch,
+                                      device=self.device)
+                    if key not in warmed:
+                        warmed.add(key)
+                        runner(*self._dummy_batch(key))
                 _sync(self.device)
         self.prewarm_s = round(time.perf_counter() - t0, 3)
         profiling.add_event_count("serve.prewarm_ms",
@@ -510,7 +723,9 @@ class ServeEngine:
             "continuous": self.continuous,
             "chunk_steps": self.chunk_steps,
             "buckets": sorted(k.label() for k in self._execs),
-            "chunk_buckets": [],
+            "chunk_buckets": sorted(
+                _buckets.chunk_label(c, self.chunk_steps)
+                for c in self._chunk_execs),
             "fault_policy": dataclasses.asdict(self.fault_policy),
             "fault_stats": {k: self.stats[k] for k in (
                 "retries", "bisects", "shed", "deadline_expired",
@@ -653,10 +868,11 @@ class ServeEngine:
 
     def _flight_context(self) -> dict:
         """The "what was running" snapshot every flight capsule embeds
-        (`FlightRecorder.context_fn`): foreground queue depth (the lane
-        ledger's view is continuous mode's, None here). Lock-free by
-        design — it runs inside a trip, possibly on a
-        thread already deep in engine locks, so it must never block."""
+        (`FlightRecorder.context_fn`): foreground queue depth plus the
+        lane ledger's in-flight table view and last-W chunk records
+        (None without a ledger). Lock-free by design — it runs inside a
+        trip, possibly on a thread already deep in engine locks, so it
+        must never block."""
         try:
             queue_depth = sum(len(v) for v in list(self._queue.values()))
         except RuntimeError:
@@ -1274,7 +1490,13 @@ class ServeEngine:
             # Join OUTSIDE the lock — the scheduler needs it to exit.
             t.join()
         if drain:
-            self._drain_leftovers()
+            if self.continuous:
+                # Finish through the chunk machinery: a continuous stop
+                # must not capture full-horizon drain programs just to
+                # flush what the lane tables can already finish.
+                self._finish_continuous()
+            else:
+                self._drain_leftovers()
         if self.cost_model is not None:
             # Flush measured execute EWMAs/drift (record_compile saves at
             # compile time, but observations accrue between saves).
@@ -1436,10 +1658,14 @@ class ServeEngine:
 
     def _scheduler_loop(self) -> None:
         """Crash-guarded wrapper: any exception escaping the scheduler
-        body resolves every queued request with `SchedulerCrashed`
-        instead of stranding them forever on a silently dead thread."""
+        body resolves every queued request — and, in continuous mode,
+        every in-flight lane — with `SchedulerCrashed` instead of
+        stranding them forever on a silently dead thread."""
         try:
-            self._scheduler_body()
+            if self.continuous:
+                self._scheduler_body_continuous()
+            else:
+                self._scheduler_body()
         except BaseException as e:   # noqa: BLE001 — the guard IS the point
             self._on_scheduler_crash(e)
 
@@ -1495,6 +1721,565 @@ class ServeEngine:
                 self._count("background_batches")
                 self._execute(key, batch)
 
+    # -- continuous batching -----------------------------------------------
+
+    def _scheduler_body_continuous(self) -> None:
+        """The continuous-batching loop. Each pass: (1) under the queue
+        lock, pop joinable foreground entries (deadline-expired ones
+        drop); (2) outside it, scatter the joins into lane tables and
+        advance every occupied foreground table ONE chunk — completions
+        resolve, in-flight lanes stream partials; (3) only when the
+        foreground tier is fully idle, give the background tier one
+        table-chunk. Preemption granularity is thus one CHUNK: a
+        foreground arrival waits at most one chunk's device wall, never
+        a background rollout's full horizon."""
+        while True:
+            transition = None
+            preempted = False
+            joins, expired = [], []
+            bg_joins, bg_expired = [], []
+            bg_active = False
+            deep = False
+            with self._cond:
+                if not self._running:
+                    return
+                preempted = self._preempt.is_set()
+                if not preempted:
+                    now = self.tracer.now()  # same clock as enqueue
+                    transition = self._update_degrade(now)
+                    joins, expired = self._pop_joinable(
+                        now, self._queue, self._tables)
+                    # Deep backlog: requests STILL queued after the join
+                    # scan (tables full) past the high watermark — the
+                    # regime where multi-chunk bursts pay.
+                    hw = self.fault_policy.degrade_high_watermark
+                    fg_depth = sum(len(v) for v in self._queue.values())
+                    deep = (hw is not None and self.backlog_chunks > 1
+                            and fg_depth > hw)
+                    fg_active = bool(joins) or any(
+                        t.occupied() for t in self._tables.values())
+                    fg_idle = not fg_active \
+                        and not any(self._queue.values())
+                    if fg_idle and transition is None:
+                        bg_joins, bg_expired = self._pop_joinable(
+                            now, self._bg_queue, self._bg_tables)
+                        bg_active = bool(bg_joins) or any(
+                            t.occupied() for t in self._bg_tables.values())
+                    if not fg_active and not expired \
+                            and transition is None and not bg_active \
+                            and not bg_expired:
+                        self._cond.wait(self._preempt_poll_s)
+                        continue
+            if preempted:
+                self._flight_trip(
+                    "sigterm.drain",
+                    "SIGTERM drain (continuous): joining and advancing "
+                    "lanes to resolution")
+                self._finish_continuous()
+                return
+            if transition is not None:
+                state, depth = transition
+                self._emit("serve.degrade", {
+                    "state": state, "queue_depth": depth,
+                    "steps_frac": self.fault_policy.degrade_steps_frac})
+            self._apply_joins(joins, expired, self._tables)
+            advanced = False
+            for scfg, table in list(self._tables.items()):
+                if table.occupied():
+                    self._advance_table(
+                        table,
+                        chunks=self.backlog_chunks if deep else 1)
+                    advanced = True
+                if not table.occupied():
+                    self._tables.pop(scfg, None)
+                # Refill between table chunks: lanes this advance just
+                # vacated — and arrivals that landed during its device
+                # wall — join NOW, not a full pass of every other
+                # table's chunk later.
+                with self._cond:
+                    if not self._running:
+                        return
+                    j2, e2 = self._pop_joinable(
+                        self.tracer.now(), self._queue, self._tables)
+                self._apply_joins(j2, e2, self._tables)
+            if advanced:
+                # Foreground ran, so any background table holding live
+                # lanes was denied the device this pass — the ledger's
+                # preempted-lane accounting (`B` in the live bitmaps).
+                led = self.lanes
+                if led is not None:
+                    for btab in list(self._bg_tables.values()):
+                        slots = btab.live_slots()
+                        if slots:
+                            led.note_preempted(btab.label,
+                                               len(btab.lanes), slots)
+                continue
+            # Foreground fully idle this pass: the background tier gets
+            # at most ONE table-chunk before the foreground queue is
+            # re-scanned.
+            self._apply_joins(bg_joins, bg_expired, self._bg_tables)
+            bg_ran = False
+            for scfg, table in list(self._bg_tables.items()):
+                if table.occupied() and not bg_ran:
+                    self._count("background_batches")
+                    self._advance_table(table, background=True)
+                    bg_ran = True
+                if not table.occupied():
+                    self._bg_tables.pop(scfg, None)
+
+    def _pop_joinable(self, now: float, qmap, tables):
+        """Under ``self._lock``: pop queue entries that can JOIN a free
+        lane of their static config's table (capacity-bounded — an entry
+        with no free lane stays queued for the next chunk boundary).
+        Deadline-expired entries pop unconditionally. Returns
+        ``(joins, expired)``, both lists of ``(key, entry)``."""
+        joins, expired = [], []
+        free: dict = {}
+        for key in sorted(qmap, key=lambda k: k.label()):
+            entries = qmap[key]
+            scfg = key.static_cfg
+            if scfg not in free:
+                table = tables.get(scfg)
+                free[scfg] = self.max_batch if table is None \
+                    else table.free_lanes()
+            while entries:
+                entry = entries[0]
+                if entry[4] is not None and now >= entry[4]:
+                    expired.append((key, entries.pop(0)))
+                    continue
+                if free[scfg] <= 0:
+                    break
+                free[scfg] -= 1
+                joins.append((key, entries.pop(0)))
+            if not entries:
+                del qmap[key]
+        return joins, expired
+
+    def _apply_joins(self, joins, expired, tables) -> None:
+        """Resolve the deadline-expired pops and scatter the joinable
+        ones into lane tables. Runs OUTSIDE the queue lock (tables are
+        scheduler-thread state); each join's device work (the padded
+        initial state, the lane scatter) runs under ``_PROGRAM_LOCK``,
+        as a drain batch's pack does."""
+        policy = self.fault_policy
+        for key, (pending, _cfg, _tr, t_enq, _d) in expired:
+            now = self.tracer.now()
+            self._count("deadline_expired")
+            self._emit("serve.shed", {
+                "request_id": pending.request_id, "bucket": key.label(),
+                "reason": "deadline", "queue_depth": self._queue_depth(),
+                "predicted_bytes": None})
+            pending._resolve(error=resilience.DeadlineExceeded(
+                f"request {pending.request_id} missed its deadline after "
+                f"{now - t_enq:.3f}s queued",
+                request_id=pending.request_id, bucket=key.label()))
+        if not joins:
+            return
+        by_scfg: dict = {}
+        for key, entry in joins:
+            by_scfg.setdefault(key.static_cfg, []).append((key, entry))
+        for scfg, items in by_scfg.items():
+            label = _buckets.chunk_label(scfg, self.chunk_steps)
+            if self.journal is not None:
+                try:
+                    # Breadcrumb, not a commit point (same as drain's
+                    # packed record): lane assignment is re-derivable.
+                    self.journal.packed(
+                        label, [it[1][0].request_id for it in items])
+                except resilience.FencedError as fe:
+                    # A takeover fenced this epoch mid-join: these
+                    # entries already left the queue, so resolve them
+                    # with the typed fence error (the new owner replays
+                    # them from its own journal epoch).
+                    self._note_fenced(fe)
+                    for _k, (pending, *_rest) in items:
+                        pending._resolve(error=fe)
+                    continue
+            table = tables.get(scfg)
+            if table is None:
+                table = _LaneTable(scfg, self.chunk_steps, self.max_batch,
+                                   self.device)
+                tables[scfg] = table
+            now = self.tracer.now()
+            for key, (pending, cfg, traced, t_enq, deadline_t) in items:
+                eff = cfg.steps
+                degraded = self._degraded
+                if degraded:
+                    # Same lever as drain: the horizon cap rides the
+                    # mask, so degradation never captures anew.
+                    cap = max(1, int(round(
+                        key.horizon * policy.degrade_steps_frac)))
+                    eff = min(eff, cap)
+                with _PROGRAM_LOCK:
+                    table.join(key, pending, cfg, traced, t_enq,
+                               deadline_t, now, eff, degraded)
+                self._count("lanes_joined")
+                if self.lanes is not None:
+                    self.lanes.note_join(label)
+                self.tracer.record("queue_wait", t0_s=t_enq,
+                                   dur_s=now - t_enq,
+                                   trace_id=pending.request_id,
+                                   bucket=label)
+
+    def _vacate(self, table: _LaneTable, slot: int) -> None:
+        led = self.lanes
+        if led is not None:
+            lane = table.lanes[slot]
+            if lane is not None:
+                led.note_vacate(table.label,
+                                max(0.0, self.tracer.now() - lane.t_join))
+        table.vacate(slot)
+        self._count("lanes_vacated")
+
+    def _advance_table(self, table: _LaneTable, *, background=False,
+                       attempt: int = 0, chunks: int = 1) -> None:
+        """Advance one lane table by up to ``chunks`` chunks.
+
+        The scheduler passes ``chunks=1`` in the normal regime — join
+        latency stays one chunk. Under deep backlog (foreground queue
+        depth past the degrade high watermark) it passes
+        ``backlog_chunks``: every joinable request is already queued
+        behind a full table, so re-scanning joins between chunks buys
+        nothing. The burst stops early the moment the table drains or a
+        chunk fails, so no lane is ever held past resolution. Extra
+        chunks run under ``stats["backlog_extra_chunks"]``."""
+        for i in range(max(1, chunks)):
+            ok = self._advance_table_once(
+                table, background=background,
+                attempt=attempt if i == 0 else 0)
+            if i and ok:
+                self._count("backlog_extra_chunks")
+            if not ok or not table.occupied():
+                return
+
+    def _advance_table_once(self, table: _LaneTable, *, background=False,
+                            attempt: int = 0) -> bool:
+        """Advance one lane table by ONE chunk. Deadline-expired lanes
+        LEAVE first (vacating only zeroes their mask bound — batch-
+        mates' rows are untouched); the chunk program then runs over all
+        lanes (vacant ones frozen); the chunk's outputs reach the host in
+        one copy, and each completed lane's final state in one copy of
+        its own slot; completed lanes resolve immediately and in-flight
+        lanes stream ``serve.partial``. The capture, replay and copies
+        run under ``_PROGRAM_LOCK``; the recovery ladder and the resolves
+        outside it. Failure hands off to `_on_chunk_failure` and returns
+        False (a retried-then-successful chunk also returns False: after
+        any failure the caller's burst yields back to the scheduler)."""
+        tracer = self.tracer
+        label = table.label
+        now0 = tracer.now()
+        for slot in table.live_slots():
+            lane = table.lanes[slot]
+            if lane.deadline_t is not None and now0 >= lane.deadline_t:
+                self._count("deadline_expired")
+                self._emit("serve.shed", {
+                    "request_id": lane.pending.request_id,
+                    "bucket": label, "reason": "deadline",
+                    "queue_depth": self._queue_depth(),
+                    "predicted_bytes": None})
+                lane.pending._resolve(error=resilience.DeadlineExceeded(
+                    f"request {lane.pending.request_id} missed its "
+                    f"deadline mid-flight after "
+                    f"{now0 - lane.t_enq:.3f}s",
+                    request_id=lane.pending.request_id, bucket=label))
+                self._vacate(table, slot)
+        live = table.live_slots()
+        if not live:
+            return False
+        chunk_id = f"c{next(self._batch_ids)}"
+        # Lane-ledger chunk window: integer nanoseconds, opened here
+        # (first device-touching work) and closed after the per-slot
+        # resolve loop so dispatch_ns captures ALL non-execute chunk
+        # cost.
+        led = self.lanes
+        if led is not None:
+            t_chunk0 = tracer.now()
+            w0 = time.perf_counter_ns()
+        hook = self.fault_hook
+        hook_key = _buckets.BucketKey(table.static_cfg, table.chunk)
+        hook_entries = [(table.lanes[i].pending, table.lanes[i].cfg,
+                         table.lanes[i].traced, table.lanes[i].t_enq,
+                         table.lanes[i].deadline_t) for i in live]
+        # Each live lane's steps this chunk, from its clock before it.
+        done_before = {slot: int(table.t_np[slot]) for slot in live}
+        k_of = {slot: max(0, min(table.chunk, table.lanes[slot].eff_steps
+                                 - done_before[slot])) for slot in live}
+        failure = None
+        with _PROGRAM_LOCK:
+            try:
+                if hook is not None:
+                    hook(hook_key, hook_entries, attempt, "compile")
+                hit = table.static_cfg in self._chunk_execs
+                with tracer.span("executable_hit" if hit else "compile",
+                                 trace_id=chunk_id, bucket=label):
+                    runner = self._chunk_executable(table.static_cfg)
+                if led is not None:
+                    p0 = time.perf_counter_ns()
+                with tracer.span("pack", trace_id=chunk_id, bucket=label):
+                    traced_b = table.stacked_traced()
+                    steps_b = np.array(table.steps_np)
+                    t0_b = np.array(table.t_np)
+                pack_ns = time.perf_counter_ns() - p0 \
+                    if led is not None else 0
+                if hook is not None:
+                    hook(hook_key, hook_entries, attempt, "execute")
+                t0 = time.perf_counter()
+                with tracer.span("execute", trace_id=chunk_id,
+                                 bucket=label):
+                    final_states, outs = runner(table.states, traced_b,
+                                                steps_b, t0_b)
+                    _sync(self.device)
+                execute_s = time.perf_counter() - t0
+            except BaseException as e:   # noqa: BLE001 — ladder classifies
+                failure = e
+            if failure is None:
+                if led is not None:
+                    u0 = time.perf_counter_ns()
+                # One copy of the chunk's outputs; each completed lane's
+                # final state crosses as its own slot only.
+                with tracer.span("unpack", trace_id=chunk_id,
+                                 bucket=label):
+                    outs_host = _to_host(outs)
+                    parts = {slot: _pack.slice_lane_chunk(
+                        outs_host, slot, k_of[slot]) for slot in live}
+                    finished = {
+                        slot: _pack.assemble_lane_result(
+                            final_states,
+                            table.lanes[slot].parts + [parts[slot]], slot,
+                            table.lanes[slot].cfg.n)
+                        for slot in live if done_before[slot] + k_of[slot]
+                        >= table.lanes[slot].eff_steps}
+                unpack_ns = time.perf_counter_ns() - u0 \
+                    if led is not None else 0
+        if failure is not None:
+            # Outside the program lock: a demotion runs drain batches,
+            # which take it themselves.
+            self._on_chunk_failure(table, attempt, failure,
+                                   background=background)
+            return False
+        # The carry crosses the chunk boundary on the device (solver warm
+        # state included): the table keeps the chunk's new tensors.
+        table.states = final_states
+        self._count("chunks_executed")
+        if self.cost_model is not None:
+            obs = self.cost_model.observe_execute(label, execute_s)
+            cost = self.cost_model.cost_of(label)
+            if obs["drift"] is not None:
+                reg = getattr(self.telemetry, "registry", None)
+                if reg is not None:
+                    reg.gauge("serve.cost_model.drift").set(obs["drift"])
+            self._emit("serve.cost", {
+                "bucket": label, "batch_fill": len(live),
+                "execute_s": round(execute_s, 6),
+                "predicted_s": obs["predicted_s"],
+                "drift": (None if obs["drift"] is None
+                          else round(obs["drift"], 6)),
+                "flops": cost.get("flops", 0),
+                "bytes_accessed": cost.get("bytes_accessed", 0),
+                "peak_bytes": cost.get("peak_bytes", 0)})
+        now = tracer.now()
+        fill = len(live)
+        lane_rows = []
+        for slot in live:
+            lane = table.lanes[slot]
+            k_i = k_of[slot]
+            if led is not None:
+                # Row captured BEFORE resolve/vacate clears the lane.
+                lane_rows.append((slot, lane.pending.request_id, k_i,
+                                  max(0.0, now - lane.t_join)))
+            part = parts[slot]
+            lane.parts.append(part)
+            lane.execute_s += execute_s
+            table.t_np[slot] = done_before[slot] + table.chunk
+            steps_done = done_before[slot] + k_i
+            if self.partial_hook is not None:
+                try:
+                    self.partial_hook(lane.pending.request_id,
+                                      steps_done, part)
+                except Exception:
+                    self.partial_hook = None
+            if slot in finished:
+                self._resolve_lane(table, slot, *finished[slot], fill, now)
+                self._vacate(table, slot)
+            else:
+                if lane.ttfp_s is None:
+                    lane.ttfp_s = round(now - lane.t_enq, 6)
+                self._emit("serve.partial", {
+                    "request_id": lane.pending.request_id,
+                    "bucket": label, "steps_done": steps_done,
+                    "steps_total": lane.eff_steps, "chunk": table.chunk,
+                    "min_pairwise_distance": float(
+                        np.min(part.min_pairwise_distance)),
+                    "infeasible_count": int(
+                        np.sum(part.infeasible_count))})
+        if led is not None:
+            # Close the chunk window and stamp the ledger. execute_ns is
+            # clamped into the wall window so the dispatch complement
+            # (total - vacancy - live*execute) can never go negative and
+            # the integer accounting identity holds exactly.
+            wall_ns = max(time.perf_counter_ns() - w0, 1)
+            execute_ns = min(int(execute_s * 1e9), wall_ns)
+            led.note_chunk(
+                chunk_id, label, lanes=len(table.lanes),
+                chunk_steps=table.chunk, lane_rows=lane_rows,
+                wall_ns=wall_ns, execute_ns=execute_ns, pack_ns=pack_ns,
+                unpack_ns=unpack_ns, background=background, t_s=t_chunk0)
+            # Per-lane Perfetto tracks: one "chunk" span per live lane,
+            # keyed to a stable "<bucket>/lane<slot>" track so a
+            # request's JOIN -> chunks -> LEAVE renders as one timeline
+            # row, flow-linked back to its enqueue span.
+            dur_s = wall_ns / 1e9
+            for slot, request_id, _k, _age in lane_rows:
+                tracer.record("chunk", t0_s=t_chunk0, dur_s=dur_s,
+                              trace_id=request_id, bucket=label,
+                              track=f"{label}/lane{slot}")
+        return True
+
+    def _resolve_lane(self, table: _LaneTable, slot: int, final, outs_i,
+                      fill: int, now: float) -> None:
+        """Resolve one COMPLETED lane from its host result (``final``,
+        ``outs_i``: `serve.pack.assemble_lane_result` at request shapes):
+        finite-check and resolve the handle — the continuous twin of the
+        drain path's per-slot resolve."""
+        lane = table.lanes[slot]
+        policy = self.fault_policy
+        label = table.label
+        cfg = lane.cfg
+        pending = lane.pending
+        with self.tracer.span("resolve", trace_id=pending.request_id,
+                              bucket=label):
+            if policy.check_finite and not _all_finite(final, outs_i):
+                # Lanes are independent: only this lane fails.
+                self._count("nonfinite")
+                if policy.rta_fallback and not cfg.rta \
+                        and self._rta_rescue(pending, cfg, label,
+                                             lane.t_enq, lane.t_join):
+                    return
+                self._count("failed")
+                self._record_offender(cfg, label)
+                self._flight_trip(
+                    "serve.nonfinite",
+                    f"request {pending.request_id} unpacked non-finite "
+                    f"state/outputs in lane table {label}", cfg=cfg)
+                pending._resolve(error=resilience.NonFiniteResult(
+                    f"request {pending.request_id} unpacked non-finite "
+                    f"state/outputs in lane table {label}",
+                    request_id=pending.request_id, bucket=label))
+                return
+            self._record_signature_success(cfg, label)
+            rta_ch = outs_i.rta_mode
+            rta_engaged = not isinstance(rta_ch, tuple) \
+                and bool(np.max(np.asarray(rta_ch), initial=0) > 0)
+            result = RequestResult(
+                request_id=pending.request_id, bucket=label, n=cfg.n,
+                steps=lane.eff_steps, final_state=final, outputs=outs_i,
+                latency_s=round(now - lane.t_enq, 6),
+                queue_wait_s=round(lane.t_join - lane.t_enq, 6),
+                execute_s=round(lane.execute_s, 6), batch_fill=fill,
+                degraded=lane.degraded, rta_engaged=rta_engaged,
+                ttfp_s=lane.ttfp_s)
+            self._bump("requests")
+            if lane.degraded:
+                self._count("degraded_requests")
+            if self.telemetry is not None:
+                self.telemetry.event("request", {
+                    "request_id": result.request_id,
+                    "bucket": result.bucket, "n": cfg.n,
+                    "steps": lane.eff_steps,
+                    "latency_s": result.latency_s,
+                    "queue_wait_s": result.queue_wait_s,
+                    "execute_s": result.execute_s,
+                    "batch_fill": result.batch_fill,
+                    "degraded": int(lane.degraded),
+                    "rta_engaged": int(rta_engaged),
+                    "min_pairwise_distance": float(
+                        np.min(outs_i.min_pairwise_distance)),
+                    "infeasible_count": int(
+                        np.sum(outs_i.infeasible_count)),
+                    "ttfp_s": lane.ttfp_s,
+                })
+            # TTFP through the registry surface (metrics.prom/json), not
+            # just the per-request event stream / loadgen report.
+            reg = getattr(self.telemetry, "registry", None)
+            if reg is not None and lane.ttfp_s is not None:
+                reg.histogram("serve.ttfp_s").observe(lane.ttfp_s)
+                reg.histogram(f"serve.ttfp_s[{label}]").observe(lane.ttfp_s)
+            pending._resolve(result=result)
+
+    def _on_chunk_failure(self, table: _LaneTable, attempt: int,
+                          error: BaseException, *,
+                          background=False) -> None:
+        """Per-chunk recovery ladder (called outside ``_PROGRAM_LOCK``).
+        Transient with budget left -> backoff and re-run the SAME chunk
+        (the table's carry is intact: the chunk program never writes it).
+        Otherwise DEMOTE: every live lane re-runs SOLO from step 0
+        through the drain path, which owns the bisect-to-offender /
+        quarantine / bucket-breaker machinery — blast radius stays one
+        request, and a poisoned lane cannot wedge the whole table."""
+        policy = self.fault_policy
+        label = table.label
+        live = table.live_slots()
+        if resilience.is_retryable(error) and attempt < policy.max_retries:
+            backoff = policy.backoff_s(attempt, self._rng)
+            self._count("retries")
+            self._emit("serve.retry", {
+                "bucket": label, "action": "retry",
+                "attempt": attempt + 1, "batch_size": len(live),
+                "backoff_s": round(backoff, 4),
+                "error": type(error).__name__})
+            time.sleep(backoff)
+            self._advance_table(table, background=background,
+                                attempt=attempt + 1)
+            return
+        self._emit("serve.retry", {
+            "bucket": label, "action": "demote", "attempt": attempt,
+            "batch_size": len(live), "backoff_s": 0.0,
+            "error": type(error).__name__})
+        now = self.tracer.now()
+        for slot in live:
+            lane = table.lanes[slot]
+            self._vacate(table, slot)
+            try:
+                key, traced = self.bucket_of(lane.cfg)
+            except (ValueError, TypeError) as e:
+                self._count("failed")
+                lane.pending._resolve(error=e)
+                continue
+            self._run_batch(
+                key, [(lane.pending, lane.cfg, traced, lane.t_enq,
+                       lane.deadline_t)],
+                now, attempt=policy.max_retries)
+
+    def _finish_continuous(self) -> None:
+        """Run the continuous machinery to quiescence: keep joining
+        queued requests into lanes and advancing tables until every
+        queue and lane is empty. Normal control flow only — stop()'s
+        caller, or the scheduler thread after a SIGTERM notice. Uses
+        the same chunk programs as live traffic, so a graceful stop
+        never captures a full-horizon drain program."""
+        while True:
+            with self._cond:
+                self._running = False
+                now = self.tracer.now()
+                joins, expired = self._pop_joinable(
+                    now, self._queue, self._tables)
+                bg_joins, bg_expired = self._pop_joinable(
+                    now, self._bg_queue, self._bg_tables)
+            self._apply_joins(joins, expired, self._tables)
+            self._apply_joins(bg_joins, bg_expired, self._bg_tables)
+            work = False
+            for tables in (self._tables, self._bg_tables):
+                for scfg, table in list(tables.items()):
+                    if table.occupied():
+                        self._advance_table(table)
+                        work = True
+                    if not table.occupied():
+                        tables.pop(scfg, None)
+            with self._lock:
+                queued = any(self._queue.values()) \
+                    or any(self._bg_queue.values())
+            if not work and not queued:
+                return
 
     def _on_scheduler_crash(self, error: BaseException) -> None:
         with self._cond:
@@ -1505,6 +2290,14 @@ class ServeEngine:
                           for entry in entries]
             self._queue.clear()
             self._bg_queue.clear()
+            # Continuous mode: in-flight lanes are as stranded as queued
+            # entries — resolve them too.
+            for tables in (self._tables, self._bg_tables):
+                for table in tables.values():
+                    leftovers += [(lane.pending,)
+                                  for lane in table.lanes
+                                  if lane is not None]
+                tables.clear()
         for pending, *_ in leftovers:
             pending._resolve(error=resilience.SchedulerCrashed(
                 f"scheduler thread crashed: {type(error).__name__}: {error}",

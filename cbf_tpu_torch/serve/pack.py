@@ -178,12 +178,16 @@ def _host(a) -> np.ndarray:
 def slice_lane_chunk(outs_host, slot: int, done: int):
     """One lane's live rows of a chunk's outputs on the host: time axes cut
     to ``done`` (the steps the lane ran this chunk — later rows are frozen
-    repeats), the batch axis indexed away, as numpy arrays."""
-    return _tree(lambda a: _host(a)[slot][:done], outs_host)
+    repeats), the batch axis indexed away, as numpy arrays. The serve
+    engine passes the chunk's outputs already on the host (one copy per
+    chunk); given device tensors, only the lane's rows are copied."""
+    return _tree(lambda a: _host(a[slot][:done]), outs_host)
 
 
 def _trimmed_final(final_states, slot: int, n_active: int) -> swarm.State:
-    final_b = _tree(lambda a: _host(a)[slot], final_states)
+    # The slot is indexed before the copy: from device tensors, one
+    # lane's rows cross to the host, not the whole table's.
+    final_b = _tree(lambda a: _host(a[slot]), final_states)
     theta = (final_b.theta[:n_active]
              if not isinstance(final_b.theta, tuple) else ())
     return swarm.State(x=final_b.x[:n_active], v=final_b.v[:n_active],

@@ -136,7 +136,8 @@ Phases (each raises, and the script exits non-zero, on any failure):
    goal distances min < 0.15 and max < 0.6, min distance > 0.1, residual
    < 1e-4; 13c: all 32 within 0.2 m of their antipodes, min distance >
    0.2/sqrt(2) - 5e-3) and 0 infeasible, R, redos, the relax histogram,
-   the step walls eager and compiled in turns (13b over 50 steps), the
+   the step walls eager and compiled in turns (13a and 13c over 200
+   steps, 13b over 50), the
    device ops per step and the first call's seconds printed; 13d the
    golden anchor: float64 ``meet_at_center`` on the card for 5 steps
    within 5e-5 of the float64 numpy replay through the port's SLSQP
@@ -302,6 +303,33 @@ Phases (each raises, and the script exits non-zero, on any failure):
    uninterrupted run's, and the time from the kill to the first
    recovered result split into import and CUDA init, capture and
    execute.
+19. the serve engine's continuous scheduler (``ServeEngine(continuous=
+   True)``, lane tables advanced one ``lockstep_traced_chunk`` at a time):
+   19a phase 17b's full-width workload with ``gating="pallas"``
+   (buckets 4096 and 2048, ``max_batch`` 4, 32-step chunks) through
+   ``prewarm`` (one capture per static config, no drain program) and
+   ``start``: a 128-step request solo, then its twin joining a lane
+   table where a 512-step runner is in flight — ``np.array_equal`` to the
+   solo run, its partials at [32, 64, 96, 128] stitched equal to its
+   resolved outputs, one ``knn_fused`` launch per chunk step, and
+   against the drain engine's result for the same request (bit equality
+   and the largest gap printed, held within 2e-4 with every count
+   equal); the chunk wall and execute by lanes filled from the lane
+   ledger; 19b a 4096-step request with a 0.5 s deadline leaving its
+   table mid-flight while its 128-step batch-mate stays
+   ``np.array_equal`` to its solo run; 19c ``LoadSpec(rps=24,
+   duration_s=3, n 64-128, steps 128/256/512, gating="pallas")`` through
+   ``run_loadgen`` on a drain and a continuous engine (``max_batch`` 8,
+   16-step chunks), both prewarmed, in turns (drain, continuous,
+   continuous, drain): every request completes above the floor with 0
+   infeasible, achieved req/s, p50/p99 latency, queue wait against
+   execute and TTFP printed per leg, the ledger's occupancy, bubble and
+   dispatch shares with its exact identity; 19d ``python -m
+   cbf_tpu_torch loadgen --continuous --metrics-dir M --telemetry-dir
+   T`` in process: TTFP in the record, ``obs lanes M`` and ``obs top
+   M`` exit 0 with a row per bucket, ``obs lanes T --export-timeline``
+   one track per lane used, ``metrics.prom`` parsed (files under
+   ``chiprun_out/phase19d/``).
 
 Phases 7-13 run before phase 6, which times their kernels (``knn_fused``
 and ``knn_stream`` also at the certificate's k=16 shape) and profiles
@@ -386,6 +414,11 @@ CROSS_X_ATOL, CROSS_MD_ATOL = 1e-4, 1e-5
 # HBM3 at 700 W, PERF.md §5; 300 until phase 17 came), and the walls
 # are timed over 50 (100 until then).
 SCEN_CAR_PREFIX, SCEN_CAR_TIMED = 200, 50
+# 13a and 13c are held to the eager loop over their whole horizons (1000
+# and 1500 steps) and timed in turns over SCEN_TIMED steps (the whole
+# horizons until phase 19 came: their timed eager legs took ~30 s of the
+# script, which reached 845.3-1012.7 s on PR 15's calls).
+SCEN_TIMED = 200
 SCEN_ANCHOR_STEPS = 5          # tests/test_scenarios.py's golden anchor
 SCEN_CROSS_STEPS = 50
 SCEN_CLI_STEPS = 200
@@ -500,6 +533,26 @@ RESCUE_FIELDS, RESCUE_QUANTUM = dict(n=256, steps=16, seed=3), 16
 RESCUE_JAX_CPU = {"resolved": "result", "rta_engaged": True, "finite": True,
                   "bucket": "n256-t16-single-cert_off-gauto",
                   "min_distance": 0.230559}
+# Phase 19, the continuous scheduler: 19a/19b at full width (phase 17b's
+# workload with gating "pallas": buckets 4096 and 2048, max_batch 4,
+# CONT_FULL_CHUNK-step chunks), a CONT_LONG_STEPS-step runner beside the
+# joining request and a CONT_DOOMED_STEPS-step request evicted at its
+# deadline; 19c seeded open-loop traffic at the serve default (CONT_LOAD),
+# drain against continuous in turns; 19d the loadgen CLI (CONT_CLI) and the
+# obs surfaces it feeds.
+CONT_FULL, CONT_FULL_BATCH, CONT_FULL_CHUNK = \
+    dict(base=4096, B=8, steps=128), 4, 32
+CONT_LONG_STEPS, CONT_DOOMED_STEPS, CONT_DEADLINE_S = 512, 4096, 0.5
+CONT_LOAD = dict(rps=24.0, duration_s=3.0, seed=0, n_min=64, n_max=128,
+                 steps_choices=(128, 256, 512), gating="pallas")
+CONT_LOAD_BATCH, CONT_LOAD_CHUNK = 8, 16
+# CONT_LOAD's requests whose run dips below FLOOR in the JAX package itself
+# (jax 0.9.0 on the CPU, gating "jnp", the drain engine; the port's CPU run
+# dips on the same request, within 1.5e-8): schedule index -> the
+# reference's minimum. Held to it within CROSS_MD_ATOL instead of the floor.
+CONT_LOAD_REFERENCE_DIPS = {50: 0.14131689}
+CONT_CLI = ["--continuous", "--chunk", "16", "--gating", "pallas", "--rps",
+            "16", "--duration", "1"]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1107,7 +1160,7 @@ def phase13(engine, knn, swarm, t_start) -> dict:
     # 13a meet_at_center, default Config.
     cfg = mac.Config()
     run = drive_scenario(engine, knn, mac, cfg, "phase 13a: meet_at_center",
-                         cfg.iterations)
+                         cfg.iterations, timed_steps=SCEN_TIMED)
     free = run["final"].poses[:2, cfg.n_obstacles:]
     spread = float(torch.amax(torch.linalg.norm(
         free - free.mean(dim=1, keepdim=True), dim=0)))
@@ -1152,7 +1205,7 @@ def phase13(engine, knn, swarm, t_start) -> dict:
     # 13c antipodal, default Config (N=32).
     cfg = antipodal.Config()
     run = drive_scenario(engine, knn, antipodal, cfg, "phase 13c: antipodal",
-                         cfg.steps)
+                         cfg.steps, timed_steps=SCEN_TIMED)
     d = torch.linalg.norm(run["final"].x - antipodal.goals(cfg), dim=1)
     arrived = int((d < 0.2).sum())
     info = run["info"]
@@ -3344,6 +3397,405 @@ def phase18(engine, knn, swarm, t_start, p17, dev="cuda") -> dict:
     return out
 
 
+def parse_prom(text: str) -> dict:
+    """tests/test_obs_resource.py's minimal Prometheus text parser,
+    copied: {sample key: value}; raises on a malformed line, a re-typed
+    family or a duplicate sample."""
+    import re
+
+    sample = re.compile(
+        r"^([a-zA-Z_:][a-zA-Z0-9_:]*)"
+        r'(\{[a-zA-Z_][a-zA-Z0-9_]*="[^"]*"(,[a-zA-Z_][a-zA-Z0-9_]*='
+        r'"[^"]*")*\})?'
+        r" (NaN|[-+]?[0-9.eE+-]+)$")
+    typed = re.compile(
+        r"^# TYPE ([a-zA-Z_:][a-zA-Z0-9_:]*) (counter|gauge|summary)$")
+    families, samples = set(), {}
+    for line in text.splitlines():
+        if not line.strip():
+            continue
+        mt = typed.match(line)
+        if mt:
+            check(mt.group(1) not in families, f"prom: re-typed {line!r}")
+            families.add(mt.group(1))
+            continue
+        ms = sample.match(line)
+        check(ms is not None, f"prom: malformed line {line!r}")
+        key = line.rsplit(" ", 1)[0]
+        check(key not in samples, f"prom: duplicate sample {key!r}")
+        samples[key] = float("nan") if ms.group(4) == "NaN" \
+            else float(ms.group(4))
+    return samples
+
+
+def max_gap(a, b) -> tuple[float, bool]:
+    """(largest |a - b| over the final x, v and every float StepOutputs
+    field; every integer field equal) of two RequestResults."""
+    import numpy as np
+
+    gap, counts_equal = 0.0, True
+    for x, y in [(a.final_state.x, b.final_state.x),
+                 (a.final_state.v, b.final_state.v),
+                 *zip(a.outputs, b.outputs)]:
+        if isinstance(x, tuple):
+            continue
+        x, y = np.asarray(x), np.asarray(y)
+        if x.dtype.kind == "f":
+            gap = max(gap, float(np.max(np.abs(x.astype(np.float64)
+                                               - y.astype(np.float64)))))
+        else:
+            counts_equal = counts_equal and np.array_equal(x, y)
+    return gap, counts_equal
+
+
+def ledger_line(lanes: dict) -> str:
+    return (f"occupancy {lanes['occupancy_pct']}%, bubble "
+            f"{lanes['bubble_pct']}%, dispatch {lanes['dispatch_pct']}% of "
+            f"lane-time over {lanes['chunks']} chunks, identity "
+            f"{lanes['identity_ok']}")
+
+
+def phase19(engine, knn, swarm, t_start, dev="cuda") -> dict:
+    """Phase 19: the serve engine's continuous scheduler (module
+    docstring). Returns each driven run's launches and the measurements."""
+    import contextlib
+    import dataclasses
+    import io
+    import os
+    import shutil
+    import statistics
+    import threading
+
+    import numpy as np
+    import torch
+
+    from cbf_tpu_torch import obs
+    from cbf_tpu_torch.__main__ import main as cli
+    from cbf_tpu_torch.serve import (DeadlineExceeded, LoadSpec,
+                                     ServeEngine, build_schedule,
+                                     run_loadgen)
+
+    cuda = torch.device(dev).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def fused_want(chunks: int, chunk: int, redo_steps: int) -> dict:
+        want = dict.fromkeys(knn.LAUNCHES, 0)
+        if cuda:
+            want["knn_fused"] = want["knn_fused_members"] = \
+                want["knn_fused_radii"] = chunks * chunk + redo_steps
+        return want
+
+    out = {"runs": {}, "info": {}}
+    info = out["info"]
+    t19 = time.perf_counter()
+
+    # 19a. join and partials at full width.
+    cfgs = serve_workload(swarm, 0, **CONT_FULL, gating="pallas")
+    partials, plock = [], threading.Lock()
+
+    def hook(rid, done, part):
+        with plock:
+            partials.append((rid, done, part))
+
+    eng = ServeEngine(max_batch=CONT_FULL_BATCH, continuous=True,
+                      chunk_steps=CONT_FULL_CHUNK, device=dev,
+                      lane_ledger=True)
+    eng.partial_hook = hook
+    zero_counts(engine, knn)
+    t0 = time.perf_counter()
+    eng.prewarm(cfgs)
+    sync()
+    prewarm_s = time.perf_counter() - t0
+    prewarm_captures = engine.COUNTS["captures"]
+    chunk_buckets = eng.manifest_extra()["serve"]["chunk_buckets"]
+    check(len(chunk_buckets) == 2 and not eng._execs,
+          f"19a: prewarm made chunk programs {chunk_buckets} and drain "
+          f"programs {list(eng._execs)}")
+    check(not cuda or prewarm_captures == len(chunk_buckets),
+          f"19a: prewarm captured {prewarm_captures} programs for "
+          f"{chunk_buckets}")
+    print(f"phase 19a: prewarm of the chunk programs {chunk_buckets} in "
+          f"{prewarm_s:.3f} s with {prewarm_captures} captures (one per "
+          "static config)")
+    req = dataclasses.replace(cfgs[0], steps=CONT_FULL["steps"])
+    long_cfg = dataclasses.replace(cfgs[1], steps=CONT_LONG_STEPS,
+                                   seed=101)
+    check(eng.bucket_of(req)[0].static_cfg
+          == eng.bucket_of(long_cfg)[0].static_cfg,
+          "19a: the long runner is not of the request's lane table")
+    zero_counts(engine, knn)
+    eng.start()
+    try:
+        solo = eng.submit(req).result(timeout=600)
+        p_long = eng.submit(long_cfg)
+        t_wait = time.perf_counter()
+        while not any(r == p_long.request_id for r, _, _ in list(partials)):
+            check(time.perf_counter() - t_wait < 120, "19a: the long "
+                  "runner streamed no partial")
+            time.sleep(0.001)
+        p_twin = eng.submit(req)
+        twin = p_twin.result(timeout=600)
+        long_in_flight = not p_long.done()
+        long_res = p_long.result(timeout=600)
+    finally:
+        eng.stop()
+    sync()
+    launches, counts = dict(knn.LAUNCHES), dict(engine.COUNTS)
+    out["runs"]["phase 19a"] = {"launches": launches}
+    check(not cuda or counts["captures"] == 0,
+          f"19a: traffic captured {counts}")
+    want = fused_want(eng.stats["chunks_executed"], CONT_FULL_CHUNK,
+                      counts["redo_steps"])
+    check(launches == want, f"19a: launches {launches}, want {want}")
+    check(long_in_flight and long_res.steps == CONT_LONG_STEPS,
+          "19a: the long runner was not in flight when the twin resolved")
+    check(same_result(twin, solo), "19a: the request that joined the long "
+          "runner's table differs from its solo run")
+    with plock:
+        mine = [(d, part) for r, d, part in partials
+                if r == p_twin.request_id]
+    steps_seq = [d for d, _ in mine]
+    want_seq = list(range(CONT_FULL_CHUNK, req.steps + 1, CONT_FULL_CHUNK))
+    check(steps_seq == want_seq, f"19a: the twin's partials at "
+          f"{steps_seq}, want {want_seq}")
+    for f, (field, leaf) in enumerate(zip(twin.outputs._fields,
+                                          twin.outputs)):
+        if isinstance(leaf, tuple):
+            continue
+        stitched = np.concatenate([np.asarray(part[f]) for _, part in mine])
+        check(np.array_equal(stitched, leaf), f"19a: stitched partials of "
+              f"{field} differ from the resolved outputs")
+    check(int(np.sum(twin.outputs.infeasible_count)) == 0
+          and float(np.min(twin.outputs.min_pairwise_distance)) >= FLOOR,
+          "19a: the request is infeasible or below the floor")
+    drain = ServeEngine(max_batch=CONT_FULL_BATCH, device=dev).run([req])[0]
+    sync()
+    gap, counts_equal = max_gap(twin, drain)
+    check(gap <= SERVE_X_ATOL and counts_equal, f"19a: continuous vs drain "
+          f"gap {gap}, counts equal {counts_equal}")
+    recs = eng.lanes.records()
+    walls = {}
+    for rec in recs:
+        walls.setdefault(rec["fill"], []).append(
+            (rec["wall_ns"] / 1e6, rec["execute_ns"] / 1e6))
+    chunk_ms = {fill: {"n": len(v),
+                       "wall_ms_median": statistics.median(w for w, _ in v),
+                       "execute_ms_median": statistics.median(
+                           e for _, e in v)}
+                for fill, v in sorted(walls.items())}
+    info["19a"] = {"prewarm_s": prewarm_s,
+                   "prewarm_captures": prewarm_captures,
+                   "chunk_buckets": chunk_buckets,
+                   "continuous_vs_drain_bit_equal": gap == 0.0
+                   and counts_equal, "continuous_vs_drain_max_gap": gap,
+                   "chunk_ms_by_fill": chunk_ms,
+                   "ttfp_s": twin.ttfp_s, "latency_s": twin.latency_s,
+                   "long_latency_s": long_res.latency_s,
+                   "stats": {k: eng.stats[k] for k in (
+                       "chunks_executed", "lanes_joined", "lanes_vacated")},
+                   "launches": launches}
+    print(f"phase 19a: bucket {req.n} x {req.steps} steps joined a table "
+          f"with a {CONT_LONG_STEPS}-step runner in flight: "
+          f"np.array_equal to its solo run, partials at {steps_seq} "
+          f"stitched equal to the resolved outputs; continuous vs drain "
+          f"bit-equal {gap == 0.0 and counts_equal} (max gap {gap:.3e}, "
+          f"counts equal {counts_equal}); chunk of {CONT_FULL_CHUNK} steps "
+          f"by lanes filled: " + ", ".join(
+              f"{fill}: wall {v['wall_ms_median']:.3f} ms, execute "
+              f"{v['execute_ms_median']:.3f} ms (n={v['n']})"
+              for fill, v in chunk_ms.items())
+          + f"; twin TTFP {twin.ttfp_s} s, latency {twin.latency_s} s; "
+          f"launches {launches}")
+    print(f"  (script at {time.perf_counter() - t_start:.1f} s)")
+
+    # 19b. a deadline leave at full width.
+    surv_cfg = dataclasses.replace(cfgs[2], steps=CONT_FULL["steps"])
+    doom_cfg = dataclasses.replace(cfgs[3], steps=CONT_DOOMED_STEPS)
+    check(eng.bucket_of(surv_cfg)[0].static_cfg
+          == eng.bucket_of(doom_cfg)[0].static_cfg,
+          "19b: the doomed request is not of the survivor's lane table")
+    zero_counts(engine, knn)
+    eng.start()
+    try:
+        s_solo = eng.submit(surv_cfg).result(timeout=600)
+        p_surv = eng.submit(surv_cfg)
+        p_doom = eng.submit(doom_cfg, deadline_s=CONT_DEADLINE_S)
+        t_wait = time.perf_counter()
+        while not any(r == p_doom.request_id for r, _, _ in list(partials)):
+            check(time.perf_counter() - t_wait < 120, "19b: the doomed "
+                  "request streamed no partial")
+            time.sleep(0.001)
+        survivor = p_surv.result(timeout=600)
+        try:
+            p_doom.result(timeout=600)
+            doom_err = None
+        except DeadlineExceeded as e:
+            doom_err = str(e)
+    finally:
+        eng.stop()
+    sync()
+    out["runs"]["phase 19b"] = {"launches": dict(knn.LAUNCHES)}
+    check(doom_err is not None and "mid-flight" in doom_err,
+          f"19b: the doomed request resolved {doom_err!r}")
+    check(same_result(survivor, s_solo), "19b: the survivor differs from "
+          "its solo run")
+    doom_steps = max(d for r, d, _ in partials if r == p_doom.request_id)
+    info["19b"] = {"doomed_error": doom_err, "doomed_steps_done":
+                   doom_steps}
+    print(f"phase 19b: the doomed request ({CONT_DOOMED_STEPS} steps, "
+          f"deadline {CONT_DEADLINE_S} s) left mid-flight after "
+          f"{doom_steps} steps ({doom_err}); its batch-mate "
+          f"np.array_equal to its solo run")
+    print(f"  (script at {time.perf_counter() - t_start:.1f} s)")
+
+    # 19c. seeded open-loop traffic at the serve default, drain against
+    # continuous in turns.
+    class Events:
+        """The engines' telemetry: every request's own min distance and
+        infeasible count (the report aggregates them)."""
+        registry = None
+
+        def __init__(self):
+            self.requests = {}
+
+        def event(self, etype, payload):
+            if etype == "request":
+                self.requests[payload["request_id"]] = payload
+
+    spec = LoadSpec(**CONT_LOAD)
+    sched = [cfg for _, cfg in build_schedule(spec)]
+    events = Events()
+    engines = {
+        "drain": ServeEngine(max_batch=CONT_LOAD_BATCH, device=dev,
+                             telemetry=events),
+        "continuous": ServeEngine(max_batch=CONT_LOAD_BATCH,
+                                  continuous=True,
+                                  chunk_steps=CONT_LOAD_CHUNK, device=dev,
+                                  telemetry=events, lane_ledger=True)}
+    prewarm = {}
+    for name, e in engines.items():
+        zero_counts(engine, knn)
+        prewarm[name] = {"s": e.prewarm(sched),
+                         "captures": engine.COUNTS["captures"]}
+    sync()
+    zero_counts(engine, knn)
+    legs = []
+    for leg, name in enumerate(("drain", "continuous", "continuous",
+                                "drain")):
+        prefix = f"{name}{leg}-"
+        rep = run_loadgen(engines[name], spec, request_id_prefix=prefix)
+        legs.append((name, rep))
+        check(rep["completed"] == rep["requests"] > 0 and rep["errors"] == 0,
+              f"19c {name}: {rep['completed']} of {rep['requests']} "
+              f"completed, errors {rep['errors_by_type']}")
+        for i in range(rep["requests"]):
+            ev = events.requests[f"{prefix}{i}"]
+            md, ref = ev["min_pairwise_distance"], \
+                CONT_LOAD_REFERENCE_DIPS.get(i)
+            check(ev["infeasible_count"] == 0 and (
+                md >= FLOOR if ref is None
+                else abs(md - ref) <= CROSS_MD_ATOL),
+                  f"19c {name}: request {i} min distance {md} (reference "
+                  f"dip {ref}), infeasible {ev['infeasible_count']}")
+        if name == "continuous":
+            check(rep["lanes"] is not None and rep["lanes"]["identity_ok"],
+                  f"19c: the ledger's identity fails: {rep['lanes']}")
+            check(rep["ttfp_p50_s"] is not None, "19c: no TTFP")
+        else:
+            check(rep["ttfp_p50_s"] is None, "19c: TTFP in drain mode")
+    sync()
+    out["runs"]["phase 19c"] = {"launches": dict(knn.LAUNCHES)}
+    keys = ("achieved_rps", "requests", "latency_p50_s", "latency_p99_s",
+            "queue_wait_p50_s", "queue_wait_p99_s", "execute_p50_s",
+            "execute_p99_s", "ttfp_p50_s", "ttfp_p99_s", "batch_fill_mean",
+            "min_pairwise_distance", "lanes")
+    info["19c"] = {"spec": dict(CONT_LOAD), "prewarm": prewarm,
+                   "buckets": {n: e.manifest_extra()["serve"][
+                       "chunk_buckets" if e.continuous else "buckets"]
+                       for n, e in engines.items()},
+                   "legs": [{"engine": n, **{k: r[k] for k in keys}}
+                            for n, r in legs]}
+    for name, rep in legs:
+        print(f"phase 19c {name}: {rep['requests']} requests offered at "
+              f"{spec.rps} req/s, achieved {rep['achieved_rps']} req/s; "
+              f"latency p50 {rep['latency_p50_s']} s p99 "
+              f"{rep['latency_p99_s']} s; queue wait p50 "
+              f"{rep['queue_wait_p50_s']} p99 {rep['queue_wait_p99_s']} s "
+              f"against execute p50 {rep['execute_p50_s']} p99 "
+              f"{rep['execute_p99_s']} s; TTFP p50 {rep['ttfp_p50_s']} p99 "
+              f"{rep['ttfp_p99_s']} s; min distance "
+              f"{rep['min_pairwise_distance']} (requests "
+              f"{sorted(CONT_LOAD_REFERENCE_DIPS)} held to the reference's "
+              "dips, the rest above the floor), 0 infeasible"
+              + (f"; ledger {ledger_line(rep['lanes'])}"
+                 if rep["lanes"] else ""))
+    print(f"phase 19c: prewarm {prewarm}; launches {dict(knn.LAUNCHES)}")
+    print(f"  (script at {time.perf_counter() - t_start:.1f} s)")
+
+    # 19d. the loadgen CLI and the surfaces it feeds.
+    root = os.path.abspath(os.path.dirname(__file__) or ".")
+    work = os.path.join(root, "chiprun_out", "phase19d")
+    shutil.rmtree(work, ignore_errors=True)
+    mdir, tdir = os.path.join(work, "metrics"), os.path.join(work, "tel")
+    timeline = os.path.join(work, "timeline.json")
+
+    def run_cli(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(argv)
+        return rc, buf.getvalue()
+
+    zero_counts(engine, knn)
+    rc, text = run_cli(["loadgen", "--device", dev, *CONT_CLI,
+                        "--metrics-dir", mdir, "--telemetry-dir", tdir])
+    sync()
+    out["runs"]["phase 19d"] = {"launches": dict(knn.LAUNCHES)}
+    check(rc == 0, f"19d: loadgen exited {rc}")
+    record = json.loads(text.strip().splitlines()[-1])
+    check(record["errors"] == 0 and record["completed"] == record["requests"]
+          and record["ttfp_p50_s"] is not None and record["lanes"]
+          ["identity_ok"], f"19d: the record {record}")
+    buckets_d = sorted(record["by_bucket"])
+    rc_l, lanes_text = run_cli(["obs", "lanes", mdir])
+    rc_t, top_text = run_cli(["obs", "top", mdir])
+    check(rc_l == 0 and rc_t == 0, f"19d: obs lanes {rc_l}, obs top {rc_t}")
+    for b in buckets_d:
+        check(any(line.startswith(b) for line in lanes_text.splitlines()),
+              f"19d: obs lanes has no row for {b}")
+        check(b in top_text, f"19d: obs top shows no {b}")
+    rc_x, x_text = run_cli(["obs", "lanes", tdir, "--export-timeline",
+                            timeline])
+    check(rc_x == 0, f"19d: --export-timeline exited {rc_x}")
+    summary = json.loads(x_text.strip().splitlines()[-1])
+    used = {e["track"] for e in obs.read_events(tdir)
+            if e["event"] == "serve.span" and e.get("track") is not None}
+    check(summary["tracks"] == len(used) > 0 and all(
+        t.rsplit("/lane", 1)[0] in buckets_d
+        and int(t.rsplit("/lane", 1)[1]) < 8 for t in used),
+        f"19d: timeline tracks {summary}, lanes used {sorted(used)}")
+    with open(os.path.join(mdir, "metrics.prom")) as fh:
+        samples = parse_prom(fh.read())
+    check(samples.get("cbf_serve_lanes_chunks", 0) > 0,
+          "19d: metrics.prom has no lane chunks")
+    info["19d"] = {"record": {k: record[k] for k in (
+        "requests", "achieved_rps", "latency_p50_s", "latency_p99_s",
+        "ttfp_p50_s", "ttfp_p99_s", "lanes", "buckets")},
+        "timeline": summary, "prom_samples": len(samples)}
+    print(f"phase 19d: loadgen --continuous --metrics-dir: "
+          f"{record['requests']} requests, TTFP p50 {record['ttfp_p50_s']} "
+          f"s p99 {record['ttfp_p99_s']} s, ledger "
+          f"{ledger_line(record['lanes'])}; obs lanes and obs top exit 0 "
+          f"with a row per bucket {buckets_d}; the timeline has "
+          f"{summary['tracks']} lane tracks ({summary['spans']} spans); "
+          f"metrics.prom parses ({len(samples)} samples)")
+    info["seconds"] = time.perf_counter() - t19
+    print(f"phase 19: {info['seconds']:.1f} s")
+    return out
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -3861,6 +4313,10 @@ def main(argv: list[str]) -> int:
     # 17b's workloads, the fault ladder, the journal across a kill
     p18 = phase18(engine, knn, swarm, t_start, p17)
 
+    # 19. the continuous scheduler: joins and leaves at full width, seeded
+    # traffic drain against continuous, the loadgen CLI and its surfaces
+    p19 = phase19(engine, knn, swarm, t_start)
+
     # 6. timings at the main-path shapes; launches are every compiled
     # main-path run's of this call, by phase (13f's run swarm included)
     all_runs = {"phase 3 N=256": runs[ENTRY_N], "phase 3 N=4096": main,
@@ -3872,7 +4328,8 @@ def main(argv: list[str]) -> int:
                 **{f"phase 11 {kind}": run for kind, run in rta.items()},
                 **{f"phase 12{key}": run for key, run in cert.items()},
                 "phase 13f": scen["13f"], **p14["runs"], **p15["runs"],
-                **p16["runs"], **p17["runs"], **p18["runs"]}
+                **p16["runs"], **p17["runs"], **p18["runs"],
+                **p19["runs"]}
     by_phase = {name: {label: run["launches"][name]
                        for label, run in all_runs.items()
                        if run["launches"].get(name)}

@@ -15,8 +15,8 @@ the JAX package's (cbf_tpu.serve.buckets, cbf_tpu.serve.pack), on the CPU.
   ``slice_lane_chunk``, ``assemble_lane_result``, ``trim_result``) equal
   to JAX's on the same arrays.
 - The serving parts of later slices raise OutOfSliceError naming Queue
-  A11: ``ServeEngine(continuous=True)``, ``attach_background``, ``serve
-  --continuous``, ``serve --lease`` and the load generator's names.
+  A11: ``attach_background`` (the background tenant), ``serve --lease``,
+  ``serve --supervised`` and ``serve --ha-standby`` (the HA layer).
 """
 
 import dataclasses
@@ -280,14 +280,13 @@ def test_serve_out_of_slice_parts_raise(tmp_path):
     from cbf_tpu_torch.serve import ServeEngine
 
     with pytest.raises(OutOfSliceError, match="Queue A11"):
-        ServeEngine(continuous=True, device="cpu")
-    with pytest.raises(OutOfSliceError, match="Queue A11"):
         ServeEngine(device="cpu").attach_background(object())
+    with pytest.raises(OutOfSliceError, match="Queue A11"):
+        ServeEngine(continuous=True, device="cpu").attach_background(None)
     requests = tmp_path / "requests.json"
     requests.write_text('[{"steps": 8, "overrides": {"n": 10}}]')
-    for flag in (["--continuous"], ["--lease", str(tmp_path / "lease")]):
+    for flag in (["--lease", str(tmp_path / "lease")], ["--supervised"],
+                 ["--ha-standby"]):
         with pytest.raises(OutOfSliceError, match="Queue A11"):
             tcli(["serve", str(requests), "--device", "cpu",
                   "--journal", str(tmp_path / "j.jsonl"), *flag])
-    with pytest.raises(OutOfSliceError, match="Queue A11"):
-        from cbf_tpu_torch.serve import LoadSpec  # noqa: F401
