@@ -50,8 +50,14 @@ the run directory with the cost model and the flight recorder's capsules,
 through the continuous scheduler's lane tables (queue mode),
 ``--metrics-dir``/``--metrics-every`` rewrite ``metrics.prom`` and
 ``metrics.json`` while serving, and the fault-policy flags set the
-``FaultPolicy``. ``--lease``, ``--supervised`` and ``--ha-standby`` raise
-OutOfSliceError (Queue A11). ``loadgen`` drives the engine with seeded
+``FaultPolicy``. High availability (:mod:`cbf_tpu_torch.serve.ha`):
+``--lease`` serves as the primary (lease, heartbeat, a journal fenced by
+the lease; exit 4 once a newer epoch fences it), ``--ha-standby`` watches
+the lease and takes over on expiry, ``--supervised`` restarts a crashed
+primary (exit 3 on a crash loop). ``cluster serve`` spawns M ``cluster
+worker`` processes behind the routed cluster (:mod:`cbf_tpu_torch.cluster`)
+and exits 0 iff its exactly-once census is clean. ``loadgen`` drives the
+engine with seeded
 open-loop traffic (:mod:`cbf_tpu_torch.serve.loadgen`; ``--sweep-rps``
 finds the latency knee). ``obs top`` renders a metrics directory
 (``--merge``/``--glob`` fold several; exit 2 on a missing surface, 3 on
@@ -59,7 +65,7 @@ a stalled one), ``obs lanes`` the lane ledger's occupancy table
 (``--export-timeline`` rebuilds the per-lane Perfetto timeline from a
 run directory), ``obs incident`` summarises a capsule and ``--replay``
 re-runs its request through the port. The other subcommands (scenario,
-lint, cluster, bench) are not ported yet.
+lint, bench) are not ported yet.
 
     python -m cbf_tpu_torch serve requests.json --prewarm --journal J
     python -m cbf_tpu_torch serve --journal J --recover
@@ -67,6 +73,9 @@ lint, cluster, bench) are not ported yet.
     python -m cbf_tpu_torch serve requests.json --continuous --metrics-dir M
     python -m cbf_tpu_torch obs lanes M
     python -m cbf_tpu_torch loadgen --continuous --gating pallas --rps 16
+    python -m cbf_tpu_torch serve --ha-standby --lease L --journal J
+    python -m cbf_tpu_torch serve requests.json --lease L --journal J
+    python -m cbf_tpu_torch cluster serve requests.json --engines 2
 """
 
 from __future__ import annotations
@@ -1047,28 +1056,146 @@ def _metrics_exporter(args, sink, engine):
         extra_fn=lambda: {"stats": dict(engine.stats)}).start()
 
 
+def _serve_supervised(args) -> int:
+    """Run the serve command under the HA supervisor: re-exec this
+    process's own argv (minus ``--supervised``) as a child, restart it
+    on crashes with exponential backoff, trip the crash-loop breaker on
+    a restart storm (exit 3), and pass a FENCED child's exit 4 through
+    WITHOUT restarting — a newer epoch owns the journal, and a restart
+    would only fence again."""
+    from cbf_tpu_torch.serve import ha as serve_ha
+
+    sink = flight = None
+    if args.telemetry_dir:
+        from cbf_tpu_torch import obs
+        from cbf_tpu_torch.obs import flight as obs_flight
+
+        sink = obs.TelemetrySink(args.telemetry_dir)
+        flight = obs_flight.FlightRecorder(
+            os.path.join(sink.run_dir, "capsules")).attach(sink)
+    child = [sys.executable, "-m", "cbf_tpu_torch"] + \
+        [a for a in sys.argv[1:] if a != "--supervised"]
+    sup = serve_ha.Supervisor(
+        child, backoff_base_s=args.backoff_base_s,
+        backoff_max_s=args.backoff_max_s, max_restarts=args.max_restarts,
+        crash_window_s=args.crash_window_s, telemetry=sink, flight=flight)
+    rc = sup.run()
+    if sink is not None:
+        sink.close()
+    return rc
+
+
+def _serve_standby(args) -> int:
+    """Run the hot-standby side of an HA pair: initialise the device,
+    capture the journal's acknowledged buckets, watch the lease, and on
+    expiry take over — bump the epoch (fencing the old primary), replay
+    acknowledged-but-unresolved requests with request-id dedupe, serve
+    them to completion under the new epoch, and print one JSON takeover
+    record."""
+    from cbf_tpu_torch.serve import FencedError, ServeEngine
+    from cbf_tpu_torch.serve import ha as serve_ha
+
+    if not args.lease or not args.journal:
+        print("serve: --ha-standby requires --lease and --journal",
+              file=sys.stderr)
+        return 2
+    sink, _, flight = _serve_sink(args)
+    health_dir = args.metrics_dir or (sink.run_dir if sink else None)
+
+    def _health(role: str, epoch) -> None:
+        if health_dir is None:
+            return
+        from cbf_tpu_torch.obs import export as obs_export
+
+        obs_export.write_health(health_dir, {
+            "role": role, "epoch": epoch,
+            "lease": os.path.abspath(args.lease),
+            "journal": os.path.abspath(args.journal)})
+
+    def _engine_factory():
+        return ServeEngine(max_batch=args.max_batch,
+                           flush_deadline_s=args.flush_deadline,
+                           cache_dir=args.cache_dir, telemetry=sink,
+                           fault_policy=_fault_policy_from(args),
+                           flight=flight, device=args.device)
+
+    standby = serve_ha.Standby(
+        lease_path=args.lease, journal_path=args.journal,
+        engine_factory=_engine_factory, ttl_s=args.lease_ttl_s,
+        rotate_bytes=args.rotate_bytes, telemetry=sink, flight=flight)
+
+    def _on_ready() -> None:
+        _health("standby", None)
+        if args.ready_file:
+            with open(args.ready_file, "w") as fh:
+                fh.write("ready\n")
+
+    report = standby.run(max_wait_s=args.standby_max_wait_s,
+                         on_ready=_on_ready)
+    if report is None:
+        print(json.dumps({"takeover": False,
+                          "waited_s": args.standby_max_wait_s}))
+        if sink is not None:
+            sink.close()
+        return 0
+    _health("primary", report.epoch)
+    heartbeater = serve_ha.Heartbeater(
+        standby.lease, interval_s=args.heartbeat_s).start()
+    served, errors = [], {}
+    fenced_err = None
+    for p in report.pendings:
+        try:
+            r = p.result(timeout=300.0)
+            served.append({"request_id": r.request_id, "bucket": r.bucket,
+                           "latency_s": r.latency_s})
+        except FencedError as fe:
+            fenced_err = fenced_err or fe
+        except Exception as e:
+            errors[p.request_id] = type(e).__name__
+    standby.engine.stop(drain=True)
+    heartbeater.stop()
+    if fenced_err is None:
+        fenced_err = heartbeater.fenced or standby.engine.fenced
+    if sink is not None:
+        sink.summary({"takeover_epoch": report.epoch,
+                      "reenqueued": report.reenqueued})
+        sink.close()
+    if fenced_err is not None:
+        serve_ha.note_fenced(fenced_err, telemetry=sink, flight=flight)
+        print(json.dumps({"fenced": True, "epoch": fenced_err.epoch,
+                          "fence_epoch": fenced_err.fence_epoch}))
+        return serve_ha.EXIT_FENCED
+    print(json.dumps({
+        "takeover": True, "epoch": report.epoch,
+        "prev_epoch": report.prev_epoch, "records": report.records,
+        "reenqueued": report.reenqueued, "deduped": report.deduped,
+        "mttr_s": report.mttr_s, "served": served, "errors": errors,
+        "journal": os.path.abspath(args.journal)}))
+    return 0
+
+
 def cmd_serve(args) -> int:
     """Batch-serve a request file through the serving engine's drain mode:
     bucket by static signature, pack same-bucket requests into one
     lockstep program, optionally capture every bucket first
     (``--prewarm``). Prints one JSON record (per-request summaries +
     aggregate throughput/latency + capture counters), as the JAX
-    package's ``serve`` does, with its exit codes (the fenced exit 4
-    needs ``--lease``). ``--continuous`` serves through the lane tables
-    in queue mode; ``--metrics-dir`` keeps ``metrics.prom`` and
-    ``metrics.json`` current while serving. ``--lease``,
-    ``--supervised`` and ``--ha-standby`` raise OutOfSliceError (Queue
-    A11)."""
+    package's ``serve`` does, with its exit codes. ``--continuous``
+    serves through the lane tables in queue mode; ``--metrics-dir`` keeps
+    ``metrics.prom`` and ``metrics.json`` current while serving. With
+    ``--lease`` the process serves as an HA PRIMARY: it acquires the
+    lease (bumping the epoch), heartbeats it on a daemon thread, and
+    opens the journal fenced by the lease — a takeover by a standby
+    turns every further append into a typed rejection and this process
+    exits 4. ``--supervised`` and ``--ha-standby`` run the supervisor and
+    the standby."""
     import statistics
     import time as _time
 
-    for flag, what in (("lease", "serve --lease (the HA primary)"),
-                       ("supervised", "serve --supervised (the HA "
-                        "supervisor)"),
-                       ("ha_standby", "serve --ha-standby (the HA "
-                        "standby)")):
-        if getattr(args, flag):
-            raise OutOfSliceError(what, SLICE_SERVE)
+    if args.supervised:
+        return _serve_supervised(args)
+    if args.ha_standby:
+        return _serve_standby(args)
 
     import numpy as np
 
@@ -1077,6 +1204,10 @@ def cmd_serve(args) -> int:
 
     if args.recover and not args.journal:
         print("serve: --recover requires --journal", file=sys.stderr)
+        return 2
+    if args.lease and not args.journal:
+        print("serve: --lease requires --journal (the lease fences the "
+              "journal)", file=sys.stderr)
         return 2
     if args.pace_s is not None and args.pace_s < 0:
         print(f"serve: --pace-s must be >= 0, got {args.pace_s}",
@@ -1119,12 +1250,42 @@ def cmd_serve(args) -> int:
         cfgs = _load_requests(args.requests)
 
     sink, cost_model, flight = _serve_sink(args)
+    # HA primary: acquire the lease FIRST (bumping the epoch), then open
+    # the journal stamped with that epoch and fenced by the lease file —
+    # from here, a standby's takeover turns every append this process
+    # attempts into a typed FencedError.
+    lease = heartbeater = None
     journal_obj = args.journal
-    if args.journal and args.rotate_bytes:
+    if args.lease or (args.journal and args.rotate_bytes):
         from cbf_tpu_torch.durable.journal import RequestJournal
+        from cbf_tpu_torch.serve import ha as serve_ha
 
+        epoch, fence = 0, None
+        if args.lease:
+            from cbf_tpu_torch.scenarios import swarm
+
+            lease = serve_ha.Lease(args.lease, telemetry=sink)
+            # The device first (a departure from the JAX order): CUDA's
+            # initialisation can hold the interpreter long enough that a
+            # heartbeat it starves after the acquire reads as a dead
+            # primary to a standby's short TTL.
+            serve_ha.warm_device(swarm.resolve_device(args.device))
+            epoch, fence = lease.acquire(), lease.path
         journal_obj = RequestJournal(args.journal, telemetry=sink,
+                                     epoch=epoch, fence_path=fence,
                                      rotate_bytes=args.rotate_bytes)
+        if lease is not None:
+            heartbeater = serve_ha.Heartbeater(
+                lease, interval_s=args.heartbeat_s).start()
+            health_dir = args.metrics_dir or (sink.run_dir if sink
+                                              else None)
+            if health_dir:
+                from cbf_tpu_torch.obs import export as obs_export
+
+                obs_export.write_health(health_dir, {
+                    "role": "primary", "epoch": epoch,
+                    "lease": lease.path,
+                    "journal": os.path.abspath(args.journal)})
     engine = ServeEngine(max_batch=args.max_batch,
                          flush_deadline_s=args.flush_deadline,
                          cache_dir=args.cache_dir, telemetry=sink,
@@ -1155,6 +1316,8 @@ def cmd_serve(args) -> int:
         record["buckets"] = engine.manifest_extra()["serve"]["buckets"]
     if args.prewarm_only:
         record["stats"] = engine.stats
+        if heartbeater is not None:
+            heartbeater.stop()
         if exporter is not None:
             exporter.stop()
             record["metrics_dir"] = os.path.abspath(args.metrics_dir)
@@ -1172,6 +1335,8 @@ def cmd_serve(args) -> int:
         prev_term = engine.install_sigterm_handler()
     except ValueError:
         pass
+    from cbf_tpu_torch.serve import FencedError
+    fenced_err = None
     req_errors: dict[str, str] = {}
     t0 = _time.perf_counter()
     try:
@@ -1183,26 +1348,54 @@ def cmd_serve(args) -> int:
             # would drain instead).
             engine.start()
             pendings = []
-            for i, cfg in enumerate(cfgs):
-                rid = request_ids[i] if request_ids is not None else None
-                pendings.append(engine.submit(cfg, request_id=rid))
-                if args.pace_s:
-                    _time.sleep(args.pace_s)
+            try:
+                for i, cfg in enumerate(cfgs):
+                    rid = (request_ids[i] if request_ids is not None
+                           else None)
+                    pendings.append(engine.submit(cfg, request_id=rid))
+                    if args.pace_s:
+                        _time.sleep(args.pace_s)
+            except FencedError as fe:
+                fenced_err = fe
             results = []
             for p in pendings:
                 try:
                     results.append(p.result(timeout=300.0))
+                except FencedError as fe:
+                    fenced_err = fenced_err if fenced_err is not None \
+                        else fe
                 except Exception as e:
                     req_errors[p.request_id] = type(e).__name__
             engine.stop(drain=True)
         else:
             results = engine.run(cfgs, request_ids=request_ids)
+    except FencedError as fe:
+        fenced_err = fe
+        results = []
     finally:
         if prev_term is not None:
             import signal as _signal
 
             _signal.signal(_signal.SIGTERM, prev_term)
     wall = _time.perf_counter() - t0
+    if heartbeater is not None:
+        heartbeater.stop()
+        if fenced_err is None:
+            fenced_err = heartbeater.fenced
+    if fenced_err is None:
+        fenced_err = engine.fenced
+    if fenced_err is not None:
+        from cbf_tpu_torch.serve import ha as serve_ha
+
+        serve_ha.note_fenced(fenced_err, telemetry=sink, flight=flight)
+        if exporter is not None:
+            exporter.stop()
+        if sink is not None:
+            sink.close()
+        print(json.dumps({"fenced": True, "epoch": fenced_err.epoch,
+                          "fence_epoch": fenced_err.fence_epoch,
+                          "served": len(results)}))
+        return serve_ha.EXIT_FENCED
     if cost_model is not None:
         try:                     # offline run() never stop()s the engine
             cost_model.save()
@@ -1250,6 +1443,169 @@ def cmd_serve(args) -> int:
         record["telemetry"] = sink.run_dir
     print(json.dumps(record))
     return 0
+
+
+def cmd_cluster_worker(args) -> int:
+    """One cluster engine process (spawned by ``cluster serve``, or by
+    hand): claim routed requests from this engine's inbox, acknowledge
+    them through a fenced WAL, respond through the outbox. SIGTERM
+    drains (exit 0); a newer lease epoch fences this process (exit 4).
+    With --metrics, a `MetricsExporter` rewrites this engine's
+    ``metrics/`` surface — aggregate M of them with ``obs top
+    --merge``."""
+    import signal
+
+    from cbf_tpu_torch.cluster import transport as ctransport
+    from cbf_tpu_torch.cluster.worker import Worker
+
+    dirs = ctransport.EngineDirs(args.root, args.name)
+    sink = None
+    if args.metrics or args.telemetry:
+        from cbf_tpu_torch import obs
+
+        sink = obs.TelemetrySink(os.path.join(dirs.base, "telemetry"))
+    w = Worker(args.root, args.name, max_batch=args.max_batch,
+               flush_deadline_s=args.flush_deadline,
+               heartbeat_s=args.heartbeat_s, cache_dir=args.cache_dir,
+               telemetry=sink, poll_s=args.poll_s, device=args.device)
+    w.boot()
+    exporter = None
+    if args.metrics:
+        from cbf_tpu_torch.obs import export as obs_export
+
+        exporter = obs_export.MetricsExporter(
+            sink.registry, dirs.metrics, every_s=args.metrics_every,
+            extra_fn=lambda: {"engine": args.name,
+                              "stats": dict(w.engine.stats)}).start()
+
+    def _term(signum, frame):
+        w._stop.set()
+
+    try:
+        signal.signal(signal.SIGTERM, _term)
+    except ValueError:
+        pass
+    rc = w.run_loop()
+    if exporter is not None:
+        exporter.stop()
+    if sink is not None:
+        sink.write_manifest(obs.build_manifest())
+        sink.close()
+    return rc
+
+
+def cmd_cluster_serve(args) -> int:
+    """Serve a request file through a routed M-engine cluster: spawn M
+    ``cluster worker`` processes, route every request by bucket
+    signature over the consistent-hash ring (cost-model admission when
+    a costmodel.json is present; work stealing with --steal), watch
+    every worker's lease and fail dead ones over onto survivors, and
+    with --roll run one full zero-loss rolling restart while the
+    requests drain. Prints one JSON record ending in the cluster-wide
+    exactly-once census; exit 0 iff the census is clean."""
+    import subprocess
+    import tempfile
+    import time as _time
+
+    from cbf_tpu_torch.cluster import (ClusterRouter, Membership,
+                                       cluster_census)
+    from cbf_tpu_torch.cluster import transport as ctransport
+    from cbf_tpu_torch.serve.resilience import ServeError
+    from cbf_tpu_torch.utils.faults import wait_for_file
+
+    if args.engines < 1:
+        print(f"cluster serve: --engines must be >= 1, "
+              f"got {args.engines}", file=sys.stderr)
+        return 2
+    cfgs = _load_requests(args.requests)
+    root = args.root or tempfile.mkdtemp(prefix="cbf_cluster_")
+    names = [f"e{i}" for i in range(args.engines)]
+    sink = cost_model = None
+    if args.telemetry_dir:
+        from cbf_tpu_torch import obs
+        from cbf_tpu_torch.obs import resource as obs_resource
+
+        sink = obs.TelemetrySink(args.telemetry_dir)
+        cost_model = obs_resource.CostModel(os.path.join(
+            sink.run_dir, obs_resource.COSTMODEL_FILENAME))
+    router = ClusterRouter(root, names, telemetry=sink,
+                           cost_model=cost_model,
+                           budget_bytes=args.budget_bytes,
+                           steal=args.steal,
+                           steal_threshold=args.steal_threshold)
+    if args.prewarm:
+        # Written BEFORE the workers spawn: each engine captures the
+        # request file's buckets at boot, so first traffic is warm.
+        router.prewarm(cfgs)
+    procs: dict = {}
+
+    def spawn(name: str) -> None:
+        argv = [sys.executable, "-m", "cbf_tpu_torch", "cluster", "worker",
+                "--root", root, "--name", name,
+                "--max-batch", str(args.max_batch),
+                "--flush-deadline", str(args.flush_deadline),
+                "--heartbeat-s", str(args.heartbeat_s),
+                "--device", args.device]
+        if args.cache_dir:
+            argv += ["--cache-dir", args.cache_dir]
+        if args.worker_metrics:
+            argv += ["--metrics"]
+        procs[name] = subprocess.Popen(argv)
+
+    t0 = _time.monotonic()
+    for name in names:
+        spawn(name)
+    for name in names:
+        dirs = ctransport.EngineDirs(root, name)
+        if not wait_for_file(dirs.ready, args.ready_timeout):
+            for pr in procs.values():
+                pr.terminate()
+            print(f"cluster serve: engine {name} not ready within "
+                  f"{args.ready_timeout}s", file=sys.stderr)
+            return 2
+    router.start()
+    membership = Membership(router, ttl_s=args.lease_ttl_s,
+                            telemetry=sink, respawn=spawn).start()
+    pendings, errors = [], {}
+    for cfg in cfgs:
+        try:
+            pendings.append(router.submit(cfg))
+        except ServeError as e:
+            errors[type(e).__name__] = errors.get(type(e).__name__,
+                                                  0) + 1
+    roll = None
+    if args.roll:
+        roll = membership.rolling_restart()
+    completed = 0
+    for pnd in pendings:
+        try:
+            pnd.result(timeout=args.result_timeout)
+            completed += 1
+        except Exception as e:
+            errors[type(e).__name__] = errors.get(type(e).__name__,
+                                                  0) + 1
+    router.stop(drain=True)
+    membership.stop()
+    for name, pr in procs.items():
+        pr.terminate()
+    for name, pr in procs.items():
+        try:
+            pr.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            pr.kill()
+    census = cluster_census(root)
+    record = {"engines": args.engines, "root": root,
+              "requests": len(cfgs), "completed": completed,
+              "errors": errors, "stolen": router.stolen,
+              "failovers": membership.failovers,
+              "mttr_s": membership.mttr_s, "roll": roll,
+              "census": census,
+              "wall_s": round(_time.monotonic() - t0, 3)}
+    if sink is not None:
+        sink.write_manifest(obs.build_manifest())
+        sink.close()
+    print(json.dumps(record))
+    return 0 if census["ok"] else 1
 
 
 def cmd_loadgen(args) -> int:
@@ -1695,13 +2051,52 @@ def main(argv=None) -> int:
     _add_metrics_args(servep)
     _add_continuous_args(servep)
     _add_fault_policy_args(servep)
-    # Queue A11's later parts: accepted so that they raise OutOfSliceError.
     servep.add_argument("--lease", default=None, metavar="PATH",
-                        help="serve as an HA primary (not ported yet)")
+                        help="serve as an HA PRIMARY: acquire this lease "
+                             "file (bumping its epoch), heartbeat it, and "
+                             "fence the journal with it — a standby "
+                             "takeover makes this process exit 4 "
+                             "(requires --journal)")
+    servep.add_argument("--heartbeat-s", type=float, default=0.2,
+                        help="lease heartbeat interval in seconds "
+                             "(default 0.2)")
     servep.add_argument("--supervised", action="store_true",
-                        help="the HA supervisor (not ported yet)")
+                        help="run this serve command under the HA "
+                             "supervisor: restart on crash with "
+                             "exponential backoff, exit 3 on a crash "
+                             "loop, pass a fenced child's exit 4 through "
+                             "without restarting")
+    servep.add_argument("--max-restarts", type=int, default=5,
+                        help="supervisor crash-loop breaker: more than "
+                             "this many crashes inside --crash-window-s "
+                             "exits 3 (default 5)")
+    servep.add_argument("--crash-window-s", type=float, default=30.0,
+                        help="supervisor crash-loop rolling window in "
+                             "seconds (default 30)")
+    servep.add_argument("--backoff-base-s", type=float, default=0.2,
+                        help="supervisor restart backoff base in seconds "
+                             "(doubles per consecutive crash; default "
+                             "0.2)")
+    servep.add_argument("--backoff-max-s", type=float, default=5.0,
+                        help="supervisor restart backoff ceiling in "
+                             "seconds (default 5)")
     servep.add_argument("--ha-standby", action="store_true",
-                        help="the HA standby (not ported yet)")
+                        help="serve as an HA HOT STANDBY: initialise the "
+                             "device, capture the journal's buckets, "
+                             "watch the lease, and on expiry take over "
+                             "under a bumped epoch (requires --lease and "
+                             "--journal)")
+    servep.add_argument("--lease-ttl-s", type=float, default=2.0,
+                        help="standby: declare the lease expired after "
+                             "this many seconds without a heartbeat "
+                             "change (default 2)")
+    servep.add_argument("--ready-file", default=None, metavar="PATH",
+                        help="standby: touch this file once hot (device "
+                             "initialised, captured, watching) — the "
+                             "harness handshake")
+    servep.add_argument("--standby-max-wait-s", type=float, default=600.0,
+                        help="standby: give up waiting for a takeover "
+                             "after this many seconds (default 600)")
     servep.set_defaults(fn=cmd_serve)
 
     loadp = sub.add_parser(
@@ -1763,6 +2158,114 @@ def main(argv=None) -> int:
     _add_continuous_args(loadp)
     _add_fault_policy_args(loadp)
     loadp.set_defaults(fn=cmd_loadgen)
+
+    clup = sub.add_parser(
+        "cluster", help="routed multi-engine serve cluster: consistent-"
+                        "hash placement, cost-model admission, work "
+                        "stealing, zero-loss rolling restarts")
+    clu_sub = clup.add_subparsers(dest="cluster_command", required=True)
+    cwp = clu_sub.add_parser(
+        "worker", help="one cluster engine process: claim/ack/respond "
+                       "loop over this engine's transport directories")
+    cwp.add_argument("--root", required=True,
+                     help="cluster root directory (shared with the "
+                          "router)")
+    cwp.add_argument("--name", required=True,
+                     help="engine name (its transport subtree is "
+                          "<root>/engines/<name>)")
+    cwp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                     help="where the engine's programs run (default: the "
+                          "card; without one the worker raises)")
+    cwp.add_argument("--max-batch", type=int, default=8,
+                     help="engine micro-batch size (default 8)")
+    cwp.add_argument("--flush-deadline", type=float, default=0.05,
+                     help="engine queue flush deadline in seconds "
+                          "(default 0.05)")
+    cwp.add_argument("--heartbeat-s", type=float, default=0.2,
+                     help="lease heartbeat interval in seconds "
+                          "(default 0.2)")
+    cwp.add_argument("--cache-dir", default=None,
+                     help="the CBF_TPU_CACHE_DIR knob, recorded in the "
+                          "manifest (CUDA graphs do not persist across "
+                          "processes)")
+    cwp.add_argument("--poll-s", type=float, default=0.005,
+                     help="inbox poll interval in seconds "
+                          "(default 0.005)")
+    cwp.add_argument("--telemetry", action="store_true",
+                     help="write this engine's JSONL run directory "
+                          "under <root>/engines/<name>/telemetry")
+    cwp.add_argument("--metrics", action="store_true",
+                     help="rewrite this engine's metrics surface under "
+                          "<root>/engines/<name>/metrics at --metrics-"
+                          "every cadence; aggregate M engines with "
+                          "`obs top --merge`")
+    cwp.add_argument("--metrics-every", type=float, default=2.0,
+                     help="metrics rewrite cadence in seconds "
+                          "(default 2)")
+    cwp.set_defaults(fn=cmd_cluster_worker)
+    csp = clu_sub.add_parser(
+        "serve", help="serve a request file through a routed M-engine "
+                      "cluster; exit 0 iff the cluster-wide exactly-"
+                      "once census is clean")
+    csp.add_argument("requests",
+                     help="JSON request file (same format as `serve`)")
+    csp.add_argument("--engines", type=int, default=2,
+                     help="number of worker engines to spawn "
+                          "(default 2)")
+    csp.add_argument("--root", default=None,
+                     help="cluster root directory (default: a fresh "
+                          "temp dir)")
+    csp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                     help="device of the WORKER processes (default: the "
+                          "card; the router itself never touches a "
+                          "device)")
+    csp.add_argument("--max-batch", type=int, default=8,
+                     help="per-engine micro-batch size (default 8)")
+    csp.add_argument("--flush-deadline", type=float, default=0.05,
+                     help="per-engine flush deadline in seconds "
+                          "(default 0.05)")
+    csp.add_argument("--heartbeat-s", type=float, default=0.2,
+                     help="worker lease heartbeat interval in seconds "
+                          "(default 0.2)")
+    csp.add_argument("--lease-ttl-s", type=float, default=2.0,
+                     help="declare an engine dead after this many "
+                          "seconds without a heartbeat change "
+                          "(default 2)")
+    csp.add_argument("--cache-dir", default=None,
+                     help="the CBF_TPU_CACHE_DIR knob passed to every "
+                          "engine, recorded in their manifests")
+    csp.add_argument("--steal", action="store_true",
+                     help="enable work stealing: re-route queued-but-"
+                          "unacknowledged requests from a hotspotted "
+                          "engine to an idle one")
+    csp.add_argument("--steal-threshold", type=int, default=4,
+                     help="unclaimed inbox depth that marks an engine "
+                          "hotspotted (default 4)")
+    csp.add_argument("--roll", action="store_true",
+                     help="run one full rolling restart (drain-then-"
+                          "restart each engine) while the requests "
+                          "drain; gated on zero lost acks")
+    csp.add_argument("--prewarm", action="store_true",
+                     help="publish the request file's buckets as the "
+                          "cluster prewarm set before the engines boot")
+    csp.add_argument("--worker-metrics", action="store_true",
+                     help="pass --metrics to every worker (per-engine "
+                          "metrics/ surfaces for `obs top --merge`)")
+    csp.add_argument("--telemetry-dir", default=None,
+                     help="router-side run directory: cluster.route/"
+                          "steal/member/roll events (+ costmodel.json "
+                          "admission when present)")
+    csp.add_argument("--budget-bytes", type=int, default=None,
+                     help="per-request device-memory admission budget "
+                          "(needs a costmodel.json in --telemetry-dir; "
+                          "unpriced shapes fail open)")
+    csp.add_argument("--ready-timeout", type=float, default=180.0,
+                     help="seconds to wait for each engine's ready "
+                          "file at boot (default 180)")
+    csp.add_argument("--result-timeout", type=float, default=300.0,
+                     help="seconds to wait for each routed result "
+                          "(default 300)")
+    csp.set_defaults(fn=cmd_cluster_serve)
 
     args = p.parse_args(argv)
     return args.fn(args)

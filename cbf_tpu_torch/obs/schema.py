@@ -23,8 +23,9 @@ engine's drain mode, its tracer, the request journal and the flight
 recorder, the load generator and the lane ledger declare their events
 here (:data:`SERVE_EVENT_TYPES`, :data:`DURABLE_EVENT_TYPES`,
 :data:`FLIGHT_EVENT_TYPES`, :data:`LOADGEN_EVENT_TYPES`,
-:data:`LANES_EVENT_TYPES`); the event tables of the HA, cluster and fleet
-layers arrive with their emitters (Queue A11).
+:data:`LANES_EVENT_TYPES`), as do the high-availability layer and the
+routed cluster (:data:`HA_EVENT_TYPES`, :data:`CLUSTER_EVENT_TYPES`); the
+fleet's table arrives with its emitter (Queue A11).
 """
 
 from __future__ import annotations
@@ -198,6 +199,51 @@ LANES_EVENT_FIELDS: dict[str, tuple[str, ...]] = {
                            "bubble_pct", "dispatch_pct", "identity_ok",
                            "joins", "vacates", "preempted", "join_rate",
                            "vacate_rate", "by_bucket"),
+}
+
+#: The high-availability layer's events (``serve.ha``): ``ha.lease``
+#: once per lease acquisition (the epoch bumped to, the owner, the lease
+#: path), ``ha.takeover`` once per standby promotion (new vs fenced
+#: epoch, journal records folded, acknowledged-but-unresolved requests
+#: re-enqueued, resolved ids deduped, and the MTTR from expiry detection
+#: to serving resumed), ``ha.fenced`` once when a newer epoch rejects a
+#: zombie's append or heartbeat, ``ha.restart`` once per supervisor
+#: restart of a crashed primary, ``ha.crash_loop`` once when the
+#: supervisor's crash-loop breaker trips. ``serve.ha.EMITTED_EVENT_TYPES``
+#: equals this tuple.
+HA_EVENT_TYPES: tuple[str, ...] = (
+    "ha.lease", "ha.takeover", "ha.fenced", "ha.restart", "ha.crash_loop")
+
+HA_EVENT_FIELDS: dict[str, tuple[str, ...]] = {
+    "ha.lease": ("path", "epoch", "owner", "action"),
+    "ha.takeover": ("epoch", "prev_epoch", "records", "reenqueued",
+                    "deduped", "mttr_s"),
+    "ha.fenced": ("epoch", "fence_epoch", "path"),
+    "ha.restart": ("attempt", "exit_code", "backoff_s", "uptime_s"),
+    "ha.crash_loop": ("restarts", "window_s"),
+}
+
+#: The routed cluster's events (``cluster``): ``cluster.route`` once per
+#: request the router admits and places (engine, bucket label, target
+#: inbox depth, the cost model's predicted bytes — 0 unpriced),
+#: ``cluster.steal`` once per unclaimed request file the steal sweep
+#: renames onto an idle engine, ``cluster.member`` once per membership
+#: transition (``state`` up/dead/failover; a failover carries the dead
+#: engine's replay census and its MTTR), ``cluster.roll`` once per
+#: rolling-restart phase (drain/restart/done) per engine. The union of
+#: ``cluster.router`` and ``cluster.membership``'s
+#: ``EMITTED_EVENT_TYPES`` equals this tuple.
+CLUSTER_EVENT_TYPES: tuple[str, ...] = (
+    "cluster.route", "cluster.steal", "cluster.member", "cluster.roll")
+
+CLUSTER_EVENT_FIELDS: dict[str, tuple[str, ...]] = {
+    "cluster.route": ("request_id", "bucket", "engine", "inbox_depth",
+                      "predicted_bytes"),
+    "cluster.steal": ("request_id", "bucket", "from_engine", "to_engine",
+                      "inbox_depth"),
+    "cluster.member": ("engine", "state", "epoch", "reenqueued",
+                       "deduped", "mttr_s"),
+    "cluster.roll": ("engine", "phase", "drained", "restart_s"),
 }
 
 #: The incident flight recorder's event (``obs.flight``): one

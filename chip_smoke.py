@@ -38,7 +38,8 @@ Phases (each raises, and the script exits non-zero, on any failure):
    every ``StepOutputs`` field (``torch.equal``), launch ``knn_fused`` once
    per step (plus any step the engine redid eagerly) and no other kernel,
    and hold the separation floor with zero infeasible QPs; eager and
-   compiled are timed in turns (eager, compiled, compiled, eager) and the
+   compiled are timed in turns (eager, compiled, compiled, eager; the
+   eager legs over the first 100 steps of the horizon) and the
    peak device memory, the guarded relax rounds, the redo count and the
    per-step relax rounds are printed;
 4. the same at N=16384 for 50 steps, which routes to ``knn_stream``; then
@@ -102,15 +103,15 @@ Phases (each raises, and the script exits non-zero, on any failure):
 12. the joint barrier certificate, each run compiled and held to the
    eager loop as in phase 3 (both certificate carries included), with
    ``knn_fused`` launched twice per step (the gating search and the
-   certificate's): 12a ``Config(n=4096, certificate=True)`` x 30 (the
+   certificate's): 12a ``Config(n=4096, certificate=True)`` x 20 (the
    sparse backend, k=16, 100 ADMM iterations x 8 CG); 12b the same warm
    started with ``certificate_tol=1e-5`` (the adaptive budget's guarded
    blocks), and again x 10 with one guarded block, which must redo its
    chunk eagerly and still equal the eager loop; 12c
    ``certificate_fused`` (Chebyshev) with the certificate's Verlet cache,
-   skin 0.1, x 30 (eager rebuilds printed);
+   skin 0.1, x 15 (eager rebuilds printed);
    12d ``Config(n=128, certificate=True)``, the dense backend (Cholesky
-   in the captured body, one launch per step) x 100; each with max
+   in the captured body, one launch per step) x 50; each with max
    certificate residual < 1e-4 (``bench.py``'s gate), 0 infeasible and
    min distance >= 0.13 (``bench.py``'s floor), and R, B, redos, the
    per-step iterations histogram, the dropped count, peak memory and the
@@ -120,16 +121,17 @@ Phases (each raises, and the script exits non-zero, on any failure):
    ran 100/100/50 steps before phase 13 came; they were cut to 50/50/30,
    with the 12a profile from 3 steps to 2, to keep the script near ten
    minutes, and to 30/30/30, the 12a profile to 1 step and 12d's from 5
-   to 2, when phase 17 came, to keep it under 850 s: an eager sparse step takes 0.26-0.38 s on an H100 80GB HBM3
+   to 2, when phase 17 came, to keep it under 850 s, and to 20/20/15 when
+   phase 20 came: an eager sparse step takes 0.26-0.38 s on an H100 80GB HBM3
    at 700 W, PERF.md §5.)
 13. the reference scenarios, the CLI and the compat layer: 13a
    ``meet_at_center`` (10 robots x 1000 iterations), 13b
    ``cross_and_rescue`` (4 robots, 6 ring obstacles, the dense
    certificate, x 3000) and 13c ``antipodal`` (N=32 x 1500), each at its
-   default Config through its ``make`` and the compiled rollout, held
-   ``torch.equal`` to the eager loop over the whole horizon (13b: its
-   first 200 steps, as an eager step takes 54-107 ms on an H100 80GB
-   HBM3 at 700 W, PERF.md §5; the compiled run goes the full 3000),
+   default Config through its ``make`` and the compiled rollout over its
+   whole horizon, held ``torch.equal`` to the eager loop over the first
+   300 steps (13b: its first 100, as an eager step takes 54-107 ms on an
+   H100 80GB HBM3 at 700 W, PERF.md §5),
    launching no knn kernel, each with the bounds of
    tests/test_scenarios.py (13a: free-agent spread < 0.35, min distance >
    0.05, the filter engaged on > 100 agent-steps of the first 400; 13b:
@@ -137,7 +139,7 @@ Phases (each raises, and the script exits non-zero, on any failure):
    < 1e-4; 13c: all 32 within 0.2 m of their antipodes, min distance >
    0.2/sqrt(2) - 5e-3) and 0 infeasible, R, redos, the relax histogram,
    the step walls eager and compiled in turns (13a and 13c over 200
-   steps, 13b over 50), the
+   steps, 13b over 25), the
    device ops per step and the first call's seconds printed; 13d the
    golden anchor: float64 ``meet_at_center`` on the card for 5 steps
    within 5e-5 of the float64 numpy replay through the port's SLSQP
@@ -196,7 +198,8 @@ Phases (each raises, and the script exits non-zero, on any failure):
    each run held ``torch.equal`` to the eager loop of the same step
    program (final carry and every metric), timed, launches per step and
    peak memory printed: 15c BASELINE.md:31's Monte-Carlo sweep, 1024
-   seeds x 64 agents x 500 steps (one member-axis ``knn_fused`` launch
+   seeds x 64 agents x 500 steps, held to the eager loop over the first
+   100 (one member-axis ``knn_fused`` launch
    per step), 0 infeasible and in every member the floor, or, for the
    seeds whose reference run itself dips below it (MC_REFERENCE_DIPS,
    measured with the JAX package on the CPU), the reference's own
@@ -208,11 +211,11 @@ Phases (each raises, and the script exits non-zero, on any failure):
    step's radius and k, each output ``torch.equal`` to its plain version
    and to single launches of members 0, 1, E/2 and E-1, and one launch
    on the final positions timed beside its bound;
-   15e the lockstep batched sparse certificate, 4 members of 4096 x 20
+   15e the lockstep batched sparse certificate, 4 members of 4096 x 10
    steps: every member's residual under the gate, 0 infeasible, the
    batched run against each member run alone within LOCK_*_ATOL, device
-   ops per step; 15f chunk=50 ``torch.equal`` to the unchunked run (4 x
-   4096 x 200), a warm-carry resume at step 100 (``with_solver_state``,
+   ops per step; 15f chunk=25 ``torch.equal`` to the unchunked run (4 x
+   4096 x 100), a warm-carry resume at step 50 (``with_solver_state``,
    4 x 4096 sparse certificate, warm start under certificate_tol, no
    redo, its per-step iteration histogram printed)
    ``torch.equal`` to the straight run, and the Verlet cache at E=1
@@ -238,7 +241,8 @@ Phases (each raises, and the script exits non-zero, on any failure):
    the overhead printed beside JAX's 3% budget and held under 10% (and
    split: every-step chunks without the tap, the tap in one chunk, each
    timed in turns beside the run without, device ops and busy share on
-   and off from torch.profiler), and the watchdog raising ``nan`` (``faults.nan_at_step``),
+   and off from torch.profiler over 50 steps), and the watchdog raising
+   ``nan`` (``faults.nan_at_step``),
    ``certificate_blowup`` (``faults.residual_blowup_at_step`` on the warm
    sparse certificate at N=256) and ``stall`` (``faults.stall_at_step``,
    2 s); 16d ``checked_rollout`` clean on the x 500 run and locating an
@@ -330,6 +334,34 @@ Phases (each raises, and the script exits non-zero, on any failure):
    M`` exit 0 with a row per bucket, ``obs lanes T --export-timeline``
    one track per lane used, ``metrics.prom`` parsed (files under
    ``chiprun_out/phase19d/``).
+20. high availability and the routed cluster (``serve.ha``,
+   ``cluster``): 20a ``python -m cbf_tpu_torch serve --ha-standby``
+   (lease TTL 1 s, ready file, telemetry) and then a paced ``serve
+   --lease`` primary on 8 requests at 4096 agents x 128 steps
+   (``gating="pallas"``, ``max_batch`` 4, heartbeat 0.1 s), SIGKILLed
+   0.8 s after its first acknowledgment: the standby exits 0 with its
+   takeover record at epoch 2, every acknowledged request resolved
+   exactly once, the recovered ones above the floor with 0 infeasible;
+   the standby's capture seconds, the primary's largest gap between
+   beats (seen from this process through the ``.beat`` sidecar; held
+   under the TTL) and the time from the kill to the first recovered
+   result beside phase 18d's cold recovery; 20b a continuous engine
+   (32-step chunks, ``max_batch`` 4, buckets 4096 and 2048) journaling
+   under a lease, fenced by a second ``Lease.acquire`` with five lanes in
+   flight and a request queued behind the full table: every handle
+   resolves with ``FencedError`` (the queued one on the mid-join path),
+   ``engine.fenced`` set, not a byte appended after the fence, the armed
+   lock witness with no inversion and no journal append under
+   ``_PROGRAM_LOCK``, one ``knn_fused`` launch per chunk step; 20c
+   ``python -m cbf_tpu_torch cluster serve --engines 2 --prewarm
+   --steal --lease-ttl-s 1.0`` on 24 requests at the serve default (one
+   hot bucket), the worker holding the hot bucket SIGKILLed by its pid
+   file once requests are in flight: exit 0, an exactly-once census,
+   every result above the floor with 0 infeasible (two held to the
+   reference's own dips), req/s and p50/p99 latency from the router's
+   route events to the journals' resolved records, the steal count, the
+   failover MTTR and the time from the kill to the survivor's first
+   replayed result (files under ``chiprun_out/phase20*``).
 
 Phases 7-13 run before phase 6, which times their kernels (``knn_fused``
 and ``knn_stream`` also at the certificate's k=16 shape) and profiles
@@ -389,13 +421,16 @@ THIN_N = 4096   # phase 2's thin band: 8 blocks of rows in one 1e-3 m band
 # CERT_DENSE_PROFILE_STEPS): a 20-step profile of them takes minutes of
 # the script's time (PERF.md §5). Cut from 2 and 5 steps when phase 17
 # came, to keep the script under 850 s: the two profiles took 35 and 14 s;
-# 12a and 12b then went from 50 steps to 30.
-CERT_N, CERT_STEPS, CERT_FUSED_STEPS = 4096, 30, 30
+# 12a and 12b then went from 50 steps to 30, and with the HA phase to 10
+# (12c from 30 to 15), to keep it under 880 s.
+CERT_N, CERT_STEPS, CERT_FUSED_STEPS = 4096, 10, 15
 CERT_PROFILE_STEPS, CERT_DENSE_PROFILE_STEPS = 1, 2
 # 12b again with one guarded block, which the warm solves outgrow: the
 # chunk is redone by the eager loop and must still equal it.
 CERT_REDO_STEPS = 10
-CERT_DENSE_N, CERT_DENSE_STEPS = 128, 100
+# 12d's dense certificate: 100 steps until the HA phase came, cut to
+# keep the script under 880 s.
+CERT_DENSE_N, CERT_DENSE_STEPS = 128, 50
 CERT_CROSS_N, CERT_CROSS_STEPS = 256, 10
 CERT_K = 16
 CERT_SKIN, CERT_TOL = 0.1, 1e-5
@@ -409,16 +444,16 @@ CROSS_STEPS = 20
 # series (values ~0.2 m, ulp ~1.5e-8) gets 1e-5.
 CROSS_X_ATOL, CROSS_MD_ATOL = 1e-4, 1e-5
 # Phase 13, the reference scenarios at their own sizes. cross_and_rescue's
-# 3000 steps run compiled; the eager loop holds them on the first 200
+# 3000 steps run compiled; the eager loop holds them on the first 50
 # (an eager step of its dense certificate takes 54-107 ms on an H100 80GB
-# HBM3 at 700 W, PERF.md §5; 300 until phase 17 came), and the walls
-# are timed over 50 (100 until then).
-SCEN_CAR_PREFIX, SCEN_CAR_TIMED = 200, 50
-# 13a and 13c are held to the eager loop over their whole horizons (1000
-# and 1500 steps) and timed in turns over SCEN_TIMED steps (the whole
-# horizons until phase 19 came: their timed eager legs took ~30 s of the
-# script, which reached 845.3-1012.7 s on PR 15's calls).
-SCEN_TIMED = 200
+# HBM3 at 700 W, PERF.md §5; 300 until phase 17 came, 200 until the HA
+# phase came), and the walls are timed over 25 (100, then 50).
+SCEN_CAR_PREFIX, SCEN_CAR_TIMED = 50, 25
+# 13a and 13c are held to the eager loop over their first SCEN_HOLD
+# steps (their whole horizons, 1000 and 1500, until the HA phase came)
+# and timed in turns over SCEN_TIMED steps (the whole horizons until
+# phase 19 came: their timed eager legs took ~30 s of the script).
+SCEN_TIMED, SCEN_HOLD = 200, 300
 SCEN_ANCHOR_STEPS = 5          # tests/test_scenarios.py's golden anchor
 SCEN_CROSS_STEPS = 50
 SCEN_CLI_STEPS = 200
@@ -452,8 +487,9 @@ MEMBER_BS = (1, 3, 16)
 # members.
 BANDED_MEMBERS = 4
 # Phase 15c: BASELINE.md:31's Monte-Carlo sweep, 1024 seeds x 64 agents
-# (its 500 steps held against the eager loop when MC_EAGER_STEPS is None).
-MC_E, MC_N, MC_STEPS, MC_EAGER_STEPS = 1024, 64, 500, None
+# (its 500 steps held against the eager loop over MC_EAGER_STEPS; all 500
+# until the HA phase came).
+MC_E, MC_N, MC_STEPS, MC_EAGER_STEPS = 1024, 64, 500, 100
 # The sweep's seeds whose run dips below FLOOR in the JAX package itself
 # (jax 0.9.0 on the CPU, this sweep's Config; the port's CPU run dips on
 # the same 21 seeds, within 1e-6): seed -> the reference's minimum. Those
@@ -472,9 +508,11 @@ ENS_E, ENS_STEPS = 8, 300
 # 15d's seeds whose run dips below FLOOR in the JAX package itself (jax
 # 0.9.0 on the CPU, E=8 x N=4096 x 300): seed -> the reference's minimum.
 ENS_REFERENCE_DIPS = {4: 0.14131725, 6: 0.14130257}
-LOCK_E, LOCK_STEPS = 4, 20
+# 15e's lockstep certificate: 20 steps until the HA phase came.
+LOCK_E, LOCK_STEPS = 4, 10
 LOCK_X_ATOL, LOCK_RES_ATOL = 2e-5, 1e-6
-ENS_STEPS_F, ENS_CHUNK = 200, 50
+# 15f: 200 steps in chunks of 50 until the HA phase came.
+ENS_STEPS_F, ENS_CHUNK = 100, 25
 # A batch's margins against its candidates run alone: float32 margins
 # ~0.1-1 m; on the CPU they are bit-equal (tests/test_torch_verify.py),
 # on the card batched reductions may sum in another order.
@@ -497,6 +535,9 @@ CORPUS_CFG = {"n": 16, "steps": 140, "k_neighbors": 4, "gating": "jnp"}
 # PROFILE_STEPS steps through the CLI.
 DUR_STEPS, DUR_CHUNK = 2000, 500
 TEL_STEPS, TEL_EVERY, TEL_TURNS = 500, 50, 3
+# 16c profiles the runs with and without telemetry over TEL_PROFILE_STEPS
+# steps (TEL_STEPS until the HA phase came: ~141 k kernel events each).
+TEL_PROFILE_STEPS = 50
 TEL_OVERHEAD_BUDGET, TEL_OVERHEAD_FAIL = 0.03, 0.10
 WATCH_STEPS, WATCH_NAN_AT = 200, 100
 CERT_WATCH_N, CERT_WATCH_STEPS, CERT_WATCH_AT = 256, 10, 4
@@ -507,6 +548,10 @@ COST_REPS, PROFILE_STEPS = 5, 50
 # profiled run (20 until phase 17 came; cut to keep the script under
 # 850 s).
 PROFILE_RUN_STEPS = 10
+# Phases 3-12's timed eager legs run the first TIMED_EAGER_STEPS steps of
+# each horizon (the whole horizon until the HA phase came); the held
+# eager run and the timed compiled legs keep the whole horizon.
+TIMED_EAGER_STEPS = 100
 # Phase 17, the traced-config serving path: 17b's workloads (bench.py's
 # serve_workload at full width and at the serve bench's default), each
 # trimmed request held to its own run within the reference's atol
@@ -551,6 +596,25 @@ CONT_LOAD_BATCH, CONT_LOAD_CHUNK = 8, 16
 # dips on the same request, within 1.5e-8): schedule index -> the
 # reference's minimum. Held to it within CROSS_MD_ATOL instead of the floor.
 CONT_LOAD_REFERENCE_DIPS = {50: 0.14131689}
+# Phase 20, high availability and the routed cluster. 20a: a hot standby
+# (`serve --ha-standby`, lease TTL HA_TTL_S) and a paced `serve --lease`
+# primary (HA_REQUESTS requests of HA_N agents x HA_STEPS steps,
+# gating "pallas", max_batch HA_BATCH, one every HA_PACE_S, heartbeat
+# every HA_BEAT_S) SIGKILLed HA_KILL_AFTER_S after its first
+# acknowledgment. 20b: a continuous engine (FENCE_CHUNK-step chunks,
+# max_batch FENCE_BATCH, buckets 2048 and 4096) fenced with lanes in
+# flight. 20c: `cluster serve --engines 2` on CLUSTER_REQUESTS requests at
+# the serve default (cluster_requests), one worker SIGKILLed once requests
+# are in flight, the lease TTL CLUSTER_TTL_S.
+HA_N, HA_STEPS, HA_REQUESTS, HA_BATCH = 4096, 128, 8, 4
+HA_PACE_S, HA_BEAT_S, HA_TTL_S, HA_KILL_AFTER_S = 0.3, 0.1, 1.0, 0.8
+FENCE_CHUNK, FENCE_BATCH, FENCE_LONG_STEPS, FENCE_SHORT_STEPS = \
+    32, 4, 512, 128
+CLUSTER_REQUESTS, CLUSTER_SEED, CLUSTER_TTL_S = 24, 20, 1.0
+# cluster_requests()'s requests whose run dips below FLOOR in the JAX
+# package itself (jax 0.9.0 on the CPU, gating "jnp", the drain engine):
+# request index -> the reference's minimum, held within CROSS_MD_ATOL.
+CLUSTER_REFERENCE_DIPS = {0: 0.14129062, 1: 0.14130925}
 CONT_CLI = ["--continuous", "--chunk", "16", "--gating", "pallas", "--rps",
             "16", "--duration", "1"]
 
@@ -705,25 +769,37 @@ def drive(swarm, engine, knn, cfg, label, kernel, wrap=None, per_step=1):
         check(eager_launches[kernel] == per_step * cfg.steps,
               f"{label}: eager launches {eager_launches}")
     walls = {"eager": [], "compiled": []}
+    n_timed = {"eager": min(cfg.steps, TIMED_EAGER_STEPS),
+               "compiled": cfg.steps}
+    eager_head = engine._tree_map(lambda v: v[:n_timed["eager"]],
+                                  eager_outs)
+    head_final = eager_final if n_timed["eager"] == cfg.steps else None
     for kind in ("eager", "compiled", "compiled", "eager"):
         run = engine.eager_rollout if kind == "eager" else engine.rollout
         result = []
         walls[kind].append(timed(lambda: result.extend(
-            run(step, state0, cfg.steps))))
-        check(same_tree(result[0], eager_final)
-              and same_tree(tuple(result[1]), tuple(eager_outs)),
-              f"{label}: a timed {kind} run differs from the first eager "
-              "run")
+            run(step, state0, n_timed[kind]))))
+        if kind == "eager":
+            head_final = result[0] if head_final is None else head_final
+            ok = same_tree(result[0], head_final) and same_tree(
+                tuple(result[1]), tuple(eager_head))
+        else:
+            ok = same_tree(result[0], eager_final) and same_tree(
+                tuple(result[1]), tuple(eager_outs))
+        check(ok, f"{label}: a timed {kind} run differs from the first "
+              "eager run")
     rounds = torch.bincount(eager_outs.max_relax_rounds.int().cpu())
     run_info = {
         "steps": cfg.steps, "n": cfg.n, "relax_rounds_captured":
         step.relax_rounds, "redos": counts["redos"],
         "redo_steps": counts["redo_steps"], "captures": counts["captures"],
         "replays": counts["replays"], "first_call_s": first,
+        "eager_timed_steps": n_timed["eager"],
         "eager_s": walls["eager"], "compiled_s": walls["compiled"],
-        "eager_step_ms": [w / cfg.steps * 1e3 for w in walls["eager"]],
+        "eager_step_ms": [w / n_timed["eager"] * 1e3
+                          for w in walls["eager"]],
         "compiled_step_ms": [w / cfg.steps * 1e3 for w in walls["compiled"]],
-        "eager_agent_qp_steps_per_s": [cfg.n * cfg.steps / w
+        "eager_agent_qp_steps_per_s": [cfg.n * n_timed["eager"] / w
                                        for w in walls["eager"]],
         "compiled_agent_qp_steps_per_s": [cfg.n * cfg.steps / w
                                           for w in walls["compiled"]],
@@ -736,7 +812,8 @@ def drive(swarm, engine, knn, cfg, label, kernel, wrap=None, per_step=1):
                                    if int(c)},
         "eager_launches": eager_launches[kernel],
         "determinism": "every timed run (2 eager, 2 compiled) equal to "
-                       "the first eager run"}
+                       "the first eager run (the eager ones over their "
+                       "steps)"}
     print(f"{label}: compiled == eager (final state, every StepOutputs "
           f"field); launches {launches}; " + json.dumps(run_info))
     return {"state0": state0, "step": step, "final": final,
@@ -1160,7 +1237,8 @@ def phase13(engine, knn, swarm, t_start) -> dict:
     # 13a meet_at_center, default Config.
     cfg = mac.Config()
     run = drive_scenario(engine, knn, mac, cfg, "phase 13a: meet_at_center",
-                         cfg.iterations, timed_steps=SCEN_TIMED)
+                         cfg.iterations, prefix=SCEN_HOLD,
+                         timed_steps=SCEN_TIMED)
     free = run["final"].poses[:2, cfg.n_obstacles:]
     spread = float(torch.amax(torch.linalg.norm(
         free - free.mean(dim=1, keepdim=True), dim=0)))
@@ -1205,7 +1283,8 @@ def phase13(engine, knn, swarm, t_start) -> dict:
     # 13c antipodal, default Config (N=32).
     cfg = antipodal.Config()
     run = drive_scenario(engine, knn, antipodal, cfg, "phase 13c: antipodal",
-                         cfg.steps, timed_steps=SCEN_TIMED)
+                         cfg.steps, prefix=SCEN_HOLD,
+                         timed_steps=SCEN_TIMED)
     d = torch.linalg.norm(run["final"].x - antipodal.goals(cfg), dim=1)
     arrived = int((d < 0.2).sum())
     info = run["info"]
@@ -2328,6 +2407,7 @@ def phase16(engine, knn, swarm, t_start) -> dict:
               f"damaged newest step {skipped} walked back to {at}; a fully "
               "damaged directory raises CheckpointCorrupt; "
               + json.dumps(info["16a"]))
+        print(f"  (script at {time.perf_counter() - t_start:.1f} s)")
 
         # 16b. kill and resume through the CLI
         root = os.path.dirname(os.path.dirname(
@@ -2389,6 +2469,7 @@ def phase16(engine, knn, swarm, t_start) -> dict:
         print("phase 16b: SIGKILLed at the first committed checkpoint, run "
               "--resume byte-identical to the uninterrupted --durable-dir "
               "run (outputs and final state); " + json.dumps(info["16b"]))
+        print(f"  (script at {time.perf_counter() - t_start:.1f} s)")
 
         # 16c. telemetry, its overhead, and the watchdog's alerts
         cfg = swarm.Config(n=MAIN_N, steps=TEL_STEPS)
@@ -2454,8 +2535,13 @@ def phase16(engine, knn, swarm, t_start) -> dict:
         for order in (list(split), list(split)[::-1]):
             for k in order:
                 split_s[k].append(timed(split[k]))
-        split_profile = {k: profile_rollout(split[k], TEL_STEPS)
-                         for k in ("off", "on")}
+        profiled = {"off": lambda: engine.rollout(
+                        step, state0, TEL_PROFILE_STEPS),
+                    "on": lambda: engine.rollout(
+                        step, state0, TEL_PROFILE_STEPS, telemetry=sink,
+                        telemetry_every=TEL_EVERY)}
+        split_profile = {k: profile_rollout(fn, TEL_PROFILE_STEPS)
+                         for k, fn in profiled.items()}
         sink.close()
 
         def watched(label, step_fn, state, steps, every, per_step=1, **kw):
@@ -2524,6 +2610,7 @@ def phase16(engine, knn, swarm, t_start) -> dict:
               f"{overhead:.2%} (JAX's budget {TEL_OVERHEAD_BUDGET:.0%}, "
               f"held under {TEL_OVERHEAD_FAIL:.0%}); alerts nan, "
               "certificate_blowup, stall raised; " + json.dumps(info["16c"]))
+        print(f"  (script at {time.perf_counter() - t_start:.1f} s)")
 
         # 16d. the checked rollout, the cost model, the profiler
         (final_k, outs_k), _ = counted(
@@ -3796,6 +3883,495 @@ def phase19(engine, knn, swarm, t_start, dev="cuda") -> dict:
     return out
 
 
+def cluster_requests() -> list:
+    """Phase 20c's request file: CLUSTER_REQUESTS requests at the serve
+    default (n 64-128, horizons 128/256/512, gating "pallas"), two in
+    three of them in one hot bucket (n 65-128 x 512 steps), drawn from
+    CLUSTER_SEED."""
+    import numpy as np
+
+    rng = np.random.default_rng(CLUSTER_SEED)
+    reqs = []
+    for i in range(CLUSTER_REQUESTS):
+        hot = i % 3 != 2
+        n = int(rng.integers(65 if hot else 64, 129))
+        steps = 512 if hot else int(rng.choice((128, 256)))
+        reqs.append({"steps": steps, "seed": i,
+                     "overrides": {"n": n, "gating": "pallas"}})
+    return reqs
+
+
+def journal_records(paths) -> list:
+    """Every complete record of the given journal files, in file order
+    (a torn final line is skipped)."""
+    recs = []
+    for path in paths:
+        try:
+            with open(path) as fh:
+                lines = fh.readlines()
+        except OSError:
+            continue
+        for line in lines:
+            try:
+                recs.append(json.loads(line))
+            except ValueError:
+                pass
+    return recs
+
+
+class BeatWatch:
+    """Watches a lease from outside its owner: polls the lease file and
+    its ``.beat`` sidecar every ``poll_s`` and stamps each change of
+    (epoch, beat) at ``epoch`` on this process's monotonic clock — the
+    owner's renewals as a standby sees them."""
+
+    def __init__(self, lease_path: str, epoch: int, poll_s: float = 0.002):
+        import threading
+
+        self.lease_path, self.epoch, self.poll_s = lease_path, epoch, poll_s
+        self.stamps: list = []     # (monotonic s, beat)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        from cbf_tpu_torch.serve import ha
+
+        last = None
+        while not self._stop.is_set():
+            try:
+                state = ha.read_lease(self.lease_path)
+            except ValueError:
+                state = None
+            if state is not None and state.epoch == self.epoch \
+                    and state.beat != last:
+                last = state.beat
+                self.stamps.append((time.monotonic(), state.beat))
+            time.sleep(self.poll_s)
+
+    def start(self) -> "BeatWatch":
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join()
+
+    def largest_gap(self) -> tuple:
+        """(largest interval between two stamps, its start after the
+        first stamp — the acquire), in seconds."""
+        gaps = [(b[0] - a[0], a[0] - self.stamps[0][0])
+                for a, b in zip(self.stamps, self.stamps[1:])]
+        return max(gaps) if gaps else (float("nan"), float("nan"))
+
+
+def phase20(engine, knn, swarm, t_start, p18, dev="cuda") -> dict:
+    """Phase 20: high availability and the routed cluster (module
+    docstring). Returns each driven run's launches and the
+    measurements."""
+    import os
+    import shutil
+    import signal
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from cbf_tpu_torch import obs
+    from cbf_tpu_torch.analysis import lockwitness
+    from cbf_tpu_torch.cluster import HashRing
+    from cbf_tpu_torch.durable import journal as dj
+    from cbf_tpu_torch.serve import FencedError, ServeEngine, bucket_key
+    from cbf_tpu_torch.serve import engine as serve_engine
+    from cbf_tpu_torch.serve import ha
+    from cbf_tpu_torch.utils import faults
+
+    cuda = torch.device(dev).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    out = {"runs": {}, "info": {}}
+    info = out["info"]
+    t20 = time.perf_counter()
+    root = os.path.abspath(os.path.dirname(__file__) or ".")
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    cli = [sys.executable, "-m", "cbf_tpu_torch"]
+
+    def fresh(name):
+        work = os.path.join(root, "chiprun_out", name)
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        return work
+
+    def last_record(path):
+        with open(path) as fh:
+            lines = fh.read().strip().splitlines()
+        return json.loads(lines[-1]) if lines else {}
+
+    # 20a. a hot standby takes over from a SIGKILLed primary, through the
+    # CLI.
+    work = fresh("phase20a")
+    lease, journal, ready, tel = (os.path.join(work, f) for f in (
+        "lease.json", "j.jsonl", "ready", "standby"))
+    reqs = os.path.join(work, "requests.json")
+    with open(reqs, "w") as fh:
+        json.dump([{"steps": HA_STEPS, "seed": i, "overrides": {
+            "n": HA_N, "gating": "pallas"}} for i in range(HA_REQUESTS)], fh)
+    s_out, s_err = (open(os.path.join(work, f), "w")
+                    for f in ("standby.out", "standby.err"))
+    t_spawn = time.perf_counter()
+    standby = subprocess.Popen(
+        cli + ["serve", "--ha-standby", "--lease", lease, "--journal",
+               journal, "--lease-ttl-s", str(HA_TTL_S), "--ready-file",
+               ready, "--standby-max-wait-s", "300", "--max-batch",
+               str(HA_BATCH), "--telemetry-dir", tel, "--device", dev],
+        env=env, stdout=s_out, stderr=s_err)
+    marks = {}
+    try:
+        check(faults.wait_for_file(ready, 300), "20a: the standby never "
+              "wrote its ready file")
+        marks["ready"] = time.perf_counter() - t_spawn
+        watch = BeatWatch(lease, epoch=1).start()
+
+        def should_kill(elapsed):
+            if "ack" not in marks:
+                try:
+                    with open(journal) as fh:
+                        if '"submitted"' in fh.read():
+                            marks["ack"] = elapsed
+                except OSError:
+                    pass
+                return False
+            if elapsed - marks["ack"] < HA_KILL_AFTER_S:
+                return False
+            marks["kill_wall"] = time.time()
+            marks["kill"] = time.monotonic()
+            return True
+
+        try:
+            rc, killed, _ = faults.run_process_until(
+                cli + ["serve", reqs, "--lease", lease, "--journal",
+                       journal, "--pace-s", str(HA_PACE_S), "--heartbeat-s",
+                       str(HA_BEAT_S), "--max-batch", str(HA_BATCH),
+                       "--device", dev],
+                should_kill, poll_s=0.005, timeout_s=300.0, env=env)
+        finally:
+            watch.stop()
+        check(killed and rc is not None, f"20a: the primary was not "
+              f"killed (rc {rc})")
+        standby.wait(timeout=300)
+    except BaseException:
+        standby.kill()
+        standby.wait()
+        raise
+    finally:
+        s_out.close()
+        s_err.close()
+    with open(os.path.join(work, "standby.err")) as fh:
+        err_tail = fh.read()[-2000:]
+    check(standby.returncode == 0, f"20a: the standby exited "
+          f"{standby.returncode}: {err_tail}")
+    rec = last_record(os.path.join(work, "standby.out"))
+    check(rec.get("takeover") is True and rec.get("epoch") == 2
+          and rec.get("prev_epoch") == 1 and not rec.get("errors"),
+          f"20a: the takeover record {rec}")
+    replay = dj.replay_journal(journal)
+    acked = set(replay.submitted)
+    check(replay.unresolved == [] and set(replay.resolved) == acked
+          and all(replay.resolved_counts[r] == 1 for r in acked),
+          f"20a: fold after the takeover: unresolved {replay.unresolved}, "
+          f"counts {replay.resolved_counts}")
+    recs = journal_records([journal])
+    resolved = {r["request_id"]: r for r in recs if r["type"] == "resolved"}
+    recovered = sorted(r for r, v in resolved.items() if v["epoch"] == 2)
+    check(rec["reenqueued"] == len(recovered) > 0
+          and sorted(s["request_id"] for s in rec["served"]) == recovered,
+          f"20a: {rec['reenqueued']} re-enqueued, {recovered} resolved at "
+          f"epoch 2, served {rec['served']}")
+    events = obs.read_events(tel)
+    by_id = {e["request_id"]: e for e in events if e["event"] == "request"}
+    for rid in recovered:
+        ev = by_id.get(rid)
+        check(ev is not None and ev["min_pairwise_distance"] >= FLOOR
+              and ev["infeasible_count"] == 0, f"20a: recovered {rid}: {ev}")
+    summary = next((e for e in events if e["event"] == "summary"), {})
+    compiled = summary.get("compile_events_during_run", {})
+    capture_s = sum(v for k, v in compiled.items()
+                    if k.startswith("serve.compile_ms[")) / 1000.0
+    gap, gap_at = watch.largest_gap()
+    acquire = watch.stamps[0][0] if watch.stamps else float("nan")
+    first_s = min(v["t"] for r, v in resolved.items()
+                  if r in recovered) - marks["kill_wall"]
+    cold_s = p18["info"].get("18d", {}).get("kill_to_first_result_s",
+                                             float("nan"))
+    info["20a"] = {
+        "acknowledged": len(acked), "resolved_before_kill":
+        len(acked) - len(recovered), "recovered": recovered,
+        "epoch": rec["epoch"], "records": rec["records"],
+        "deduped": rec["deduped"], "mttr_s": rec["mttr_s"],
+        "standby_ready_s": marks["ready"], "standby_capture_s": capture_s,
+        "standby_compile_events": compiled,
+        "beats_seen": len(watch.stamps),
+        "primary_max_beat_gap_s": gap,
+        "primary_max_beat_gap_after_acquire_s": gap_at,
+        "primary_acquire_to_kill_s": marks["kill"] - acquire,
+        "kill_to_first_recovered_s": first_s,
+        "cold_recover_kill_to_first_result_s": cold_s,
+        "min_distance": min(by_id[r]["min_pairwise_distance"]
+                            for r in recovered)}
+    check(gap < HA_TTL_S, f"20a: the primary's beats paused {gap:.3f} s, "
+          f"beyond the TTL {HA_TTL_S} s")
+    print(f"phase 20a: `serve --ha-standby` ready {marks['ready']:.2f} s "
+          f"after spawn (import and CUDA init); the `serve --lease` "
+          f"primary SIGKILLed {HA_KILL_AFTER_S} s after its first "
+          f"acknowledgment with {len(acked) - len(recovered)} of "
+          f"{len(acked)} acknowledged requests resolved; the standby took "
+          f"over at epoch {rec['epoch']}: {rec['reenqueued']} re-enqueued "
+          f"{recovered}, {rec['deduped']} deduped, every acknowledged id "
+          f"resolved once, none lost; recovered results above the floor "
+          f"with 0 infeasible (min {info['20a']['min_distance']:.6f}); "
+          f"the standby's captures {capture_s:.3f} s, paid before the "
+          f"kill; the primary's largest gap between beats {gap:.4f} s, "
+          f"{gap_at:.3f} s after its acquire ({len(watch.stamps)} beats "
+          f"seen over {marks['kill'] - acquire:.2f} s, TTL {HA_TTL_S} s); "
+          f"mttr_s {rec['mttr_s']}; kill -> first recovered result "
+          f"{first_s:.3f} s (a cold `serve --recover`, phase 18d: "
+          f"{cold_s:.2f} s)")
+    print(f"  (script at {time.perf_counter() - t_start:.1f} s)")
+
+    # 20b. a continuous primary fenced with lanes in flight, in process.
+    work = fresh("phase20b")
+    lease, jpath = (os.path.join(work, f) for f in ("lease.json",
+                                                   "j.jsonl"))
+
+    def cfg_of(n, steps, seed):
+        return swarm.Config(n=n, steps=steps, seed=seed, gating="pallas")
+
+    longs = [cfg_of(HA_N, FENCE_LONG_STEPS, s) for s in range(3)]
+    plus = cfg_of(HA_N, FENCE_SHORT_STEPS, 3)
+    side = cfg_of(HA_N // 2, FENCE_LONG_STEPS, 4)
+    late = cfg_of(HA_N, FENCE_SHORT_STEPS, 5)
+    lockwitness.arm()
+    lockwitness.reset()
+    program_lock = serve_engine._PROGRAM_LOCK
+    serve_engine._PROGRAM_LOCK = lockwitness.make_lock(
+        "serve.engine._PROGRAM_LOCK")
+    try:
+        primary = ha.Lease(lease, owner="primary")
+        eng = ServeEngine(
+            continuous=True, chunk_steps=FENCE_CHUNK, max_batch=FENCE_BATCH,
+            bucket_sizes=(HA_N // 2, HA_N), device=dev,
+            journal=dj.RequestJournal(jpath, epoch=primary.acquire(),
+                                      fence_path=lease))
+        eng.prewarm([plus, side])
+        sync()
+        seen = {}
+        eng.partial_hook = lambda rid, done, part: seen.setdefault(rid,
+                                                                   done)
+        zero_counts(engine, knn)
+        eng.start()
+        try:
+            pend = [eng.submit(c) for c in longs + [plus, side]]
+            t_wait = time.perf_counter()
+            while len(seen) < len(pend):
+                check(time.perf_counter() - t_wait < 120, f"20b: lanes "
+                      f"in flight {sorted(seen)}")
+                time.sleep(0.001)
+            p_late = eng.submit(late)       # behind the full 4096 table
+            joined = eng.stats["lanes_joined"]
+            size = os.path.getsize(jpath)
+            t_fence = time.perf_counter()
+            fence_epoch = ha.Lease(lease, owner="standby").acquire()
+            outcome = []
+            for p in pend + [p_late]:
+                try:
+                    p.result(timeout=600)
+                    outcome.append(None)
+                except FencedError as e:
+                    outcome.append(e)
+            resolve_s = time.perf_counter() - t_fence
+        finally:
+            eng.stop(drain=True)
+        sync()
+        launches, counts = dict(knn.LAUNCHES), dict(engine.COUNTS)
+        inversions = lockwitness.inversions()
+        edges = lockwitness.observed_edges()
+    finally:
+        serve_engine._PROGRAM_LOCK = program_lock
+        lockwitness.disarm()
+        lockwitness.reset()
+    out["runs"]["phase 20b"] = {"launches": launches}
+    check(joined == len(pend) and fence_epoch == 2, f"20b: {joined} lanes "
+          f"joined before the fence at epoch {fence_epoch}")
+    check(all(isinstance(e, FencedError) and (e.epoch, e.fence_epoch)
+              == (1, 2) for e in outcome), f"20b: outcomes {outcome}")
+    check(isinstance(eng.fenced, FencedError), "20b: engine.fenced unset")
+    check(os.path.getsize(jpath) == size, f"20b: the journal grew from "
+          f"{size} to {os.path.getsize(jpath)} bytes after the fence")
+    recs = journal_records([jpath])
+    packed = {r for rec in recs if rec["type"] == "packed"
+              for r in rec["request_ids"]}
+    check(p_late.request_id not in packed and p_late.request_id in {
+        rec["request_id"] for rec in recs if rec["type"] == "submitted"},
+        "20b: the late request did not take the mid-join fence path")
+    check(inversions == [] and ("serve.engine._PROGRAM_LOCK",
+                                "RequestJournal._lock") not in edges,
+          f"20b: witness inversions {inversions}, edges {sorted(edges)}")
+    want = dict.fromkeys(knn.LAUNCHES, 0)
+    if cuda:
+        want["knn_fused"] = want["knn_fused_members"] = \
+            want["knn_fused_radii"] = (eng.stats["chunks_executed"]
+                                       * FENCE_CHUNK + counts["redo_steps"])
+    check(launches == want and (not cuda or counts["captures"] == 0),
+          f"20b: launches {launches}, want {want}; counts {counts}")
+    info["20b"] = {"lanes_in_flight": joined, "chunks": eng.stats[
+        "chunks_executed"], "fenced_to_resolved_s": resolve_s,
+        "journal_bytes": size, "edges": sorted(edges),
+        "launches": launches}
+    print(f"phase 20b: {joined} lanes in flight (buckets {HA_N} and "
+          f"{HA_N // 2}, {FENCE_CHUNK}-step chunks) and one request queued "
+          f"behind the full {HA_N} table when a second Lease.acquire "
+          f"fenced the journal at epoch {fence_epoch}: all "
+          f"{len(outcome)} resolved with FencedError within "
+          f"{resolve_s:.3f} s (the queued one on the mid-join path: its "
+          f"packed record refused), engine.fenced set, the journal "
+          f"{size} bytes before and after; the armed witness: no "
+          f"inversion over {len(edges)} edges, no journal append under "
+          f"_PROGRAM_LOCK; launches {launches}")
+    print(f"  (script at {time.perf_counter() - t_start:.1f} s)")
+
+    # 20c. the routed cluster through the CLI, one worker SIGKILLed.
+    work = fresh("phase20c")
+    croot, ctel = os.path.join(work, "root"), os.path.join(work, "router")
+    reqs = os.path.join(work, "requests.json")
+    entries = cluster_requests()
+    with open(reqs, "w") as fh:
+        json.dump(entries, fh)
+    labels = [bucket_key(swarm.Config(
+        n=e["overrides"]["n"], steps=e["steps"], seed=e["seed"],
+        gating="pallas"))[0].label() for e in entries]
+    hot = statistics.mode(labels)
+    victim = HashRing(["e0", "e1"]).place(hot)
+    vdir = os.path.join(croot, "engines", victim)
+    c_out, c_err = (open(os.path.join(work, f), "w")
+                    for f in ("cluster.out", "cluster.err"))
+    t_c = time.perf_counter()
+    proc = subprocess.Popen(
+        cli + ["cluster", "serve", reqs, "--engines", "2", "--device", dev,
+               "--prewarm", "--steal", "--lease-ttl-s", str(CLUSTER_TTL_S),
+               "--root", croot, "--telemetry-dir", ctel,
+               "--worker-metrics", "--result-timeout", "120"], env=env,
+        stdout=c_out, stderr=c_err)
+    try:
+        while True:
+            check(proc.poll() is None, f"20c: cluster serve exited "
+                  f"{proc.returncode} before the kill")
+            check(time.perf_counter() - t_c < 300, "20c: no request in "
+                  "flight on the hot engine")
+            ready_both = all(os.path.exists(os.path.join(
+                croot, "engines", e, "ready")) for e in ("e0", "e1"))
+            recs = journal_records([os.path.join(vdir, "journal.wal")])
+            done = {r["request_id"] for r in recs if r["type"] == "resolved"}
+            flight = [r["request_id"] for r in recs
+                      if r["type"] == "submitted"
+                      and r["request_id"] not in done]
+            if ready_both and flight:
+                break
+            time.sleep(0.002)
+        with open(os.path.join(vdir, "pid")) as fh:
+            vpid = json.load(fh)["pid"]
+        os.kill(vpid, signal.SIGKILL)
+        kill_wall = time.time()
+        t_kill = time.perf_counter() - t_c
+        proc.wait(timeout=480)
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+    finally:
+        c_out.close()
+        c_err.close()
+    with open(os.path.join(work, "cluster.err")) as fh:
+        err_tail = fh.read()[-2000:]
+    crec = last_record(os.path.join(work, "cluster.out"))
+    census = crec.get("census", {})
+    check(proc.returncode == 0 and census.get("ok") and census.get(
+        "submitted") == CLUSTER_REQUESTS and crec["completed"]
+        == CLUSTER_REQUESTS and not crec["errors"]
+        and crec["failovers"] >= 1, f"20c: exit {proc.returncode}, record "
+          f"{crec}: {err_tail}")
+    jfiles = []
+    for e in ("e0", "e1"):
+        base = os.path.join(croot, "engines", e)
+        jfiles += [os.path.join(base, n) for n in sorted(os.listdir(base))
+                   if n.endswith("journal.wal")]
+    recs = journal_records(jfiles)
+    resolved_t = {r["request_id"]: r["t"] for r in recs
+                  if r["type"] == "resolved"}
+    dead = journal_records([os.path.join(vdir, n) for n in sorted(
+        os.listdir(vdir)) if n.startswith("archived-")])
+    dead_done = {r["request_id"] for r in dead if r["type"] == "resolved"}
+    orphans = {r["request_id"] for r in dead if r["type"] == "submitted"
+               and r["request_id"] not in dead_done}
+    check(bool(orphans), "20c: the killed worker left no acknowledged "
+          "request to replay")
+    routed = {e["request_id"]: e["t_wall"] for e in obs.read_events(ctel)
+              if e["event"] == "cluster.route"}
+    check(sorted(routed) == sorted(resolved_t), "20c: routed ids "
+          f"{sorted(routed)}, resolved ids {sorted(resolved_t)}")
+    served = {}
+    for e in ("e0", "e1"):
+        for ev in obs.read_events(os.path.join(croot, "engines", e,
+                                               "telemetry")):
+            if ev["event"] == "request":
+                served.setdefault(ev["request_id"], []).append(ev)
+    for i in range(CLUSTER_REQUESTS):
+        rid, ref = f"c{i + 1}", CLUSTER_REFERENCE_DIPS.get(i)
+        evs = served.get(rid, [])
+        check(evs and all(
+            ev["infeasible_count"] == 0 and (
+                ev["min_pairwise_distance"] >= FLOOR if ref is None
+                else abs(ev["min_pairwise_distance"] - ref)
+                <= CROSS_MD_ATOL) for ev in evs),
+              f"20c: request {i} ({rid}, reference dip {ref}): {evs}")
+    lat = sorted(resolved_t[r] - routed[r] for r in routed)
+    span = max(resolved_t.values()) - min(routed.values())
+    replayed = min(resolved_t[r] for r in orphans) - kill_wall
+    info["20c"] = {
+        "requests": CLUSTER_REQUESTS, "hot_bucket": hot,
+        "hot_requests": labels.count(hot), "victim": victim,
+        "killed_at_s": t_kill, "orphans": sorted(orphans),
+        "req_per_s": CLUSTER_REQUESTS / span,
+        "latency_p50_s": statistics.median(lat),
+        "latency_p99_s": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+        "stolen": crec["stolen"], "failovers": crec["failovers"],
+        "mttr_s": crec["mttr_s"], "kill_to_first_replayed_s": replayed,
+        "census": census, "wall_s": crec["wall_s"],
+        "cli_s": time.perf_counter() - t_c}
+    print(f"phase 20c: `cluster serve --engines 2 --prewarm --steal` on "
+          f"{CLUSTER_REQUESTS} requests ({labels.count(hot)} in the hot "
+          f"bucket {hot}, placed on {victim}): {victim} SIGKILLed "
+          f"{t_kill:.2f} s after spawn with {len(orphans)} acknowledged "
+          f"requests unresolved; exit 0, census {census}; "
+          f"{info['20c']['req_per_s']:.3f} req/s from the first route to "
+          f"the last resolve, latency p50 {info['20c']['latency_p50_s']:.4f}"
+          f" s p99 {info['20c']['latency_p99_s']:.4f} s (route -> resolved "
+          f"record); stolen {crec['stolen']}; failover MTTR "
+          f"{crec['mttr_s']} s (detection -> re-homed, TTL {CLUSTER_TTL_S}"
+          f" s before it); kill -> the survivor's first replayed result "
+          f"{replayed:.3f} s; every result above the floor with 0 "
+          f"infeasible (requests {sorted(CLUSTER_REFERENCE_DIPS)} held to "
+          f"the reference's dips); wall {crec['wall_s']} s in the record, "
+          f"{info['20c']['cli_s']:.2f} s for the command")
+    info["seconds"] = time.perf_counter() - t20
+    with open(os.path.join(root, "chiprun_out", "phase20.json"), "w") as fh:
+        json.dump(info, fh, indent=1, default=str)
+    print(f"phase 20: {info['seconds']:.1f} s")
+    return out
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -4317,6 +4893,11 @@ def main(argv: list[str]) -> int:
     # traffic drain against continuous, the loadgen CLI and its surfaces
     p19 = phase19(engine, knn, swarm, t_start)
 
+    # 20. high availability and the routed cluster: a standby's takeover
+    # through the CLI, a continuous primary fenced in flight, the cluster
+    # CLI with a worker killed
+    p20 = phase20(engine, knn, swarm, t_start, p18)
+
     # 6. timings at the main-path shapes; launches are every compiled
     # main-path run's of this call, by phase (13f's run swarm included)
     all_runs = {"phase 3 N=256": runs[ENTRY_N], "phase 3 N=4096": main,
@@ -4329,7 +4910,7 @@ def main(argv: list[str]) -> int:
                 **{f"phase 12{key}": run for key, run in cert.items()},
                 "phase 13f": scen["13f"], **p14["runs"], **p15["runs"],
                 **p16["runs"], **p17["runs"], **p18["runs"],
-                **p19["runs"]}
+                **p19["runs"], **p20["runs"]}
     by_phase = {name: {label: run["launches"][name]
                        for label, run in all_runs.items()
                        if run["launches"].get(name)}

@@ -14,12 +14,14 @@ the JAX package's (cbf_tpu.serve.buckets, cbf_tpu.serve.pack), on the CPU.
   lane-table join and the result trims (``join_lane``,
   ``slice_lane_chunk``, ``assemble_lane_result``, ``trim_result``) equal
   to JAX's on the same arrays.
-- The serving parts of later slices raise OutOfSliceError naming Queue
-  A11: ``attach_background`` (the background tenant), ``serve --lease``,
-  ``serve --supervised`` and ``serve --ha-standby`` (the HA layer).
+- The background tenant (``attach_background``) raises OutOfSliceError
+  naming Queue A11; ``serve --lease`` without ``--journal`` exits 2 with
+  the JAX package's message (the lease fences the journal), and leaves no
+  lease behind.
 """
 
 import dataclasses
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -276,7 +278,8 @@ def test_parking_rows_match_jax():
         np.testing.assert_array_equal(got, want)
 
 
-def test_serve_out_of_slice_parts_raise(tmp_path):
+def test_serve_out_of_slice_parts_raise(tmp_path, capsys):
+    from cbf_tpu.__main__ import main as jcli
     from cbf_tpu_torch.serve import ServeEngine
 
     with pytest.raises(OutOfSliceError, match="Queue A11"):
@@ -285,8 +288,13 @@ def test_serve_out_of_slice_parts_raise(tmp_path):
         ServeEngine(continuous=True, device="cpu").attach_background(None)
     requests = tmp_path / "requests.json"
     requests.write_text('[{"steps": 8, "overrides": {"n": 10}}]')
-    for flag in (["--lease", str(tmp_path / "lease")], ["--supervised"],
-                 ["--ha-standby"]):
-        with pytest.raises(OutOfSliceError, match="Queue A11"):
-            tcli(["serve", str(requests), "--device", "cpu",
-                  "--journal", str(tmp_path / "j.jsonl"), *flag])
+    lease = str(tmp_path / "lease")
+    capsys.readouterr()
+    assert jcli(["serve", str(requests), "--lease", lease]) == 2
+    want = capsys.readouterr()
+    assert tcli(["serve", str(requests), "--device", "cpu",
+                 "--lease", lease]) == 2
+    got = capsys.readouterr()
+    assert (got.out, got.err) == (want.out, want.err)
+    assert "--lease requires --journal" in got.err
+    assert not os.path.exists(lease)
