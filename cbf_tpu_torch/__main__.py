@@ -1,6 +1,6 @@
 """CLI frontend: ``python -m cbf_tpu_torch <command>`` (counterpart:
 cbf_tpu/__main__.py, its ``run``, ``list``, ``verify``, ``serve``,
-``loadgen`` and ``obs`` subcommands).
+``cluster``, ``loadgen``, ``scenario`` and ``obs`` subcommands).
 
     python -m cbf_tpu_torch list
     python -m cbf_tpu_torch run meet_at_center --steps 200 --video out.gif
@@ -37,7 +37,17 @@ property, a found one is shrunk and confirmed in float64 and, with
 ``--corpus-dir``, archived. Exit 0: the filter survived the budget; 3: a
 violation was found; 2: a persisted campaign does not match the
 settings; ``--telemetry-dir`` streams its round and verdict events.
-``verify fleet`` raises OutOfSliceError.
+``verify fleet`` runs the falsification fleet (:mod:`cbf_tpu_torch.verify.fleet`)
+over every registered scenario, inline or with ``--serve-idle`` as the
+background tenant of a local serve engine (exit 3 on a new confirmed
+violation, 2 on a ``--state-dir`` campaign run under other settings;
+``--mesh-dp`` above 1 raises OutOfSliceError).
+
+``scenario`` is the scenario platform (:mod:`cbf_tpu_torch.scenarios.platform`):
+``list`` prints the registry, ``gen`` runs the seeded generator (``--run``
+also runs every spec) and ``run`` runs one registered scenario end to end
+(``--gen-seed`` enrolls a generated batch first; ``--partition spatial``
+raises OutOfSliceError).
 
 ``serve`` batch-serves a request file through the serve engine
 (:mod:`cbf_tpu_torch.serve.engine`) on ``--device``, with the JAX
@@ -64,8 +74,8 @@ finds the latency knee). ``obs top`` renders a metrics directory
 a stalled one), ``obs lanes`` the lane ledger's occupancy table
 (``--export-timeline`` rebuilds the per-lane Perfetto timeline from a
 run directory), ``obs incident`` summarises a capsule and ``--replay``
-re-runs its request through the port. The other subcommands (scenario,
-lint, bench) are not ported yet.
+re-runs its request through the port. The other subcommands (lint,
+bench) are not ported yet.
 
     python -m cbf_tpu_torch serve requests.json --prewarm --journal J
     python -m cbf_tpu_torch serve --journal J --recover
@@ -76,6 +86,9 @@ lint, bench) are not ported yet.
     python -m cbf_tpu_torch serve --ha-standby --lease L --journal J
     python -m cbf_tpu_torch serve requests.json --lease L --journal J
     python -m cbf_tpu_torch cluster serve requests.json --engines 2
+    python -m cbf_tpu_torch scenario gen --seed 0 --count 20 --run
+    python -m cbf_tpu_torch scenario run gen0-03-clusters-rendezvous-mixed --gen-seed 0
+    python -m cbf_tpu_torch verify fleet --budget-rounds 2 --serve-idle
 """
 
 from __future__ import annotations
@@ -89,7 +102,7 @@ import sys
 
 import torch
 
-from cbf_tpu_torch.errors import SLICE_SERVE, OutOfSliceError
+from cbf_tpu_torch.errors import SLICE_PARALLEL, OutOfSliceError
 
 # Frames per append when streaming a trajectory to the native sink: keeps
 # the sink's copy and queue memory flat while disk writes overlap.
@@ -784,8 +797,8 @@ def _weakened_cbf(scenario: str, cfg, pairs: list[str], device):
     from cbf_tpu_torch.core.filter import CBFParams
     from cbf_tpu_torch.scenarios import swarm
 
-    if scenario == "swarm":
-        base = swarm.default_cbf(cfg, device=device)
+    if scenario == "swarm" or getattr(cfg, "spawn", None) is not None:
+        base = swarm.default_cbf(cfg, device=device)  # a generated swarm too
     elif scenario == "antipodal":
         base = CBFParams(max_speed=cfg.max_speed, k=0.0)
     else:
@@ -1690,12 +1703,129 @@ def cmd_loadgen(args) -> int:
     return 0
 
 
+def _fleet_settings_from_args(args):
+    """FleetSettings from the `verify fleet` arguments: --weaken pairs
+    become cbf_overrides, --set pairs target FleetSettings fields
+    (typed by the field's default), and the dedicated flags
+    (--seed/--batch/--perturb-*) are defaults that a --set of the same
+    field overrides."""
+    from cbf_tpu_torch import verify as V
+    from cbf_tpu_torch.core.filter import CBFParams
+
+    overrides = []
+    for pair in args.weaken or []:
+        key, _, raw = pair.partition("=")
+        if key not in CBFParams._fields:
+            raise SystemExit(f"--weaken: unknown CBFParams field {key!r}; "
+                             f"have {sorted(CBFParams._fields)}")
+        overrides.append((key, float(raw)))
+    # --set targets FleetSettings fields here (there is no single
+    # scenario config to override — the fleet enrolls them all).
+    sfields = {f.name: f for f in dataclasses.fields(V.FleetSettings)}
+    skw = {}
+    for pair in args.set:
+        key, _, raw = pair.partition("=")
+        if key not in sfields or key == "cbf_overrides":
+            raise SystemExit(
+                f"--set: unknown FleetSettings field {key!r}; have "
+                f"{sorted(k for k in sfields if k != 'cbf_overrides')}")
+        proto = sfields[key].default
+        if isinstance(proto, bool):
+            skw[key] = raw.lower() in ("1", "true", "yes")
+        elif isinstance(proto, int):
+            skw[key] = int(raw)
+        else:
+            skw[key] = float(raw)
+    if args.perturb_scale is not None:
+        skw["perturb_scale"] = args.perturb_scale
+    if args.perturb_norm is not None:
+        skw["perturb_norm"] = args.perturb_norm
+    skw.setdefault("seed", args.seed)
+    skw.setdefault("batch", args.batch)
+    return V.FleetSettings(cbf_overrides=tuple(overrides), **skw)
+
+
+def _cmd_verify_fleet(args) -> int:
+    """The falsification fleet over every registered scenario on
+    ``--device``. Exit 0 = every target survived the round budget, 2 = a
+    ``--state-dir`` campaign run under other settings, 3 = a new confirmed
+    violation archived."""
+    from cbf_tpu_torch import verify as V
+    from cbf_tpu_torch.obs.schema import json_scalar
+    from cbf_tpu_torch.verify.search import _check_mesh
+
+    settings = _fleet_settings_from_args(args)
+    mesh = None if not args.mesh_dp else (args.mesh_dp, 1)
+    _check_mesh(mesh)
+    sink = flight = None
+    if args.telemetry_dir:
+        from cbf_tpu_torch import obs
+        from cbf_tpu_torch.obs import flight as obs_flight
+
+        sink = obs.TelemetrySink(args.telemetry_dir, manifest=obs.build_manifest(
+            None, extra={"fleet": {"seed": settings.seed,
+                                   "batch": settings.batch,
+                                   "budget_rounds": args.budget_rounds},
+                         "device": args.device}))
+        flight = obs_flight.FlightRecorder(
+            os.path.join(sink.run_dir, "capsules")).attach(sink)
+    if args.state_dir and args.reset_state:
+        removed = V.reset_campaign_state(args.state_dir)
+        if removed and not args.json:
+            print(f"reset: removed {len(removed)} persisted campaign "
+                  f"state file(s) from {args.state_dir}")
+    engine = None
+    if args.serve_idle:
+        from cbf_tpu_torch.serve.engine import ServeEngine
+
+        engine = ServeEngine(telemetry=sink, flight=flight,
+                             device=args.device)
+        engine.start()
+    try:
+        res = V.run_fleet(settings, budget_rounds=args.budget_rounds,
+                          corpus_dir=args.corpus_dir,
+                          state_dir=args.state_dir, resume=args.resume,
+                          telemetry=sink, mesh=mesh, flight=flight,
+                          engine=engine, device=args.device)
+    except ValueError as e:
+        # Fingerprint mismatch: --state-dir holds a campaign run under
+        # different settings. Operator error, not a traceback.
+        print(f"verify: {e}", file=sys.stderr)
+        return 2
+    finally:
+        if engine is not None:
+            engine.stop()
+    record = {"targets": res.targets, "rounds": res.rounds,
+              "evaluated": res.evaluated, "best_margin": res.best_margin,
+              "violations": res.violations, "near_misses": res.near_misses,
+              "cells_visited": res.cells_visited,
+              "cells_total": res.cells_total, "done": res.done,
+              "state_path": res.state_path}
+    if sink is not None:
+        sink.summary({"violations_found": len(res.violations)})
+        sink.close()
+        record["telemetry"] = sink.run_dir
+    if args.json:
+        record["best_margin"] = json_scalar(record["best_margin"])
+        print(json.dumps(record))
+    else:
+        print(f"fleet: {res.rounds} rounds, {res.evaluated} candidates "
+              f"over {len(res.targets)} targets, best margin "
+              f"{res.best_margin:.6f}, coverage "
+              f"{res.cells_visited}/{res.cells_total} cells, "
+              f"{res.near_misses} near-miss cells")
+        for v in res.violations:
+            print(f"VIOLATION {v['target']}/{v['property']}: "
+                  f"margin_x64 {v['margin_x64']:.6f} "
+                  f"(round {v['round']}, archived: {v['corpus']})")
+    return 3 if res.violations else 0
+
+
 def cmd_verify(args) -> int:
     """Falsification sweep (module docstring); exit 0 = survived, 3 =
     violation found."""
     if args.scenario == "fleet":
-        raise OutOfSliceError("verify fleet (the falsification fleet)",
-                              SLICE_SERVE)
+        return _cmd_verify_fleet(args)
     from cbf_tpu_torch import verify as V
     from cbf_tpu_torch.scenarios.platform import registry
     from cbf_tpu_torch.verify.search import json_scalar
@@ -1801,8 +1931,9 @@ def _add_verify_parser(sub) -> None:
                        "= violation found")
     verp.add_argument("scenario", nargs="?", default="swarm",
                       choices=sorted([*registry.names(), "fleet"]),
-                      help="one scenario to falsify ('fleet' is not "
-                           "ported yet: raises)")
+                      help="one scenario to falsify, or 'fleet' for the "
+                           "continuous fuzzing campaign over every "
+                           "registered scenario")
     verp.add_argument("--device", "--platform", dest="device",
                       default="cuda", choices=("cuda", "cpu"),
                       help="where the rollouts run (default: the card; "
@@ -1828,10 +1959,11 @@ def _add_verify_parser(sub) -> None:
                            "trigger a violation (default: all)")
     verp.add_argument("--seed", type=int, default=0)
     verp.add_argument("--perturb-scale", type=float, default=None,
-                      help="proposal std in metres (default 0.04)")
+                      help="proposal std in metres (default 0.04; fleet "
+                           "default 0.02)")
     verp.add_argument("--perturb-norm", type=float, default=None,
                       help="per-agent L2 cap on perturbations (default "
-                           "0.1 m)")
+                           "0.1 m; fleet default 0.05)")
     verp.add_argument("--no-shrink", action="store_true",
                       help="skip minimizing a found counterexample")
     verp.add_argument("--corpus-dir", default=None,
@@ -1857,12 +1989,169 @@ def _add_verify_parser(sub) -> None:
                            "manifest and summary) into this run "
                            "directory")
     verp.add_argument("--budget-rounds", type=int, default=8,
-                      help="fleet only (not ported yet)")
+                      help="fleet only: fuzzing rounds before the "
+                           "campaign rests (default 8; re-running with a "
+                           "larger value extends a persisted campaign)")
     verp.add_argument("--serve-idle", action="store_true",
-                      help="fleet only (not ported yet)")
+                      help="fleet only: run the campaign as the background "
+                           "tenant of a local serve engine (preempted by "
+                           "any foreground traffic) instead of inline")
     verp.add_argument("--json", action="store_true",
                       help="machine-readable output (one JSON object)")
     verp.set_defaults(fn=cmd_verify)
+
+
+def cmd_scenario(args) -> int:
+    """Scenario-platform commands. ``list`` prints the registry; ``gen``
+    runs the seeded procedural generator (enrolling the batch for this
+    process, optionally running every scenario on ``--device``); ``run``
+    executes one registered scenario end to end (``--gen-seed``
+    regenerates a batch in-process so generated names resolve)."""
+    from cbf_tpu_torch.scenarios.platform import dsl, registry
+
+    if args.scenario_command == "list":
+        print(json.dumps({"scenarios": [
+            {"name": e.name, "adapter": e.adapter,
+             "steps_field": e.steps_field, "servable": e.servable,
+             "generated": e.generated} for e in registry.entries()]}))
+        return 0
+
+    if args.scenario_command == "gen":
+        sink = None
+        if args.telemetry_dir:
+            from cbf_tpu_torch import obs
+            from cbf_tpu_torch.scenarios import swarm
+
+            sink = obs.TelemetrySink(
+                args.telemetry_dir,
+                manifest=obs.build_manifest(swarm.Config(), extra={
+                    "scenario": "platform.gen", "gen_seed": args.seed,
+                    "gen_count": args.count, "device": args.device}))
+        specs = dsl.generate(args.seed, count=args.count, telemetry=sink)
+        dsl.enroll(specs, replace=True)
+        record = {"seed": args.seed, "count": len(specs),
+                  "scenarios": [dataclasses.asdict(s) for s in specs]}
+        if args.run:
+            runs = []
+            for s in specs:
+                _final, outs = dsl.run_spec(s, telemetry=sink,
+                                            device=args.device)
+                md, infeasible = dsl.run_summary(outs)
+                runs.append({"scenario": s.name,
+                             "min_pairwise_distance": round(md, 6),
+                             "infeasible_count": infeasible})
+            record["runs"] = runs
+        if sink is not None:
+            sink.summary()
+            sink.close()
+            record["telemetry"] = sink.run_dir
+        print(json.dumps(record))
+        return 0
+
+    # scenario run NAME
+    if args.gen_seed is not None:
+        dsl.enroll(dsl.generate(args.gen_seed, count=args.gen_count),
+                   replace=True)
+    try:
+        entry = registry.get(args.name)
+    except KeyError as e:
+        print(f"scenario run: {e.args[0]}", file=sys.stderr)
+        return 2
+    if not entry.servable:
+        print(f"scenario run: {args.name!r} is not a platform "
+              "(swarm.Config) scenario — use `python -m cbf_tpu_torch run "
+              f"{args.name}`", file=sys.stderr)
+        return 2
+    if args.tiles is not None and args.partition != "spatial":
+        print("scenario run: --tiles needs --partition spatial",
+              file=sys.stderr)
+        return 2
+    if args.partition == "spatial":
+        raise OutOfSliceError("scenario run --partition spatial (the "
+                              "spatially tiled rollout, parallel.spatial)",
+                              SLICE_PARALLEL)
+    cfg = _apply_overrides(entry.make_config(), args.set, args.steps,
+                           entry.steps_field, need_trajectory=False)
+    sink = None
+    if args.telemetry_dir:
+        from cbf_tpu_torch import obs
+
+        sink = obs.TelemetrySink(
+            args.telemetry_dir,
+            manifest=obs.build_manifest(cfg, extra={
+                "scenario": args.name, "steps": cfg.steps,
+                "device": args.device}))
+    _final, outs = dsl.run_config(args.name, cfg, telemetry=sink,
+                                  device=args.device)
+    md, infeasible = dsl.run_summary(outs)
+    record = {"scenario": args.name, "n": cfg.n, "steps": cfg.steps,
+              "dynamics": cfg.dynamics,
+              "min_pairwise_distance": round(md, 6),
+              "infeasible_count": infeasible}
+    if sink is not None:
+        sink.summary()
+        sink.close()
+        record["telemetry"] = sink.run_dir
+    print(json.dumps(record))
+    return 0
+
+
+def _add_scenario_parser(sub) -> None:
+    def device_arg(parser):
+        parser.add_argument("--device", "--platform", dest="device",
+                            default="cuda", choices=("cuda", "cpu"),
+                            help="where the rollouts run (default: the "
+                                 "card; without one a run raises)")
+
+    scenp = sub.add_parser(
+        "scenario", help="scenario platform: list the registry, generate "
+                         "a seeded procedural batch, or run one")
+    scen_sub = scenp.add_subparsers(dest="scenario_command", required=True)
+    slistp = scen_sub.add_parser(
+        "list", help="print the scenario registry as JSON")
+    slistp.set_defaults(fn=cmd_scenario)
+    sgenp = scen_sub.add_parser(
+        "gen", help="seeded procedural generation: same seed, same specs")
+    device_arg(sgenp)
+    sgenp.add_argument("--seed", type=int, default=0,
+                       help="generator seed (default 0)")
+    sgenp.add_argument("--count", type=int, default=20,
+                       help="specs to generate (default 20; index 3 is "
+                            "pinned mixed-dynamics)")
+    sgenp.add_argument("--run", action="store_true",
+                       help="also run every generated scenario and report "
+                            "its safety aggregates")
+    sgenp.add_argument("--telemetry-dir", default=None,
+                       help="write scenario.generated (+ scenario.run "
+                            "with --run) events into a run directory")
+    sgenp.set_defaults(fn=cmd_scenario)
+    srunp = scen_sub.add_parser(
+        "run", help="run one registered scenario end to end")
+    srunp.add_argument("name", help="registered scenario name (builtin, "
+                                    "or generated via --gen-seed)")
+    device_arg(srunp)
+    srunp.add_argument("--gen-seed", type=int, default=None,
+                       help="regenerate+enroll this generator batch "
+                            "first, so generated names resolve")
+    srunp.add_argument("--gen-count", type=int, default=20,
+                       help="batch size for --gen-seed (default 20)")
+    srunp.add_argument("--steps", type=int, default=None,
+                       help="override the rollout horizon")
+    srunp.add_argument("--set", action="append", default=[],
+                       metavar="FIELD=VALUE",
+                       help="override any config field")
+    srunp.add_argument("--telemetry-dir", default=None,
+                       help="write a run directory with a scenario.run "
+                            "event")
+    srunp.add_argument("--partition", default="flat",
+                       choices=("flat", "spatial"),
+                       help="rollout decomposition: flat (default) or "
+                            "spatial (domain-decomposed tiles; not ported "
+                            "yet: raises)")
+    srunp.add_argument("--tiles", type=int, default=None,
+                       help="spatial tile count; only with --partition "
+                            "spatial")
+    srunp.set_defaults(fn=cmd_scenario)
 
 
 def main(argv=None) -> int:
@@ -1924,6 +2213,7 @@ def main(argv=None) -> int:
     listp = sub.add_parser("list", help="list scenarios and their knobs")
     listp.set_defaults(fn=cmd_list)
     _add_verify_parser(sub)
+    _add_scenario_parser(sub)
 
     obsp = sub.add_parser("obs", help="telemetry run-dir tools (tail, "
                                       "summary, top, lanes, incident)")

@@ -24,8 +24,9 @@ recorder, the load generator and the lane ledger declare their events
 here (:data:`SERVE_EVENT_TYPES`, :data:`DURABLE_EVENT_TYPES`,
 :data:`FLIGHT_EVENT_TYPES`, :data:`LOADGEN_EVENT_TYPES`,
 :data:`LANES_EVENT_TYPES`), as do the high-availability layer and the
-routed cluster (:data:`HA_EVENT_TYPES`, :data:`CLUSTER_EVENT_TYPES`); the
-fleet's table arrives with its emitter (Queue A11).
+routed cluster (:data:`HA_EVENT_TYPES`, :data:`CLUSTER_EVENT_TYPES`), the
+scenario platform (:data:`SCENARIO_EVENT_TYPES`) and the falsification
+fleet (:data:`FLEET_EVENT_TYPES`).
 """
 
 from __future__ import annotations
@@ -244,6 +245,37 @@ CLUSTER_EVENT_FIELDS: dict[str, tuple[str, ...]] = {
     "cluster.member": ("engine", "state", "epoch", "reenqueued",
                        "deduped", "mttr_s"),
     "cluster.roll": ("engine", "phase", "drained", "restart_s"),
+}
+
+#: The scenario platform's events (``scenarios.platform.dsl``):
+#: ``scenario.generated`` once per generator batch (seed, count, names),
+#: ``scenario.run`` once per scenario run end to end (its size, horizon,
+#: dynamics family, minimum pairwise distance and infeasible count).
+#: ``dsl.EMITTED_EVENT_TYPES`` equals this tuple.
+SCENARIO_EVENT_TYPES: tuple[str, ...] = ("scenario.generated",
+                                         "scenario.run")
+
+SCENARIO_EVENT_FIELDS: dict[str, tuple[str, ...]] = {
+    "scenario.generated": ("seed", "count", "names"),
+    "scenario.run": ("scenario", "n", "steps", "dynamics",
+                     "min_pairwise_distance", "infeasible_count"),
+}
+
+#: The falsification fleet's events (``verify.fleet``): ``fleet.round``
+#: once per campaign round, ``fleet.violation`` once per confirmed and
+#: archived violation, ``fleet.preempt`` once per tenant unit the serve
+#: engine dropped un-run for a foreground arrival.
+#: ``fleet.EMITTED_EVENT_TYPES`` equals this tuple.
+FLEET_EVENT_TYPES: tuple[str, ...] = (
+    "fleet.round", "fleet.violation", "fleet.preempt")
+
+FLEET_EVENT_FIELDS: dict[str, tuple[str, ...]] = {
+    "fleet.round": ("round", "candidates", "evaluated", "best_margin",
+                    "violations", "near_misses", "cells_visited",
+                    "cells_total"),
+    "fleet.violation": ("target", "scenario", "property", "margin",
+                        "margin_x64", "confirmed_x64", "round", "corpus"),
+    "fleet.preempt": ("round", "queue_depth", "dispatched"),
 }
 
 #: The incident flight recorder's event (``obs.flight``): one

@@ -3,7 +3,8 @@ registry.py): the one place the verify subsystem learns what a scenario
 is — its default config, its adapter key
 (:data:`cbf_tpu_torch.verify.search.ADAPTER_FACTORIES`) and the name of
 its horizon field. The four builtin entries are the hand-written
-scenario modules; generated (DSL) entries are the serving slice's."""
+scenario modules; the generator DSL (:mod:`.dsl`) registers its seeded
+specs through the same :func:`register` door (``generated=True``)."""
 
 from __future__ import annotations
 

@@ -68,8 +68,13 @@ A batch's (a chunk's) results reach the host in one copy per tree (the
 crash resolves every queued request — and every in-flight lane — with
 `SchedulerCrashed` instead of hanging them.
 
-The background tenant (``attach_background``) arrives with Queue A11
-item 11.4 and raises :class:`~cbf_tpu_torch.errors.OutOfSliceError`.
+A cooperative background tenant (``attach_background``; the
+falsification fleet's serve-idle mode) gets one unit of work per
+scheduler pass while the foreground tier is fully idle; a unit pulled
+just before a foreground arrival is dropped un-run. The unit runs on the
+scheduler thread outside the engine's own locks but under
+``_PROGRAM_LOCK``: its captures, replays and any shrink of a found
+violation never interleave with another engine's device work.
 """
 
 from __future__ import annotations
@@ -85,7 +90,6 @@ import numpy as np
 import torch
 
 from cbf_tpu_torch.analysis import lockwitness
-from cbf_tpu_torch.errors import SLICE_SERVE, OutOfSliceError
 from cbf_tpu_torch.obs import trace as obs_trace
 from cbf_tpu_torch.parallel import ensemble
 from cbf_tpu_torch.scenarios import swarm
@@ -504,6 +508,8 @@ class ServeEngine:
         self._chunk_execs: dict[swarm.Config, Any] = {}
         self._tables: dict[swarm.Config, _LaneTable] = {}
         self._bg_tables: dict[swarm.Config, _LaneTable] = {}
+        # The cooperative background tenant (attach_background), or None.
+        self._bg_tenant = None
         self._ids = itertools.count()
         self._batch_ids = itertools.count()
         self._lock = lockwitness.make_lock("ServeEngine._lock")
@@ -1583,10 +1589,26 @@ class ServeEngine:
     # -- background tenancy ------------------------------------------------
 
     def attach_background(self, tenant) -> None:
-        """The cooperative background tenant (the falsification fleet's
-        serve-idle mode) arrives with Queue A11 item 11.4."""
-        raise OutOfSliceError("ServeEngine.attach_background (the "
-                              "background tenant)", SLICE_SERVE)
+        """Attach a cooperative background tenant (the falsification
+        fleet's serve-idle mode). Protocol:
+
+        - ``tenant.next_unit() -> callable | None`` — one unit of
+          background work (roughly one candidate batch), or None when
+          the tenant is idle. Called only while the foreground tier is
+          fully idle (no runnable batch, empty queue) and no queued
+          background batch is ready.
+        - ``tenant.on_preempt(queue_depth) -> None`` — a pulled unit
+          was DROPPED un-run because foreground work arrived between
+          the pull and the dispatch.
+
+        Units must be idempotent offers: the scheduler may drop one
+        without running it (the tenant re-derives the same work next
+        pull). A tenant whose ``next_unit``/unit raises is detached —
+        a broken tenant must not crash the scheduler and strand
+        foreground requests. Pass None to detach explicitly."""
+        with self._cond:
+            self._bg_tenant = tenant
+            self._cond.notify()
 
     def _scan_bg_queue(self, now: float):
         """Under ``self._lock``: pop at most ONE flush-ready background
@@ -1674,6 +1696,7 @@ class ServeEngine:
             transition = None
             preempted = False
             bg_batch = None
+            want_tenant = False
             with self._cond:
                 if not self._running:
                     return
@@ -1693,8 +1716,10 @@ class ServeEngine:
                                 and (next_deadline is None
                                      or bg_deadline < next_deadline):
                             next_deadline = bg_deadline
+                        want_tenant = bg_batch is None \
+                            and self._bg_tenant is not None
                     if not to_run and transition is None \
-                            and bg_batch is None:
+                            and bg_batch is None and not want_tenant:
                         timeout = None if next_deadline is None \
                             else max(next_deadline - now, 1e-3)
                         poll = self._preempt_poll_s
@@ -1720,6 +1745,8 @@ class ServeEngine:
                 key, batch = bg_batch
                 self._count("background_batches")
                 self._execute(key, batch)
+            elif want_tenant:
+                self._run_tenant_unit()
 
     # -- continuous batching -----------------------------------------------
 
@@ -1730,7 +1757,8 @@ class ServeEngine:
         advance every occupied foreground table ONE chunk — completions
         resolve, in-flight lanes stream partials; (3) only when the
         foreground tier is fully idle, give the background tier one
-        table-chunk. Preemption granularity is thus one CHUNK: a
+        table-chunk or one tenant unit. Preemption granularity is thus
+        one CHUNK: a
         foreground arrival waits at most one chunk's device wall, never
         a background rollout's full horizon."""
         while True:
@@ -1738,6 +1766,7 @@ class ServeEngine:
             preempted = False
             joins, expired = [], []
             bg_joins, bg_expired = [], []
+            want_tenant = False
             bg_active = False
             deep = False
             with self._cond:
@@ -1765,9 +1794,11 @@ class ServeEngine:
                             now, self._bg_queue, self._bg_tables)
                         bg_active = bool(bg_joins) or any(
                             t.occupied() for t in self._bg_tables.values())
+                        want_tenant = not bg_active \
+                            and self._bg_tenant is not None
                     if not fg_active and not expired \
                             and transition is None and not bg_active \
-                            and not bg_expired:
+                            and not bg_expired and not want_tenant:
                         self._cond.wait(self._preempt_poll_s)
                         continue
             if preempted:
@@ -1815,8 +1846,8 @@ class ServeEngine:
                                                len(btab.lanes), slots)
                 continue
             # Foreground fully idle this pass: the background tier gets
-            # at most ONE table-chunk before the foreground queue is
-            # re-scanned.
+            # at most ONE table-chunk (or one tenant unit) before the
+            # foreground queue is re-scanned.
             self._apply_joins(bg_joins, bg_expired, self._bg_tables)
             bg_ran = False
             for scfg, table in list(self._bg_tables.items()):
@@ -1826,6 +1857,8 @@ class ServeEngine:
                     bg_ran = True
                 if not table.occupied():
                     self._bg_tables.pop(scfg, None)
+            if not bg_ran and want_tenant:
+                self._run_tenant_unit()
 
     def _pop_joinable(self, now: float, qmap, tables):
         """Under ``self._lock``: pop queue entries that can JOIN a free
@@ -2280,6 +2313,50 @@ class ServeEngine:
                     or any(self._bg_queue.values())
             if not work and not queued:
                 return
+
+    def _run_tenant_unit(self) -> None:
+        """Pull and run ONE unit of tenant work on the scheduler thread,
+        outside the engine's own locks (tenant code is foreign). The pull
+        and the dispatch re-check the foreground queue in between: a unit
+        pulled just before a foreground arrival is dropped un-run
+        (``on_preempt``), which is the tenant-side half of the yield
+        guarantee. The unit itself runs under ``_PROGRAM_LOCK``: its
+        captures and replays (the fleet's compiled candidate rollouts,
+        a found violation's shrink) are device work beside other engines'
+        programs in this process, and a CUDA graph capture must not see
+        another thread's launches. A raising tenant is detached, never
+        re-raised — the crash guard above this loop resolves QUEUED
+        requests, and a broken soak tenant is not worth that blast
+        radius."""
+        tenant = self._bg_tenant
+        if tenant is None:
+            return
+        try:
+            unit = tenant.next_unit()
+        except Exception:
+            self.attach_background(None)
+            return
+        if unit is None:
+            # Tenant idle: park briefly instead of spinning the pull.
+            with self._cond:
+                if self._running:
+                    self._cond.wait(self.flush_deadline_s)
+            return
+        with self._lock:
+            fg_depth = sum(len(v) for v in self._queue.values())
+        if fg_depth > 0:
+            self._count("background_yields")
+            try:
+                tenant.on_preempt(fg_depth)
+            except Exception:
+                self.attach_background(None)
+            return
+        self._count("background_batches")
+        try:
+            with _PROGRAM_LOCK:
+                unit()
+        except Exception:
+            self.attach_background(None)
 
     def _on_scheduler_crash(self, error: BaseException) -> None:
         with self._cond:

@@ -119,10 +119,15 @@ def si_barrier_certificate(dxi, x, params: CertificateParams = CertificateParams
         keep = torch.sort(h, stable=True).indices[:max_pairs]
         I, J, h, err = I[keep], J[keep], h[keep], err[:, keep]
         P_rows = max_pairs
-    rows = torch.arange(P_rows, device=device)
-    A3 = torch.zeros((P_rows, N, 2), dtype=dtype, device=device)
-    A3[rows, I] = (-2.0 * err.T).to(dtype)
-    A3[rows, J] = (2.0 * err.T).to(dtype)
+    # Row p holds -2 err at agent I[p] and 2 err at J[p], zero elsewhere:
+    # selected out of place (an index_put_ into a fresh tensor cannot
+    # take the falsifier's member axis under torch.func.vmap).
+    agents = torch.arange(N, device=device)
+    A3 = torch.where(
+        (agents == I[:, None])[..., None], (-2.0 * err.T).to(dtype)[:, None],
+        torch.where((agents == J[:, None])[..., None],
+                    (2.0 * err.T).to(dtype)[:, None],
+                    torch.zeros((), dtype=dtype, device=device)))
     A_pair = A3.reshape(P_rows, 2 * N)
     b_pair = params.barrier_gain * h ** 3
 

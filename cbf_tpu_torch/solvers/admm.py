@@ -6,8 +6,12 @@ iteration count and no data-dependent exit, so the whole solve runs on the
 device without a host read and a CUDA graph can capture it. The linear
 system ``K = P + sigma I + rho A^T A`` is factored once per problem by
 ``torch.linalg.cholesky_ex`` (``torch.linalg.cholesky`` would read its
-info flag on the host) and every iteration solves with
-``torch.cholesky_solve``.
+info flag on the host) and every iteration solves with two triangular
+solves (``torch.linalg.solve_triangular``; one ``cholesky_solve`` on
+the CPU, bit for bit). ``torch.cholesky_solve`` of a batch, which
+``torch.func.vmap`` over the falsifier's candidates makes, runs MAGMA's
+batched solve on the card, and that allocates device memory itself, so
+a CUDA graph cannot capture it.
 
 Used for the dense joint barrier certificate
 (:func:`cbf_tpu_torch.sim.certificates.si_barrier_certificate`), whose QP
@@ -84,7 +88,8 @@ def solve_box_qp_admm(P, q, A, l, u, settings: ADMMSettings = ADMMSettings()):
     y = torch.zeros((m,), dtype=dtype, device=q.device)
     for _ in range(settings.iters):
         rhs = sigma * x - q + A.T @ (rho * z - y)
-        x = torch.cholesky_solve(rhs[:, None], L)[:, 0]
+        w = torch.linalg.solve_triangular(L, rhs[:, None], upper=False)
+        x = torch.linalg.solve_triangular(L.mT, w, upper=True)[:, 0]
         z, y = relaxed_zy_update(A @ x, z, y, rho, alpha,
                                  lambda w: torch.clamp(w, l, u))
 

@@ -17,7 +17,13 @@ its seed alone. This module gives the port the same streams: a key is a
   ``_normal_real`` (``sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1))``),
   with XLA's erfinv polynomials (Giles' single- and double-precision
   fits, as the CHLO decomposition evaluates them) and XLA's log1p (a
-  Cephes rational below sqrt(2) - 1, ``log(1 + x)`` above).
+  Cephes rational below sqrt(2) - 1, ``log(1 + x)`` above);
+- :func:`split` is ``jax.random.split`` (the partitionable, fold-like
+  form: key ``i`` hashes the counter pair ``(0, i)``), :func:`randint`
+  is ``_randint`` (two words of bits per value from the split keys,
+  reduced modulo the span with JAX's multiplier ``2**nbits % span``, the
+  bounds clipped to the dtype first) and :func:`bernoulli` is
+  ``_bernoulli``'s low mode (``uniform < p``).
 
 torch has no full uint32 arithmetic, so every word rides in int64 and is
 masked back to 32 bits after each add and shift. The draws are made on
@@ -274,6 +280,96 @@ def erfinv(x):
     else:
         raise ValueError(f"erfinv takes float32 or float64, got {x.dtype}")
     return torch.where(torch.abs(x) == 1.0, x * torch.inf, p * x)
+
+
+def split(key, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)``: (num, 2) keys, key ``i`` the hash of
+    the counter pair ``(0, i)`` (``_threefry_split_foldlike``)."""
+    k1, k2 = _words(key)
+    y1, y2 = threefry2x32(k1, k2, torch.zeros(num, dtype=torch.int64),
+                          torch.arange(num, dtype=torch.int64))
+    return torch.stack([y1, y2], dim=1)
+
+
+_INT_BITS = {torch.int8: 8, torch.int16: 16, torch.int32: 32,
+             torch.int64: 64}
+
+
+def _bits_u64(key, nbits: int, shape) -> np.ndarray:
+    """``_random_bits`` of 32 or 64 bits as numpy uint64."""
+    if nbits == 32:
+        return random_bits(key, 32, shape).numpy().astype(np.uint64)
+    hl = random_bits(key, 64, shape).numpy().astype(np.uint64)
+    return (hl[..., 0] << np.uint64(32)) | hl[..., 1]
+
+
+def randint(key, shape, minval, maxval, dtype=torch.int32) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, dtype)``: integers
+    in [minval, maxval). JAX's algorithm, not a floor of a uniform: split
+    the key, draw one word of ``nbits`` from each half (8- and 16-bit
+    dtypes sample at 32 bits, their bounds clipped to the dtype, the upper
+    one to max + 1), and reduce ``(hi % span) * (2**nbits % span) + lo %
+    span`` modulo the span, in wrapping unsigned arithmetic. A span of 0
+    or less returns ``minval``; an upper bound above the dtype's maximum
+    widens the span by one."""
+    if dtype not in _INT_BITS:
+        raise TypeError(f"randint takes int8/16/32/64, got {dtype}")
+    shape = tuple(int(s) for s in shape)
+    lo_in = np.asarray(minval, dtype=object)
+    hi_in = np.asarray(maxval, dtype=object)
+    bits = _INT_BITS[dtype]
+    info = torch.iinfo(dtype)
+    if bits < 32:
+        # Sampled in int32: the bounds cast to int32 (wrapping, as
+        # ``astype`` does) and clipped to the requested dtype.
+        def wrap32(v):
+            return ((v + 2 ** 31) % 2 ** 32) - 2 ** 31
+
+        lo_in = np.clip(np.vectorize(wrap32, otypes=[object])(lo_in),
+                        info.min, info.max)
+        hi_in = np.clip(np.vectorize(wrap32, otypes=[object])(hi_in),
+                        info.min, info.max + 1)
+        bits, info = 32, torch.iinfo(torch.int32)
+    lo = np.broadcast_to(np.clip(lo_in, info.min, info.max),
+                         shape).astype(np.int64)
+    hi_full = np.broadcast_to(hi_in, shape)
+    out_of_range = hi_full > info.max
+    hi = np.clip(hi_full, info.min, info.max).astype(np.int64)
+    udt = np.uint32 if bits == 32 else np.uint64
+    with np.errstate(over="ignore"):
+        span = (hi.astype(np.uint64) - lo.astype(np.uint64)).astype(udt)
+        span = np.where(hi <= lo, udt(1), span).astype(udt)
+        span = np.where(out_of_range & (hi > lo), span + udt(1),
+                        span).astype(udt)
+        keys = split(key)
+        higher = _bits_u64(keys[0], bits, shape).astype(udt)
+        lower = _bits_u64(keys[1], bits, shape).astype(udt)
+        # A span that wrapped to 0 (the full range) leaves the bits as
+        # they are, as XLA's unsigned remainder by zero does.
+        safe = np.where(span == 0, udt(1), span).astype(udt)
+
+        def rem(a):
+            return np.where(span == 0, a, a % safe).astype(udt)
+
+        mult = rem(np.full(shape, 2 ** (bits // 2), dtype=udt))
+        mult = rem((mult * mult).astype(udt))
+        offset = rem((rem(higher) * mult + rem(lower)).astype(udt))
+        signed = np.int32 if bits == 32 else np.int64
+        out = (lo.astype(signed) + offset.astype(signed)).astype(signed)
+    return torch.from_numpy(np.ascontiguousarray(out)).to(dtype)
+
+
+def bernoulli(key, p=0.5, shape=None, dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` (mode "low"): ``uniform(key,
+    shape) < p`` in p's float dtype — ``dtype`` for a Python float (JAX
+    draws float32, or float64 under ``jax_enable_x64``), the tensor's own
+    for a tensor ``p``. A bool tensor of ``shape`` (p's shape when
+    None)."""
+    if torch.is_tensor(p):
+        dtype = p.dtype
+    p = torch.as_tensor(p, dtype=dtype)
+    shape = tuple(p.shape) if shape is None else tuple(int(s) for s in shape)
+    return uniform(key, shape, dtype) < p
 
 
 def normal(key, shape, dtype=torch.float32) -> torch.Tensor:

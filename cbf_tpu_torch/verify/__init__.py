@@ -7,17 +7,21 @@ violation corpus.
 - :mod:`.search` — the random, gradient and CEM engines over
   member-batched compiled rollouts;
 - :mod:`.shrink` — horizon and norm minimization, the float64 replay;
-- :mod:`.corpus` — the JSONL archive and its replay gate.
+- :mod:`.corpus` — the JSONL archive and its replay gate;
+- :mod:`.fleet` — the falsification fleet: corpus-driven continuous
+  fuzzing over every registered scenario, standalone or as a background
+  tenant of the serve engine.
 
-CLI: ``python -m cbf_tpu_torch verify`` (exit 3 = violation found). The
-falsification fleet (``verify/fleet.py``, a background tenant of the
-serve engine) is the serving slice's (ROADMAP.md item 11).
+CLI: ``python -m cbf_tpu_torch verify`` (exit 3 = violation found) and
+``python -m cbf_tpu_torch verify fleet``.
 """
 
 from cbf_tpu_torch.verify.corpus import (append_entry, check_replay,
                                          check_verdict, entry_from,
                                          load_entries, near_miss_entry,
                                          replay_corpus, replay_entry)
+from cbf_tpu_torch.verify.fleet import (FalsificationFleet, FleetResult,
+                                        FleetSettings, run_fleet)
 from cbf_tpu_torch.verify.properties import (DIFFERENTIABLE_PROPERTIES,
                                              PROPERTY_NAMES, Margins,
                                              PropertyThresholds,
@@ -33,7 +37,8 @@ from cbf_tpu_torch.verify.shrink import (ShrinkResult, enable_x64_ctx,
                                          measure_margin_x64, shrink)
 
 __all__ = [
-    "Adapter", "DIFFERENTIABLE_PROPERTIES", "ENGINES", "Margins",
+    "Adapter", "DIFFERENTIABLE_PROPERTIES", "ENGINES",
+    "FalsificationFleet", "FleetResult", "FleetSettings", "Margins",
     "PROPERTY_NAMES", "PropertyThresholds", "SearchResult",
     "SearchSettings", "ShrinkResult", "append_entry", "cem_search",
     "check_replay", "check_verdict", "enable_x64_ctx", "entry_from",
@@ -41,5 +46,5 @@ __all__ = [
     "make_eval_batch", "make_eval_one", "measure_margin_x64",
     "near_miss_entry", "random_search", "replay_corpus", "replay_entry",
     "reset_campaign_state", "rollout_margins", "rollout_margins_np",
-    "shrink", "thresholds_for",
+    "run_fleet", "shrink", "thresholds_for",
 ]

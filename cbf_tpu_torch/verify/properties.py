@@ -51,7 +51,10 @@ class PropertyThresholds:
 
 
 def thresholds_for(scenario: str, cfg) -> PropertyThresholds:
-    """Calibrated default thresholds per scenario, the JAX package's."""
+    """Calibrated default thresholds per scenario, the JAX package's.
+    Registry-driven for generated scenarios: any scenario registered
+    with the swarm adapter key gets the swarm calibration (its config IS
+    a ``swarm.Config``)."""
     if scenario == "meet_at_center":
         return PropertyThresholds(separation_floor=0.05, boundary_half=2.0)
     if scenario == "cross_and_rescue":
@@ -61,8 +64,14 @@ def thresholds_for(scenario: str, cfg) -> PropertyThresholds:
             separation_floor=0.13,
             boundary_half=float(cfg.circle_radius) + 1.0)
     if scenario != "swarm":
-        raise ValueError(f"no calibrated thresholds for scenario "
-                         f"{scenario!r}")
+        from cbf_tpu_torch.scenarios.platform import registry
+        try:
+            entry = registry.get(scenario)
+        except KeyError:
+            entry = None
+        if entry is None or entry.adapter != "swarm":
+            raise ValueError(f"no calibrated thresholds for scenario "
+                             f"{scenario!r}")
     floor = {"single": 0.13, "double": 0.08, "mixed": 0.08,
              "unicycle": 0.11}[cfg.dynamics]
     half = (cfg.arena_half_override if cfg.arena_half_override

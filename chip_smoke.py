@@ -362,6 +362,29 @@ Phases (each raises, and the script exits non-zero, on any failure):
    route events to the journals' resolved records, the steal count, the
    failover MTTR and the time from the kill to the survivor's first
    replayed result (files under ``chiprun_out/phase20*``).
+21. the scenario DSL and the falsification fleet
+   (``scenarios.platform.dsl``, ``verify.fleet``, the serve engine's
+   background tenant): 21a the generator's 20 specs of seed 0 (their
+   digest the JAX package's, ``DSL_SPECS_SHA256``) each through
+   ``dsl.run_spec`` compiled at its own size and horizon: above its
+   adapter's separation floor with 0 infeasible, ``knn_fused`` once per
+   step, the minimum within ``DSL_MD_ATOL`` of the JAX package's CPU run
+   (``DSL_REFERENCE``; a spec parting beyond ``CROSS_MD_ATOL`` printed);
+   21b the fleet at ``FleetSettings()``'s defaults (seven targets, 16
+   candidates per dispatch, 8 dispatches per round, 64 steps) for two
+   rounds: candidates/s per round (the first holds the captures),
+   ``knn_fused`` member launches per target, one swarm target's batch
+   margins within ``MEMBER_MARGIN_ATOL`` of its candidates run alone, and
+   the campaign dropped after round 1 and resumed ``==`` the whole one,
+   its state file bit for bit; 21c tests/test_fleet.py's weakened dmin
+   found within 6 rounds, shrunk, float64-confirmed, archived, a capsule
+   tripped and the archive replayed clean, the time to detection; 21d 8
+   queue-mode requests at the serve default with and without a campaign
+   as the engine's background tenant, in turns: results
+   ``np.array_equal``, latency p50, ``background_batches``/``_yields``,
+   the campaign equal to its standalone run, every unit under
+   ``_PROGRAM_LOCK`` with the lock witness armed (files under
+   ``chiprun_out/phase21*``).
 
 Phases 7-13 run before phase 6, which times their kernels (``knn_fused``
 and ``knn_stream`` also at the certificate's k=16 shape) and profiles
@@ -617,6 +640,49 @@ CLUSTER_REQUESTS, CLUSTER_SEED, CLUSTER_TTL_S = 24, 20, 1.0
 CLUSTER_REFERENCE_DIPS = {0: 0.14129062, 1: 0.14130925}
 CONT_CLI = ["--continuous", "--chunk", "16", "--gating", "pallas", "--rps",
             "16", "--duration", "1"]
+# Phase 21, the scenario DSL and the falsification fleet. 21a: the
+# generator's DSL_COUNT specs of seed DSL_SEED, whose dataclasses.asdict
+# list (json, sorted keys) hashes to DSL_SPECS_SHA256, each run through
+# dsl.run_spec at its own size and horizon; DSL_REFERENCE is the JAX
+# package's run of each on the CPU (jax 0.9.0, float32, its CPU "auto"
+# gating): spec index -> (minimum pairwise distance, infeasible count).
+# tests/test_torch_platform.py holds both constants to the JAX package
+# (the minima in a slow test); the port's CPU runs lie within 1.7e-7 of
+# them. A card run is held within DSL_MD_ATOL (float32 over up to 271
+# steps with the card's rounding) and one that parts from the reference by
+# more than CROSS_MD_ATOL is printed. 21b: the fleet at FleetSettings()'s
+# defaults (FLEET_FIELDS empty) for FLEET_ROUNDS rounds; 21c the weakened
+# dmin of tests/test_fleet.py found within FLEET_DETECT_ROUNDS; 21d a
+# TENANT_* campaign as the background tenant of a queue-mode engine at the
+# serve default with 8 foreground requests.
+DSL_SEED, DSL_COUNT = 0, 20
+DSL_SPECS_SHA256 = (
+    "a9c1ce851c9f8f4534ec85ccfbb1c86ed3844afa469fc944c394e5fa1c3450fe")
+DSL_REFERENCE = {
+    0: (0.14146152138710022, 0), 1: (0.1492505520582199, 0),
+    2: (0.14142456650733948, 0), 3: (0.14342449605464935, 0),
+    4: (0.17729806900024414, 0), 5: (0.17751625180244446, 0),
+    6: (0.27015823125839233, 0), 7: (0.14270560443401337, 0),
+    8: (0.14162380993366241, 0), 9: (0.2250976711511612, 0),
+    10: (0.1475902944803238, 0), 11: (0.1639646291732788, 0),
+    12: (0.16240264475345612, 0), 13: (0.15796686708927155, 0),
+    14: (0.14142146706581116, 0), 15: (0.1780606359243393, 0),
+    16: (0.1414213329553604, 0), 17: (0.1461477279663086, 0),
+    18: (0.65236896276474, 0), 19: (0.21493132412433624, 0)}
+DSL_MD_ATOL = 1e-4
+FLEET_FIELDS: dict = {}
+FLEET_ROUNDS, FLEET_DETECT_ROUNDS = 2, 6
+# tests/test_fleet.py:51-55 and :465-493: the weakened filter, the marginal
+# config and the detection campaign's settings.
+WEAK_CBF_FIELDS = dict(max_speed=15.0, k=0.0, dmin=0.16)
+MARGINAL_FIELDS = dict(n=16, steps=140, k_neighbors=4, gating="jnp")
+DETECT_FIELDS = dict(seed=0, batch=8, batches_per_round=2,
+                     perturb_scale=0.04, perturb_norm=0.1, max_steps=140,
+                     generated_count=0, include_rta=False)
+TENANT_N, TENANT_ROUNDS = 64, 3
+TENANT_FIELDS = dict(batch=16, batches_per_round=4, max_steps=64,
+                     generated_count=0, include_rta=False)
+TENANT_REQUESTS = dict(base=128, B=8, steps=512)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -4372,6 +4438,408 @@ def phase20(engine, knn, swarm, t_start, p18, dev="cuda") -> dict:
     return out
 
 
+def phase21(engine, knn, swarm, t_start, dev="cuda") -> dict:
+    """Phase 21: the scenario DSL and the falsification fleet (module
+    docstring). Returns each driven run's launches and the
+    measurements."""
+    import dataclasses
+    import hashlib
+    import os
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from cbf_tpu_torch import obs
+    from cbf_tpu_torch.analysis import lockwitness
+    from cbf_tpu_torch.core.filter import CBFParams
+    from cbf_tpu_torch.obs import flight as obs_flight
+    from cbf_tpu_torch.scenarios.platform import dsl
+    from cbf_tpu_torch.serve import ServeEngine
+    from cbf_tpu_torch.serve import engine as serve_engine
+    from cbf_tpu_torch.utils import prng
+    from cbf_tpu_torch.verify import corpus, search
+    from cbf_tpu_torch.verify import fleet as vfleet
+    from cbf_tpu_torch.verify.properties import thresholds_for
+
+    cuda = torch.device(dev).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    out = {"runs": {}, "info": {}}
+    info = out["info"]
+    t21 = time.perf_counter()
+    root = os.path.abspath(os.path.dirname(__file__) or ".")
+
+    def fresh(name):
+        work = os.path.join(root, "chiprun_out", name)
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        return work
+
+    def launch_delta(before):
+        return {k: knn.LAUNCHES[k] - before[k] for k in before}
+
+    # 21a. the generator's batch, each spec end to end through run_spec.
+    specs = dsl.generate(DSL_SEED, count=DSL_COUNT)
+    digest = hashlib.sha256(json.dumps(
+        [dataclasses.asdict(s) for s in specs],
+        sort_keys=True).encode()).hexdigest()
+    check(digest == DSL_SPECS_SHA256, f"21a: generate({DSL_SEED}, "
+          f"{DSL_COUNT}) hashes to {digest}, not the JAX package's")
+    dsl.enroll(specs, replace=True)
+    sync()
+    rows, total = [], dict.fromkeys(knn.LAUNCHES, 0)
+    t_a = time.perf_counter()
+    for i, spec in enumerate(specs):
+        cfg = spec.to_config()
+        zero_counts(engine, knn)
+        t0 = time.perf_counter()
+        _final, outs = dsl.run_spec(spec, device=dev)
+        md, infeasible = dsl.run_summary(outs)      # one host copy
+        wall = time.perf_counter() - t0
+        launches, counts = dict(knn.LAUNCHES), dict(engine.COUNTS)
+        want = dict.fromkeys(knn.LAUNCHES, 0)
+        if cuda:
+            want["knn_fused"] = cfg.steps + counts["redo_steps"]
+        check(launches == want, f"21a: {spec.name} launches {launches}, "
+              f"want {want} (counts {counts})")
+        floor = thresholds_for(spec.name, cfg).separation_floor
+        ref_md, ref_infeasible = DSL_REFERENCE[i]
+        off = abs(md - ref_md)
+        check(np.isfinite(md) and md > floor and infeasible == 0
+              == ref_infeasible, f"21a: {spec.name} min distance {md} "
+              f"(floor {floor}), {infeasible} infeasible")
+        check(off <= DSL_MD_ATOL, f"21a: {spec.name} min distance {md} "
+              f"parts from the JAX package's CPU run {ref_md} by {off}")
+        for k, v in launches.items():
+            total[k] += v
+        rows.append({"spec": spec.name, "n": cfg.n, "steps": cfg.steps,
+                     "dynamics": cfg.dynamics, "rta": cfg.rta,
+                     "min_distance": md, "reference": ref_md, "off": off,
+                     "parts": off > CROSS_MD_ATOL, "floor": floor,
+                     "launches": launches["knn_fused"],
+                     "captures": counts["captures"],
+                     "redo_steps": counts["redo_steps"], "wall_s": wall})
+    out["runs"]["phase 21a"] = {"launches": total}
+    parted = [r["spec"] for r in rows if r["parts"]]
+    info["21a"] = {"mode": "compiled (swarm.run: one capture per spec)",
+                   "specs": rows, "wall_s": time.perf_counter() - t_a,
+                   "max_off": max(r["off"] for r in rows),
+                   "parted": parted}
+    print(f"phase 21a: generate({DSL_SEED}, {DSL_COUNT}) equal to the JAX "
+          f"package's (sha256 {digest[:12]}); each spec through "
+          f"dsl.run_spec compiled on {dev} (a capture per spec): every one "
+          f"above its separation floor with 0 infeasible, knn_fused once "
+          f"per step (+ redone steps: "
+          f"{sum(r['redo_steps'] for r in rows)}), min distance within "
+          f"{info['21a']['max_off']:.3g} of the JAX package's CPU run "
+          f"(bound {DSL_MD_ATOL}); parted beyond {CROSS_MD_ATOL}: "
+          f"{parted or 'none'}; {info['21a']['wall_s']:.2f} s for "
+          f"{sum(r['steps'] for r in rows)} steps")
+    for r in rows:
+        print(f"  {r['spec']} n={r['n']} x {r['steps']} {r['dynamics']}"
+              f"{' rta' if r['rta'] else ''}: min {r['min_distance']:.8f} "
+              f"(JAX CPU {r['reference']:.8f}, off {r['off']:.2e}"
+              f"{', PARTS' if r['parts'] else ''}), launches "
+              f"{r['launches']}, {r['wall_s']:.3f} s")
+    print(f"  (script at {time.perf_counter() - t_start:.1f} s)")
+
+    # 21b. the fleet at its defaults: seven targets, B candidates per
+    # dispatch, its dispatches per round, for FLEET_ROUNDS rounds.
+    work = fresh("phase21b")
+    st = vfleet.FleetSettings(**FLEET_FIELDS)
+    t0 = time.perf_counter()
+    targets = vfleet.enroll_targets(st, device=dev)
+    enroll_s = time.perf_counter() - t0
+    per_target = {t.name: dict.fromkeys(knn.LAUNCHES, 0) for t in targets}
+    per_dispatch = {t.name: [] for t in targets}
+
+    def counted(target):
+        def eval_b(deltas):
+            before = dict(knn.LAUNCHES)
+            t_d = time.perf_counter()
+            margins = target.eval_b(deltas)
+            sync()
+            delta = launch_delta(before)
+            for k, v in delta.items():
+                per_target[target.name][k] += v
+            per_dispatch[target.name].append(
+                (time.perf_counter() - t_d, delta.get("knn_fused_members",
+                                                      0)))
+            return margins
+        return target._replace(eval_b=eval_b)
+
+    wrapped = [counted(t) for t in targets]
+    fleet = vfleet.FalsificationFleet(
+        st, budget_rounds=FLEET_ROUNDS, targets=wrapped,
+        state_dir=os.path.join(work, "whole"))
+    zero_counts(engine, knn)
+    round_s, t_r = [], time.perf_counter()
+    while True:
+        unit = fleet.next_unit()
+        if unit is None:
+            break
+        r = fleet._round
+        unit()
+        if fleet._round != r:
+            round_s.append(time.perf_counter() - t_r)
+            t_r = time.perf_counter()
+    sync()
+    launches_b, counts_b = dict(knn.LAUNCHES), dict(engine.COUNTS)
+    by_target = {k: v["knn_fused_members"] for k, v in per_target.items()}
+    dispatches = {k: list(v) for k, v in per_dispatch.items()}
+    res = fleet.result()
+    out["runs"]["phase 21b"] = {"launches": launches_b}
+    per_round = st.batch * st.batches_per_round
+    check(res.rounds == FLEET_ROUNDS and res.evaluated
+          == FLEET_ROUNDS * per_round and not res.violations
+          and np.isfinite(res.best_margin) and res.best_margin > 0,
+          f"21b: {res}")
+    check(len(targets) == 7 and res.cells_visited == res.cells_total,
+          f"21b: {len(targets)} targets, cells {res.cells_visited}/"
+          f"{res.cells_total}")
+    swarm_family = {t.name for t in targets if t.cfg.__class__ is
+                    swarm.Config}
+    for name, lc in per_target.items():
+        if name in swarm_family and cuda:
+            check(lc["knn_fused_members"] == lc["knn_fused"] > 0,
+                  f"21b: {name} launches {lc}")
+        else:
+            check(sum(lc.values()) == 0, f"21b: {name} launches {lc}")
+    # One swarm target's first dispatch again, against its candidates run
+    # alone (the falsifier's member contract).
+    t_idx = [t.name for t in targets].index("swarm")
+    tgt = targets[t_idx]
+    kd = prng.fold_in(prng.fold_in(prng.fold_in(fleet._key, 0), t_idx), 0)
+    deltas = vfleet.mutate_batch(kd, st.batch,
+                                 tuple(tgt.adapter.delta_shape),
+                                 search._state_dtype(tgt.adapter),
+                                 st.perturb_scale, [])
+    batch_m = tgt.eval_b(deltas).detach().cpu().numpy()
+    one = search.make_eval_one(tgt.adapter, fleet._ss)
+    alone = np.stack([one(torch.as_tensor(d)).detach().cpu().numpy()
+                      for d in deltas])
+    fin = np.isfinite(batch_m)
+    member_err = float(np.max(np.abs(batch_m[fin] - alone[fin])))
+    check(np.array_equal(fin, np.isfinite(alone))
+          and member_err <= MEMBER_MARGIN_ATOL,
+          f"21b: the swarm target's batch margins differ from each "
+          f"candidate alone by {member_err}")
+    # The same campaign dropped after round 1 and resumed.
+    split = os.path.join(work, "split")
+    part = vfleet.run_fleet(st, budget_rounds=1, targets=wrapped,
+                            state_dir=split)
+    resumed = vfleet.run_fleet(st, budget_rounds=FLEET_ROUNDS,
+                               targets=wrapped, state_dir=split)
+    check(part.rounds == 1 and resumed._replace(state_path=None)
+          == res._replace(state_path=None), f"21b: resumed {resumed} != "
+          f"uninterrupted {res}")
+    with np.load(res.state_path) as a, np.load(resumed.state_path) as b:
+        check(sorted(a.files) == sorted(b.files) and all(
+            np.array_equal(a[k], b[k]) for k in a.files),
+            "21b: the resumed campaign's state differs from the "
+            "uninterrupted one's")
+    cps = [per_round / w for w in round_s]
+    info["21b"] = {
+        "targets": [t.name for t in targets], "batch": st.batch,
+        "dispatches_per_round": st.batches_per_round,
+        "max_steps": st.max_steps, "enroll_s": enroll_s,
+        "round_s": round_s, "candidates_per_s": cps,
+        "captures": counts_b["captures"], "redo_steps":
+        counts_b["redo_steps"], "best_margin": res.best_margin,
+        "launches_by_target": by_target,
+        "dispatch_s_by_target": {k: [w for w, _ in v]
+                                 for k, v in dispatches.items()},
+        "member_margin_err": member_err}
+    print(f"phase 21b: the fleet at its defaults ({len(targets)} targets, "
+          f"B={st.batch}, {st.batches_per_round} dispatches per round, "
+          f"{st.max_steps} steps) on {dev}: {FLEET_ROUNDS} rounds, "
+          f"{res.evaluated} candidates, best margin {res.best_margin:.6f},"
+          f" coverage {res.cells_visited}/{res.cells_total}; rounds "
+          f"{[round(w, 3) for w in round_s]} s = "
+          f"{[round(c, 2) for c in cps]} candidates/s (round 1 holds "
+          f"{counts_b['captures']} captures); enroll {enroll_s:.3f} s; "
+          f"knn_fused member launches by target "
+          f"{info['21b']['launches_by_target']}; the swarm target's "
+          f"margins within {member_err:.2e} of each candidate alone; "
+          f"dropped after round 1 and resumed: equal to the uninterrupted "
+          f"campaign, its state file bit for bit")
+    for name, ds in dispatches.items():
+        print(f"  {name}: dispatches (s, member launches) "
+              f"{[(round(w, 4), n) for w, n in ds]}")
+    print(f"  (script at {time.perf_counter() - t_start:.1f} s)")
+
+    # 21c. detection: the weakened dmin found, shrunk, confirmed in
+    # float64, archived, the capsule tripped, the archive replayed.
+    work = fresh("phase21c")
+    sink = obs.TelemetrySink(os.path.join(work, "run"))
+    flight = obs_flight.FlightRecorder(
+        os.path.join(sink.run_dir, "capsules")).attach(sink)
+    st_c = vfleet.FleetSettings(**DETECT_FIELDS)
+    weak = CBFParams(**WEAK_CBF_FIELDS)
+    a = search.make_adapter("swarm", swarm.Config(**MARGINAL_FIELDS),
+                            cbf=weak, device=dev)
+    target = vfleet.FleetTarget(
+        "swarm-weak", "swarm", "swarm", a.cfg, weak, a,
+        search.make_eval_batch(a, vfleet._search_settings(st_c)))
+    zero_counts(engine, knn)
+    t0 = time.perf_counter()
+    res_c = vfleet.run_fleet(st_c, budget_rounds=FLEET_DETECT_ROUNDS,
+                             targets=[target],
+                             corpus_dir=os.path.join(work, "corpus"),
+                             telemetry=sink, flight=flight)
+    detect_s = time.perf_counter() - t0
+    out["runs"]["phase 21c"] = {"launches": dict(knn.LAUNCHES)}
+    check(res_c.done and res_c.violations, f"21c: the weakened dmin was "
+          f"not found in {FLEET_DETECT_ROUNDS} rounds: {res_c}")
+    v = res_c.violations[0]
+    check(v["confirmed_x64"] and v["margin_x64"] < 0
+          and v["property"] == "separation" and v["corpus"]
+          and os.path.exists(v["corpus"]), f"21c: violation {v}")
+    capsules = sorted(os.listdir(os.path.join(sink.run_dir, "capsules")))
+    check(any("fleet.violation" in c for c in capsules),
+          f"21c: no fleet.violation capsule in {capsules}")
+    replay = corpus.replay_corpus(os.path.join(work, "corpus"), device=dev)
+    check(replay and all(problems == [] for _, _, problems in replay),
+          f"21c: the archive does not replay clean: "
+          f"{[p for _, _, p in replay]}")
+    sink.close()
+    info["21c"] = {"rounds": res_c.rounds, "evaluated": res_c.evaluated,
+                   "detect_s": detect_s, "violation": v,
+                   "capsules": capsules}
+    print(f"phase 21c: the weakened dmin ({WEAK_CBF_FIELDS}) on "
+          f"{MARGINAL_FIELDS} found in round {v['round'] + 1} of "
+          f"{FLEET_DETECT_ROUNDS} after {res_c.evaluated} candidates, "
+          f"{detect_s:.2f} s to detection (shrink and archive included): "
+          f"{v['property']} margin {v['margin']:.6f}, float64 "
+          f"{v['margin_x64']:.6f} confirmed, archived, capsule "
+          f"{capsules}, the archive replays clean")
+    print(f"  (script at {time.perf_counter() - t_start:.1f} s)")
+
+    # 21d. the campaign as the background tenant of a queue-mode engine at
+    # the serve default, with 8 foreground requests, in turns.
+    cfgs = serve_workload(swarm, 0, **TENANT_REQUESTS)
+    st_d = vfleet.FleetSettings(**TENANT_FIELDS)
+    tcfg = swarm.Config(n=TENANT_N, steps=st_d.max_steps)
+    a = search.make_adapter("swarm", tcfg, device=dev)
+    inner = search.make_eval_batch(a, vfleet._search_settings(st_d))
+    under_lock = []
+
+    def tenant_eval(deltas):
+        under_lock.append(serve_engine._PROGRAM_LOCK.locked())
+        return inner(deltas)
+
+    tiny = [vfleet.FleetTarget("tenant-swarm", "swarm", "swarm", a.cfg,
+                               None, a, tenant_eval)]
+    ref = vfleet.run_fleet(st_d, budget_rounds=TENANT_ROUNDS, targets=tiny)
+    under_lock.clear()
+
+    def fg_run(with_tenant):
+        eng = ServeEngine(max_batch=TENANT_REQUESTS["B"],
+                          flush_deadline_s=0.05, device=dev)
+        eng.prewarm(cfgs)
+        campaign = None
+        eng.start()
+        try:
+            if with_tenant:
+                campaign = vfleet.FalsificationFleet(
+                    st_d, budget_rounds=TENANT_ROUNDS, targets=tiny)
+                eng.attach_background(campaign)
+                t_wait = time.perf_counter()
+                while eng.stats["background_batches"] < 1:
+                    check(time.perf_counter() - t_wait < 60,
+                          "21d: the tenant never ran")
+                    time.sleep(0.001)
+            t0 = time.perf_counter()
+            pend = [eng.submit(c) for c in cfgs]
+            res_d = [p.result(timeout=600) for p in pend]
+            wall = time.perf_counter() - t0
+            if campaign is not None:
+                t_wait = time.perf_counter()
+                while not campaign._finished:
+                    check(time.perf_counter() - t_wait < 120,
+                          "21d: the campaign did not finish")
+                    time.sleep(0.005)
+                eng.attach_background(None)
+        finally:
+            eng.stop()
+        sync()
+        return res_d, wall, campaign, dict(eng.stats)
+
+    lockwitness.arm()
+    lockwitness.reset()
+    program_lock = serve_engine._PROGRAM_LOCK
+    serve_engine._PROGRAM_LOCK = lockwitness.make_lock(
+        "serve.engine._PROGRAM_LOCK")
+    legs = []
+    try:
+        for with_tenant in (False, True, True, False):
+            zero_counts(engine, knn)
+            got, wall, campaign, stats = fg_run(with_tenant)
+            legs.append({"tenant": with_tenant, "results": got,
+                         "wall_s": wall, "campaign": campaign,
+                         "stats": stats, "launches": dict(knn.LAUNCHES)})
+        inversions = lockwitness.inversions()
+        acquisitions = lockwitness.snapshot()["acquisitions"]
+    finally:
+        serve_engine._PROGRAM_LOCK = program_lock
+        lockwitness.disarm()
+        lockwitness.reset()
+    out["runs"]["phase 21d"] = {"launches": legs[1]["launches"]}
+    check(inversions == [] and acquisitions > 0,
+          f"21d: witness inversions {inversions}")
+    check(under_lock and all(under_lock), "21d: a tenant unit ran "
+          "outside _PROGRAM_LOCK")
+    base = legs[0]["results"]
+    for leg in legs:
+        for i, (x, y) in enumerate(zip(leg["results"], base)):
+            check(same_result(x, y), f"21d: request {i} with the tenant "
+                  f"{leg['tenant']} differs from the engine without one")
+        c = leg["campaign"]
+        if c is not None:
+            r = c.result()
+            check((r.evaluated, r.best_margin, r.rounds)
+                  == (ref.evaluated, ref.best_margin, ref.rounds),
+                  f"21d: the tenant campaign {r} != standalone {ref}")
+    p50 = {k: [statistics.median(x.latency_s for x in leg["results"])
+               for leg in legs if leg["tenant"] == k] for k in (False, True)}
+    info["21d"] = {
+        "requests": len(cfgs), "max_batch": TENANT_REQUESTS["B"],
+        "latency_p50_s": {"without": p50[False], "with": p50[True]},
+        "walls_s": [(leg["tenant"], leg["wall_s"]) for leg in legs],
+        "background_batches": [leg["stats"]["background_batches"]
+                               for leg in legs if leg["tenant"]],
+        "background_yields": [leg["stats"]["background_yields"]
+                              for leg in legs if leg["tenant"]],
+        "campaign": {"evaluated": ref.evaluated,
+                     "best_margin": ref.best_margin},
+        "units_under_lock": len(under_lock),
+        "lock_acquisitions": acquisitions}
+    print(f"phase 21d: {len(cfgs)} queue-mode requests (base "
+          f"{TENANT_REQUESTS['base']}, {TENANT_REQUESTS['steps']} steps, "
+          f"max_batch {TENANT_REQUESTS['B']}) with and without a "
+          f"{TENANT_ROUNDS}-round campaign (N={TENANT_N}, B={st_d.batch}) "
+          f"as the background tenant, in turns: results np.array_equal to "
+          f"the engine without one; latency p50 without "
+          f"{[round(x, 4) for x in p50[False]]} s, with "
+          f"{[round(x, 4) for x in p50[True]]} s; background_batches "
+          f"{info['21d']['background_batches']}, background_yields "
+          f"{info['21d']['background_yields']}; the campaign ended equal "
+          f"to its standalone run (evaluated {ref.evaluated}, best margin "
+          f"{ref.best_margin:.6f}); {len(under_lock)} units, each under "
+          f"_PROGRAM_LOCK; the armed witness: no inversion over "
+          f"{acquisitions} acquisitions")
+    info["seconds"] = time.perf_counter() - t21
+    with open(os.path.join(root, "chiprun_out", "phase21.json"), "w") as fh:
+        json.dump(info, fh, indent=1, default=str)
+    print(f"phase 21: {info['seconds']:.1f} s")
+    return out
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -4898,6 +5366,11 @@ def main(argv: list[str]) -> int:
     # CLI with a worker killed
     p20 = phase20(engine, knn, swarm, t_start, p18)
 
+    # 21. the scenario DSL and the falsification fleet: the generator's
+    # batch end to end, the fleet at its defaults with a resume, the
+    # weakened dmin detected, the campaign as a serve engine's tenant
+    p21 = phase21(engine, knn, swarm, t_start)
+
     # 6. timings at the main-path shapes; launches are every compiled
     # main-path run's of this call, by phase (13f's run swarm included)
     all_runs = {"phase 3 N=256": runs[ENTRY_N], "phase 3 N=4096": main,
@@ -4910,7 +5383,7 @@ def main(argv: list[str]) -> int:
                 **{f"phase 12{key}": run for key, run in cert.items()},
                 "phase 13f": scen["13f"], **p14["runs"], **p15["runs"],
                 **p16["runs"], **p17["runs"], **p18["runs"],
-                **p19["runs"], **p20["runs"]}
+                **p19["runs"], **p20["runs"], **p21["runs"]}
     by_phase = {name: {label: run["launches"][name]
                        for label, run in all_runs.items()
                        if run["launches"].get(name)}

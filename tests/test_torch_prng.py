@@ -1,8 +1,10 @@
 """The port's JAX random streams (cbf_tpu_torch/utils/prng.py) held to
 ``jax.random`` on the CPU: keys, fold_in and the raw bits bit for bit,
 uniforms and float64 normals bit for bit, float32 normals within
-FLOAT32_NORMAL_ULPS (XLA's float32 log is its own approximation), and the
-swarm spawn and headings that draw from them equal to the JAX package's.
+FLOAT32_NORMAL_ULPS (XLA's float32 log is its own approximation), split,
+randint (spans that are not powers of two, empty spans and bounds beyond
+the dtype) and bernoulli bit for bit, and the swarm spawn and headings
+that draw from them equal to the JAX package's.
 """
 
 import jax
@@ -106,3 +108,56 @@ def test_spawn_and_headings_match_jax(n, seed):
     np.testing.assert_array_equal(
         tsw.heading_spawn(tcfg, seed, device="cpu").numpy(),
         np.asarray(jsw.heading_spawn(jcfg, seed)))
+
+
+@pytest.mark.parametrize("seed", SEEDS[:4])
+def test_split_bit_equal(seed):
+    kj = jax.random.fold_in(jax.random.PRNGKey(seed), 4)
+    kt = prng.fold_in(prng.prng_key(seed), 4)
+    for num in (2, 3):
+        np.testing.assert_array_equal(prng.split(kt, num).numpy(),
+                                      _words(jax.random.split(kj, num)))
+
+
+# Spans 1, 3, 5, 6 and 7 (MUTATION_OPS has 6; the seed pools are small)
+# catch a floor-of-uniform shortcut that power-of-two spans hide; an empty
+# span returns minval; the int8/int16 rows cross their dtype's bounds.
+RANDINT_CASES = [
+    (0, 1, "int32"), (0, 3, "int32"), (0, 5, "int32"), (0, 6, "int32"),
+    (0, 7, "int32"), (-3, 4, "int32"), (0, 8, "int32"), (5, 2, "int32"),
+    (-2 ** 31, 2 ** 31 - 1, "int32"), (-200, 300, "int8"),
+    (-7, 40000, "int16"), (0, 6, "int64"), (0, 2 ** 31 + 10, "int64"),
+    (-2 ** 40, 2 ** 40, "int64"), (0, 2 ** 31 + 10, "int16")]
+
+
+@pytest.mark.parametrize("seed", SEEDS[:4])
+@pytest.mark.parametrize("shape", [(16,), (5, 7)])
+@pytest.mark.parametrize("lo,hi,dtype", RANDINT_CASES)
+def test_randint_bit_equal(seed, shape, lo, hi, dtype):
+    """``prng.randint`` equals ``jax.random.randint`` bit for bit; int64
+    (and bounds beyond int32) under ``jax_enable_x64``, as JAX needs."""
+    wide = dtype == "int64" or abs(lo) > 2 ** 31 or abs(hi) > 2 ** 31
+    kj = jax.random.fold_in(jax.random.PRNGKey(seed), 3)
+    kt = prng.fold_in(prng.prng_key(seed), 3)
+    with jax.enable_x64(wide):
+        want = np.asarray(jax.random.randint(kj, shape, lo, hi,
+                                             getattr(jnp, dtype)))
+    got = prng.randint(kt, shape, lo, hi, getattr(torch, dtype))
+    assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("x64_on", [False, True])
+def test_bernoulli_bit_equal(p, x64_on):
+    """``uniform < p`` in p's dtype: float32, or float64 under
+    ``jax_enable_x64`` (the port's ``dtype``)."""
+    for seed in SEEDS[:4]:
+        kj = jax.random.fold_in(jax.random.PRNGKey(seed), 5)
+        kt = prng.fold_in(prng.prng_key(seed), 5)
+        with jax.enable_x64(x64_on):
+            want = np.asarray(jax.random.bernoulli(kj, p, (9, 4, 1)))
+        got = prng.bernoulli(kt, p, (9, 4, 1),
+                             torch.float64 if x64_on else torch.float32)
+        assert got.dtype == torch.bool
+        np.testing.assert_array_equal(got.numpy(), want)

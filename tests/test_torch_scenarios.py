@@ -12,7 +12,9 @@ compiled rollout on the CPU runs the body a CUDA graph captures on the
 card, uncaptured: it must equal ``engine.eager_rollout`` bit for bit, and
 the body must make no host traffic. The golden anchor replays
 meet_at_center in float64 numpy through the port's oracle (atol 5e-5, as
-tests/test_scenarios.py holds the JAX package).
+tests/test_scenarios.py holds the JAX package). The dynamics-family
+example (``cbf_tpu_torch.examples.dynamics_families``) is held to
+examples/dynamics_families.py at n=16, 20 steps.
 """
 
 import contextlib
@@ -241,3 +243,40 @@ def test_entry_points_need_the_card_unless_asked(name):
         tmod.make(tmod.Config())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tmod.run(tmod.Config())
+
+
+# The dynamics-family example: float32 runs in both packages; the measured
+# floors at n=16 x 20 steps are equal, the bound is float32 rounding room.
+FAMILY_FLOOR_ATOL = 1e-6
+
+
+def test_dynamics_families_example_matches_jax(tmp_path):
+    """``cbf_tpu_torch.examples.dynamics_families.main`` against the JAX
+    package's example at n=16, 20 steps: the same families, floors and
+    settled spacings within FAMILY_FLOOR_ATOL, the counters exact, and
+    the CSV written."""
+    import importlib.util
+    import os
+
+    from cbf_tpu_torch.examples import dynamics_families
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", "dynamics_families.py")
+    spec = importlib.util.spec_from_file_location("jax_dynamics_families",
+                                                  path)
+    jmod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jmod)
+    want = jmod.main(n=16, steps=20, media_dir=str(tmp_path / "jax"))
+    got = dynamics_families.main(n=16, steps=20,
+                                 media_dir=str(tmp_path / "port"),
+                                 device="cpu")
+    assert list(got) == list(want) == list(dynamics_families.FAMILIES)
+    for dyn in got:
+        for key in ("floor", "settled"):
+            assert abs(got[dyn][key] - want[dyn][key]) <= \
+                FAMILY_FLOOR_ATOL, (dyn, key)
+        assert got[dyn]["infeasible"] == want[dyn]["infeasible"] == 0
+        assert got[dyn]["max_relax"] == want[dyn]["max_relax"]
+    csv = np.loadtxt(tmp_path / "port" / "dynamics_families.csv",
+                     delimiter=",", skiprows=1)
+    assert csv.shape == (20, 4)

@@ -14,10 +14,11 @@ the JAX package's (cbf_tpu.serve.buckets, cbf_tpu.serve.pack), on the CPU.
   lane-table join and the result trims (``join_lane``,
   ``slice_lane_chunk``, ``assemble_lane_result``, ``trim_result``) equal
   to JAX's on the same arrays.
-- The background tenant (``attach_background``) raises OutOfSliceError
-  naming Queue A11; ``serve --lease`` without ``--journal`` exits 2 with
-  the JAX package's message (the lease fences the journal), and leaves no
-  lease behind.
+- The background tenant (``attach_background``) attaches and detaches
+  (None), and a tenant whose ``next_unit`` raises is detached instead of
+  crashing the scheduler; ``serve --lease`` without ``--journal`` exits 2
+  with the JAX package's message (the lease fences the journal), and
+  leaves no lease behind.
 """
 
 import dataclasses
@@ -33,7 +34,6 @@ from cbf_tpu.serve import buckets as jbuckets
 from cbf_tpu.serve import pack as jpack
 from cbf_tpu_torch import convert
 from cbf_tpu_torch.__main__ import main as tcli
-from cbf_tpu_torch.errors import OutOfSliceError
 from cbf_tpu_torch.scenarios import swarm as tsw
 from cbf_tpu_torch.serve import bucket_horizon, bucket_key, bucket_n
 from cbf_tpu_torch.serve import buckets as tbuckets
@@ -280,12 +280,39 @@ def test_parking_rows_match_jax():
 
 def test_serve_out_of_slice_parts_raise(tmp_path, capsys):
     from cbf_tpu.__main__ import main as jcli
+    import time
+
     from cbf_tpu_torch.serve import ServeEngine
 
-    with pytest.raises(OutOfSliceError, match="Queue A11"):
-        ServeEngine(device="cpu").attach_background(object())
-    with pytest.raises(OutOfSliceError, match="Queue A11"):
-        ServeEngine(continuous=True, device="cpu").attach_background(None)
+    class Broken:
+        pulls = 0
+
+        def next_unit(self):
+            Broken.pulls += 1
+            raise RuntimeError("tenant fault")
+
+        def on_preempt(self, queue_depth):
+            pass
+
+    for continuous in (False, True):
+        engine = ServeEngine(continuous=continuous, device="cpu")
+        tenant = object()
+        engine.attach_background(tenant)
+        assert engine._bg_tenant is tenant
+        engine.attach_background(None)
+        assert engine._bg_tenant is None
+        engine.start()
+        try:
+            engine.attach_background(Broken())
+            deadline = time.monotonic() + 10
+            while engine._bg_tenant is not None \
+                    and time.monotonic() < deadline:
+                time.sleep(0.01)
+            assert engine._bg_tenant is None
+            assert engine._thread.is_alive()
+        finally:
+            engine.stop()
+    assert Broken.pulls == 2
     requests = tmp_path / "requests.json"
     requests.write_text('[{"steps": 8, "overrides": {"n": 10}}]')
     lease = str(tmp_path / "lease")

@@ -137,6 +137,9 @@ def test_engines_match_jax(engine, x64):
                    certificate_backend="sparse", certificate_k=4)),
     ("antipodal", dict(n=8, steps=20)),
     ("meet_at_center", dict(iterations=20)),
+    # A default fleet target: the dense certificate under the member axis.
+    ("cross_and_rescue", dict(iterations=12)),
+    ("cross_and_rescue", dict(iterations=12, dtype=torch.float64)),
 ])
 def test_eval_batch_equals_each_candidate_alone(scenario, override):
     """The member-batched compiled evaluation (vmap of the capture-safe
@@ -228,8 +231,8 @@ def test_telemetry_events_and_out_of_slice(tmp_path, capsys):
     json.dumps(sink.events)
     with pytest.raises(OutOfSliceError, match="Queue A10"):
         TV.make_eval_batch(a, TV.SearchSettings(), mesh=(2, 1))
-    with pytest.raises(OutOfSliceError, match="Queue A11"):
-        tcli.main(["verify", "fleet", "--device", "cpu"])
+    with pytest.raises(OutOfSliceError, match="Queue A10"):
+        tcli.main(["verify", "fleet", "--mesh-dp", "2", "--device", "cpu"])
     # verify --telemetry-dir (Queue A9) streams the sweep's events.
     from cbf_tpu_torch import obs
 
