@@ -29,8 +29,11 @@ checkpoint and resume under integrity manifests (``utils/checkpoint.py``,
 profiled. The serving layer's compute path (``serve/`` buckets and
 packing, ``parallel/ensemble.py``'s lockstep traced-config programs) runs
 batches of heterogeneous requests as one captured program, the k-NN
-kernels reading each member's radius. Knobs of later slices raise
-:class:`~cbf_tpu_torch.errors.OutOfSliceError`.
+kernels reading each member's radius. Across devices (``parallel/``)
+ensembles, one swarm's agents, the trainer and the falsifier spread over
+a (dp, sp) mesh of ``torch.distributed`` ranks, and one swarm can be
+tiled over space with halo exchange (``parallel/spatial.py``). Knobs of
+later slices raise :class:`~cbf_tpu_torch.errors.OutOfSliceError`.
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (:func:`cbf_tpu_torch.scenarios.swarm.make`; ``--device cpu`` on the

@@ -40,14 +40,18 @@ settings; ``--telemetry-dir`` streams its round and verdict events.
 ``verify fleet`` runs the falsification fleet (:mod:`cbf_tpu_torch.verify.fleet`)
 over every registered scenario, inline or with ``--serve-idle`` as the
 background tenant of a local serve engine (exit 3 on a new confirmed
-violation, 2 on a ``--state-dir`` campaign run under other settings;
-``--mesh-dp`` above 1 raises OutOfSliceError).
+violation, 2 on a ``--state-dir`` campaign run under other settings).
+``--mesh-dp D`` above 1 shards the candidates over D ranks: outside a
+``torch.distributed`` world the CLI starts D ranks of itself (gloo over a
+file store, :mod:`cbf_tpu_torch.parallel.launch`) and prints rank 0's
+output; inside one (``torchrun``) it runs in place. Only rank 0 writes.
 
 ``scenario`` is the scenario platform (:mod:`cbf_tpu_torch.scenarios.platform`):
 ``list`` prints the registry, ``gen`` runs the seeded generator (``--run``
 also runs every spec) and ``run`` runs one registered scenario end to end
-(``--gen-seed`` enrolls a generated batch first; ``--partition spatial``
-raises OutOfSliceError).
+(``--gen-seed`` enrolls a generated batch first; ``--partition spatial
+--tiles T`` tiles one swarm over T ranks, started as ``--mesh-dp``'s
+are).
 
 ``serve`` batch-serves a request file through the serve engine
 (:mod:`cbf_tpu_torch.serve.engine`) on ``--device``, with the JAX
@@ -86,6 +90,8 @@ bench) are not ported yet.
     python -m cbf_tpu_torch serve --ha-standby --lease L --journal J
     python -m cbf_tpu_torch serve requests.json --lease L --journal J
     python -m cbf_tpu_torch cluster serve requests.json --engines 2
+    python -m cbf_tpu_torch scenario run swarm --partition spatial --tiles 4
+    python -m cbf_tpu_torch verify fleet --mesh-dp 2 --budget-rounds 1
     python -m cbf_tpu_torch scenario gen --seed 0 --count 20 --run
     python -m cbf_tpu_torch scenario run gen0-03-clusters-rendezvous-mixed --gen-seed 0
     python -m cbf_tpu_torch verify fleet --budget-rounds 2 --serve-idle
@@ -102,7 +108,6 @@ import sys
 
 import torch
 
-from cbf_tpu_torch.errors import SLICE_PARALLEL, OutOfSliceError
 
 # Frames per append when streaming a trajectory to the native sink: keeps
 # the sink's copy and queue memory flat while disk writes overlap.
@@ -1745,6 +1750,59 @@ def _fleet_settings_from_args(args):
     return V.FleetSettings(cbf_overrides=tuple(overrides), **skw)
 
 
+def _world_launch(args, ranks: int):
+    """Where a command spans ``ranks`` ranks: None when this process runs
+    it itself (one rank, or inside a world — joined here when torchrun
+    started it); else the exit code of the command run on ``ranks``
+    fresh ranks of this CLI (:func:`cbf_tpu_torch.parallel.launch.
+    run_world`), whose rank 0 output is printed here."""
+    from cbf_tpu_torch.parallel import launch, multihost
+
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        multihost.initialize()
+        if not multihost.is_primary():
+            # Every rank computes; only the primary writes.
+            args.telemetry_dir = None
+            if getattr(args, "scenario", None) != "fleet":
+                args.corpus_dir = None
+        return None
+    if ranks <= 1:
+        return None
+    rc, out, err = launch.run_world(
+        "cbf_tpu_torch.__main__:_cli_rank", ranks, (args.argv,),
+        device=args.device, timeout_s=None)[0]
+    sys.stdout.write(out)
+    sys.stderr.write(err)
+    return rc
+
+
+def _cli_rank(argv) -> tuple:
+    """One rank of :func:`_world_launch`: the command in this world, its
+    exit code and output."""
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _reset_state(args, V) -> None:
+    """``--reset-state``: the primary removes the campaign files, and every
+    rank waits for it before reading them."""
+    from cbf_tpu_torch.parallel import multihost
+
+    if multihost.is_primary():
+        removed = V.reset_campaign_state(args.state_dir)
+        if removed and not args.json:
+            print(f"reset: removed {len(removed)} persisted campaign "
+                  f"state file(s) from {args.state_dir}")
+    if multihost.process_info()[1] > 1:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
 def _cmd_verify_fleet(args) -> int:
     """The falsification fleet over every registered scenario on
     ``--device``. Exit 0 = every target survived the round budget, 2 = a
@@ -1752,11 +1810,9 @@ def _cmd_verify_fleet(args) -> int:
     violation archived."""
     from cbf_tpu_torch import verify as V
     from cbf_tpu_torch.obs.schema import json_scalar
-    from cbf_tpu_torch.verify.search import _check_mesh
 
     settings = _fleet_settings_from_args(args)
     mesh = None if not args.mesh_dp else (args.mesh_dp, 1)
-    _check_mesh(mesh)
     sink = flight = None
     if args.telemetry_dir:
         from cbf_tpu_torch import obs
@@ -1770,10 +1826,7 @@ def _cmd_verify_fleet(args) -> int:
         flight = obs_flight.FlightRecorder(
             os.path.join(sink.run_dir, "capsules")).attach(sink)
     if args.state_dir and args.reset_state:
-        removed = V.reset_campaign_state(args.state_dir)
-        if removed and not args.json:
-            print(f"reset: removed {len(removed)} persisted campaign "
-                  f"state file(s) from {args.state_dir}")
+        _reset_state(args, V)
     engine = None
     if args.serve_idle:
         from cbf_tpu_torch.serve.engine import ServeEngine
@@ -1824,6 +1877,9 @@ def _cmd_verify_fleet(args) -> int:
 def cmd_verify(args) -> int:
     """Falsification sweep (module docstring); exit 0 = survived, 3 =
     violation found."""
+    rc = _world_launch(args, args.mesh_dp or 1)
+    if rc is not None:
+        return rc
     if args.scenario == "fleet":
         return _cmd_verify_fleet(args)
     from cbf_tpu_torch import verify as V
@@ -1864,10 +1920,7 @@ def cmd_verify(args) -> int:
                            "batch": settings.batch, "engines": args.engine,
                            "seed": settings.seed}}))
     if args.state_dir and args.reset_state:
-        removed = V.reset_campaign_state(args.state_dir)
-        if removed and not args.json:
-            print(f"reset: removed {len(removed)} persisted campaign "
-                  f"state file(s) from {args.state_dir}")
+        _reset_state(args, V)
     try:
         results = V.falsify(
             args.scenario, cfg, settings=settings, engines=engines, cbf=cbf,
@@ -1970,8 +2023,9 @@ def _add_verify_parser(sub) -> None:
                       help="append shrunk counterexamples to this corpus "
                            "(violations.jsonl)")
     verp.add_argument("--mesh-dp", type=int, default=None,
-                      help="shard the candidates over a dp mesh (1 on one "
-                           "card; more raises)")
+                      help="shard the candidates over a dp mesh of this "
+                           "many ranks (started here outside a "
+                           "torch.distributed world)")
     verp.add_argument("--state-dir", default=None, metavar="DIR",
                       help="persist per-round search state here; a killed "
                            "campaign continues on the next identical run")
@@ -2067,9 +2121,7 @@ def cmd_scenario(args) -> int:
               file=sys.stderr)
         return 2
     if args.partition == "spatial":
-        raise OutOfSliceError("scenario run --partition spatial (the "
-                              "spatially tiled rollout, parallel.spatial)",
-                              SLICE_PARALLEL)
+        return _scenario_run_spatial(args, entry)
     cfg = _apply_overrides(entry.make_config(), args.set, args.steps,
                            entry.steps_field, need_trajectory=False)
     sink = None
@@ -2093,6 +2145,69 @@ def cmd_scenario(args) -> int:
         sink.close()
         record["telemetry"] = sink.run_dir
     print(json.dumps(record))
+    return 0
+
+
+def _scenario_run_spatial(args, entry) -> int:
+    """``scenario run --partition spatial``: the swarm tiled over
+    ``--tiles`` ranks (default: the world's ranks inside a world, else
+    every card, or 8 on the CPU — the JAX CLI's virtual devices), the
+    JAX package's record with the tile ledger, exit 2 on a rejected
+    configuration."""
+    import numpy as np
+
+    from cbf_tpu_torch.parallel import multihost
+    from cbf_tpu_torch.parallel.mesh import make_mesh
+    from cbf_tpu_torch.parallel.spatial import (plan_tiles,
+                                                spatial_swarm_rollout)
+
+    in_world = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    tiles = args.tiles or (int(os.environ["WORLD_SIZE"]) if in_world
+                           else 8 if args.device == "cpu"
+                           else max(1, torch.cuda.device_count()))
+    rc = _world_launch(args, tiles)
+    if rc is not None:
+        return rc
+    cfg = _apply_overrides(entry.make_config(), args.set, args.steps,
+                           entry.steps_field, need_trajectory=False)
+    sink = None
+    if args.telemetry_dir:
+        from cbf_tpu_torch import obs
+
+        sink = obs.TelemetrySink(
+            args.telemetry_dir,
+            manifest=obs.build_manifest(cfg, extra={
+                "scenario": args.name, "steps": cfg.steps,
+                "device": args.device}))
+    try:
+        mesh = make_mesh(n_dp=1, n_sp=tiles,
+                         devices="cpu" if args.device == "cpu" else None)
+        if mesh is None:               # a rank beyond the tiles
+            return 0
+        spec = plan_tiles(cfg, tiles)
+        _final, mets, rep = spatial_swarm_rollout(cfg, mesh, spec=spec,
+                                                  telemetry=sink)
+    except ValueError as e:
+        print(f"scenario run --partition spatial: {e}", file=sys.stderr)
+        return 2
+    record = {"scenario": args.name, "n": cfg.n, "steps": cfg.steps,
+              "dynamics": cfg.dynamics, "partition": "spatial",
+              "tiles": tiles, "capacity": spec.capacity,
+              "halo_capacity": spec.halo_capacity,
+              "rebin_every": spec.rebin_every,
+              "epochs": rep.epochs,
+              "overflow_total": rep.overflow_total,
+              "halo_dropped_total": rep.halo_dropped_total,
+              "occupancy_max": rep.occupancy_max,
+              "min_pairwise_distance": round(float(
+                  np.min(mets.nearest_distance)), 6),
+              "infeasible_count": int(np.sum(mets.infeasible_count))}
+    if sink is not None:
+        sink.summary()
+        sink.close()
+        record["telemetry"] = sink.run_dir
+    if multihost.is_primary():
+        print(json.dumps(record))
     return 0
 
 
@@ -2146,8 +2261,8 @@ def _add_scenario_parser(sub) -> None:
     srunp.add_argument("--partition", default="flat",
                        choices=("flat", "spatial"),
                        help="rollout decomposition: flat (default) or "
-                            "spatial (domain-decomposed tiles; not ported "
-                            "yet: raises)")
+                            "spatial (domain-decomposed tiles, one rank "
+                            "each)")
     srunp.add_argument("--tiles", type=int, default=None,
                        help="spatial tile count; only with --partition "
                             "spatial")
@@ -2558,6 +2673,8 @@ def main(argv=None) -> int:
     csp.set_defaults(fn=cmd_cluster_serve)
 
     args = p.parse_args(argv)
+    # The command line itself, for commands that start ranks of this CLI.
+    args.argv = list(sys.argv[1:] if argv is None else argv)
     return args.fn(args)
 
 

@@ -163,3 +163,42 @@ def batch_from_reference(states, traced, steps, *, device, dtype):
             traced_from_reference(traced, device=device, dtype=dtype),
             torch.as_tensor(np.array(steps), dtype=torch.int32,
                             device=device))
+
+
+def rank_block(a, mesh, *, device=None, dtype=None) -> torch.Tensor:
+    """This rank's block of a global (E, N, ...) ensemble array (the JAX
+    package's ``P("dp", "sp", ...)`` layout): members [dp_index * E / dp,
+    ...) and agents [sp_index * N / sp, ...), as a tensor on ``device``
+    (default the mesh's)."""
+    a = torch.as_tensor(np.asarray(a), dtype=dtype)
+    E, N = a.shape[0], a.shape[1]
+    e, n = E // mesh.dp, N // mesh.sp
+    lo = mesh.axis("dp").index * e
+    i0 = mesh.axis("sp").index * n
+    return a[lo:lo + e, i0:i0 + n].to(mesh.device if device is None
+                                      else device)
+
+
+def global_from_blocks(block, mesh) -> np.ndarray:
+    """The global (E, N, ...) array back from every rank's
+    :func:`rank_block` (gathered over sp, then dp), as numpy on every
+    rank."""
+    sp, dp = mesh.axis("sp"), mesh.axis("dp")
+    whole = sp.all_gather(block.movedim(1, 0).contiguous()).movedim(0, 1)
+    return dp.all_gather(whole.contiguous()).cpu().numpy()
+
+
+def slab_to_agents(slab, slot_of_agent) -> np.ndarray:
+    """A spatial rollout's slab array (T * C, ...) in agent order (N, ...):
+    row a is the slot ``slot_of_agent[a]`` holds."""
+    return np.asarray(slab)[np.asarray(slot_of_agent)]
+
+
+def agents_to_slab(a, slot_of_agent, n_slots: int, fill=0.0) -> np.ndarray:
+    """Agent-order rows (N, ...) into a (n_slots, ...) slab at
+    ``slot_of_agent``, every other slot ``fill`` (``spatial.PARK`` for
+    positions, 0 for velocities)."""
+    a = np.asarray(a)
+    out = np.full((n_slots,) + a.shape[1:], fill, a.dtype)
+    out[np.asarray(slot_of_agent)] = a
+    return out

@@ -18,5 +18,4 @@ class OutOfSliceError(NotImplementedError):
 
 SLICE_DIFF = "the differentiable-path slice (Queue A8)"
 SLICE_DURABLE = "the durability and observability slice (Queue A9)"
-SLICE_PARALLEL = "the ensembles and partitioning slice (Queue A10)"
 SLICE_SERVE = "the serving slice (Queue A11)"

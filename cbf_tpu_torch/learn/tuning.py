@@ -12,10 +12,18 @@ the sparse certificate's K solve (its implicit gradient) and the
 integration.
 
 The JAX package computes the loss under a (dp, sp) ``shard_map``: members
-data-parallel, agents ring-sharded. On one card dp folds into the member
-axis and sp is 1; sp > 1 raises (ROADMAP.md item 10). The members' losses
-are summed in one autograd graph, so one backward gives every member's
-contribution, as JAX's in-region ``value_and_grad`` and psum do.
+data-parallel, agents sharded. On one rank dp folds into the member axis
+and sp is 1: the members' losses are summed in one autograd graph, so one
+backward gives every member's contribution. Over a mesh of several ranks
+(:mod:`cbf_tpu_torch.parallel.mesh`) each rank takes its E / dp members
+and N / sp agents of the global state, the loss's sums run through the
+axes' autograd-aware psums, and after the backward the gradients are
+summed over (dp, sp), as JAX's in-region ``value_and_grad`` and psum do.
+Each psum's backward sums the cotangents over its axis, so a rank's
+gradient is (dp * sp) times its share, and the final sum gives what the
+JAX package gives: (dp * sp) times the one-device gradient (its
+``shard_map`` transposes the parameters' broadcast into a psum, and the
+explicit psum adds the same factor again).
 ``jax.checkpoint`` per step becomes ``torch.utils.checkpoint`` (non
 re-entrant), and ``optax.adam`` becomes ``torch.optim.Adam`` with the same
 rate, betas and eps.
@@ -31,7 +39,6 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from cbf_tpu_torch.core.filter import CBFParams
-from cbf_tpu_torch.errors import SLICE_PARALLEL, OutOfSliceError
 from cbf_tpu_torch.ops import knn
 from cbf_tpu_torch.parallel.ensemble import _local_swarm_step
 from cbf_tpu_torch.scenarios import swarm as swarm_scenario
@@ -79,8 +86,7 @@ def params_to_cbf(p: TunableParams, max_speed) -> CBFParams:
 
 
 def _mesh_sp(mesh) -> int:
-    """sp of a ``(dp, sp)`` pair (None: one member group, sp 1); dp folds
-    into the member axis on one card."""
+    """sp of a ``(dp, sp)`` pair or mesh (None: sp 1)."""
     if mesh is None:
         return 1
     dp, sp = mesh
@@ -88,6 +94,15 @@ def _mesh_sp(mesh) -> int:
         raise ValueError(f"mesh must be a (dp, sp) pair of positive ints, "
                          f"got {mesh!r}")
     return int(sp)
+
+
+def _world_mesh(mesh, device):
+    """The mesh over the process world, or None for one rank."""
+    if mesh is None or tuple(mesh) == (1, 1):
+        return None
+    from cbf_tpu_torch.parallel.mesh import as_mesh
+
+    return as_mesh(mesh, device)
 
 
 def _validated_loss_parts(cfg: swarm_scenario.Config, mesh,
@@ -136,37 +151,39 @@ def _validated_loss_parts(cfg: swarm_scenario.Config, mesh,
             "gating='streaming' on the trainer path requires sp == 1 and "
             "N within the kernels' bound (the forced kernel lives on the "
             "whole-swarm-per-member branch)")
-    if sp != 1:
-        raise OutOfSliceError("the agent-sharded trainer (sp > 1)",
-                              SLICE_PARALLEL)
-    return _member_loss(cfg, tc)
+    return _member_loss(cfg, tc, mesh)
 
 
-def _member_loss(cfg: swarm_scenario.Config, tc: TrainConfig):
-    """loss(params, x0, v0[, theta0]) of one member: the mean over the
-    horizon of the tracking term plus the weighted separation hinge."""
+def _member_loss(cfg: swarm_scenario.Config, tc: TrainConfig, mesh=None):
+    """loss(params, x0, v0[, theta0]) over the ensemble: per member the
+    mean over the horizon of the tracking term plus the weighted
+    separation hinge, averaged over the members. Over a mesh of several
+    ranks each rank takes its block of the global (E, N, ...) state."""
     unicycle = cfg.dynamics == "unicycle"
 
-    def one(params: TunableParams, *state0):
+    def one(params: TunableParams, *state0, sp=None):
         max_speed = swarm_scenario.default_cbf(
             cfg, device=state0[0].device).max_speed
         cbf = params_to_cbf(params, max_speed)
 
+        def psum(v):
+            return v if sp is None else sp.psum(v)
+
         def body(x, v, th, t):
             x2, v2, th2, _, nearest = _local_swarm_step(
                 x, v, cfg, cbf, unroll_relax=tc.unroll_relax,
-                compute_metrics=False, t=t, theta=th)[:5]
+                compute_metrics=False, t=t, theta=th, axis_name=sp)[:5]
             # Hinge on separation: per-agent nearest-neighbour distance
             # below the target (clipped to the gating radius when no
-            # neighbour is in range).
+            # neighbour is in range), summed over the shards.
             near = torch.clamp(nearest, max=cfg.safety_distance)
             viol = torch.clamp(tc.separation_target - near, min=0.0)
-            sep = torch.sum(viol ** 2) / cfg.n
+            sep = psum(torch.sum(viol ** 2)) / cfg.n
             # Tracking: mean squared stand-off from the packing disk.
-            c = torch.sum(x2, dim=0) / cfg.n
+            c = psum(torch.sum(x2, dim=0)) / cfg.n
             d_c = safe_norm(x2 - c[None], dim=1)
-            track = torch.sum(torch.clamp(d_c - cfg.pack_radius,
-                                          min=0.0) ** 2) / cfg.n
+            track = psum(torch.sum(torch.clamp(d_c - cfg.pack_radius,
+                                               min=0.0) ** 2)) / cfg.n
             return x2, v2, th2, track + tc.safety_weight * sep
 
         x, v = state0[0], state0[1]
@@ -183,11 +200,31 @@ def _member_loss(cfg: swarm_scenario.Config, tc: TrainConfig):
 
     def loss(params: TunableParams, *state0):
         E = state0[0].shape[0]
-        per_member = [one(params, *(s[e] for s in state0))
-                      for e in range(E)]
-        return torch.sum(torch.stack(per_member)) / E
+        m = _world_mesh(mesh, state0[0].device)
+        if m is None:
+            per_member = [one(params, *(s[e] for s in state0))
+                          for e in range(E)]
+            return torch.sum(torch.stack(per_member)) / E
+        dp, sp = m.axis("dp"), m.axis("sp")
+        if E % m.dp or cfg.n % m.sp:
+            raise ValueError(f"E={E} must divide by dp={m.dp} and "
+                             f"N={cfg.n} by sp={m.sp}")
+        e_local, n_local = E // m.dp, cfg.n // m.sp
+        lo, i0 = dp.index * e_local, sp.index * n_local
+        per_member = [one(params, *(s[e, i0:i0 + n_local] for s in state0),
+                          sp=sp) for e in range(lo, lo + e_local)]
+        return dp.psum(torch.sum(torch.stack(per_member))) / E
 
     return loss
+
+
+def _sum_grads(grads, mesh, device):
+    """The gradients summed over (dp, sp) (JAX's in-region psum); as they
+    are on one rank."""
+    m = _world_mesh(mesh, device)
+    if m is None:
+        return grads
+    return [m.axis("dp").psum(m.axis("sp").psum(g)) for g in grads]
 
 
 def make_loss_fn(cfg: swarm_scenario.Config, mesh=None,
@@ -195,7 +232,8 @@ def make_loss_fn(cfg: swarm_scenario.Config, mesh=None,
     """loss(params, *state0) -> 0-dim tensor. ``state0`` is (x0, v0) of
     (E, N, 2) tensors, plus an (E, N) theta0 in unicycle mode
     (:func:`cbf_tpu_torch.parallel.ensemble.ensemble_initial_states`).
-    ``mesh``: None or a (dp, sp) pair; sp > 1 raises."""
+    ``mesh``: None, a (dp, sp) pair or a mesh; over several ranks every
+    rank passes the same global state and gets the same loss."""
     return _validated_loss_parts(cfg, mesh, tc)
 
 
@@ -211,6 +249,7 @@ def make_loss_and_grad_fn(cfg: swarm_scenario.Config, mesh=None,
         with torch.enable_grad():
             loss = loss_fn(leaves, *state0)
             grads = torch.autograd.grad(loss, list(leaves))
+        grads = _sum_grads(grads, mesh, state0[0].device)
         return loss.detach(), TunableParams(*grads)
 
     return value_and_grad
@@ -255,6 +294,10 @@ def make_train_step(cfg: swarm_scenario.Config, mesh=None,
         with torch.enable_grad():
             loss = loss_fn(leaves, *state)
             loss.backward()
+        with torch.no_grad():
+            for leaf, g in zip(leaves, _sum_grads(
+                    [leaf.grad for leaf in leaves], mesh, state[0].device)):
+                leaf.grad.copy_(g)
         adam.step()
         new = TunableParams(*(leaf.detach().clone() for leaf in leaves))
         return new, opt_state, loss.detach()

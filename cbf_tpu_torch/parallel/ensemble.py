@@ -1,16 +1,20 @@
-"""Ensemble rollouts with each member's whole swarm on one device
-(counterpart: cbf_tpu/parallel/ensemble.py).
+"""Ensemble rollouts over the (dp, sp) mesh (counterpart:
+cbf_tpu/parallel/ensemble.py).
 
 The JAX package runs Monte-Carlo members of the swarm over a (dp, sp)
-mesh. On one card dp folds into the member axis and sp is 1
-(:mod:`cbf_tpu_torch.parallel.mesh`), so every member is a whole swarm
-and :func:`_local_swarm_step` is the JAX step's whole-swarm branch: the
+mesh. On one rank (a (1, 1) mesh, :mod:`cbf_tpu_torch.parallel.mesh`) dp
+folds into the member axis and every member is a whole swarm:
+:func:`_local_swarm_step` is then the JAX step's whole-swarm branch — the
 k-NN kernels where :func:`knn.supported` (the zero-gradient selection on
 the differentiable path, :func:`knn.knn_gating_pallas_diff`, which the
 trainer :mod:`cbf_tpu_torch.learn.tuning` differentiates through), the
 Verlet cache at E == 1, the filter, the joint certificate per member
 (with its warm carry) or deferred to the caller, integration and the
-step's metrics.
+step's metrics. Given the ``sp`` axis of a wider mesh it is the
+agent-sharded step: the centroid psum, the exchange search
+(:func:`cbf_tpu_torch.parallel.alltoall.exchange_knn`), the certificate
+on the all-gathered swarm (row-partitioned, or replicated) and the
+metrics reduced over the axis.
 
 :func:`sharded_swarm_rollout` runs E members through the compiled
 rollout (:mod:`cbf_tpu_torch.rollout.engine`), one step program of
@@ -40,9 +44,13 @@ engine's static buffers, so one captured program per (bucket, horizon or
 chunk, B) serves any of them; the k-NN kernels read each member's radius
 from their radius array.
 
-Not ported (ROADMAP.md Queue A10): agent sharding (sp > 1, the exchange
-search), dp across devices, and ``partition="spatial"``. Each raises
-:class:`OutOfSliceError`.
+Across ranks (:func:`sharded_swarm_rollout` on a mesh of several
+processes): at sp = 1 each rank runs its E / dp members through the same
+captured program on its own device, and the final states and metrics are
+all-gathered over dp. At sp > 1 each member's step runs collectives, and
+a gloo collective cannot be captured in a CUDA graph, so the members step
+eagerly (the relax loop's own exits), one after another.
+``partition="spatial"`` is :mod:`cbf_tpu_torch.parallel.spatial`.
 """
 
 from __future__ import annotations
@@ -50,12 +58,13 @@ from __future__ import annotations
 import functools
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from cbf_tpu_torch.core.filter import CBFParams, safe_controls
-from cbf_tpu_torch.errors import SLICE_PARALLEL, OutOfSliceError
 from cbf_tpu_torch.ops import knn
-from cbf_tpu_torch.parallel.mesh import Mesh, check_single_device
+from cbf_tpu_torch.parallel.alltoall import exchange_knn
+from cbf_tpu_torch.parallel.mesh import Mesh, resolve_axis
 from cbf_tpu_torch.rollout import engine
 from cbf_tpu_torch.rollout.gating import knn_gating
 from cbf_tpu_torch.scenarios import swarm as swarm_scenario
@@ -133,9 +142,12 @@ def _local_swarm_step(x, v, cfg: swarm_scenario.Config, cbf: CBFParams,
                       unroll_relax: int = 0, compute_metrics: bool = True,
                       t=0, theta=None, gating_cache=None,
                       cert_solver_state=None,
-                      defer_certificate: bool = False, obstacles4=None):
-    """One member's whole-swarm step (the JAX step at sp size 1). x, v:
-    (N, 2); ``theta`` (N,) in unicycle mode (``x`` is then the body centre
+                      defer_certificate: bool = False, obstacles4=None,
+                      axis_name=None):
+    """One member's step: the whole swarm, or with ``axis_name`` (the
+    mesh's ``sp`` :class:`~cbf_tpu_torch.parallel.mesh.Axis`, or its name)
+    of size > 1 this rank's block of its agents. x, v: (n_local, 2);
+    ``theta`` (n_local,) in unicycle mode (``x`` is then the body centre
     and the filter works on the projection points); ``t`` the global step
     (the obstacle ring is closed-form in it; ``obstacles4`` (M, 4) gives
     its rows where the caller has them, as the compiled body does).
@@ -157,13 +169,18 @@ def _local_swarm_step(x, v, cfg: swarm_scenario.Config, cbf: CBFParams,
     f, g, discrete = _barrier_dynamics(cfg, dt_, dev)
     K = min(cfg.k_neighbors, cfg.n - 1)
     M = cfg.n_obstacles
+    axis = None if axis_name is None else resolve_axis(axis_name)
+    sharded = axis is not None and axis.size > 1
 
     unicycle = cfg.dynamics == "unicycle"
     body = x
     if unicycle:
         x = swarm_scenario.projection_points(cfg, body, theta)
 
-    mean = torch.sum(x, dim=0) / cfg.n
+    mean = torch.sum(x, dim=0)
+    if sharded:
+        mean = axis.psum(mean)
+    mean = mean / cfg.n
     to_c = mean[None] - x
     d_c = safe_norm(to_c, keepdim=True)
     pull = torch.clamp(d_c - cfg.pack_radius, min=0.0)
@@ -182,6 +199,10 @@ def _local_swarm_step(x, v, cfg: swarm_scenario.Config, cbf: CBFParams,
     new_cache = None
     kernel = "streaming" if cfg.gating == "streaming" else "auto"
     if gating_cache is not None:
+        if sharded:
+            raise ValueError(
+                "gating_cache requires the whole swarm on one device "
+                "(sp size 1) — the Verlet index set spans all N agents")
         if unroll_relax > 0:
             raise ValueError("the Verlet cache path is not differentiable "
                              "(rebuild cond + kernels) — train with "
@@ -201,6 +222,12 @@ def _local_swarm_step(x, v, cfg: swarm_scenario.Config, cbf: CBFParams,
         d = torch.sqrt(torch.sum((x[:, None, :] - obs_slab[..., :2]) ** 2,
                                  dim=-1))
         nearest1 = torch.amin(torch.where(mask, d, torch.inf), dim=1)
+    elif sharded:
+        # exchange_knn picks all-gather or the ring by the slab's size.
+        obs_slab, mask, nearest_d, dropped = exchange_knn(
+            states4, K, cfg.safety_distance, axis, True, with_dropped=True,
+            n_total=cfg.n)
+        nearest1 = nearest_d[:, 0]
     elif knn.supported(cfg.n):
         if unroll_relax > 0:
             # The kernels select, torch recomputes what the loss
@@ -260,7 +287,7 @@ def _local_swarm_step(x, v, cfg: swarm_scenario.Config, cbf: CBFParams,
     cert_dropped = torch.zeros((), dtype=torch.int32, device=dev)
     cert_iters = torch.zeros((), dtype=torch.int32, device=dev)
     new_cert_state = None
-    if cfg.certificate:
+    if cfg.certificate and not sharded:
         if cert_solver_state is not None:
             (u, cert_res, cert_dropped, cert_iters,
              new_cert_state) = swarm_scenario.apply_certificate(
@@ -268,19 +295,47 @@ def _local_swarm_step(x, v, cfg: swarm_scenario.Config, cbf: CBFParams,
         else:
             u, cert_res, cert_dropped, cert_iters = \
                 swarm_scenario.apply_certificate(cfg, u, x)
+    elif cfg.certificate and cert_solver_state is not None:
+        raise ValueError(
+            "cert_solver_state (certificate warm start) requires the "
+            "whole swarm on one device (sp size 1)")
+    elif cfg.certificate:
+        # The joint layer couples every agent of the swarm: all-gather the
+        # positions and the filtered commands, then row-partition the
+        # sparse solve over sp (each rank owns its agents' pair rows) or
+        # solve the same joint QP on every rank (the dense backend, the
+        # differentiable path, certificate_partition="replicate").
+        xg = axis.all_gather(x)
+        ug = axis.all_gather(u)
+        partitioned = (
+            cfg.certificate_partition == "auto" and unroll_relax == 0
+            and swarm_scenario.certificate_backend(cfg) == "sparse")
+        if partitioned:
+            ug, cert_res, cert_dropped, cert_iters = \
+                swarm_scenario.apply_certificate_sharded(cfg, ug, xg, axis)
+        else:
+            ug, cert_res, cert_dropped, cert_iters = \
+                swarm_scenario.apply_certificate(cfg, ug, xg)
+        i0 = axis.index * x.shape[0]
+        u = ug[i0:i0 + x.shape[0]]
     out = _finish_swarm_step(cfg, x, u, aux, cert_res, cert_dropped,
-                             cert_iters, compute_metrics)
+                             cert_iters, compute_metrics,
+                             axis if sharded else None)
     return out + (new_cache, new_cert_state)
 
 
 def _finish_swarm_step(cfg: swarm_scenario.Config, x, u, aux: _PendingStep,
                        cert_res, cert_dropped, cert_iters,
-                       compute_metrics: bool = True):
+                       compute_metrics: bool = True, axis=None):
     """Integration and metrics — the shared tail of the inline step and,
     per member under vmap, of the lockstep batched certificate. ``x`` is
     the si position set the filter acted on, ``u`` the (possibly
-    certified) command. Returns (x_new, v_new, theta_new or None, metrics
-    (8 scalars, :class:`EnsembleMetrics`' order) or None, nearest1)."""
+    certified) command. With ``axis`` (sp > 1) the metrics reduce over it
+    as JAX's pmin/psum/pmax: the counts sum, while the certificate's
+    values and the deficit take the max, since every rank holds the same
+    global value (a sum would count it sp times). Returns (x_new, v_new,
+    theta_new or None, metrics (8 scalars, :class:`EnsembleMetrics`'
+    order) or None, nearest1)."""
     theta_new = None
     deficit = torch.zeros((), dtype=x.dtype, device=x.device)
     if cfg.dynamics == "unicycle":
@@ -301,7 +356,27 @@ def _finish_swarm_step(cfg: swarm_scenario.Config, x, u, aux: _PendingStep,
             torch.sum(~aux.feasible & aux.engaged, dtype=i32),
             torch.sum(aux.dropped, dtype=i32),
             cert_res, cert_dropped.to(i32), deficit, cert_iters.to(i32))
+        if axis is not None:
+            metrics = _reduce_metrics(metrics, axis)
     return (x_new, v_new, theta_new, metrics, aux.nearest1)
+
+
+def _reduce_metrics(metrics, axis):
+    """The 8 step metrics reduced over ``axis`` in two collectives: one
+    psum of the three counts, one pmax of the negated nearest distance
+    (pmin), the residual, the deficit and the two certificate counts —
+    each exact in float64."""
+    near, engaged, infeasible, dropped, res, cdrop, deficit, iters = metrics
+    sums = axis.psum(torch.stack([engaged, infeasible, dropped]).to(
+        torch.int64))
+    f64 = torch.float64
+    maxes = axis.pmax(torch.stack([-near.to(f64), res.to(f64),
+                                   deficit.to(f64), cdrop.to(f64),
+                                   iters.to(f64)]))
+    i32 = torch.int32
+    return (-maxes[0].to(near.dtype), sums[0].to(i32), sums[1].to(i32),
+            sums[2].to(i32), maxes[1].to(res.dtype), maxes[3].to(i32),
+            maxes[2].to(deficit.dtype), maxes[4].to(i32))
 
 
 def _vmap_guarded(fn, args, rounds: int, blocks):
@@ -525,10 +600,16 @@ def sharded_swarm_rollout(cfg: swarm_scenario.Config, mesh: Mesh, seeds,
                           with_solver_state: bool = False,
                           telemetry=None, telemetry_every: int = 50,
                           partition: str = "flat"):
-    """Run len(seeds) independent swarms on ``mesh`` (a (1, 1) mesh of
-    :func:`~cbf_tpu_torch.parallel.mesh.make_mesh`: the members share the
-    device and every op carries the member axis), through the compiled
-    rollout.
+    """Run len(seeds) independent swarms over the (dp, sp) mesh.
+
+    On a (1, 1) mesh the members share the device, every op carries the
+    member axis, and the step is the compiled rollout. On a mesh of
+    several ranks (:func:`~cbf_tpu_torch.parallel.mesh.make_mesh` inside a
+    world; every rank of the mesh calls this with the same arguments) each
+    dp rank takes its E / dp members — at sp = 1 through the same compiled
+    program on its device, at sp > 1 with each member's agents split by
+    row range over sp and stepped eagerly — and every rank returns the
+    whole ensemble, gathered over the mesh.
 
     ``initial_state``: optional (x0, v0) — (x0, v0, theta0) in unicycle
     mode — of (E, N, 2) / (E, N) tensors to start from instead of the
@@ -549,8 +630,10 @@ def sharded_swarm_rollout(cfg: swarm_scenario.Config, mesh: Mesh, seeds,
     each channel reduced across members by the schema's reduction;
     without ``chunk`` they are emitted when the one segment ends.
 
-    ``partition="spatial"`` (one swarm tiled over the mesh) is not ported
-    (Queue A10) and raises.
+    ``partition="spatial"`` domain-decomposes ONE swarm (len(seeds) == 1,
+    dp == 1) into x-strip tiles over sp with per-step halo exchange
+    (:mod:`cbf_tpu_torch.parallel.spatial`; single-integrator,
+    obstacle-free swarms; ``chunk`` and the warm start stay flat-only).
 
     Returns ((x_final, v_final) — plus theta_final in unicycle mode, plus
     the final solver carry with ``with_solver_state=True`` — with
@@ -564,8 +647,10 @@ def sharded_swarm_rollout(cfg: swarm_scenario.Config, mesh: Mesh, seeds,
                 "chunk/with_solver_state are flat-partition knobs — the "
                 "spatial epoch loop host-offloads per rebin epoch and "
                 "carries no solver state")
-        raise OutOfSliceError("sharded_swarm_rollout(partition='spatial')",
-                              SLICE_PARALLEL)
+        from cbf_tpu_torch.parallel import spatial
+        return spatial.ensemble_adapter(cfg, mesh, list(seeds), steps, cbf,
+                                        initial_state, t0,
+                                        telemetry=telemetry)
     steps = cfg.steps if steps is None else steps
     if cbf is None:
         cbf = swarm_scenario.default_cbf(cfg, device=mesh.device)
@@ -573,7 +658,6 @@ def sharded_swarm_rollout(cfg: swarm_scenario.Config, mesh: Mesh, seeds,
     parts = 3 if unicycle else 2
     E = len(seeds)
     n_dp, n_sp = mesh.shape["dp"], mesh.shape["sp"]
-    check_single_device(n_dp, n_sp)
     if E % n_dp or cfg.n % n_sp:
         raise ValueError(
             f"E={E} must divide by dp={n_dp} and N={cfg.n} by sp={n_sp}")
@@ -599,6 +683,16 @@ def sharded_swarm_rollout(cfg: swarm_scenario.Config, mesh: Mesh, seeds,
             "certificate_rebuild_skin is scenario/bench-path only (the "
             "ensemble certificate keeps the exact search); set it to 0 "
             "for sharded rollouts")
+    if ((cfg.certificate_warm_start or cfg.certificate_tol is not None)
+            and n_sp != 1):
+        raise ValueError(
+            "certificate_warm_start/certificate_tol require whole-swarm-"
+            f"per-device ensembles (sp == 1; got sp={n_sp})")
+    if cfg.certificate_fused and n_sp != 1:
+        raise ValueError(
+            "certificate_fused requires whole-swarm-per-device ensembles "
+            f"(sp == 1; got sp={n_sp}) — the row-partitioned solve keeps "
+            "the CG path")
     if with_solver_state and not cfg.certificate_warm_start:
         raise ValueError(
             "with_solver_state returns the certificate warm-start carry — "
@@ -606,6 +700,10 @@ def sharded_swarm_rollout(cfg: swarm_scenario.Config, mesh: Mesh, seeds,
             "exists to return)")
     if chunk is not None and chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if n_dp * n_sp > 1:
+        return _rollout_across(cfg, mesh, list(seeds), steps, cbf,
+                               initial_state, t0, chunk, with_solver_state,
+                               telemetry, telemetry_every)
 
     carry = _initial_carry(cfg, mesh, seeds, initial_state)
     step = _rollout_executable(cfg, mesh, E, cbf)
@@ -640,6 +738,89 @@ def sharded_swarm_rollout(cfg: swarm_scenario.Config, mesh: Mesh, seeds,
     if with_solver_state:
         state_out += (carry[-1],)
     return state_out, mets
+
+
+def _rollout_across(cfg, mesh: Mesh, seeds, steps, cbf, initial_state, t0,
+                    chunk, with_solver_state, telemetry, telemetry_every):
+    """:func:`sharded_swarm_rollout` on a mesh of several ranks: this dp
+    rank's members (sp = 1: the one-rank path on its device; sp > 1:
+    :func:`_sp_members`), then the states, solver carry and metrics
+    gathered over dp (and the agents over sp), and the heartbeats emitted
+    by the primary rank once the run ends."""
+    dp_axis = mesh.axis("dp")
+    E = len(seeds)
+    E_local = E // mesh.dp
+    lo = dp_axis.index * E_local
+    block = None
+    if initial_state is not None:
+        block = tuple(
+            _tree_block(a, lo, E_local, mesh.device) for a in initial_state)
+    if mesh.sp == 1:
+        state_out, mets = sharded_swarm_rollout(
+            cfg, mesh.local, seeds[lo:lo + E_local], steps, cbf,
+            initial_state=block, t0=t0, chunk=chunk,
+            with_solver_state=with_solver_state)
+    else:
+        state_out, mets = _sp_members(cfg, mesh, seeds[lo:lo + E_local],
+                                      steps, cbf, block, t0)
+    to_host = chunk is not None
+    state_out = tuple(engine._tree_map(dp_axis.all_gather, s)
+                      for s in state_out)
+    mets = EnsembleMetrics(*(dp_axis.all_gather(torch.as_tensor(
+        m, device=mesh.device)) for m in mets))
+    if to_host:
+        mets = EnsembleMetrics(*(m.cpu().numpy() for m in mets))
+    from cbf_tpu_torch.parallel import multihost
+
+    if telemetry is not None and multihost.is_primary():
+        from cbf_tpu_torch.obs.tap import emit_ensemble_chunk
+
+        emit_ensemble_chunk(telemetry, EnsembleMetrics(
+            *(np.asarray(m.cpu() if torch.is_tensor(m) else m)
+              for m in mets)), t0, every=telemetry_every)
+    return state_out, mets
+
+
+def _tree_block(a, lo: int, n: int, device):
+    """Members [lo, lo + n) of an (E, ...) leaf or tuple of leaves, on
+    ``device``."""
+    if isinstance(a, tuple):
+        return tuple(_tree_block(b, lo, n, device) for b in a)
+    return torch.as_tensor(a)[lo:lo + n].to(device)
+
+
+def _sp_members(cfg, mesh: Mesh, seeds, steps, cbf, initial_state, t0):
+    """This dp rank's members with their agents split over sp: each
+    member's rows [sp_index * N / sp, ...) step eagerly, one member after
+    another (the step's collectives cannot be captured, and vmap does not
+    reach them). Returns ((x, v[, theta]) of whole (E_local, N, ...)
+    members, EnsembleMetrics of (E_local, steps) tensors)."""
+    sp_axis = mesh.axis("sp")
+    unicycle = cfg.dynamics == "unicycle"
+    parts = 3 if unicycle else 2
+    n_local = cfg.n // mesh.sp
+    i0 = sp_axis.index * n_local
+    if initial_state is None:
+        state0 = ensemble_initial_states(cfg, seeds, device=mesh.device)
+    else:
+        state0 = tuple(initial_state[:parts])
+    finals, series = [], []
+    with torch.no_grad():
+        for e in range(len(seeds)):
+            x, v = state0[0][e, i0:i0 + n_local], state0[1][e, i0:i0 + n_local]
+            th = state0[2][e, i0:i0 + n_local] if unicycle else None
+            mets = []
+            for t in range(t0, t0 + steps):
+                x, v, th, met = _local_swarm_step(
+                    x, v, cfg, cbf, t=t, theta=th, axis_name=sp_axis)[:4]
+                mets.append(met)
+            state = (x, v, th) if unicycle else (x, v)
+            finals.append(tuple(sp_axis.all_gather(a) for a in state))
+            series.append(EnsembleMetrics(*(torch.stack(c)
+                                            for c in zip(*mets))))
+    state_out = tuple(torch.stack(c) for c in zip(*finals))
+    return state_out, EnsembleMetrics(*(torch.stack(c)
+                                        for c in zip(*series)))
 
 
 # ------------------------------------------------------- serving batch ----

@@ -28,8 +28,8 @@ knn_select`'s zero-gradient Function, and the sparse certificate's K solve
 carries its implicit gradient). The serving layer's traced-config step
 (:func:`split_static_traced`, :func:`make_step_traced`: per-request
 value fields as tensors, the ``active`` mask over padded agents) is
-ported; the row-partitioned certificate is a later slice's and raises
-:class:`~cbf_tpu_torch.errors.OutOfSliceError`.
+ported, and so is the row-partitioned certificate of sp-sharded
+ensembles (:func:`apply_certificate_sharded`).
 
 Branches of the reference step that depend on device data (the Verlet
 rebuilds and RTA's boosted re-solve are ``lax.cond``s there, the adaptive
@@ -55,7 +55,6 @@ import numpy as np
 import torch
 
 from cbf_tpu_torch.core.filter import CBFParams, safe_controls
-from cbf_tpu_torch.errors import SLICE_PARALLEL, OutOfSliceError
 from cbf_tpu_torch.ops import knn
 from cbf_tpu_torch.ops.pairwise import pairwise_distances
 from cbf_tpu_torch.rollout.engine import StepOutputs, rollout
@@ -547,15 +546,24 @@ def apply_certificate_batched(cfg: Config, u, x, solver_state=None):
     return ret
 
 
-def apply_certificate_sharded(cfg: Config, u, x, axis_name: str):
-    """The row-partitioned twin (sp-sharded ensembles): not ported yet."""
-    raise OutOfSliceError("apply_certificate_sharded", SLICE_PARALLEL)
+def apply_certificate_sharded(cfg: Config, u, x, axis_name):
+    """Row-partitioned twin of :func:`apply_certificate` for sp-sharded
+    ensembles (sparse backend only — the dense solver factorizes the full
+    2N system and cannot partition by rows): the same problem and return
+    contract, with the joint solve's O(N * k) row work split over
+    ``axis_name`` (certificates.si_barrier_certificate_sparse_sharded).
+    u, x are the GLOBAL (N, 2) tensors, the same on every rank."""
+    params, arena = _certificate_problem(cfg)
+    u_cert, cinfo = certificates.si_barrier_certificate_sparse_sharded(
+        u.T, x.T, axis_name, params, settings=_certificate_settings(cfg),
+        k=cfg.certificate_k, with_info=True, arena=arena)
+    return (u_cert.T, cinfo.primal_residual, cinfo.dropped_count,
+            cinfo.iterations)
 
 
 def validate_config(cfg: Config) -> None:
     """Raise ValueError on invalid knob combinations — the JAX package's
-    checks, unchanged. (Valid knobs of later slices raise
-    OutOfSliceError when a step is built.)"""
+    checks, unchanged."""
     if cfg.dynamics not in ("single", "double", "unicycle", "mixed"):
         raise ValueError(f"dynamics must be single|double|unicycle|mixed, "
                          f"got {cfg.dynamics!r}")

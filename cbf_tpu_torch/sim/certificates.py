@@ -26,9 +26,10 @@ rollout's body (:func:`cbf_tpu_torch.solvers.exact2d.in_guarded_body`)
 the rebuild search runs on every step and ``torch.where`` on the 0-dim
 predicate picks rebuilt or cached values — bit-identical to either branch.
 
-Not ported here: the row-partitioned twin
-(``si_barrier_certificate_sparse_sharded``, the ensembles and
-partitioning slice) raises OutOfSliceError.
+The row-partitioned twin (:func:`si_barrier_certificate_sparse_sharded`)
+runs on each rank of the mesh's ``sp`` axis: each rank searches and
+iterates only its own agents' pair rows; the solver's psum completes the
+transpose.
 """
 
 from __future__ import annotations
@@ -39,7 +40,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cbf_tpu_torch.errors import SLICE_PARALLEL, OutOfSliceError
 from cbf_tpu_torch.ops import knn
 from cbf_tpu_torch.ops.pairwise import pairwise_distances
 from cbf_tpu_torch.sim.robotarium import ARENA
@@ -450,9 +450,84 @@ def _arena_box(xt, params: CertificateParams, arena, dtype):
     return lo.to(dtype), hi.to(dtype)
 
 
-def si_barrier_certificate_sparse_sharded(dxi, x, axis_name: str, *args,
-                                          **kwargs):
-    """The row-partitioned twin (inside ``shard_map`` in the JAX
-    package): not ported yet."""
-    raise OutOfSliceError("si_barrier_certificate_sparse_sharded",
-                          SLICE_PARALLEL)
+def si_barrier_certificate_sparse_sharded(
+        dxi, x, axis_name,
+        params: CertificateParams = CertificateParams(),
+        settings: SparseADMMSettings = SparseADMMSettings(),
+        k: int = 32, pair_radius: float | None = None,
+        with_info: bool = False, arena: tuple | None = ARENA):
+    """Row-partitioned twin of :func:`si_barrier_certificate_sparse`, run
+    on every rank of ``axis_name`` (the mesh's ``sp``
+    :class:`~cbf_tpu_torch.parallel.mesh.Axis`): the joint QP still
+    couples all N agents, but each rank builds and iterates only the pair
+    rows its LOCAL agents own (agents [index * N / n, ...)), so the
+    O(N * k) row work splits over the axis. The (N, 2) iterate stays
+    replicated; the collectives are one (2N,) psum per K application and
+    the residual reductions (solve_pair_box_qp_admm's ``axis_name``).
+
+    Args: dxi, x — GLOBAL (2, N) tensors, the same on every rank; N must
+    divide by the axis size. Returns the full certified (2, N), the same
+    on every rank [, SparseCertificateInfo with globally reduced
+    residuals and dropped count]. The neighbour search is the exact form
+    on this rank's (n_local, N) block, stable-sorted (ties to the lower
+    index, as ``lax.top_k``). No gradient is claimed (the trainer takes
+    the replicated path)."""
+    from cbf_tpu_torch.parallel.mesh import resolve_axis
+
+    axis = resolve_axis(axis_name)
+    N = x.shape[1]
+    n_shards = axis.size
+    if N % n_shards:
+        raise ValueError(f"N={N} must be divisible by the {axis.name!r} "
+                         f"axis size {n_shards}")
+    n_local = N // n_shards
+    dtype = torch.promote_types(dxi.dtype, x.dtype)
+    if pair_radius is None:
+        pair_radius = binding_pair_radius(params)
+    k = min(k, N - 1)
+    dev = x.device
+
+    u_nom = _nominal(dxi, params)                            # (N, 2)
+    xt = x.T                                                 # (N, 2)
+    i0 = axis.index * n_local
+    gI = i0 + torch.arange(n_local, device=dev)              # global rows
+    dist = pairwise_distances(xt[i0:i0 + n_local], xt)       # (n_local, N)
+    eligible = ((dist < pair_radius)
+                & (torch.arange(N, device=dev)[None, :] != gI[:, None]))
+    keyed = torch.where(eligible, dist, torch.inf)
+    key, idx = torch.sort(keyed, dim=1, stable=True)
+    idx = idx[:, :k]
+    mask = torch.isfinite(key[:, :k])
+    count = torch.sum(eligible, dim=1, dtype=torch.int32)
+
+    # Symmetric coverage accounting (the replicated path's formula): the
+    # reverse-row lookup needs every rank's kept slots, so the (N, k)
+    # tables are gathered once and the counts psum to the global D/S/M.
+    idx_g = axis.all_gather(idx)                             # (N, k)
+    mask_g = axis.all_gather(mask)
+    I = gI[:, None].expand(n_local, k).reshape(-1)
+    J = idx.reshape(-1)
+    maskf = mask.reshape(-1)
+    mutual = maskf & torch.any((idx_g[J] == I[:, None]) & mask_g[J], dim=1)
+    D = axis.psum(torch.sum(count, dtype=torch.int32))
+    S = axis.psum(torch.sum(mask, dtype=torch.int32))
+    M = axis.psum(torch.sum(mutual, dtype=torch.int32))
+    dropped = D // 2 - (S - M // 2)
+
+    coef, b_pair = _pair_row_geometry(xt, I, J, maskf, params, dtype)
+    lo, hi = _arena_box(xt, params, arena, dtype)
+
+    # agent_k/rows_start: this rank's rows are agent-major from its block
+    # offset, so the solver's I-side transpose needs no scatter.
+    u, info = solve_pair_box_qp_admm(u_nom, I, J, coef, b_pair, lo, hi,
+                                     settings, axis_name=axis, agent_k=k,
+                                     rows_start=i0)
+    # The solve's outputs are replicated over the axis; the pmax is JAX's
+    # (it re-asserts the replicated type there) and keeps the ranks
+    # bit-identical here.
+    out = axis.pmax(u).T
+    if with_info:
+        return out, SparseCertificateInfo(
+            axis.pmax(info.primal_residual), axis.pmax(info.dual_residual),
+            dropped, info.iterations)
+    return out

@@ -48,17 +48,22 @@ in float32. Its backward reuses the call's segment plans, so the
 transpose stays deterministic. The rest of the iteration is plain torch
 and differentiates as it stands.
 
-Not ported here: the row-partitioned mode ``axis_name`` (the ensembles
-and partitioning slice), which raises OutOfSliceError.
+Row-partitioned mode (``axis_name``, the mesh's ``sp``
+:class:`~cbf_tpu_torch.parallel.mesh.Axis`): each rank holds only the pair
+rows it owns (I and J still index the full variable vector), so the
+transpose's segment sums are completed by one (2N,) psum over the axis per
+application, and the primal residual's pair part by one pmax. The (2N,)
+iterate stays replicated, so every CG dot product is local. The fused
+iteration and the adaptive budget raise the JAX package's ValueErrors
+there.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
-from cbf_tpu_torch.errors import SLICE_PARALLEL, OutOfSliceError
 from cbf_tpu_torch.solvers import exact2d
 from cbf_tpu_torch.solvers.admm import relaxed_zy_update
 from cbf_tpu_torch.utils.math import safe_norm
@@ -185,10 +190,12 @@ class _Pair(NamedTuple):
     n: int
     agent_k: int | None
     rows_start: int
+    axis: Any = None      # row-partitioned mode: the axis the psum spans
 
 
 def _pair_layout(I, J, n: int, zero_rows, *, agent_k=None,
-                 rows_start: int = 0, one_pass: bool = False) -> _Pair:
+                 rows_start: int = 0, one_pass: bool = False,
+                 axis=None) -> _Pair:
     """Index data of the pair operator over ``I`` (R,) shared and ``J``
     (E, R) per member, for ``n`` agents.
 
@@ -219,7 +226,7 @@ def _pair_layout(I, J, n: int, zero_rows, *, agent_k=None,
         plan_I = _segment_plan(keyed(Ie, zero_rows), E * n)
         plan_J = _segment_plan(keyed(Je, zero_rows), E * n)
     return _Pair(Ig, Jg, plan_I, plan_J, plan_IJ, E, n, agent_k,
-                 int(rows_start))
+                 int(rows_start), axis)
 
 
 def _gather(v, index, E: int):
@@ -238,7 +245,10 @@ def _make_apply_K(coef_s, pair: _Pair, rho, sigma):
                                    - _gather(v, pair.Jg, E)), dim=2)
 
     def A_pair_T(y):                                 # (E, R) -> (E, N, 2)
-        contrib = coef_s * y[..., None]
+        z = _transpose(coef_s * y[..., None])
+        return z if pair.axis is None else pair.axis.psum(z)
+
+    def _transpose(contrib):
         if pair.agent_k is not None:
             block = torch.sum(contrib.reshape(E, -1, pair.agent_k, 2), dim=2)
             m = block.shape[1]
@@ -333,7 +343,8 @@ class _SolveK(torch.autograd.Function):
                        fold_plan(pair.plan_I, pd.plan_I),
                        fold_plan(pair.plan_J, pd.plan_J),
                        fold_plan(pair.plan_IJ, pd.plan_IJ),
-                       B * E, pair.n, pair.agent_k, pair.rows_start)
+                       B * E, pair.n, pair.agent_k, pair.rows_start,
+                       pair.axis)
         x = _SolveK.apply(fold(coef_s, in_dims[0]), fold(rhs, in_dims[1]),
                           fold(x_warm, in_dims[2]), iters, rho, sigma,
                           folded)
@@ -367,7 +378,7 @@ class _PairOps(NamedTuple):
 
 
 def _prepare_ops(u_nom, I, J, coef, b_pair, lo, hi, settings,
-                 agent_k=None, rows_start: int = 0) -> _PairOps:
+                 agent_k=None, rows_start: int = 0, axis=None) -> _PairOps:
     """Equilibrate rows and precompute what the iteration consumes, for
     (E, N, 2) nominals and (E, R) rows. Pair row norm = sqrt(2) ||c||; a
     zero (padding) row gets d = 1 and stays inert. ``ev_hi`` (Chebyshev
@@ -382,7 +393,8 @@ def _prepare_ops(u_nom, I, J, coef, b_pair, lo, hi, settings,
     coef_s = coef * d[..., None]
     zero_rows = torch.all(coef_s == 0.0, dim=2)
     pair = _pair_layout(I, J, N, zero_rows, agent_k=agent_k,
-                        rows_start=rows_start, one_pass=settings.fused)
+                        rows_start=rows_start, one_pass=settings.fused,
+                        axis=axis)
     b_s = torch.where(torch.isfinite(b_pair), b_pair * d, b_pair)
     q = -u_nom.reshape(E, -1)
 
@@ -476,6 +488,9 @@ def _iteration_fns(N: int, settings):
                                             - _gather(u, ops.pair.Jg, E)),
                                 dim=2)
         viol_p = _amax0(torch.clamp(Ax_orig - ops.b_pair, min=0.0))
+        if ops.pair.axis is not None:
+            # Each rank sees its own rows: the max completes over the axis.
+            viol_p = ops.pair.axis.pmax(viol_p)
         viol_b = _amax0(torch.clamp(
             torch.maximum(ops.lo - x, x - ops.hi), min=0.0))
         primal = torch.maximum(viol_p, viol_b)
@@ -551,15 +566,28 @@ def _drive(step, residuals, ops, carry0, settings):
 
 
 def _validate_settings(settings, axis_name):
-    if axis_name is not None:
-        raise OutOfSliceError("the sparse ADMM's row-partitioned mode "
-                              "(axis_name)", SLICE_PARALLEL)
     if settings.ksolve not in ("cg", "chebyshev"):
         raise ValueError(f"SparseADMMSettings.ksolve must be cg|chebyshev, "
                          f"got {settings.ksolve!r}")
     if settings.ksolve == "chebyshev" and not settings.fused:
         raise ValueError("SparseADMMSettings.ksolve='chebyshev' is the "
                          "fused iteration's inner solver — set fused=True")
+    if settings.fused and axis_name is not None:
+        raise ValueError(
+            "SparseADMMSettings.fused is not supported in row-partitioned "
+            "mode (axis_name set): the carried pair image and the "
+            "spectral-bound reduction are unproven under shard_map "
+            "varying-manual-axes promotion — sharded solves keep the CG "
+            "path")
+    if settings.tol > 0.0 and axis_name is not None:
+        # The residual check's collectives would decide a host loop per
+        # rank; the JAX package rejects it here, at the one place the
+        # incompatibility lives.
+        raise ValueError(
+            "SparseADMMSettings.tol > 0 (adaptive budget) is not "
+            "supported in row-partitioned mode (axis_name set): the "
+            "while_loop's residual cond would run collectives — use "
+            "a fixed iteration budget for sharded solves")
 
 
 def solve_pair_box_qp_admm(u_nom, I, J, coef, b_pair, lo, hi,
@@ -578,14 +606,24 @@ def solve_pair_box_qp_admm(u_nom, I, J, coef, b_pair, lo, hi,
     agent_k)`` (the certificate's layout), so the I side of the transpose
     is a reshape-sum. ``warm_state`` is a previous call's carry (x, z_p,
     z_b, y_p, y_b), which ``with_state=True`` appends to the return.
-    ``axis_name`` (row-partitioned mode) raises OutOfSliceError."""
+    ``axis_name``: row-partitioned mode (module docstring) — this rank
+    passes only the rows it owns, u_nom/lo/hi replicated; the returned u
+    and residuals are replicated over the axis."""
     _validate_settings(settings, axis_name)
+    axis = None
+    if axis_name is not None:
+        from cbf_tpu_torch.parallel.mesh import resolve_axis
+
+        axis = resolve_axis(axis_name)
+        if axis.size == 1:
+            axis = None
     N = u_nom.shape[0]
     u, info, state = _solve_members(
         u_nom[None], I, J[None], coef[None], b_pair[None],
         torch.broadcast_to(lo, (N, 2))[None],
         torch.broadcast_to(hi, (N, 2))[None], settings, agent_k, rows_start,
-        None if warm_state is None else tuple(s[None] for s in warm_state))
+        None if warm_state is None else tuple(s[None] for s in warm_state),
+        axis)
     info = SparseADMMInfo(info.primal_residual[0], info.dual_residual[0],
                           info.iterations)
     if with_state:
@@ -594,13 +632,13 @@ def solve_pair_box_qp_admm(u_nom, I, J, coef, b_pair, lo, hi,
 
 
 def _solve_members(u_nom, I, J, coef, b_pair, lo, hi, settings, agent_k,
-                   rows_start, warm_state):
+                   rows_start, warm_state, axis=None):
     """The shared driver over a leading member axis. Returns (u (E, N, 2),
     SparseADMMInfo of (E,) residuals and 0-dim iterations, 5-tuple
     carry)."""
     E, N = u_nom.shape[0], u_nom.shape[1]
     ops = _prepare_ops(u_nom, I, J, coef, b_pair, lo, hi, settings,
-                       agent_k=agent_k, rows_start=rows_start)
+                       agent_k=agent_k, rows_start=rows_start, axis=axis)
     step, residuals, init_carry = _iteration_fns(N, settings)
     carry0 = init_carry(ops, warm_state)
     state, iterations = _drive(step, residuals, ops, carry0, settings)

@@ -1,7 +1,8 @@
 """Numerics helpers (counterpart: cbf_tpu/utils/math.py:8-30).
 
-``match_vma`` and ``axis_size`` are JAX sharding helpers with no meaning
-here and are not ported."""
+``match_vma`` and ``axis_size`` are JAX sharding helpers: the port's
+collectives and axis sizes live in :class:`cbf_tpu_torch.parallel.mesh.Axis`,
+and ranks carry no varying-axes types to match."""
 
 from __future__ import annotations
 

@@ -58,11 +58,11 @@ from cbf_tpu_torch.utils import prng
 from cbf_tpu_torch.verify import corpus as _corpus
 from cbf_tpu_torch.verify import shrink as _shrink
 from cbf_tpu_torch.verify.properties import PROPERTY_NAMES
-from cbf_tpu_torch.verify.search import (SearchSettings, _check_mesh,
+from cbf_tpu_torch.verify.search import (SearchSettings,
                                          _fingerprint_of, _load_round_state,
                                          _save_round_state, _state_dtype,
                                          _state_path, make_adapter,
-                                         make_eval_batch)
+                                         make_eval_batch, round_batch)
 
 #: The event types this module emits (``obs.schema.FLEET_EVENT_TYPES``).
 EMITTED_EVENT_TYPES: tuple[str, ...] = (
@@ -211,14 +211,13 @@ def enroll_targets(settings: FleetSettings = FleetSettings(), *,
 
 
 def _search_settings(settings: FleetSettings, mesh=None) -> SearchSettings:
-    """The one-shot engines' settings for the fleet's evaluator: the
-    candidate axis stays on one card (``mesh`` None or dp 1), so the
-    batch needs no rounding to a dp extent."""
-    _check_mesh(mesh)
-    return SearchSettings(
+    """The one-shot engines' settings for the fleet's evaluator, the batch
+    rounded up to the dp extent of ``mesh`` (each rank evaluates its
+    slice, :func:`search.make_eval_batch`)."""
+    return round_batch(SearchSettings(
         budget=settings.batch, batch=settings.batch,
         perturb_scale=settings.perturb_scale,
-        perturb_norm=settings.perturb_norm, seed=settings.seed)
+        perturb_norm=settings.perturb_norm, seed=settings.seed), mesh)
 
 
 def allocate_budget(n_batches: int, visits, worst_margin) -> np.ndarray:
@@ -343,12 +342,17 @@ class FalsificationFleet:
                  telemetry=None, mesh=None, flight=None, device=None):
         if budget_rounds < 1:
             raise ValueError("budget_rounds must be >= 1")
+        from cbf_tpu_torch.parallel import multihost
+
         self.settings = settings
         self.budget_rounds = budget_rounds
         self.corpus_dir = corpus_dir
         self.state_dir = state_dir
-        self.telemetry = telemetry
-        self.flight = flight
+        # In a world (--mesh-dp) every rank runs the same campaign; only
+        # the primary writes the corpus, the state and the events.
+        self._writes = multihost.is_primary()
+        self.telemetry = telemetry if self._writes else None
+        self.flight = flight if self._writes else None
         self._ss = _search_settings(settings, mesh)
         self.targets = list(targets) if targets is not None \
             else enroll_targets(settings, mesh=mesh, telemetry=telemetry,
@@ -457,7 +461,7 @@ class FalsificationFleet:
                 self._best_delta[i] = np.asarray(a, np.float64)
 
     def _save(self) -> None:
-        if self.state_dir is None:
+        if self.state_dir is None or not self._writes:
             return
         extra = {
             "visits": self._visits,
@@ -546,7 +550,7 @@ class FalsificationFleet:
                   "round": self._round, "corpus": None}
         if not sr.confirmed_x64:
             return None
-        if self.corpus_dir is not None:
+        if self.corpus_dir is not None and self._writes:
             entry = _corpus.entry_from(
                 target.archive, target.cfg, sr, engine="fleet",
                 settings=self._ss, cbf=target.cbf,
@@ -579,7 +583,7 @@ class FalsificationFleet:
                     continue
                 self._near_missed[t_idx, p_idx] = 1
                 new += 1
-                if self.corpus_dir is None:
+                if self.corpus_dir is None or not self._writes:
                     continue
                 prop_name, m32, m64 = _shrink.measure_margin_x64(
                     target.scenario, target.cfg, delta, cbf=target.cbf,

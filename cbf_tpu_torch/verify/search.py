@@ -30,7 +30,11 @@ Every key is ``fold_in``-derived from ``SearchSettings.seed``
 (:mod:`cbf_tpu_torch.utils.prng` reproduces ``jax.random``'s streams), so
 the engines draw the JAX package's proposals; the draws are made on the
 host and copied to the card before each batch. ``telemetry`` is any
-object with an ``event(type, payload)`` method.
+object with an ``event(type, payload)`` method. With a dp ``mesh`` (a
+(dp, sp) pair over a ``torch.distributed`` world) every rank draws the
+same candidates, evaluates its B / dp slice and all-gathers the margins,
+so every rank holds the same search state; only the primary rank emits
+events and writes campaign files.
 """
 
 from __future__ import annotations
@@ -45,7 +49,6 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from cbf_tpu_torch.errors import SLICE_PARALLEL, OutOfSliceError
 from cbf_tpu_torch.obs.schema import json_scalar
 from cbf_tpu_torch.rollout.engine import (_leaves, _tree_map, eager_rollout,
                                           rollout)
@@ -275,12 +278,35 @@ def project_delta(delta, norm_cap: float):
     return l2_cap(delta, norm_cap)
 
 
-def _check_mesh(mesh) -> None:
-    """``mesh`` is None or a (dp, sp) pair with dp 1: the candidates stay
-    on one card."""
-    if mesh is not None and tuple(mesh)[0] != 1:
-        raise OutOfSliceError("the falsifier's candidate axis sharded over "
-                              "a dp mesh", SLICE_PARALLEL)
+def _dp_axis(mesh, device):
+    """The dp :class:`~cbf_tpu_torch.parallel.mesh.Axis` the candidate
+    axis is sharded over: None for no mesh or dp 1; a (dp, sp) pair is
+    built over the process world
+    (:func:`cbf_tpu_torch.parallel.mesh.as_mesh`)."""
+    if mesh is None or tuple(mesh)[0] == 1:
+        return None
+    from cbf_tpu_torch.parallel.mesh import as_mesh
+
+    return as_mesh(mesh, device).axis("dp")
+
+
+def round_batch(settings: SearchSettings, mesh) -> SearchSettings:
+    """Round ``settings.batch`` up to a whole multiple of the mesh's dp
+    extent (no-op without a mesh)."""
+    if mesh is None:
+        return settings
+    dp = tuple(mesh)[0]
+    batch = -(-settings.batch // dp) * dp
+    return dataclasses.replace(settings, batch=batch)
+
+
+def _writer(telemetry):
+    """(telemetry, writes): only the primary rank of a world emits events
+    and writes campaign files; every rank holds the same search state."""
+    from cbf_tpu_torch.parallel import multihost
+
+    primary = multihost.is_primary()
+    return (telemetry if primary else None), primary
 
 
 def _margins_fn(adapter: Adapter):
@@ -363,12 +389,15 @@ def make_eval_batch(adapter: Adapter, settings: SearchSettings,
     """``eval_batch(deltas (B, *delta_shape)) -> (B, P)`` margins: the
     batch's perturbed states step together through :func:`member_step`
     in one compiled rollout (one CUDA graph per batch shape on the card,
-    cached on the member step), then every candidate's margins. ``mesh``
-    must be None or dp-only of extent 1. With ``cost_model`` (a
+    cached on the member step), then every candidate's margins. With a
+    dp ``mesh`` (a (dp, sp) pair or a mesh over the world) every rank
+    evaluates its B / dp slice of the batch and all-gathers the margins,
+    so every rank holds all B (B must be a multiple of dp —
+    :func:`round_batch`). With ``cost_model`` (a
     :class:`cbf_tpu_torch.obs.resource.CostModel`) each batch shape's
     program is prepared and measured under ``verify-eval-b<B>-s<steps>``
     and every batch's rollout wall is observed."""
-    _check_mesh(mesh)
+    axis = _dp_axis(mesh, adapter.device)
     stepper = member_step(adapter.step)
     margins = torch.func.vmap(_margins_fn(adapter), in_dims=(0, 1))
 
@@ -386,7 +415,21 @@ def make_eval_batch(adapter: Adapter, settings: SearchSettings,
         return margins(final, outs)
 
     eval_batch.member_step = stepper
-    return eval_batch
+    if axis is None:
+        return eval_batch
+
+    def eval_sharded(deltas):
+        B = deltas.shape[0]
+        if B % axis.size:
+            raise ValueError(
+                f"batch {B} must be a multiple of the dp extent "
+                f"{axis.size} (round_batch pads the settings for you)")
+        b = B // axis.size
+        mine = eval_batch(deltas[axis.index * b:(axis.index + 1) * b])
+        return axis.all_gather(mine)
+
+    eval_sharded.member_step = stepper
+    return eval_sharded
 
 
 # -------------------------------------------------------------- results --
@@ -610,8 +653,11 @@ def random_search(adapter: Adapter,
     """Batched seeded random search; stops after the first round that
     finds a violation (the whole round still evaluates). ``state_dir``
     persists per-round campaign state and, with ``resume``, picks a
-    killed campaign up at its next round."""
-    _check_mesh(mesh)
+    killed campaign up at its next round. With a dp ``mesh`` every rank
+    draws the same candidates, evaluates its slice and holds every
+    margin; only the primary rank writes."""
+    settings = round_batch(settings, mesh)
+    telemetry, writes = _writer(telemetry)
     key = _engine_key(settings, "random")
     B = settings.batch
     rounds = max(1, -(-settings.budget // B))
@@ -638,7 +684,7 @@ def random_search(adapter: Adapter,
         best = _best_of(deltas, margins, worst, best, settings)
         _emit_round(telemetry, "random", r, B, best[0],
                     int((worst < 0).sum()), evaluated)
-        if state_dir is not None:
+        if state_dir is not None and writes:
             _save_round_state(state_dir, "random", fp, next_round=r + 1,
                               evaluated=evaluated, best=best,
                               done=bool(best[0] < 0), fields=ffields)
@@ -701,7 +747,7 @@ def gradient_search(adapter: Adapter,
             "gradient_search needs make_adapter(differentiable=True) "
             "(swarm only — the unrolled-relax step); got a non-"
             "differentiable adapter")
-    _check_mesh(mesh)
+    telemetry, _ = _writer(telemetry)
     grad_b = make_grad_batch(adapter, settings)
     C = max(1, settings.gd_candidates)
     deltas = (settings.perturb_scale * prng.normal(
@@ -734,7 +780,8 @@ def cem_search(adapter: Adapter, settings: SearchSettings = SearchSettings(),
     """Cross-entropy refinement: fit the proposal to the elite (lowest
     worst-margin) candidates each round. ``state_dir``/``resume``: as
     :func:`random_search`, with the proposal (mean, std) persisted too."""
-    _check_mesh(mesh)
+    settings = round_batch(settings, mesh)
+    telemetry, writes = _writer(telemetry)
     B = settings.batch
     rounds = max(1, min(settings.cem_rounds, -(-settings.budget // B)))
     n_elite = max(1, int(settings.cem_elite_frac * B))
@@ -777,7 +824,7 @@ def cem_search(adapter: Adapter, settings: SearchSettings = SearchSettings(),
             mean = torch.mean(elite, dim=0)
             std = torch.clamp(torch.std(elite, dim=0, correction=0),
                               min=settings.cem_std_floor)
-        if state_dir is not None:
+        if state_dir is not None and writes:
             _save_round_state(state_dir, "cem", fp, next_round=r + 1,
                               evaluated=evaluated, best=best, done=done,
                               extra_arrays={"mean": mean.cpu().numpy(),

@@ -385,6 +385,27 @@ Phases (each raises, and the script exits non-zero, on any failure):
    the campaign equal to its standalone run, every unit under
    ``_PROGRAM_LOCK`` with the lock witness armed (files under
    ``chiprun_out/phase21*``).
+22. across ranks (``parallel/``): one world of 4 ranks started on the one
+   card (``parallel.launch.run_world``, gloo over a file store, each
+   collective staged through the host; one CUDA initialisation per rank
+   for the whole phase), each sub-phase on its mesh's ranks while the
+   others wait: 22a ``sharded_swarm_rollout`` at dp=2, sp=1, E=8 x
+   N=4096 x 50 steps, each rank replaying the captured, vmapped program
+   over its 4 members (``knn_fused`` on the member axis), gathered and
+   held to the single-process E=8 run within 1e-5, above the floor with
+   0 infeasible; 22b the agent-sharded flat step at sp=2, eager, N=4096 x
+   50 (the all-gather branch: its 2048 x 4096 x 4 B slab is exactly 32
+   MiB) and N=16384 x 10 (the ring), each held to the single-process
+   flat run at JAX's 2e-5; 22c the row-partitioned certificate at sp=2,
+   N=4096 x 3, held to the single-process sparse certificate; 22d
+   ``partition="spatial"`` over 4 tiles at N=16384 for two epochs, held
+   to the flat run at 1e-5 with 0 overflow; 22e one train step at (1, 2),
+   N=512 (loss equal, gradients twice the single-process ones, the
+   sharded trainer's factor, parameters after Adam equal) and one
+   falsifier round at dp=2, B=16, N=256 (margins and the best candidate
+   within 1e-5 of the single-process batch). Each sub-phase prints its
+   wall, ms per step, collectives per step and the host bytes gloo
+   staging copied; a failed rank fails the phase.
 
 Phases 7-13 run before phase 6, which times their kernels (``knn_fused``
 and ``knn_stream`` also at the certificate's k=16 shape) and profiles
@@ -536,6 +557,17 @@ LOCK_E, LOCK_STEPS = 4, 10
 LOCK_X_ATOL, LOCK_RES_ATOL = 2e-5, 1e-6
 # 15f: 200 steps in chunks of 50 until the HA phase came.
 ENS_STEPS_F, ENS_CHUNK = 100, 25
+# Phase 22: the world on the card, and its sub-phases' sizes.
+P22_RANKS = 4
+P22_E, P22_STEPS = 8, 50
+P22_FLAT = ((4096, 50), (16384, 10))
+P22_CERT_N, P22_CERT_STEPS = 4096, 3
+P22_SPATIAL_N, P22_TILES = 16384, 4
+P22_TRAIN_N, P22_TRAIN_STEPS = 512, 2
+P22_VERIFY_B, P22_VERIFY_N, P22_VERIFY_STEPS = 16, 256, 100
+P22_DP_ATOL = 1e-5     # batched reductions in another order
+P22_SP_ATOL = 2e-5     # tests/test_parallel.py's sharded-vs-unsharded bound
+P22_TIMEOUT_S = 600
 # A batch's margins against its candidates run alone: float32 margins
 # ~0.1-1 m; on the CPU they are bit-equal (tests/test_torch_verify.py),
 # on the card batched reductions may sum in another order.
@@ -4840,6 +4872,338 @@ def phase21(engine, knn, swarm, t_start, dev="cuda") -> dict:
     return out
 
 
+def _p22_runs():
+    """Phase 22's runs on a rank: (key, mesh shape or None for the spatial
+    tiles, steps, function of the mesh)."""
+    import numpy as np
+    import torch
+
+    from cbf_tpu_torch.learn import tuning
+    from cbf_tpu_torch.parallel import sharded_swarm_rollout, spatial
+    from cbf_tpu_torch.scenarios import swarm
+    from cbf_tpu_torch import verify
+
+    def host(tree):
+        if isinstance(tree, (tuple, list)):
+            return [host(t) for t in tree]
+        return tree.detach().cpu().numpy() if torch.is_tensor(tree) \
+            else np.asarray(tree)
+
+    def ensemble(cfg, seeds):
+        def run(mesh):
+            (x, v), m = sharded_swarm_rollout(cfg, mesh, seeds)
+            return host([x, v, list(m)])
+        return run
+
+    def tiles(mesh):
+        cfg = swarm.Config(n=P22_SPATIAL_N)
+        spec = spatial.plan_tiles(cfg, P22_TILES)
+        (x, v), m, rep = spatial.spatial_swarm_rollout(
+            cfg, mesh, steps=2 * spec.rebin_every, seed=0, spec=spec)
+        return host([x[None], v[None], [a[None] for a in m]]) + [
+            dict(rep.__dict__), spec.capacity, spec.halo_capacity]
+
+    def train(mesh):
+        cfg = _p22_train_cfg(swarm)
+        tc = tuning.TrainConfig(steps=P22_TRAIN_STEPS)
+        from cbf_tpu_torch.parallel.ensemble import ensemble_initial_states
+
+        x0, v0 = ensemble_initial_states(cfg, [0], device=mesh.device)
+        p0 = tuning.init_params(device=mesh.device)
+        loss, grads = tuning.make_loss_and_grad_fn(cfg, (1, 2), tc)(
+            p0, x0, v0)
+        step, opt = tuning.make_train_step(cfg, (1, 2), tc)
+        p1, _, loss1 = step(p0, opt.init(p0), x0, v0)
+        return host([loss, list(grads), list(p1), loss1])
+
+    def falsify(mesh):
+        a = verify.make_adapter("swarm", swarm.Config(
+            n=P22_VERIFY_N, steps=P22_VERIFY_STEPS), device=mesh.device)
+        settings = verify.SearchSettings(budget=P22_VERIFY_B,
+                                         batch=P22_VERIFY_B, seed=0)
+        margins = verify.make_eval_batch(a, settings, mesh=(2, 1))(
+            _p22_deltas().to(mesh.device))
+        r = verify.random_search(a, settings, mesh=(2, 1))
+        return host([margins]) + [(r.margin, r.property, r.evaluated)]
+
+    return (
+        ("22a", (2, 1), P22_STEPS,
+         ensemble(swarm.Config(n=MAIN_N, steps=P22_STEPS),
+                  list(range(P22_E)))),
+        *((f"22b N={n}", (1, 2), steps,
+           ensemble(swarm.Config(n=n, steps=steps), [0]))
+          for n, steps in P22_FLAT),
+        ("22c", (1, 2), P22_CERT_STEPS,
+         ensemble(swarm.Config(n=P22_CERT_N, steps=P22_CERT_STEPS,
+                               certificate=True), [0])),
+        ("22d", (1, P22_TILES), 16, tiles),
+        ("22e train", (1, 2), P22_TRAIN_STEPS, train),
+        ("22e falsifier", (2, 1), P22_VERIFY_STEPS, falsify))
+
+
+def _p22_train_cfg(swarm):
+    """22e's trainer swarm: phase 14b's dense spawn, whose rows bind."""
+    side = int(math.ceil(math.sqrt(P22_TRAIN_N)))
+    return swarm.Config(n=P22_TRAIN_N, steps=0, k_neighbors=4,
+                        pack_spacing=0.02,
+                        spawn_half_width_override=0.15 * (side - 1))
+
+
+def _p22_deltas():
+    """22e's candidates, the same in every process."""
+    import torch
+
+    g = torch.Generator().manual_seed(22)
+    return 0.04 * torch.randn((P22_VERIFY_B, P22_VERIFY_N, 2), generator=g)
+
+
+def phase22_rank() -> dict:
+    """One rank of phase 22's world (``parallel.launch.run_world``): every
+    sub-phase in turn, on the ranks of its mesh while the others wait at
+    the world's barriers; each timed with its collectives, host copies
+    and kernel launches counted. Returns this rank's results."""
+    import torch
+    import torch.distributed as dist
+
+    from cbf_tpu_torch.ops import knn
+    from cbf_tpu_torch.parallel import make_mesh, mesh as pmesh
+    from cbf_tpu_torch.rollout import engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_init = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    knn.build_library()
+    init_s = time.perf_counter() - t_init
+    runs = _p22_runs()
+    # Every mesh is built by every rank, in one order (group creation is
+    # a collective of the world).
+    meshes = {shape: make_mesh(*shape) for shape in
+              dict.fromkeys(shape for _, shape, _, _ in runs)}
+    out = {"rank": dist.get_rank(), "init_s": init_s,
+           "device": f"cuda:{torch.cuda.current_device()}",
+           "backend": dist.get_backend()}
+    for key, shape, steps, fn in runs:
+        dist.barrier()
+        mesh = meshes[shape]
+        if mesh is not None:
+            zero_counts(engine, knn)
+            pmesh.zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn(mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            out[key] = {
+                "result": result, "wall_s": wall,
+                "ms_per_step": wall / steps * 1e3,
+                "collectives_per_step": pmesh.COUNTS["collectives"] / steps,
+                "host_copies": pmesh.COUNTS["host_copies"],
+                "host_bytes": pmesh.COUNTS["host_bytes"],
+                "launches": {k: v for k, v in knn.LAUNCHES.items() if v},
+                "redos": engine.COUNTS["redos"]}
+            if key == "22a":
+                # Again, the program captured: the replays alone.
+                t1 = time.perf_counter()
+                fn(mesh)
+                torch.cuda.synchronize()
+                out[key]["replay_s"] = time.perf_counter() - t1
+        dist.barrier()
+    return out
+
+
+def phase22(engine, knn, swarm, t_start, root) -> dict:
+    """Phase 22 (module docstring): the single-process runs, then the
+    world of ranks, each sub-phase held to its single-process run.
+    Returns each rank's launches by sub-phase."""
+    import numpy as np
+    import torch
+
+    from cbf_tpu_torch import verify
+    from cbf_tpu_torch.learn import tuning
+    from cbf_tpu_torch.parallel import alltoall, launch
+    from cbf_tpu_torch.parallel import ensemble as ens
+    from cbf_tpu_torch.parallel.mesh import make_mesh
+
+    mesh1 = make_mesh()
+    ref = {}
+    t_ref = time.perf_counter()
+
+    def flat(cfg, seeds):
+        (x, v), m = ens.sharded_swarm_rollout(cfg, mesh1, seeds)
+        return [x.cpu().numpy(), v.cpu().numpy(),
+                [np.asarray(a.cpu()) for a in m]]
+
+    ref["22a"] = flat(swarm.Config(n=MAIN_N, steps=P22_STEPS),
+                      list(range(P22_E)))
+    for n, steps in P22_FLAT:
+        ref[f"22b N={n}"] = flat(swarm.Config(n=n, steps=steps), [0])
+    cfg_c = swarm.Config(n=P22_CERT_N, steps=P22_CERT_STEPS,
+                         certificate=True)
+    check(swarm.certificate_backend(cfg_c) == "sparse",
+          "22c: the certificate's backend is not sparse")
+    ref["22c"] = flat(cfg_c, [0])
+    ref["22d"] = flat(swarm.Config(n=P22_SPATIAL_N, steps=16), [0])
+    cfg_t = _p22_train_cfg(swarm)
+    tc = tuning.TrainConfig(steps=P22_TRAIN_STEPS)
+    x0, v0 = ens.ensemble_initial_states(cfg_t, [0], device="cuda")
+    p0 = tuning.init_params()
+    loss, grads = tuning.make_loss_and_grad_fn(cfg_t, None, tc)(p0, x0, v0)
+    step, opt = tuning.make_train_step(cfg_t, None, tc)
+    p1, _, loss1 = step(p0, opt.init(p0), x0, v0)
+    ref["22e train"] = (float(loss), [float(g) for g in grads],
+                        [float(p) for p in p1], float(loss1))
+    a = verify.make_adapter("swarm", swarm.Config(
+        n=P22_VERIFY_N, steps=P22_VERIFY_STEPS))
+    settings = verify.SearchSettings(budget=P22_VERIFY_B,
+                                     batch=P22_VERIFY_B, seed=0)
+    ref["22e falsifier"] = (
+        verify.make_eval_batch(a, settings)(_p22_deltas().cuda()).cpu()
+        .numpy(), verify.random_search(a, settings))
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t_ref
+    print(f"phase 22: single-process runs in {ref_s:.1f} s")
+
+    t0 = time.perf_counter()
+    world = launch.run_world("chip_smoke:phase22_rank", P22_RANKS,
+                             device="cuda", timeout_s=P22_TIMEOUT_S,
+                             sys_path=(root,))
+    wall = time.perf_counter() - t0
+    r0 = world[0]
+    print(f"phase 22: {P22_RANKS} ranks on {r0['device']} over "
+          f"{r0['backend']} in {wall:.1f} s (CUDA init and library load "
+          f"per rank {[round(r['init_s'], 2) for r in world]} s)")
+
+    def timing(key, rank=0):
+        r = world[rank][key]
+        return (f"wall {r['wall_s']:.3f} s, {r['ms_per_step']:.2f} ms/step, "
+                f"{r['collectives_per_step']:.1f} collectives/step, "
+                f"{r['host_copies']} host copies of {r['host_bytes']} B")
+
+    def hold_states(key, got, want, atol):
+        for name, a, b in (("x", got[0], want[0]), ("v", got[1], want[1])):
+            err = float(np.max(np.abs(a - b)))
+            check(a.shape == b.shape and err <= atol,
+                  f"phase {key}: {name} differs from the single-process run "
+                  f"by {err} (bound {atol})")
+        near, want_near = got[2][0], want[2][0]
+        fin = np.isfinite(want_near)
+        check(np.array_equal(np.isfinite(near), fin)
+              and float(np.max(np.abs(near[fin] - want_near[fin]),
+                               initial=0.0)) <= atol,
+              f"phase {key}: nearest distances differ")
+        return float(np.max(np.abs(got[0] - want[0])))
+
+    out = {"runs": {}, "wall_s": wall, "ref_s": ref_s}
+    for key in ("22a", *(f"22b N={n}" for n, _ in P22_FLAT), "22c", "22d"):
+        ranks = [r for r in world if key in r]
+        got = ranks[0][key]["result"]
+        for r in ranks[1:]:
+            check(all(np.array_equal(a, b) for a, b in
+                      zip(r[key]["result"][:2], got[:2])),
+                  f"phase {key}: ranks hold different states")
+        want = ref[key]
+        atol = P22_DP_ATOL if key in ("22a", "22d") else P22_SP_ATOL
+        err = hold_states(key, got, want, atol)
+        mets = got[2]
+        infeasible = int(np.sum(mets[2]))
+        md = float(np.min(mets[0]))
+        note = ""
+        if key == "22a":
+            per_member = mets[0].min(axis=1)
+            low = [m for m in range(P22_E) if per_member[m] < FLOOR
+                   and not (m in ENS_REFERENCE_DIPS and per_member[m]
+                            >= ENS_REFERENCE_DIPS[m] - CROSS_MD_ATOL)]
+            check(not low and infeasible == 0,
+                  f"phase 22a: members {low} below the floor, or "
+                  f"{infeasible} infeasible")
+            launches = [r[key]["launches"] for r in ranks]
+            check(all(l.get("knn_fused_members", 0) >= P22_STEPS
+                      for l in launches),
+                  f"phase 22a: knn_fused member launches {launches}")
+            note = (f", launches by rank {launches}; again (replays only) "
+                    + ", ".join(f"{r[key]['replay_s'] / P22_STEPS * 1e3:.3f}"
+                                for r in ranks) + " ms/step by rank")
+        elif key.startswith("22b"):
+            n = int(key.split("=")[1])
+            slab = n // 2 * n * 4
+            branch = ("all-gather" if slab <= alltoall.ALL_GATHER_MAX_SLAB_BYTES
+                      else "ring")
+            check(infeasible == 0, f"phase {key}: {infeasible} infeasible")
+            note = f", {branch} branch (slab {slab} B)"
+        elif key == "22c":
+            res = float(np.max(mets[4]))
+            check(res < CERT_RESIDUAL_GATE and infeasible == 0,
+                  f"phase 22c: residual {res}, {infeasible} infeasible")
+            check(np.allclose(mets[4], want[2][4], rtol=0,
+                              atol=P22_SP_ATOL),
+                  "phase 22c: the residuals differ from the single-process "
+                  "certificate's")
+            note = (f", max residual {res:.3e} (single-process "
+                    f"{float(np.max(want[2][4])):.3e}), dropped "
+                    f"{int(np.max(mets[5]))}")
+        else:
+            rep, cap, halo = got[3], got[4], got[5]
+            check(rep["overflow_total"] == 0 and rep["halo_dropped_total"]
+                  == 0 and int(np.sum(mets[8])) == 0 and infeasible == 0,
+                  f"phase 22d: report {rep}, drift "
+                  f"{int(np.sum(mets[8]))}, {infeasible} infeasible")
+            note = (f", capacity {cap}, halo {halo}, report {rep}, "
+                    f"timing by rank " + "; ".join(
+                        timing(key, r["rank"]) for r in ranks[1:]))
+        print(f"phase {key}: held to the single-process run (max |dx| "
+              f"{err:.3e}), min distance {md:.6f}, infeasible "
+              f"{infeasible}; {timing(key)}{note}")
+        for r in ranks:
+            out["runs"][f"phase {key} rank {r['rank']}"] = {
+                "launches": r[key]["launches"]}
+    loss, grads, p1, loss1 = world[0]["22e train"]["result"]
+    rl, rg, rp1, rloss1 = ref["22e train"]
+    # Adam's first step, m / (sqrt(v) + eps) = g / (|g| + eps), from the
+    # sharded gradient: twice the single-process one (the JAX package's
+    # (dp * sp) factor), which moves the step where |g| is near eps.
+    g2 = 2.0 * np.asarray(rg)
+    want_p1 = (np.asarray([float(p) for p in p0])
+               - tc.learning_rate * g2 / (np.abs(g2) + 1e-8))
+    check(abs(float(loss) - rl) <= 1e-5 * abs(rl)
+          and np.allclose(np.asarray(grads, np.float64) / 2, rg, rtol=1e-4,
+                          atol=1e-9)
+          and np.allclose(np.asarray(p1, np.float64), want_p1, rtol=0,
+                          atol=1e-6),
+          f"phase 22e: train step {loss} {grads} {p1} vs single-process "
+          f"{rl} {rg} (Adam from twice its gradient: {want_p1})")
+    print(f"phase 22e train: loss {float(loss):.8f} (single-process "
+          f"{rl:.8f}), gradients / 2 {[float(g) / 2 for g in grads]} "
+          f"(single-process {rg}), launches by rank "
+          f"{[r['22e train']['launches'] for r in world[:2]]}, "
+          f"parameters after Adam "
+          f"{[float(p) for p in p1]} (Adam from twice the single-process "
+          f"gradient {want_p1.tolist()}; from it {rp1}); "
+          f"{timing('22e train')}")
+    margins, (best, prop, evaluated) = world[0]["22e falsifier"]["result"]
+    rm, rr = ref["22e falsifier"]
+    fin = np.isfinite(rm)
+    err = float(np.max(np.abs(margins[fin] - rm[fin]), initial=0.0))
+    check(np.array_equal(np.isfinite(margins), fin)
+          and err <= MEMBER_MARGIN_ATOL and abs(best - rr.margin)
+          <= MEMBER_MARGIN_ATOL and prop == rr.property
+          and evaluated == rr.evaluated,
+          f"phase 22e falsifier: margins off by {err}, best {best} "
+          f"{prop} vs {rr.margin} {rr.property}")
+    print(f"phase 22e falsifier: B={P22_VERIFY_B} margins within {err:.3e} "
+          f"of the single-process batch, best {best:.6f} ({prop}); "
+          f"{timing('22e falsifier')}; launches by rank "
+          f"{[r['22e falsifier']['launches'] for r in world[:2]]}")
+    for r in world:
+        for key in ("22e train", "22e falsifier"):
+            if key in r:
+                out["runs"][f"phase {key} rank {r['rank']}"] = {
+                    "launches": r[key]["launches"]}
+    print(f"phase 22: done in {time.perf_counter() - t0 + ref_s:.1f} s "
+          f"(script at {time.perf_counter() - t_start:.1f} s)")
+    return out
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -4850,6 +5214,9 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--time-only", action="store_true",
                     help="only time the kernel wrappers (no checks, no "
                     "result line)")
+    ap.add_argument("--phase22", action="store_true",
+                    help="only build the kernels and run phase 22 (the "
+                    "world of ranks on the card; no result line)")
     ap.add_argument("--root", default=None,
                     help="import cbf_tpu_torch from this checkout instead")
     args = ap.parse_args(argv)
@@ -4870,6 +5237,14 @@ def main(argv: list[str]) -> int:
     if args.time_only:
         knn.build_library()
         return time_only(knn, swarm, card_line())
+    if args.phase22:
+        import os
+
+        print(card_line())
+        knn.build_library()
+        phase22(engine, knn, swarm, time.perf_counter(),
+                os.path.dirname(os.path.abspath(__file__)))
+        return 0
 
     # Full float32 everywhere: the port has no matrix product on the main
     # path, and these pin PyTorch's defaults for anything else.
@@ -5371,6 +5746,12 @@ def main(argv: list[str]) -> int:
     # weakened dmin detected, the campaign as a serve engine's tenant
     p21 = phase21(engine, knn, swarm, t_start)
 
+    # 22. across ranks: a world of 4 ranks on the card
+    import os
+
+    p22 = phase22(engine, knn, swarm, t_start,
+                  os.path.dirname(os.path.abspath(__file__)))
+
     # 6. timings at the main-path shapes; launches are every compiled
     # main-path run's of this call, by phase (13f's run swarm included)
     all_runs = {"phase 3 N=256": runs[ENTRY_N], "phase 3 N=4096": main,
@@ -5383,7 +5764,8 @@ def main(argv: list[str]) -> int:
                 **{f"phase 12{key}": run for key, run in cert.items()},
                 "phase 13f": scen["13f"], **p14["runs"], **p15["runs"],
                 **p16["runs"], **p17["runs"], **p18["runs"],
-                **p19["runs"], **p20["runs"], **p21["runs"]}
+                **p19["runs"], **p20["runs"], **p21["runs"],
+                **p22["runs"]}
     by_phase = {name: {label: run["launches"][name]
                        for label, run in all_runs.items()
                        if run["launches"].get(name)}

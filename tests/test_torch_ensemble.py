@@ -17,8 +17,11 @@ JAX package's on the CPU, from the same seeds.
   keeps its implicit gradient — equal to the per-member gradient to
   1e-12 and to JAX's ``vmap(grad)`` to tests/test_torch_diff.py's 1e-9
   (float64).
-- The mesh, the rejections (JAX's messages word for word) and what still
-  raises (a mesh across devices, ``partition="spatial"``, ``telemetry``).
+- The mesh, the rejections (JAX's messages word for word): outside a
+  world a mesh across devices raises JAX's ValueError text, and
+  ``partition="spatial"`` runs on one tile (test_mesh_and_what_still_raises
+  and test_make_mesh_default_is_the_current_card, rewritten when the
+  mesh across ranks was ported; tests/test_torch_parallel.py holds it).
 
 JAX 0.9's ``shard_map`` cannot infer that the ensemble's carry extras
 (the Verlet cache, the warm solver carry) are replicated over ``sp``, so
@@ -41,7 +44,6 @@ from cbf_tpu.parallel import make_mesh as jax_mesh
 from cbf_tpu.scenarios import swarm as jsw
 from cbf_tpu.solvers import sparse_admm as jadmm
 from cbf_tpu_torch import convert
-from cbf_tpu_torch.errors import OutOfSliceError
 from cbf_tpu_torch.parallel import ensemble as tens
 from cbf_tpu_torch.parallel.mesh import Mesh, make_mesh
 from cbf_tpu_torch.rollout import engine as teng
@@ -415,22 +417,32 @@ class _ListSink:
 
 
 def test_mesh_and_what_still_raises():
-    """One device holds only the (1, 1) mesh; a wider one and the spatial
-    partition (Queue A10) raise; telemetry runs."""
+    """Outside a torch.distributed world there is one rank, so only the
+    (1, 1) mesh exists: a wider one raises the JAX package's ValueError
+    text (a list of devices names the rank's own); a (dp, sp) Mesh built
+    by hand without a world raises; partition="spatial" runs on one tile
+    and equals the flat run; telemetry runs. (Meshes over several ranks:
+    tests/test_torch_parallel.py.)"""
     assert MESH.shape == {"dp": 1, "sp": 1} and tuple(MESH) == (1, 1)
     assert MESH.device == torch.device("cpu")
     assert make_mesh(n_dp=1, n_sp=1, devices=["cpu"]) == MESH
-    for kw in (dict(n_dp=2), dict(n_sp=2), dict(n_dp=1, n_sp=4)):
-        with pytest.raises(OutOfSliceError, match="Queue A10"):
+    for kw, text in ((dict(n_dp=2), "mesh 2x1 exceeds 1 devices"),
+                     (dict(n_sp=2), "n_sp=2 must divide device count 1"),
+                     (dict(n_dp=1, n_sp=4),
+                      "n_sp=4 must divide device count 1")):
+        with pytest.raises(ValueError) as err:
             make_mesh(devices="cpu", **kw)
-    with pytest.raises(OutOfSliceError, match="Queue A10"):
-        make_mesh(devices=["cpu", "cpu"])
+        assert str(err.value) == text
+    assert make_mesh(devices=["cpu", "cpu"]) == MESH
     cfg = tsw.Config(n=16, steps=2)
-    with pytest.raises(OutOfSliceError, match="Queue A10"):
+    with pytest.raises(ValueError, match="torch.distributed world"):
         tens.sharded_swarm_rollout(cfg, Mesh(2, 1, torch.device("cpu")),
                                    [0, 1])
-    with pytest.raises(OutOfSliceError, match="Queue A10"):
-        tens.sharded_swarm_rollout(cfg, MESH, [0], partition="spatial")
+    (xs, vs), ms = tens.sharded_swarm_rollout(cfg, MESH, [0],
+                                              partition="spatial")
+    (xf, vf), mf = tens.sharded_swarm_rollout(cfg, MESH, [0])
+    np.testing.assert_allclose(xs.numpy(), xf.numpy(), rtol=0, atol=X_ATOL)
+    np.testing.assert_array_equal(ms.engaged_count, mf.engaged_count.numpy())
     # Telemetry (Queue A9) runs: heartbeats from the host metrics.
     sink = _ListSink()
     tens.sharded_swarm_rollout(cfg, MESH, [0, 1], telemetry=sink,
@@ -440,14 +452,16 @@ def test_mesh_and_what_still_raises():
 
 
 def test_make_mesh_default_is_the_current_card(monkeypatch):
-    """make_mesh() takes the current card alone, however many are visible
-    (dp > 1 must be asked for, and raises)."""
+    """make_mesh() takes the current card alone, however many are visible:
+    outside a world there is one rank, so dp > 1 raises the JAX
+    package's ValueError text (ranks are started by torchrun or
+    parallel.launch)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 2)
     mesh = make_mesh()
     assert tuple(mesh) == (1, 1) and mesh.device == torch.device("cuda", 2)
-    with pytest.raises(OutOfSliceError, match="Queue A10"):
+    with pytest.raises(ValueError, match="mesh 4x1 exceeds 1 devices"):
         make_mesh(n_dp=4)
 
 

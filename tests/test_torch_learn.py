@@ -2,7 +2,10 @@
 held to the JAX package's on the CPU: the loss, its gradient and one Adam
 step at N=16, E=2 over the same spawn (the port draws JAX's stream), the
 JAX side on ``make_mesh(n_dp=1, n_sp=1)``; every rejection of the
-differentiable path; remat and forced streaming.
+differentiable path; remat and forced streaming. The sharded trainer
+(test_trainer_sharded_paths_raise, rewritten from the raise it pinned
+when the (dp, sp) mesh was ported) runs at (1, 2) in a 2-rank world and
+equals JAX's at that mesh to 1e-10 in float64.
 
 Tolerances: float64 (float64 parameters on both sides) rtol 1e-9; float32
 rtol 1e-5 on the loss and 1e-4 on the gradients (two summation orders
@@ -23,7 +26,6 @@ from cbf_tpu.parallel import make_mesh
 from cbf_tpu.parallel.ensemble import ensemble_initial_states as j_init
 from cbf_tpu.scenarios import swarm as jsw
 from cbf_tpu_torch import convert
-from cbf_tpu_torch.errors import OutOfSliceError
 from cbf_tpu_torch.learn import tuning as tt
 from cbf_tpu_torch.parallel import ensemble as tens
 from cbf_tpu_torch.parallel.mesh import make_mesh as port_mesh
@@ -115,18 +117,54 @@ def test_trainer_rejections_match_jax(override, error, match):
     assert str(terr.value) == str(jerr.value)
 
 
-def test_trainer_sharded_paths_raise():
+def test_trainer_sharded_paths_raise(x64):
+    """The sharded trainer runs: at (1, 2) in a 2-rank world (the rank
+    side is tests/test_torch_parallel.py's ``_trainer``) its loss and
+    gradients equal JAX's at the same mesh in float64 — twice the
+    one-device gradient in both packages, the (dp * sp) factor of JAX's
+    in-region psum. What still raises: forced streaming at sp > 1 (JAX's
+    text); a wider mesh outside a world (JAX's ValueError); and the
+    spatial partition of a one-rank mesh runs. (Rewritten from the raises
+    it pinned when the sharded paths were ported.)"""
+    import os
+
+    from cbf_tpu.learn import TrainConfig, TunableParams, init_params
+    from cbf_tpu_torch.parallel.launch import run_world
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ranks = run_world("test_torch_parallel:_trainer", 2, (1, 2, 16),
+                      sys_path=(here,), timeout_s=300)
+    jcfg = jsw.Config(n=16, steps=2, pack_spacing=0.01, dtype=jnp.float64)
+    lin = np.linspace(-0.375, 0.375, 4)
+    gx, gy = np.meshgrid(lin, lin)
+    grid = np.stack([gx.ravel(), gy.ravel()], axis=1)
+    x0 = jnp.asarray(np.stack([grid, grid * 1.01]))
+    params = TunableParams(*(jnp.asarray(p, jnp.float64)
+                             for p in init_params()))
+    want = {}
+    for mesh in ((1, 1), (1, 2)):
+        loss, grads = jt.make_loss_and_grad_fn(
+            jcfg, make_mesh(n_dp=mesh[0], n_sp=mesh[1],
+                            devices=jax.devices()[:mesh[0] * mesh[1]]),
+            TrainConfig(steps=2))(params, x0, jnp.zeros_like(x0))
+        want[mesh] = (float(loss), np.asarray([float(g) for g in grads]))
+    np.testing.assert_allclose(want[(1, 2)][1], 2 * want[(1, 1)][1],
+                               rtol=1e-12)
+    for loss, grads in ranks:
+        assert abs(loss - want[(1, 2)][0]) <= 1e-10
+        np.testing.assert_allclose(grads, want[(1, 2)][1], rtol=0,
+                                   atol=1e-10)
     cfg = tsw.Config(n=N)
-    with pytest.raises(OutOfSliceError, match="Queue A10"):
-        tt.make_loss_fn(cfg, (1, 2))
     with pytest.raises(ValueError, match="gating='streaming'"):
         tt.make_loss_fn(dataclasses.replace(cfg, gating="streaming"), (1, 2))
-    with pytest.raises(OutOfSliceError, match="Queue A10"):
-        tens.sharded_swarm_rollout(cfg, port_mesh(devices="cpu"), [0],
-                                   partition="spatial")
-    for dp, sp in ((2, 1), (1, 2)):
-        with pytest.raises(OutOfSliceError, match="Queue A10"):
+    tens.sharded_swarm_rollout(dataclasses.replace(cfg, steps=2),
+                               port_mesh(devices="cpu"), [0],
+                               partition="spatial")
+    for (dp, sp), text in (((2, 1), "mesh 2x1 exceeds 1 devices"),
+                           ((1, 2), "n_sp=2 must divide device count 1")):
+        with pytest.raises(ValueError) as err:
             port_mesh(n_dp=dp, n_sp=sp, devices="cpu")
+        assert str(err.value) == text
 
 
 def test_remat_and_forced_streaming_keep_the_gradient():

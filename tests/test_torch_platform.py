@@ -1,5 +1,7 @@
 """The port's scenario platform (cbf_tpu_torch/scenarios/platform/) held
-to the JAX package's on the CPU.
+to the JAX package's on the CPU. (test_cli_scenario_run_rejects was
+rewritten when ``--partition spatial`` was ported: it now runs on 2 ranks
+and prints the spatial record.)
 
 - tests/test_platform.py on the port, where this package can run it:
   registry round-trip determinism, no silent shadowing, spec validation,
@@ -420,16 +422,22 @@ def test_cli_scenario_run(capsys, tmp_path, registries):
 
 
 def test_cli_scenario_run_rejects(capsys, registries):
-    from cbf_tpu_torch.errors import OutOfSliceError
-
+    """What ``scenario run`` rejects (exit 2): a non-platform scenario, an
+    unknown name, ``--tiles`` without the spatial partition. ``--partition
+    spatial --tiles 2`` (which raised until the spatial partition was
+    ported) starts two ranks and prints the spatial record
+    (tests/test_torch_spatial.py holds it equal to JAX's)."""
     assert main(["scenario", "run", "meet_at_center", "--device",
                  "cpu"]) == 2
     assert main(["scenario", "run", "nowhere", "--device", "cpu"]) == 2
     assert main(["scenario", "run", "swarm", "--tiles", "2", "--device",
                  "cpu"]) == 2
-    with pytest.raises(OutOfSliceError, match="Queue A10"):
-        main(["scenario", "run", "swarm", "--partition", "spatial",
-              "--device", "cpu"])
+    capsys.readouterr()
+    assert main(["scenario", "run", "swarm", "--partition", "spatial",
+                 "--tiles", "2", "--steps", "2", "--device", "cpu"]) == 0
+    rec = _record(capsys)
+    assert (rec["partition"], rec["tiles"], rec["steps"], rec["epochs"],
+            rec["infeasible_count"]) == ("spatial", 2, 2, 1, 0)
 
 
 def test_cli_verify_lists_registered_scenarios(registries):

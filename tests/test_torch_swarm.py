@@ -7,6 +7,9 @@ Tolerances: float32 — per-step min distance rtol 1e-6, final x and v
 atol 1e-5 (the packages reduce the centroid mean in their own orders, and
 XLA:CPU contracts the interpret-mode kernel's d^2 into an FMA, so
 trajectories part by ulps); float64 — atol 1e-10; every count exact.
+test_certificate_out_of_slice_paths_raise (rewritten from the raises it
+pinned when the row-partitioned certificate was ported) holds the three
+row-partitioned calls on a one-rank axis equal to the replicated ones.
 """
 
 import dataclasses
@@ -19,7 +22,6 @@ import torch
 from cbf_tpu.rollout import engine as jeng
 from cbf_tpu.scenarios import swarm as jsw
 from cbf_tpu_torch import convert
-from cbf_tpu_torch.errors import OutOfSliceError
 from cbf_tpu_torch.rollout import engine as teng
 from cbf_tpu_torch.scenarios import swarm as tsw
 
@@ -257,23 +259,40 @@ def _autograd_through_the_k_solve():
     ("si_barrier_certificate_sparse_sharded", "Queue A10"),
 ])
 def test_certificate_out_of_slice_paths_raise(call, slice_name):
+    """The row-partitioned certificate (``slice_name`` names the queue
+    item that ported it; these raised until then) runs on a one-rank
+    ``sp`` axis and equals the replicated solve there exactly: the same
+    rows, the same operator, an identity psum. (Across ranks:
+    tests/test_torch_parallel.py.)"""
+    from cbf_tpu_torch.parallel.mesh import make_mesh
     from cbf_tpu_torch.sim import certificates
     from cbf_tpu_torch.solvers import sparse_admm
-    cfg = tsw.Config(n=16, certificate=True, certificate_backend="sparse")
-    u = torch.zeros((16, 2))
+    cfg = tsw.Config(n=16, certificate=True, certificate_backend="sparse",
+                     dtype=torch.float64)
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.uniform(-0.3, 0.3, (16, 2)))
+    u = torch.as_tensor(rng.normal(0, 0.3, (16, 2)))
+    sp = make_mesh(devices="cpu").axis("sp")
+    I = torch.arange(4, dtype=torch.int64)
+    J = torch.tensor([1, 2, 3, 0], dtype=torch.int64)
+    qp = (u, I, J, torch.ones((4, 2), dtype=torch.float64),
+          torch.full((4,), 0.1, dtype=torch.float64), u - 1.0, u + 1.0)
     calls = {
-        "apply_certificate_sharded":
-            lambda: tsw.apply_certificate_sharded(cfg, u, u, "sp"),
-        "axis_name": lambda: sparse_admm.solve_pair_box_qp_admm(
-            u, torch.zeros(4, dtype=torch.int64),
-            torch.ones(4, dtype=torch.int64), torch.ones((4, 2)),
-            torch.ones(4), u - 1.0, u + 1.0, axis_name="sp"),
-        "si_barrier_certificate_sparse_sharded":
+        "apply_certificate_sharded": (
+            lambda: tsw.apply_certificate_sharded(cfg, u, x, sp),
+            lambda: tsw.apply_certificate(cfg, u, x)),
+        "axis_name": (
+            lambda: sparse_admm.solve_pair_box_qp_admm(*qp, axis_name=sp),
+            lambda: sparse_admm.solve_pair_box_qp_admm(*qp)),
+        "si_barrier_certificate_sparse_sharded": (
             lambda: certificates.si_barrier_certificate_sparse_sharded(
-                u.T, u.T, "sp"),
+                u.T, x.T, sp, k=8, with_info=True),
+            lambda: certificates.si_barrier_certificate_sparse(
+                u.T, x.T, k=8, with_info=True, neighbor_backend="jnp")),
     }
-    with pytest.raises(OutOfSliceError, match=slice_name):
-        calls[call]()
+    got, want = (f() for f in calls[call])
+    for a, b in zip(teng._leaves(got), teng._leaves(want)):
+        assert torch.equal(a, b.to(a.dtype)), call
 
 
 def test_certificate_k_solve_differentiates():

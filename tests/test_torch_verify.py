@@ -4,6 +4,9 @@ first-round proposals bit-equal to JAX's and its verdict within
 tolerance on a float64 config, the member-batched evaluation against
 each candidate alone, the shrinker, the corpus replay against the JAX
 package's replay today, campaign persistence and the CLI's exit codes.
+(test_telemetry_events_and_out_of_slice was rewritten when the dp mesh
+was ported: ``verify fleet --mesh-dp 2`` runs one round on 2 ranks, its
+record the JAX package's.)
 
 The checked-in corpus's 'violates' record holds a stale margin
 (-0.008842539358781237): the JAX package itself replays it to
@@ -28,7 +31,6 @@ from cbf_tpu.scenarios import swarm as jsw
 from cbf_tpu_torch import __main__ as tcli
 from cbf_tpu_torch import verify as TV
 from cbf_tpu_torch.core.filter import CBFParams as TParams
-from cbf_tpu_torch.errors import OutOfSliceError
 from cbf_tpu_torch.rollout import engine as teng
 from cbf_tpu_torch.scenarios import swarm as tsw
 from cbf_tpu_torch.utils import prng
@@ -229,10 +231,24 @@ def test_telemetry_events_and_out_of_slice(tmp_path, capsys):
     TV.random_search(a, TV.SearchSettings(budget=4, batch=4), telemetry=sink)
     assert [k for k, _ in sink.events] == ["verify.round", "verify.margin"]
     json.dumps(sink.events)
-    with pytest.raises(OutOfSliceError, match="Queue A10"):
+    # A dp mesh outside a world asks for more ranks than there are (JAX's
+    # text); --mesh-dp 2 starts two ranks and runs the fleet's round,
+    # its record the JAX package's at a dp-2 mesh. (These raised until
+    # the dp mesh was ported.)
+    with pytest.raises(ValueError, match="mesh 2x1 exceeds 1 devices"):
         TV.make_eval_batch(a, TV.SearchSettings(), mesh=(2, 1))
-    with pytest.raises(OutOfSliceError, match="Queue A10"):
-        tcli.main(["verify", "fleet", "--mesh-dp", "2", "--device", "cpu"])
+    from cbf_tpu.__main__ import main as jmain
+
+    argv = ["verify", "fleet", "--mesh-dp", "2", "--budget-rounds", "1",
+            "--batch", "2", "--set", "batches_per_round=1",
+            "--set", "generated_count=0", "--set", "include_rta=false",
+            "--set", "max_steps=6", "--json"]
+    capsys.readouterr()
+    assert tcli.main([*argv, "--device", "cpu"]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got["rounds"] == 1
+    assert jmain([*argv, "--platform", "cpu"]) == 0
+    assert got == json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     # verify --telemetry-dir (Queue A9) streams the sweep's events.
     from cbf_tpu_torch import obs
 
