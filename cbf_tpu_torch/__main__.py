@@ -1,6 +1,6 @@
 """CLI frontend: ``python -m cbf_tpu_torch <command>`` (counterpart:
 cbf_tpu/__main__.py, its ``run``, ``list``, ``verify``, ``serve``,
-``cluster``, ``loadgen``, ``scenario`` and ``obs`` subcommands).
+``cluster``, ``loadgen``, ``scenario``, ``obs`` and ``lint`` subcommands).
 
     python -m cbf_tpu_torch list
     python -m cbf_tpu_torch run meet_at_center --steps 200 --video out.gif
@@ -78,8 +78,12 @@ finds the latency knee). ``obs top`` renders a metrics directory
 a stalled one), ``obs lanes`` the lane ledger's occupancy table
 (``--export-timeline`` rebuilds the per-lane Perfetto timeline from a
 run directory), ``obs incident`` summarises a capsule and ``--replay``
-re-runs its request through the port. The other subcommands (lint,
-bench) are not ported yet.
+re-runs its request through the port. ``lint`` is the static analysis
+gate (:mod:`cbf_tpu_torch.analysis`): the capture-safety and program-cache
+rules, ``--all`` adds the program checks on the captured step (on
+``--device``), the repo audits and the concurrency analyser; exit 0 clean,
+1 findings, 2 an analyser failure or ``--spmd``/``--write-spmd-budget``,
+which come with Queue A12b. ``bench`` is not ported yet.
 
     python -m cbf_tpu_torch serve requests.json --prewarm --journal J
     python -m cbf_tpu_torch serve --journal J --recover
@@ -95,6 +99,7 @@ bench) are not ported yet.
     python -m cbf_tpu_torch scenario gen --seed 0 --count 20 --run
     python -m cbf_tpu_torch scenario run gen0-03-clusters-rendezvous-mixed --gen-seed 0
     python -m cbf_tpu_torch verify fleet --budget-rounds 2 --serve-idle
+    python -m cbf_tpu_torch lint --all --device cpu
 """
 
 from __future__ import annotations
@@ -2269,6 +2274,97 @@ def _add_scenario_parser(sub) -> None:
     srunp.set_defaults(fn=cmd_scenario)
 
 
+def cmd_lint(args) -> int:
+    """Static analysis gate (counterpart: the JAX CLI's ``lint``): the AST
+    capture-safety and program-cache rules over the given paths, plus
+    (``--all``) the program checks on the captured step, the repo audits
+    and the concurrency analyser. Exit 0 = clean (modulo the baseline),
+    1 = unsuppressed findings or stale baseline entries, 2 = analyser
+    failure (malformed baseline, unreadable path) or a pass that is not
+    ported yet (``--spmd``, ``--write-spmd-budget``, ``--reason``)."""
+    from cbf_tpu_torch import errors
+    from cbf_tpu_torch.analysis import report
+    from cbf_tpu_torch.analysis.baseline import BaselineError
+
+    try:
+        if args.spmd or args.write_spmd_budget or args.reason is not None:
+            raise errors.OutOfSliceError(
+                "lint --spmd/--write-spmd-budget/--reason",
+                errors.SLICE_ANALYSIS_SPMD)
+    except errors.OutOfSliceError as e:
+        print(f"lint: {e}", file=sys.stderr)
+        return 2
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    # Default to the path set the tier-1 gate lints, so "what the gate
+    # enforces" and "what the terminal shows" cannot drift apart.
+    paths = args.paths or [
+        p for p in (os.path.join(repo_root, d)
+                    for d in ("cbf_tpu_torch", "chip_smoke.py"))
+        if os.path.exists(p)]
+    try:
+        result = report.run_lint(
+            paths, repo_root=repo_root, baseline_path=args.baseline,
+            jaxpr=args.all or args.jaxpr, audits=args.all,
+            concurrency=args.all or args.concurrency,
+            entrypoints=args.entrypoint or None, device=args.device)
+    except (BaselineError, OSError) as e:
+        print(f"lint: {e}", file=sys.stderr)
+        return 2
+    if args.json:
+        print(report.render_json(result,
+                                 show_suppressed=args.show_suppressed))
+    else:
+        print(report.render_text(result,
+                                 show_suppressed=args.show_suppressed))
+    return result.exit_code
+
+
+def _add_lint_parser(sub) -> None:
+    lintp = sub.add_parser(
+        "lint", help="static analysis: capture-safety and program-cache "
+                     "rules (README, PyTorch/CUDA port, 'Static "
+                     "analysis')")
+    lintp.add_argument("paths", nargs="*",
+                       help="files/directories to lint (default: the "
+                            "cbf_tpu_torch package and chip_smoke.py)")
+    lintp.add_argument("--all", action="store_true",
+                       help="also run the program checks on the captured "
+                            "step (JX0xx), the repo audits (AUD0xx) and "
+                            "the concurrency analyser (CC0xx)")
+    lintp.add_argument("--jaxpr", action="store_true",
+                       help="also run just the program checks on the "
+                            "captured step (JX0xx; the JAX CLI's name)")
+    lintp.add_argument("--concurrency", action="store_true",
+                       help="also run just the concurrency analyser "
+                            "(CC0xx: lock discipline, lock-order graph)")
+    lintp.add_argument("--spmd", action="store_true",
+                       help="the SPMD analyser: not ported yet (Queue "
+                            "A12b); exits 2")
+    lintp.add_argument("--write-spmd-budget", action="store_true",
+                       help="not ported yet (Queue A12b); exits 2")
+    lintp.add_argument("--reason", default=None, metavar="TEXT",
+                       help="with --write-spmd-budget: not ported yet "
+                            "(Queue A12b); exits 2")
+    lintp.add_argument("--entrypoint", action="append", default=[],
+                       metavar="NAME",
+                       help="restrict the program checks to these entry "
+                            "points (repeatable; see analysis."
+                            "program_rules.entrypoint_specs)")
+    lintp.add_argument("--json", action="store_true",
+                       help="machine-readable output (one JSON object)")
+    lintp.add_argument("--baseline", default=None,
+                       help="suppression file (default: "
+                            "cbf_tpu_torch/analysis/baseline.toml)")
+    lintp.add_argument("--show-suppressed", action="store_true",
+                       help="also print baseline-suppressed findings "
+                            "with their reasons")
+    lintp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                       help="where the program checks run the captured "
+                            "bodies (default: the card; without one they "
+                            "fail)")
+    lintp.set_defaults(fn=cmd_lint)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m cbf_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
@@ -2671,6 +2767,7 @@ def main(argv=None) -> int:
                      help="seconds to wait for each routed result "
                           "(default 300)")
     csp.set_defaults(fn=cmd_cluster_serve)
+    _add_lint_parser(sub)
 
     args = p.parse_args(argv)
     # The command line itself, for commands that start ranks of this CLI.

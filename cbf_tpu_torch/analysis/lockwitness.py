@@ -15,9 +15,11 @@ deadlock). A condition shares its lock's witness identity
 (``ServeEngine._cond`` records as ``ServeEngine._lock``): the
 :class:`WitnessCondition` wraps ``threading.Condition`` around the raw
 lock inside the :class:`WitnessLock`, and ``wait()`` books the release
-and the reacquisition. The static-graph check (``check_subgraph``, which
-holds the observed edges to the static concurrency analyser's graph) waits
-for Queue A12.
+and the reacquisition. :func:`check_subgraph` holds the observed edges to
+the transitive closure of the static acquisition-order graph of
+:mod:`cbf_tpu_torch.analysis.concurrency` (``static_edge_set(
+analyze_paths([...]))``): an observed edge the analyser cannot explain
+means its model of the code is wrong.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ import time
 
 __all__ = ["make_lock", "make_condition", "make_event", "arm", "disarm",
            "is_armed", "reset", "snapshot", "observed_edges", "inversions",
-           "WitnessLock", "WitnessCondition", "WitnessEvent"]
+           "check_subgraph", "WitnessLock", "WitnessCondition",
+           "WitnessEvent"]
 
 _armed = os.environ.get("CBF_TPU_LOCK_WITNESS", "0") == "1"
 _guard = threading.Lock()          # plain on purpose: the witness's leaf
@@ -246,3 +249,40 @@ def inversions(edges: set[tuple[str, str]] | None = None
     es = observed_edges() if edges is None else set(edges)
     return sorted({(min(a, b), max(a, b))
                    for (a, b) in es if (b, a) in es and a != b})
+
+
+def _closure(edges: set[tuple[str, str]]) -> set[tuple[str, str]]:
+    adj: dict[str, set[str]] = {}
+    for a, b in edges:
+        adj.setdefault(a, set()).add(b)
+    closed: set[tuple[str, str]] = set()
+    for src in adj:
+        seen: set[str] = set()
+        frontier = [src]
+        while frontier:
+            node = frontier.pop()
+            for nxt in adj.get(node, ()):
+                if nxt not in seen:
+                    seen.add(nxt)
+                    frontier.append(nxt)
+        closed.update((src, d) for d in seen)
+    return closed
+
+
+def check_subgraph(static_edges) -> list[str]:
+    """Explain every observed edge with the static graph.
+
+    Returns one problem string per observed acquisition-order edge that
+    is NOT in the transitive closure of ``static_edges`` (closure:
+    holding A while a callee takes B then C books A->C at runtime even
+    when the static graph only has the direct A->B and B->C steps).
+    Empty list == the witness corroborates the analyser."""
+    closed = _closure({(a, b) for a, b in static_edges})
+    problems = []
+    for a, b in sorted(observed_edges()):
+        if (a, b) not in closed:
+            problems.append(
+                f"observed acquisition-order edge {a} -> {b} has no "
+                "statically derived explanation — the concurrency "
+                "analyzer's model of this code path is missing an edge")
+    return problems

@@ -281,7 +281,8 @@ class Worker:
                 # A newer epoch owns this engine's log: the request was
                 # never acknowledged here, and the new owner settles the
                 # claimed file. Answer nothing; the loop exits fenced.
-                self._fenced = fe
+                with self._lock:
+                    self._fenced = fe
                 return False
             except (ServeError, TypeError, ValueError) as e:
                 transport.write_response(

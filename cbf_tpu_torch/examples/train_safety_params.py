@@ -35,7 +35,9 @@ MEDIA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "media")
 def _eval_separation_floor(cfg, params, state0, steps: int = 60) -> float:
     """Min nearest-neighbour distance over a plain (non-differentiable)
     compiled rollout of each member under the given parameters — the
-    deployed behaviour the training should improve."""
+    deployed behaviour the training should improve. One step serves every
+    member: its program is captured once and replayed from each member's
+    start."""
     from cbf_tpu_torch.learn.tuning import params_to_cbf
     from cbf_tpu_torch.rollout.engine import rollout
     from cbf_tpu_torch.scenarios import swarm
@@ -47,9 +49,9 @@ def _eval_separation_floor(cfg, params, state0, steps: int = 60) -> float:
     cbf = cbf._replace(**{f: float(getattr(cbf, f))
                           for f in ("dmin", "k", "gamma")})
     floor = np.inf
+    s_init, step = swarm.make(ecfg, cbf, device=dev)
     for e in range(state0[0].shape[0]):
-        s0, step = swarm.make(ecfg, cbf, device=dev)
-        s0 = s0._replace(x=state0[0][e], v=state0[1][e])
+        s0 = s_init._replace(x=state0[0][e], v=state0[1][e])
         _, outs = rollout(step, s0, steps)
         floor = min(floor, float(outs.min_pairwise_distance.min()))
     return floor

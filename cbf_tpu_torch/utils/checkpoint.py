@@ -36,6 +36,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from cbf_tpu_torch.analysis import lockwitness
 from cbf_tpu_torch.durable import integrity
 from cbf_tpu_torch.durable.integrity import CheckpointCorrupt
 
@@ -125,14 +126,16 @@ class CheckpointWriter:
     :meth:`wait_snapshot` blocks until the last snapshot's copies are done
     (a caller about to hand the saved buffers to other work on another
     stream), :meth:`wait_until_finished` until every queued step is
-    committed, manifest included. A failed write raises at the next call.
-    ``close`` drains; always call it (the rollout engine does, in a
-    ``finally``)."""
+    committed, manifest included. A failed write raises at the next call
+    (the error is handed over under ``_lock``, so none is lost between
+    the writer's store and the caller's take). ``close`` drains; always
+    call it (the rollout engine does, in a ``finally``)."""
 
     def __init__(self, directory: str, max_to_keep: int | None = 2):
         self._dir = os.path.abspath(directory)
         self._keep = max_to_keep
         self._jobs: queue.Queue = queue.Queue()
+        self._lock = lockwitness.make_lock("CheckpointWriter._lock")
         self._error: BaseException | None = None
         self._event = None
         self._thread = threading.Thread(target=self._loop, daemon=True)
@@ -145,18 +148,22 @@ class CheckpointWriter:
                 if job is None:
                     return
                 step, payload, event = job
-                if self._error is None:
+                with self._lock:
+                    failed = self._error is not None
+                if not failed:
                     if event is not None:
                         event.synchronize()
                     _write_step(self._dir, step, payload, self._keep)
             except BaseException as e:    # surfaced on the caller's thread
-                self._error = e
+                with self._lock:
+                    self._error = e
             finally:
                 self._jobs.task_done()
 
     def _raise(self) -> None:
-        if self._error is not None:
+        with self._lock:
             err, self._error = self._error, None
+        if err is not None:
             raise err
 
     def save(self, step: int, state: Any) -> None:

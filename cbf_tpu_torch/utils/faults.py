@@ -32,8 +32,10 @@ validation but blows its own lane up to non-finite values at runtime.
 The process-level injectors (:func:`kill_schedule`,
 :func:`run_process_until`, :func:`run_until_killed`, :func:`pause_after`,
 :func:`resume`, :func:`wait_for_file`) drive kill-and-resume runs of the
-CLI. ``leak_host_callback`` and ``promote_f64`` arrive with the graph-break
-audit of Queue A12.
+CLI. :func:`leak_host_callback` and :func:`promote_f64` are the faults the
+program checks (:mod:`cbf_tpu_torch.analysis.program_rules`, JX001 and
+JX002) must catch; they run eagerly and on the CPU, and on the card the
+first breaks a capture.
 """
 
 from __future__ import annotations
@@ -224,6 +226,45 @@ def teleport_clump_at_step(step_fn: Callable, step_index: int,
         idx, pos = target(x.dtype, x.device)
         x = _select(t == step_index, x.index_copy(0, idx, pos), x)
         return _call(step_fn, state._replace(x=x), t, inputs)
+
+    return forward_attributes(wrapped, step_fn)
+
+
+def leak_host_callback(step_fn: Callable, every: int = 1) -> Callable:
+    """A host read inside the step — the capture-safety fault: a wrapper
+    (a profiler shim, a stray debug print) that hands a device value to
+    host code. With the eager loop's Python int ``t`` it reads every
+    ``every`` steps; inside the compiled body (a device ``t``) on every
+    step, where a CUDA graph capture refuses it. Exists so the program
+    checks (rule JX001) can be proven to detect such a read."""
+    def _leak(value):
+        pass
+
+    def wrapped(state, t, inputs=None):
+        state, out = _call(step_fn, state, t, inputs)
+        if not isinstance(t, int) or t % every == 0:
+            _leak(out.min_pairwise_distance.item())
+        return state, out
+
+    return forward_attributes(wrapped, step_fn)
+
+
+def promote_f64(step_fn: Callable, field: str = "min_pairwise_distance"
+                ) -> Callable:
+    """Route one StepOutputs FIELD through float64 and back — the
+    dtype-drift fault: a stray float64 constant promoting part of the
+    float32 path (invisible in the output dtype, doubled bytes inside).
+    Exists so the program checks (rule JX002) can be proven to detect
+    it."""
+    def wrapped(state, t, inputs=None):
+        state, out = _call(step_fn, state, t, inputs)
+        leaf = getattr(out, field)
+        if isinstance(leaf, tuple):
+            raise ValueError(
+                f"StepOutputs.{field} is untracked (()) in this scenario — "
+                "promote_f64 needs a tracked field")
+        drifted = leaf.to(torch.float64).to(leaf.dtype)
+        return state, out._replace(**{field: drifted})
 
     return forward_attributes(wrapped, step_fn)
 

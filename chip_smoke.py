@@ -406,6 +406,26 @@ Phases (each raises, and the script exits non-zero, on any failure):
    within 1e-5 of the single-process batch). Each sub-phase prints its
    wall, ms per step, collectives per step and the host bytes gloo
    staging copied; a failed rank fails the phase.
+23. static analysis (``cbf_tpu_torch.analysis``) on the card: 23a ``python
+   -m cbf_tpu_torch lint --all --json`` in a subprocess (the AST rules,
+   the program checks of the seven entry points on the card, the audits
+   and the concurrency analyser) exits 0, its rules and active,
+   suppressed and stale counts printed; 23b
+   ``program_rules.trace_and_check`` on one fresh body (its warm-up
+   outside the audit, never a cached program) of the main path at
+   N=4096, N=16384 streaming, N=65536 banded, the sparse certificate at
+   N=4096 and ``lockstep_traced_chunk``'s program over 8 lanes of 4096
+   with a radius per lane: zero findings, every op on the card, no
+   float64 op, and the body's kernel launches from the wrappers' counts
+   (held to the path's kernels) and from the profiler, printed (ctypes
+   launches pass below the dispatcher);
+   23c at N=4096 ``faults.leak_host_callback`` and a host-data constant
+   made inside the step caught as JX001, ``faults.promote_f64`` as JX002
+   and a carry-drift wrapper as JX003; 23d the lock witness armed (with
+   ``serve.engine._PROGRAM_LOCK`` witnessed) over a small drain run and a
+   small continuous run: ``lockwitness.check_subgraph`` of the static
+   graph of ``cbf_tpu_torch/`` is ``[]`` and nothing is inverted (files
+   under ``chiprun_out/phase23*``).
 
 Phases 7-13 run before phase 6, which times their kernels (``knn_fused``
 and ``knn_stream`` also at the certificate's k=16 shape) and profiles
@@ -568,6 +588,20 @@ P22_VERIFY_B, P22_VERIFY_N, P22_VERIFY_STEPS = 16, 256, 100
 P22_DP_ATOL = 1e-5     # batched reductions in another order
 P22_SP_ATOL = 2e-5     # tests/test_parallel.py's sharded-vs-unsharded bound
 P22_TIMEOUT_S = 600
+# Phase 23: static analysis on the card. 23a: the lint CLI, every pass, in
+# a subprocess; 23b: the program checks on one body of each full-width
+# program — the main path, the streaming and banded paths, the sparse
+# certificate, and the serving chunk program over P23_LANES lanes of
+# MAIN_N, lane b at radius P23_RADII[b] (the radius array) and horizon
+# P23_LANE_STEPS; 23c: the faults at MAIN_N; 23d: the lock witness over
+# P23_SERVE_REQUESTS requests of P23_SERVE_N agents x P23_SERVE_STEPS
+# steps, served in drain mode and then continuously (P23_CHUNK-step
+# chunks), max_batch P23_SERVE_BATCH.
+P23_LINT_TIMEOUT_S = 300
+P23_LANES, P23_LANE_STEPS = 8, 64
+P23_RADII = tuple(RADIUS + 0.01 * b for b in range(P23_LANES))
+P23_SERVE_N, P23_SERVE_STEPS, P23_SERVE_REQUESTS = 64, 32, 4
+P23_SERVE_BATCH, P23_CHUNK = 2, 8
 # A batch's margins against its candidates run alone: float32 margins
 # ~0.1-1 m; on the CPU they are bit-equal (tests/test_torch_verify.py),
 # on the card batched reductions may sum in another order.
@@ -5204,6 +5238,263 @@ def phase22(engine, knn, swarm, t_start, root) -> dict:
     return out
 
 
+def phase23(engine, knn, swarm, t_start, root) -> dict:
+    """Phase 23: static analysis on the card (module docstring). Returns
+    each audited body's launches and the measurements."""
+    import collections
+    import dataclasses
+    import os
+    import shutil
+    import subprocess
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cbf_tpu_torch.analysis import (concurrency, lockwitness,
+                                        program_rules, rule_ids)
+    from cbf_tpu_torch.parallel import ensemble
+    from cbf_tpu_torch.serve import ServeEngine
+    from cbf_tpu_torch.serve import engine as serve_engine
+    from cbf_tpu_torch.utils import faults
+
+    out = {"runs": {}, "info": {}}
+    info = out["info"]
+    t23 = time.perf_counter()
+    cuda_ev = torch.autograd.DeviceType.CUDA
+    # Each sub-phase runs whatever an earlier one found; the phase fails
+    # at its end on any failure, with every one listed.
+    failures = []
+
+    def hold(cond, msg):
+        if not cond:
+            failures.append(msg)
+            print(f"phase 23 FAILED: {msg}")
+
+    # 23a. the lint CLI, every pass, its program checks on the card: a
+    # subprocess that runs while 23b-23d run here (read after 23d).
+    t_lint = time.perf_counter()
+    lint = subprocess.Popen(
+        [sys.executable, "-m", "cbf_tpu_torch", "lint", "--all", "--json",
+         "--show-suppressed"], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+    def audit(label, step_fn, state, expect=None):
+        """One fresh body of ``step_fn`` under the modes (its warm-up
+        outside them) and the profiler: findings, op devices, float64
+        ops, and the body's kernel launches — the wrappers' count, held to
+        ``expect`` (ctypes launches pass below the dispatcher, so the
+        modes cannot count them), and the profiler's, printed beside it
+        (in a long process CUPTI has dropped some of these single-body
+        kernel records; in a short one it saw every one)."""
+        run, carry = program_rules.body_call(step_fn, state)
+        torch.cuda.synchronize()
+        before = dict(knn.LAUNCHES)
+        stats = {}
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            found = program_rules.trace_and_check(
+                run, (carry,), entry=label, carry_argnum=0,
+                carry_out=lambda c: c, stats=stats)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: knn.LAUNCHES[k] - before[k] for k in before
+                    if knn.LAUNCHES[k] != before[k]}
+        seen = collections.Counter(
+            kernel_name(ev.name) for ev in prof.events()
+            if ev.device_type == cuda_ev and "knn_" in ev.name)
+        rec = {"findings": [f"{f.rule}: {f.message}" for f in found],
+               "ops": stats["ops"], "devices": stats["devices"],
+               "f64_ops": stats["f64_ops"],
+               "f64_allowed": stats["f64_allowed"],
+               "wrapped_scalars": stats["wrapped_scalars"],
+               "launches": launches, "profiler_kernels": dict(seen),
+               "wall_s": wall}
+        if expect is not None:
+            hold(found == [], f"23b {label}: {rec['findings']}")
+            hold(set(stats["devices"]) == {"cuda"},
+                 f"23b {label}: op devices {stats['devices']}")
+            hold(stats["f64_ops"] == 0,
+                 f"23b {label}: {stats['f64_ops']} float64 ops")
+            hold(launches == expect,
+                 f"23b {label}: launches {launches}, want {expect}")
+        return found, rec
+
+    # 23b. the program checks at full width, zero findings each.
+    dev = "cuda"
+    state_m, step_m = swarm.make(swarm.Config(n=MAIN_N), device=dev)
+    cfg_b = swarm.Config(n=BANDED_N, gating="banded")
+    cfg_c = swarm.Config(n=CERT_N, certificate=True)
+    check(swarm.certificate_backend(cfg_c) == "sparse",
+          "23b: the certificate's backend is not sparse")
+    static_cfg, traced0 = swarm.split_static_traced(swarm.Config(n=MAIN_N))
+    B = P23_LANES
+    states = engine._tree_map(lambda *xs: torch.stack(xs), *[
+        swarm.initial_state(swarm.Config(n=MAIN_N, seed=b), device=dev)
+        for b in range(B)])
+    traced = {k: torch.full((B,), float(v), dtype=static_cfg.dtype,
+                            device=dev)
+              for k, v in traced0.items() if k != "n_active"}
+    traced["safety_distance"] = torch.tensor(P23_RADII,
+                                             dtype=static_cfg.dtype,
+                                             device=dev)
+    traced["n_active"] = torch.full((B,), MAIN_N, dtype=torch.int32,
+                                    device=dev)
+    lanes = ensemble._lanes(states, traced,
+                            torch.full((B,), P23_LANE_STEPS,
+                                       dtype=torch.int32),
+                            torch.zeros((B,), dtype=torch.int32))
+    program = ensemble._traced_program(static_cfg, None,
+                                       torch.device(dev))
+    # A member-axis or radius-array launch also counts under its kernel's
+    # own name; the certificate searches with knn_fused beside the gating.
+    bodies = (
+        (f"main path N={MAIN_N} (knn_fused)", step_m, state_m,
+         {"knn_fused": 1}),
+        (f"N={STREAM_N} streaming (knn_stream)",
+         *swarm.make(swarm.Config(n=STREAM_N), device=dev)[::-1],
+         {"knn_stream": 1}),
+        (f"N={BANDED_N} banded W={swarm.banded_window_blocks(cfg_b)} "
+         "(knn_banded)", *swarm.make(cfg_b, device=dev)[::-1],
+         {"knn_banded": 1}),
+        (f"sparse certificate N={CERT_N}",
+         *swarm.make(cfg_c, device=dev)[::-1], {"knn_fused": 2}),
+        (f"lockstep_traced_chunk {B} x {MAIN_N}, radius array",
+         program, (states, lanes),
+         {"knn_fused": 1, "knn_fused_members": 1, "knn_fused_radii": 1}))
+    info["23b"] = {}
+    for label, step_fn, state, expect in bodies:
+        _, rec = audit(label, step_fn, state, expect)
+        info["23b"][label] = rec
+        out["runs"][f"phase 23b {label}"] = {"launches": rec["launches"]}
+        print(f"phase 23b: {label}: {len(rec['findings'])} findings "
+              f"{rec['findings']}; {rec['ops']} ops on "
+              f"{rec['devices']} ({rec['wrapped_scalars']} Python numbers "
+              f"wrapped as scalars), {rec['f64_ops']} float64 ops; kernel "
+              f"launches {rec['launches']} (profiler: "
+              f"{rec['profiler_kernels']}); {rec['wall_s']:.2f} s")
+    print(f"  (script at {time.perf_counter() - t_start:.1f} s)")
+
+    # 23c. each fault caught on the card.
+    def host_constant(state, t, inputs=None):
+        state, out_ = step_m(state, t) if inputs is None else step_m(
+            state, t, inputs=inputs)
+        nudge = torch.tensor([0.0, 0.0], dtype=state.x.dtype,
+                             device=state.x.device)
+        return state._replace(x=state.x + nudge), out_
+
+    def carry_drift(state, t, inputs=None):
+        state, out_ = step_m(state, t) if inputs is None else step_m(
+            state, t, inputs=inputs)
+        return state._replace(x=state.x.to(torch.float64)), out_
+
+    info["23c"] = {}
+    for label, wrapped, rule in (
+            ("leak_host_callback", faults.leak_host_callback(step_m),
+             "JX001"),
+            ("host-data constant in the step", host_constant, "JX001"),
+            ("promote_f64", faults.promote_f64(step_m), "JX002"),
+            ("carry drift", carry_drift, "JX003")):
+        found, rec = audit(f"23c {label}", wrapped, state_m)
+        hold(rule in {f.rule for f in found},
+             f"23c {label}: {rule} not caught ({rec['findings']})")
+        info["23c"][label] = rec
+        print(f"phase 23c: {label} caught as {rule}: "
+              + " | ".join(rec["findings"]))
+
+    # 23d. the lock witness over a drain run and a continuous run, held
+    # to the static graph.
+    work = os.path.join(root, "chiprun_out", "phase23d")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    static = concurrency.static_edge_set(concurrency.analyze_paths(
+        [os.path.join(root, "cbf_tpu_torch")]))
+    lockwitness.arm()
+    lockwitness.reset()
+    saved = serve_engine._PROGRAM_LOCK
+    serve_engine._PROGRAM_LOCK = lockwitness.make_lock(
+        "serve.engine._PROGRAM_LOCK")
+    t0 = time.perf_counter()
+    try:
+        served = {}
+        for mode, kw in (("drain", {}),
+                         ("continuous", {"continuous": True,
+                                         "chunk_steps": P23_CHUNK})):
+            eng = ServeEngine(max_batch=P23_SERVE_BATCH,
+                              flush_deadline_s=0.05,
+                              bucket_sizes=(P23_SERVE_N,), device=dev,
+                              journal=os.path.join(work, f"{mode}.jsonl"),
+                              **kw)
+            eng.start()
+            try:
+                pend = [eng.submit(swarm.Config(
+                    n=P23_SERVE_N, steps=P23_SERVE_STEPS, seed=s))
+                    for s in range(P23_SERVE_REQUESTS)]
+                res = [p.result(timeout=300) for p in pend]
+            finally:
+                eng.stop(drain=True)
+                eng.journal.close()
+            hold(all(r.steps == P23_SERVE_STEPS for r in res),
+                 f"23d {mode}: {[r.steps for r in res]}")
+            served[mode] = len(res)
+        edges = sorted(lockwitness.observed_edges())
+        problems = lockwitness.check_subgraph(static)
+        inverted = lockwitness.inversions()
+        acquisitions = lockwitness.snapshot()["acquisitions"]
+    finally:
+        serve_engine._PROGRAM_LOCK = saved
+        lockwitness.disarm()
+        lockwitness.reset()
+    hold(acquisitions > 0 and problems == [] and inverted == [],
+         f"23d: check_subgraph {problems}, inversions {inverted}")
+    info["23d"] = {"served": served, "observed_edges": edges,
+                   "static_edges": sorted(static),
+                   "acquisitions": acquisitions,
+                   "wall_s": time.perf_counter() - t0}
+    print(f"phase 23d: witness armed over {served['drain']} drain and "
+          f"{served['continuous']} continuous requests on the card: "
+          f"{acquisitions} acquisitions, observed edges {edges}, held to "
+          f"the closure of the static graph ({len(static)} edges): "
+          f"check_subgraph {problems}, inversions {inverted}; "
+          f"{info['23d']['wall_s']:.1f} s")
+    try:
+        stdout, stderr = lint.communicate(timeout=P23_LINT_TIMEOUT_S)
+    finally:
+        if lint.poll() is None:
+            lint.kill()
+            lint.wait()
+    wall = time.perf_counter() - t_lint
+    with open(os.path.join(root, "chiprun_out", "phase23a_lint.json"),
+              "w") as fh:
+        fh.write(stdout)
+    try:
+        rec = json.loads(stdout)
+    except ValueError:
+        rec = {"findings": [], "suppressed": [], "stale_suppressions": [],
+               "lock_order_graph": []}
+        hold(False, f"23a: no JSON from lint: {stderr[-2000:]}")
+    for f in rec["findings"]:
+        print(f"  23a finding {f['rule']} {f['path']}:{f['line']} "
+              f"{f['symbol']}: {f['message']}")
+    hold(lint.returncode == 0, f"23a: lint --all exited {lint.returncode}")
+    info["23a"] = {"rules": rule_ids(), "active": len(rec["findings"]),
+                   "suppressed": len(rec["suppressed"]),
+                   "stale": len(rec["stale_suppressions"]),
+                   "lock_order_edges": len(rec["lock_order_graph"]),
+                   "exit_code": lint.returncode, "wall_s": wall}
+    print(f"phase 23a: python -m cbf_tpu_torch lint --all --json on the "
+          f"card (beside 23b-23d): exit {lint.returncode} in {wall:.1f} s; "
+          f"rules {' '.join(rule_ids())}; {info['23a']['active']} active, "
+          f"{info['23a']['suppressed']} suppressed, {info['23a']['stale']} "
+          f"stale; {info['23a']['lock_order_edges']} lock-order edges")
+    with open(os.path.join(root, "chiprun_out", "phase23.json"), "w") as fh:
+        json.dump(info, fh, indent=1, default=str)
+    print(f"phase 23: done in {time.perf_counter() - t23:.1f} s (script at "
+          f"{time.perf_counter() - t_start:.1f} s)")
+    check(not failures, "phase 23: " + "; ".join(failures))
+    return out
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -5217,6 +5508,9 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--phase22", action="store_true",
                     help="only build the kernels and run phase 22 (the "
                     "world of ranks on the card; no result line)")
+    ap.add_argument("--phase23", action="store_true",
+                    help="only build the kernels and run phase 23 (static "
+                    "analysis on the card; no result line)")
     ap.add_argument("--root", default=None,
                     help="import cbf_tpu_torch from this checkout instead")
     args = ap.parse_args(argv)
@@ -5243,6 +5537,15 @@ def main(argv: list[str]) -> int:
         print(card_line())
         knn.build_library()
         phase22(engine, knn, swarm, time.perf_counter(),
+                os.path.dirname(os.path.abspath(__file__)))
+        return 0
+
+    if args.phase23:
+        import os
+
+        print(card_line())
+        knn.build_library()
+        phase23(engine, knn, swarm, time.perf_counter(),
                 os.path.dirname(os.path.abspath(__file__)))
         return 0
 
@@ -5752,6 +6055,11 @@ def main(argv: list[str]) -> int:
     p22 = phase22(engine, knn, swarm, t_start,
                   os.path.dirname(os.path.abspath(__file__)))
 
+    # 23. static analysis: the lint CLI, the program checks at full
+    # width, the faults they catch, the lock witness against the graph
+    p23 = phase23(engine, knn, swarm, t_start,
+                  os.path.dirname(os.path.abspath(__file__)))
+
     # 6. timings at the main-path shapes; launches are every compiled
     # main-path run's of this call, by phase (13f's run swarm included)
     all_runs = {"phase 3 N=256": runs[ENTRY_N], "phase 3 N=4096": main,
@@ -5765,7 +6073,7 @@ def main(argv: list[str]) -> int:
                 "phase 13f": scen["13f"], **p14["runs"], **p15["runs"],
                 **p16["runs"], **p17["runs"], **p18["runs"],
                 **p19["runs"], **p20["runs"], **p21["runs"],
-                **p22["runs"]}
+                **p22["runs"], **p23["runs"]}
     by_phase = {name: {label: run["launches"][name]
                        for label, run in all_runs.items()
                        if run["launches"].get(name)}

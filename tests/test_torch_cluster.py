@@ -16,9 +16,9 @@ departs from the JAX package (``cluster.worker``'s docstring): a claimed
 file no journal acknowledged is re-routed by the failover and returned
 to the inbox by a restarting worker, and a fenced worker answers
 nothing. The end-to-end
-test runs under the armed lock witness and asserts no inversion; the
-witness's static-graph check (``check_subgraph``) comes with the
-concurrency analyser of Queue A12 and is not asserted here.
+test runs under the armed lock witness and asserts no inversion and
+every observed edge explained by the static graph of the port's
+concurrency analyser (``check_subgraph``).
 
 Against the JAX package (cbf_tpu.cluster): ``HashRing.place`` equals
 JAX's for 200 seeded labels over 1-5 engines, with one engine added and
@@ -66,6 +66,17 @@ from cbf_tpu_torch.serve import resilience
 from cbf_tpu_torch.serve.buckets import bucket_key
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _static_lock_graph():
+    """The port's static acquisition-order graph: the reference every
+    edge the armed witness observes must lie in the closure of
+    (``lockwitness.check_subgraph``)."""
+    import cbf_tpu_torch
+    from cbf_tpu_torch.analysis import concurrency
+
+    return concurrency.static_edge_set(concurrency.analyze_paths(
+        [os.path.dirname(cbf_tpu_torch.__file__)]))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -319,8 +330,8 @@ def test_cluster_end_to_end_with_stealing(tmp_path):
     """M=2 real engines behind the router (workers as threads): one hot
     bucket fans out over both engines through the steal sweep, every
     handle resolves, and the census is exactly-once — all under the
-    ARMED lock witness (no inversion; the static-graph check waits for
-    Queue A12's analyser)."""
+    ARMED lock witness (no inversion; every observed edge explained by
+    the static graph, ``check_subgraph``)."""
     root = str(tmp_path)
     lockwitness.arm()
     lockwitness.reset()
@@ -348,6 +359,7 @@ def test_cluster_end_to_end_with_stealing(tmp_path):
         assert census["ok"], census
         assert census["submitted"] == 6 and census["resolved"] == 6
         assert lockwitness.inversions() == []
+        assert lockwitness.check_subgraph(_static_lock_graph()) == []
     finally:
         lockwitness.disarm()
         lockwitness.reset()

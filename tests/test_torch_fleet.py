@@ -69,6 +69,17 @@ WEAK_CBF = CBFParams(max_speed=15.0, k=0.0, dmin=0.16)
 MARGINAL_CFG = swarm.Config(n=16, steps=140, k_neighbors=4, gating="jnp")
 
 
+def _static_lock_graph():
+    """The port's static acquisition-order graph: the reference every
+    edge the armed witness observes must lie in the closure of
+    (``lockwitness.check_subgraph``)."""
+    import cbf_tpu_torch
+    from cbf_tpu_torch.analysis import concurrency
+
+    return concurrency.static_edge_set(concurrency.analyze_paths(
+        [os.path.dirname(cbf_tpu_torch.__file__)]))
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     before = torch.get_num_threads()
@@ -491,7 +502,8 @@ def test_tenant_unit_runs_under_program_lock(tiny_target, monkeypatch):
     """Each tenant unit runs holding ``serve.engine._PROGRAM_LOCK`` (a
     witnessed lock here) and none of the engine's own locks; the witness
     records the unit's inner lock under the program lock and no
-    inversion."""
+    inversion, and every edge it observes but that test-owned one lies in
+    the static graph."""
     lockwitness.arm()
     lockwitness.reset()
     try:
@@ -535,6 +547,9 @@ def test_tenant_unit_runs_under_program_lock(tiny_target, monkeypatch):
         edges = lockwitness.observed_edges()
         assert ("serve.engine._PROGRAM_LOCK", "tenant.inner") in edges
         assert lockwitness.inversions() == []
+        # tenant.inner is this test's own lock, taken by its unit.
+        own = {("serve.engine._PROGRAM_LOCK", "tenant.inner")}
+        assert lockwitness.check_subgraph(_static_lock_graph() | own) == []
     finally:
         lockwitness.disarm()
         lockwitness.reset()

@@ -15,9 +15,9 @@ cbf_tpu_torch`` with ``--device cpu``):
 - segment rotation, compaction and the torn tail of the active file;
 - a resolved id never re-enqueued, a torn ``resolved`` record degrading
   to at-least-once, the breaker state restored across engine restarts;
-- the takeover that dedupes under the armed lock witness (no inversion;
-  the witness's static-graph check, ``check_subgraph``, comes with the
-  concurrency analyser of Queue A12 and is not asserted here);
+- the takeover that dedupes under the armed lock witness (no inversion,
+  and every observed edge explained by the static graph of the port's
+  concurrency analyser, ``check_subgraph``);
 - the supervisor's clean exit, its fenced pass-through and its crash-loop
   breaker; the README's port section documents the layer.
 
@@ -69,6 +69,17 @@ from cbf_tpu_torch.utils import faults
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COUNTS = ("filter_active_count", "infeasible_count", "gating_dropped_count",
           "max_relax_rounds")
+
+
+def _static_lock_graph():
+    """The port's static acquisition-order graph: the reference every
+    edge the armed witness observes must lie in the closure of
+    (``lockwitness.check_subgraph``)."""
+    import cbf_tpu_torch
+    from cbf_tpu_torch.analysis import concurrency
+
+    return concurrency.static_edge_set(concurrency.analyze_paths(
+        [os.path.dirname(cbf_tpu_torch.__file__)]))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -393,6 +404,7 @@ def test_continuous_engine_fenced_with_lanes_in_flight(tmp_path,
         assert lockwitness.inversions() == []
         assert ("serve.engine._PROGRAM_LOCK", "RequestJournal._lock") \
             not in lockwitness.observed_edges()
+        assert lockwitness.check_subgraph(_static_lock_graph()) == []
     finally:
         if eng is not None and eng._running:
             eng.stop(drain=True)
@@ -552,10 +564,9 @@ def test_takeover_dedupes_and_books_no_lock_inversions(tmp_path,
                                                        warm_programs):
     """A full in-process takeover — lease bump, fenced journal reopen,
     replay with request-id dedupe, re-enqueue, drain — under the ARMED
-    lock witness: no observed inversion. JAX's test also holds every
-    observed edge to the static concurrency analyser's graph
-    (``check_subgraph``); that analyser is Queue A12's, so the port
-    asserts the inversions alone until it lands."""
+    lock witness: no observed inversion, and every observed edge held to
+    the static concurrency analyser's graph (``check_subgraph``), as
+    JAX's test holds it."""
     lease_path = str(tmp_path / "lease.json")
     jpath = str(tmp_path / "wal.jsonl")
     primary = ha.Lease(lease_path, owner="primary")
@@ -582,6 +593,7 @@ def test_takeover_dedupes_and_books_no_lock_inversions(tmp_path,
         finally:
             eng.stop(drain=True)
         assert lockwitness.inversions() == []
+        assert lockwitness.check_subgraph(_static_lock_graph()) == []
     finally:
         lockwitness.disarm()
         lockwitness.reset()

@@ -41,6 +41,17 @@ from cbf_tpu_torch.serve import RecoveryError, ServeEngine
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _static_lock_graph():
+    """The port's static acquisition-order graph: the reference every
+    edge the armed witness observes must lie in the closure of
+    (``lockwitness.check_subgraph``)."""
+    import cbf_tpu_torch
+    from cbf_tpu_torch.analysis import concurrency
+
+    return concurrency.static_edge_set(concurrency.analyze_paths(
+        [os.path.dirname(cbf_tpu_torch.__file__)]))
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     before = torch.get_num_threads()
@@ -186,7 +197,7 @@ def test_sigterm_drains_from_scheduler_not_the_handler(tmp_path):
     """The SIGTERM handler only sets the preempt flag; the scheduler
     thread drains from its own control flow, every acknowledged request
     resolves and journals its terminal record, and the armed lock witness
-    sees a cycle-free acquisition order."""
+    sees a cycle-free acquisition order inside the static graph."""
     path = str(tmp_path / "j.jsonl")
     lockwitness.arm()
     lockwitness.reset()
@@ -206,6 +217,7 @@ def test_sigterm_drains_from_scheduler_not_the_handler(tmp_path):
         assert dj.replay_journal(path).unresolved == []
         assert lockwitness.snapshot()["acquisitions"] > 0
         assert lockwitness.inversions() == []
+        assert lockwitness.check_subgraph(_static_lock_graph()) == []
     finally:
         lockwitness.disarm()
         lockwitness.reset()

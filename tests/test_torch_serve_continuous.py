@@ -29,6 +29,7 @@
 
 import dataclasses
 import json
+import os
 import threading
 import time
 
@@ -58,6 +59,17 @@ from cbf_tpu_torch.utils import faults, profiling
 COUNTS = ("filter_active_count", "infeasible_count", "gating_dropped_count",
           "max_relax_rounds")
 F64_ATOL, F32_ATOL = 1e-9, 2e-4
+
+
+def _static_lock_graph():
+    """The port's static acquisition-order graph: the reference every
+    edge the armed witness observes must lie in the closure of
+    (``lockwitness.check_subgraph``)."""
+    import cbf_tpu_torch
+    from cbf_tpu_torch.analysis import concurrency
+
+    return concurrency.static_edge_set(concurrency.analyze_paths(
+        [os.path.dirname(cbf_tpu_torch.__file__)]))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -686,6 +698,7 @@ def test_lock_witness_across_a_demotion(tmp_path):
         assert engine.stats["lanes_vacated"] == engine.stats["lanes_joined"]
         assert lockwitness.snapshot()["acquisitions"] > 0
         assert lockwitness.inversions() == []
+        assert lockwitness.check_subgraph(_static_lock_graph()) == []
     finally:
         lockwitness.disarm()
         lockwitness.reset()

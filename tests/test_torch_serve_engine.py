@@ -29,6 +29,7 @@ its lifecycle tracer (cbf_tpu_torch.obs.trace), on the CPU.
 
 import dataclasses
 import json
+import os
 import threading
 import time
 
@@ -60,6 +61,17 @@ F64_ATOL, F32_ATOL = 1e-9, 2e-4
 STAT_KEYS = ("requests", "batches", "pad_slots", "compile_miss",
              "compile_hit")
 TIMINGS = ("latency_s", "queue_wait_s", "execute_s")
+
+
+def _static_lock_graph():
+    """The port's static acquisition-order graph: the reference every
+    edge the armed witness observes must lie in the closure of
+    (``lockwitness.check_subgraph``)."""
+    import cbf_tpu_torch
+    from cbf_tpu_torch.analysis import concurrency
+
+    return concurrency.static_edge_set(concurrency.analyze_paths(
+        [os.path.dirname(cbf_tpu_torch.__file__)]))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -511,7 +523,8 @@ def test_event_types_union_to_the_schema():
 
 def test_lock_witness_records_the_engine_lock_order(tmp_path):
     """Queue mode with a journal and a cancel: the queue lock is held
-    around the journal's append and the stats bump, never the reverse."""
+    around the journal's append and the stats bump, never the reverse,
+    and every observed edge lies in the static graph."""
     lockwitness.arm()
     lockwitness.reset()
     try:
@@ -534,6 +547,7 @@ def test_lock_witness_records_the_engine_lock_order(tmp_path):
         assert ("ServeEngine._lock", "RequestJournal._lock") in edges
         assert ("ServeEngine._lock", "ServeEngine._stats_lock") in edges
         assert lockwitness.inversions() == []
+        assert lockwitness.check_subgraph(_static_lock_graph()) == []
     finally:
         lockwitness.disarm()
         lockwitness.reset()
