@@ -32,8 +32,10 @@ batches of heterogeneous requests as one captured program, the k-NN
 kernels reading each member's radius. Across devices (``parallel/``)
 ensembles, one swarm's agents, the trainer and the falsifier spread over
 a (dp, sp) mesh of ``torch.distributed`` ranks, and one swarm can be
-tiled over space with halo exchange (``parallel/spatial.py``). Knobs of
-later slices raise :class:`~cbf_tpu_torch.errors.OutOfSliceError`.
+tiled over space with halo exchange (``parallel/spatial.py``). Static
+analysis (``analysis/``) lints the port, checks its captured programs and
+runs the collective census of its sharded entry points. A knob the port
+has not reached raises :class:`~cbf_tpu_torch.errors.OutOfSliceError`.
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (:func:`cbf_tpu_torch.scenarios.swarm.make`; ``--device cpu`` on the

@@ -1802,10 +1802,7 @@ def _reset_state(args, V) -> None:
         if removed and not args.json:
             print(f"reset: removed {len(removed)} persisted campaign "
                   f"state file(s) from {args.state_dir}")
-    if multihost.process_info()[1] > 1:
-        import torch.distributed as dist
-
-        dist.barrier()
+    multihost.barrier()
 
 
 def _cmd_verify_fleet(args) -> int:
@@ -2277,23 +2274,33 @@ def _add_scenario_parser(sub) -> None:
 def cmd_lint(args) -> int:
     """Static analysis gate (counterpart: the JAX CLI's ``lint``): the AST
     capture-safety and program-cache rules over the given paths, plus
-    (``--all``) the program checks on the captured step, the repo audits
-    and the concurrency analyser. Exit 0 = clean (modulo the baseline),
+    (``--all``) the program checks on the captured step, the repo audits,
+    the concurrency analyser and the SPMD analyser; ``--write-spmd-budget``
+    rewrites the committed census. Exit 0 = clean (modulo the baseline),
     1 = unsuppressed findings or stale baseline entries, 2 = analyser
-    failure (malformed baseline, unreadable path) or a pass that is not
-    ported yet (``--spmd``, ``--write-spmd-budget``, ``--reason``)."""
-    from cbf_tpu_torch import errors
+    failure (malformed baseline or budget, unreadable path, a census that
+    cannot be written)."""
     from cbf_tpu_torch.analysis import report
     from cbf_tpu_torch.analysis.baseline import BaselineError
+    from cbf_tpu_torch.analysis.mesh_budget import BudgetError
 
-    try:
-        if args.spmd or args.write_spmd_budget or args.reason is not None:
-            raise errors.OutOfSliceError(
-                "lint --spmd/--write-spmd-budget/--reason",
-                errors.SLICE_ANALYSIS_SPMD)
-    except errors.OutOfSliceError as e:
-        print(f"lint: {e}", file=sys.stderr)
-        return 2
+    if args.write_spmd_budget:
+        from cbf_tpu_torch.analysis import mesh_budget, spmd_rules
+
+        reports, findings = spmd_rules.entrypoint_reports(
+            args.entrypoint or None, device=args.device)
+        if findings:
+            for f in findings:
+                print(f"lint: {f.symbol}: {f.message}", file=sys.stderr)
+            return 2
+        try:
+            mesh_budget.write(reports, reason=args.reason)
+        except BudgetError as e:
+            print(f"lint: {e}", file=sys.stderr)
+            return 2
+        print(f"wrote {mesh_budget.DEFAULT_PATH} "
+              f"({len(reports)} entr{'ies' if len(reports) != 1 else 'y'})")
+        return 0
     repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     # Default to the path set the tier-1 gate lints, so "what the gate
     # enforces" and "what the terminal shows" cannot drift apart.
@@ -2306,8 +2313,9 @@ def cmd_lint(args) -> int:
             paths, repo_root=repo_root, baseline_path=args.baseline,
             jaxpr=args.all or args.jaxpr, audits=args.all,
             concurrency=args.all or args.concurrency,
+            spmd=args.all or args.spmd,
             entrypoints=args.entrypoint or None, device=args.device)
-    except (BaselineError, OSError) as e:
+    except (BaselineError, BudgetError, OSError) as e:
         print(f"lint: {e}", file=sys.stderr)
         return 2
     if args.json:
@@ -2329,8 +2337,9 @@ def _add_lint_parser(sub) -> None:
                             "cbf_tpu_torch package and chip_smoke.py)")
     lintp.add_argument("--all", action="store_true",
                        help="also run the program checks on the captured "
-                            "step (JX0xx), the repo audits (AUD0xx) and "
-                            "the concurrency analyser (CC0xx)")
+                            "step (JX0xx), the repo audits (AUD0xx), the "
+                            "concurrency analyser (CC0xx) and the SPMD "
+                            "analyser (SP0xx)")
     lintp.add_argument("--jaxpr", action="store_true",
                        help="also run just the program checks on the "
                             "captured step (JX0xx; the JAX CLI's name)")
@@ -2338,18 +2347,25 @@ def _add_lint_parser(sub) -> None:
                        help="also run just the concurrency analyser "
                             "(CC0xx: lock discipline, lock-order graph)")
     lintp.add_argument("--spmd", action="store_true",
-                       help="the SPMD analyser: not ported yet (Queue "
-                            "A12b); exits 2")
+                       help="also run just the SPMD analyser (SP0xx: one "
+                            "call of each sharded entry point in a world "
+                            "of 4 ranks, its collective census against "
+                            "cbf_tpu_torch/analysis/spmd_budget.toml, "
+                            "peak memory and replication on the card)")
     lintp.add_argument("--write-spmd-budget", action="store_true",
-                       help="not ported yet (Queue A12b); exits 2")
+                       help="regenerate cbf_tpu_torch/analysis/"
+                            "spmd_budget.toml from a fresh census "
+                            "(changed/new rows need --reason; on the CPU "
+                            "each row keeps its peak_bytes)")
     lintp.add_argument("--reason", default=None, metavar="TEXT",
-                       help="with --write-spmd-budget: not ported yet "
-                            "(Queue A12b); exits 2")
+                       help="with --write-spmd-budget: why the new "
+                            "census is intended (stored per changed row)")
     lintp.add_argument("--entrypoint", action="append", default=[],
                        metavar="NAME",
-                       help="restrict the program checks to these entry "
-                            "points (repeatable; see analysis."
-                            "program_rules.entrypoint_specs)")
+                       help="restrict the program checks and the SPMD "
+                            "census to these entry points (repeatable; "
+                            "see analysis.program_rules.entrypoint_specs "
+                            "and analysis.spmd_rules.spmd_entrypoints)")
     lintp.add_argument("--json", action="store_true",
                        help="machine-readable output (one JSON object)")
     lintp.add_argument("--baseline", default=None,
@@ -2359,9 +2375,9 @@ def _add_lint_parser(sub) -> None:
                        help="also print baseline-suppressed findings "
                             "with their reasons")
     lintp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                       help="where the program checks run the captured "
-                            "bodies (default: the card; without one they "
-                            "fail)")
+                       help="where the program checks, the chain-depth "
+                            "audit and the SPMD census run (default: the "
+                            "card; without one they fail)")
     lintp.set_defaults(fn=cmd_lint)
 
 

@@ -17,7 +17,14 @@ standing gate:
   torch's function and dispatch modes (no host traffic, float32
   discipline, carry stability);
 * :mod:`cbf_tpu_torch.analysis.audits` — the repo audits (obs schema,
-  tier-1 markers, reproducibility, scenario coverage, concurrency map);
+  tier-1 markers, the certificate's chain depth, reproducibility,
+  scenario coverage, concurrency map, spmd-budget liveness);
+* :mod:`cbf_tpu_torch.analysis.spmd_rules` — the SPMD analyser: the
+  collective census of every sharded entry point run in a
+  ``torch.distributed`` world, the replication check, and the hygiene of
+  the port's axes and collectives;
+* :mod:`cbf_tpu_torch.analysis.mesh_budget` — the committed census
+  (``spmd_budget.toml``, the JAX package's schema 1);
 * :mod:`cbf_tpu_torch.analysis.concurrency` — lock-discipline linter for
   the threaded serve/durable/obs/cluster stack plus the global
   acquisition-order graph;
@@ -31,11 +38,11 @@ standing gate:
   text/JSON reporters.
 
 CLI: ``python -m cbf_tpu_torch lint [paths] [--all | --jaxpr |
---concurrency] [--json] [--show-suppressed] [--device cpu]`` — the
-README's port section documents the rule IDs, the port's concurrency map
-and the suppression format; ``tests/test_torch_analysis.py`` enforces
-repo cleanliness as tier-1. The SPMD half (``spmd_rules``,
-``mesh_budget``, AUD003, AUD009, ``lint --spmd``) comes with Queue A12b.
+--concurrency | --spmd] [--json] [--show-suppressed] [--device cpu]``
+and ``lint --write-spmd-budget --reason TEXT`` — the README's port
+section documents the rule IDs, the port's concurrency map and the
+suppression format; ``tests/test_torch_analysis.py`` and
+``tests/test_torch_spmd.py`` enforce repo cleanliness as tier-1.
 """
 
 from cbf_tpu_torch.analysis.registry import RULES, Finding, Rule, rule_ids

@@ -6,6 +6,10 @@
   and never written;
 * AUD002 — budget-shaped tests missing ``@pytest.mark.slow`` (over
   ``tests/``, as the JAX package's);
+* AUD003 — the certificate's chain depth: one fused ADMM iteration's
+  longest path through serialized gather/scatter-class ops, walked under
+  a ``TorchDispatchMode`` (JAX walks the jaxpr), at most
+  :data:`FUSED_CHAIN_DEPTH_BOUND` and below the default path's;
 * AUD004 — reproducibility: seedless ``np.random`` and draws from torch's
   global generator (no ``generator=``) in ``cbf_tpu_torch/`` and
   ``chip_smoke.py``;
@@ -16,10 +20,9 @@
 * AUD008 — concurrency-map drift: the concurrency analyser's inventory of
   ``cbf_tpu_torch/`` against the port's own concurrency map, the table
   between the port-owned markers in the README's "PyTorch/CUDA port"
-  section.
-
-The certificate's chain-depth audit (AUD003) and the spmd-budget audit
-(AUD009) come with Queue A12b.
+  section;
+* AUD009 — spmd-budget liveness: ``spmd_budget.toml``'s rows against the
+  SPMD analyser's entry points, by name in both directions.
 """
 
 from __future__ import annotations
@@ -301,6 +304,103 @@ def tier1_marker_audit(tests_dir: str | None = None) -> list[str]:
     return problems
 
 
+# -- AUD003: chain-depth regression -----------------------------------------
+
+#: Serialized memory-bound passes over the pair-row axis (ATen op names,
+#: in-place and ``_impl`` spellings folded in; ``scatter*`` by prefix).
+#: Elementwise ops between them add no dependent pass of their own.
+HEAVY_OPS = frozenset({
+    "index_select", "gather", "index", "index_put", "index_add",
+    "segment_reduce", "take",
+})
+
+#: The pinned bound (the JAX package's): the fused iteration's whole
+#: point is a <= 4 serialized pair-op chain.
+FUSED_CHAIN_DEPTH_BOUND = 4
+
+
+def _heavy_name(func) -> str | None:
+    name = func.overloadpacket.__name__.rstrip("_")
+    if name == "_index_put_impl":
+        name = "index_put"
+    if name in HEAVY_OPS or name.startswith("scatter"):
+        return name
+    return None
+
+
+def chain_profile(settings=None, N: int = 64, k: int = 8,
+                  agent_k: int | None = None, device=None) -> dict:
+    """Profile one ADMM iteration of the sparse certificate solver.
+
+    Returns {"chain_depth", "heavy_ops", "op_counts"} for one eager
+    iteration of :func:`cbf_tpu_torch.solvers.sparse_admm.
+    admm_iteration_spec`'s step under ``settings`` with the inner budget
+    normalized to one step (``cg_iters=1``), run under a
+    ``TorchDispatchMode`` that gives every tensor a depth: the largest of
+    its inputs' (views included, as each view is an op of its own), plus
+    one at each op of :data:`HEAVY_OPS`. ``device`` None is the card."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    from cbf_tpu_torch.solvers.sparse_admm import (SparseADMMSettings,
+                                                   admm_iteration_spec)
+
+    settings = settings if settings is not None else SparseADMMSettings()
+    settings = settings._replace(cg_iters=1)
+    step, carry0 = admm_iteration_spec(N=N, k=k, settings=settings,
+                                       agent_k=agent_k, device=device)
+    depth: dict[int, int] = {}
+    alive: list = []          # keeps ids unique for the walk
+    counts: dict[str, int] = {}
+
+    class _Walk(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            din = max((depth.get(id(a), 0)
+                       for a in tree_flatten((args, kwargs))[0]
+                       if isinstance(a, torch.Tensor)), default=0)
+            heavy = _heavy_name(func)
+            if heavy is not None:
+                counts[heavy] = counts.get(heavy, 0) + 1
+            for o in tree_flatten(out)[0]:
+                if isinstance(o, torch.Tensor):
+                    alive.append(o)
+                    depth[id(o)] = din + (heavy is not None)
+            return out
+
+    with torch.no_grad(), _Walk():
+        out = step(carry0)
+    return {
+        "chain_depth": max((depth.get(id(o), 0) for o in out), default=0),
+        "heavy_ops": sum(counts.values()),
+        "op_counts": dict(sorted(counts.items())),
+    }
+
+
+def chain_depth_audit(device=None) -> list[str]:
+    """The regression gate as audit problems: fused <= pinned bound,
+    and fused strictly shallower than the default path."""
+    from cbf_tpu_torch.solvers.sparse_admm import SparseADMMSettings
+
+    fused = chain_profile(SparseADMMSettings(fused=True, ksolve="chebyshev"),
+                          device=device)
+    default = chain_profile(SparseADMMSettings(), device=device)
+    problems = []
+    if fused["chain_depth"] > FUSED_CHAIN_DEPTH_BOUND:
+        problems.append(
+            f"fused ADMM iteration chain_depth={fused['chain_depth']} "
+            f"exceeds the pinned bound {FUSED_CHAIN_DEPTH_BOUND} "
+            f"(op_counts={fused['op_counts']})")
+    if fused["chain_depth"] >= default["chain_depth"]:
+        problems.append(
+            f"fused chain_depth={fused['chain_depth']} is not shallower "
+            f"than the default path's {default['chain_depth']} — the "
+            "fusion no longer buys anything")
+    return problems
+
+
 # -- AUD004: reproducibility -----------------------------------------------
 
 #: np.random attributes that construct or seed an explicit generator.
@@ -558,11 +658,30 @@ def concurrency_map_audit(repo_root: str | None = None) -> list[str]:
     return problems
 
 
+# -- AUD009: spmd-budget liveness -------------------------------------------
+
+def spmd_budget_audit(repo_root: str | None = None) -> list[str]:
+    """Both directions of the budget <-> entry-point mapping, plus file
+    well-formedness. Names only: no world is started — the cheap half of
+    the SPMD gate."""
+    from cbf_tpu_torch.analysis import mesh_budget
+    from cbf_tpu_torch.analysis.spmd_rules import spmd_entrypoint_names
+
+    path = os.path.join(repo_root or _REPO, "cbf_tpu_torch", "analysis",
+                        "spmd_budget.toml")
+    try:
+        budget = mesh_budget.load(path)
+    except mesh_budget.BudgetError as e:
+        return [str(e)]
+    return mesh_budget.liveness_problems(budget, spmd_entrypoint_names())
+
 
 # -- runner ----------------------------------------------------------------
 
-def run_audits(repo_root: str | None = None) -> list[Finding]:
-    """All repo audits as Findings (the ``lint --all`` surface)."""
+def run_audits(repo_root: str | None = None, device=None) -> list[Finding]:
+    """All repo audits as Findings (the ``lint --all`` surface); the
+    chain-depth audit runs its iteration on ``device`` (None = the
+    card)."""
     findings = []
     for msg in obs_schema_audit(repo_root):
         findings.append(Finding("AUD001", "cbf_tpu_torch/obs/schema.py", 0,
@@ -570,6 +689,10 @@ def run_audits(repo_root: str | None = None) -> list[Finding]:
     for msg in tier1_marker_audit(
             os.path.join(repo_root or _REPO, "tests")):
         findings.append(Finding("AUD002", "tests/", 0, 0, "<tests>", msg))
+    for msg in chain_depth_audit(device):
+        findings.append(Finding("AUD003",
+                                "cbf_tpu_torch/solvers/sparse_admm.py",
+                                0, 0, "<chain>", msg))
     for msg in reproducibility_audit(repo_root):
         findings.append(Finding("AUD004", msg.split(":", 1)[0], 0, 0,
                                 "<reproducibility>", msg))
@@ -581,4 +704,8 @@ def run_audits(repo_root: str | None = None) -> list[Finding]:
         findings.append(Finding("AUD008",
                                 "cbf_tpu_torch/analysis/concurrency.py",
                                 0, 0, "<concurrency>", msg))
+    for msg in spmd_budget_audit(repo_root):
+        findings.append(Finding("AUD009",
+                                "cbf_tpu_torch/analysis/spmd_budget.toml",
+                                0, 0, "<spmd-budget>", msg))
     return findings

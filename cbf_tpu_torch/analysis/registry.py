@@ -27,11 +27,11 @@ keeps its JAX ID with the hazard written for that unit:
 * ``AUD0xx`` — repo audits (schema drift, tier-1 markers,
   reproducibility, scenario coverage, the concurrency map);
 * ``CC0xx`` — lock discipline of the threaded serve/durable/obs/cluster
-  stack.
-
-The SPMD rules (SP001-SP006), the certificate's chain-depth audit (AUD003)
-and the spmd-budget audit (AUD009) come with Queue A12b
-(``errors.SLICE_ANALYSIS_SPMD``).
+  stack;
+* ``SP0xx`` — the SPMD analyser: the collective census of the sharded
+  entry points run in a ``torch.distributed`` world, against the
+  committed ``spmd_budget.toml``, and the hygiene of the port's axes and
+  collectives (:mod:`cbf_tpu_torch.analysis.spmd_rules`).
 """
 
 from __future__ import annotations
@@ -143,6 +143,10 @@ _RULES = [
     Rule("AUD002", ERROR,
          "budget-shaped test without @pytest.mark.slow: erodes the "
          "tier-1 budget"),
+    Rule("AUD003", ERROR,
+         "certificate chain-depth regression: the fused ADMM iteration's "
+         "serialized gather/segment-sum chain exceeded its pinned bound, "
+         "or is no shallower than the default path's"),
     Rule("AUD004", ERROR,
          "reproducibility: seedless np.random (default_rng() without a "
          "seed, or a global-generator draw) or a draw from torch's global "
@@ -187,6 +191,33 @@ _RULES = [
          "thread/handler of the port has no row in the README's port "
          "concurrency map (or the map names a primitive that no longer "
          "exists)"),
+    # -- SPMD (collective census + replication) ---------------------------
+    Rule("SP001", ERROR,
+         "collective-census regression: a sharded entry point issued a "
+         "collective kind or count over its committed spmd_budget.toml "
+         "row (or has no row / a row whose mesh no longer matches)"),
+    Rule("SP002", ERROR,
+         "per-rank peak-bytes regression: the largest rank's peak memory "
+         "on the card exceeds the budget row past its tolerance"),
+    Rule("SP003", ERROR,
+         "replicated large intermediate: the per-rank peak under the mesh "
+         "fails to shrink vs the one-rank run of the same global problem "
+         "(the card) — sharding is not reducing the footprint"),
+    Rule("SP004", ERROR,
+         "a sharded entry point that fails to run in its torch.distributed "
+         "world"),
+    Rule("SP005", ERROR,
+         "literal axis name outside the canonical axis table "
+         "(analysis.spmd_rules.CANONICAL_AXES) given to Mesh.axis, "
+         "resolve_axis or axis_name="),
+    Rule("SP006", WARNING,
+         "raw torch.distributed collective outside the collective owners "
+         "(parallel/mesh.py, parallel/multihost.py): escapes the census "
+         "and the gloo staging"),
+    Rule("AUD009", ERROR,
+         "spmd-budget liveness: a sharded entry point with no "
+         "spmd_budget.toml row, a stale row naming no live entry "
+         "point, or a malformed/reason-less budget file"),
 ]
 
 RULES: dict[str, Rule] = {r.id: r for r in _RULES}

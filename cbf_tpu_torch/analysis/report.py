@@ -6,7 +6,8 @@ Text output is one finding per line in the compiler-style
 ``path:line:col [RULE/severity] symbol: message`` form; JSON output is a
 single object with the findings, the suppressed set, stale baseline
 entries and the exit code, with the JAX package's keys
-(``lock_order_graph`` only when the concurrency pass ran).
+(``lock_order_graph`` only when the concurrency pass ran, ``spmd_census``
+only when the SPMD pass ran).
 
 Exit-code contract (the CLI's and the tier-1 gate's):
 
@@ -26,7 +27,8 @@ from cbf_tpu_torch.analysis.registry import RULES, Finding
 
 
 class LintResult:
-    def __init__(self, active, suppressed, stale, lock_graph=None):
+    def __init__(self, active, suppressed, stale, lock_graph=None,
+                 spmd_census=None):
         self.active: list[Finding] = active
         self.suppressed: list[tuple[Finding,
                                     baseline_mod.Suppression]] = suppressed
@@ -35,6 +37,9 @@ class LintResult:
         # when the concurrency pass did not run (the JSON then has no
         # lock_order_graph key).
         self.lock_graph: list[dict] | None = lock_graph
+        # Per-entrypoint collective census from the SPMD pass; None when
+        # the pass did not run (same key contract as lock_order_graph).
+        self.spmd_census: dict | None = spmd_census
 
     @property
     def exit_code(self) -> int:
@@ -54,19 +59,23 @@ class LintResult:
         }
         if self.lock_graph is not None:
             d["lock_order_graph"] = self.lock_graph
+        if self.spmd_census is not None:
+            d["spmd_census"] = self.spmd_census
         return d
 
 
 def run_lint(paths: Iterable[str], *, repo_root: str | None = None,
              baseline_path: str | None = None,
              jaxpr: bool = False, audits: bool = False,
-             concurrency: bool = False,
+             concurrency: bool = False, spmd: bool = False,
              entrypoints: Iterable[str] | None = None,
              device=None) -> LintResult:
     """Lint ``paths`` (AST rules), optionally adding the program checks on
     the captured step (``jaxpr``, the JAX package's name for its
-    counterpart; run on ``device``, None = the card), the repo audits and
-    the concurrency analyser, and fold the result through the baseline."""
+    counterpart), the repo audits, the concurrency analyser and the SPMD
+    analyser, and fold the result through the baseline. The program
+    checks, the chain-depth audit and the SPMD census run on ``device``
+    (None = the card)."""
     paths = list(paths)
     findings = ast_rules.lint_paths(paths, repo_root=repo_root)
     if jaxpr:
@@ -77,7 +86,8 @@ def run_lint(paths: Iterable[str], *, repo_root: str | None = None,
     if audits:
         from cbf_tpu_torch.analysis import audits as audits_mod
 
-        findings.extend(audits_mod.run_audits(repo_root=repo_root))
+        findings.extend(audits_mod.run_audits(repo_root=repo_root,
+                                              device=device))
     lock_graph = None
     if concurrency:
         from cbf_tpu_torch.analysis import concurrency as conc_mod
@@ -85,6 +95,14 @@ def run_lint(paths: Iterable[str], *, repo_root: str | None = None,
         conc = conc_mod.analyze_paths(paths, repo_root=repo_root)
         findings.extend(conc.findings)
         lock_graph = [e._asdict() for e in conc.edges]
+    spmd_census = None
+    if spmd:
+        from cbf_tpu_torch.analysis import spmd_rules
+
+        sp_findings, spmd_census = spmd_rules.run_spmd_checks(
+            paths, repo_root=repo_root, entrypoints=entrypoints,
+            device=device)
+        findings.extend(sp_findings)
     sups = baseline_mod.load(baseline_path)
     active, suppressed, stale = baseline_mod.split(findings, sups)
     # A suppression is only judged stale by a run that could have
@@ -97,8 +115,11 @@ def run_lint(paths: Iterable[str], *, repo_root: str | None = None,
         ran += ("AUD",)
     if concurrency:
         ran += ("CC",)
+    if spmd:
+        ran += ("SP",)
     stale = [s for s in stale if s.rule.startswith(ran)]
-    return LintResult(active, suppressed, stale, lock_graph=lock_graph)
+    return LintResult(active, suppressed, stale, lock_graph=lock_graph,
+                      spmd_census=spmd_census)
 
 
 def _fmt(f: Finding, suffix: str = "") -> str:

@@ -30,8 +30,8 @@ High availability adds three orthogonal mechanisms:
 
 - **Epochs + fencing**: every record carries the appending owner's
   ``epoch`` (a monotonic ownership-generation counter, default 0). A
-  journal opened with ``fence_path=`` (the HA lease file; the lease
-  that writes it, ``serve.ha``, arrives with Queue A11) re-reads the
+  journal opened with ``fence_path=`` (the HA lease file, which
+  :mod:`cbf_tpu_torch.serve.ha`'s lease writes) re-reads the
   fence epoch under the append lock and raises the typed
   :class:`~cbf_tpu_torch.serve.resilience.FencedError` BEFORE writing
   when a newer epoch owns the log — a SIGSTOP'd zombie primary that wakes

@@ -15,9 +15,3 @@ class OutOfSliceError(NotImplementedError):
         self.what = what
         self.slice_name = slice_name
 
-
-SLICE_DIFF = "the differentiable-path slice (Queue A8)"
-SLICE_DURABLE = "the durability and observability slice (Queue A9)"
-SLICE_SERVE = "the serving slice (Queue A11)"
-SLICE_ANALYSIS_SPMD = ("the SPMD half of the analysis slice (Queue A12b: "
-                       "spmd_rules, mesh_budget, AUD003, AUD009)")

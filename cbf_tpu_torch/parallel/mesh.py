@@ -30,15 +30,32 @@ import os
 import torch
 import torch.distributed as dist
 
-#: Collectives issued by every :class:`Axis` of this process (identity
-#: axes of size 1 included), the host copies gloo staging made, and
-#: their bytes.
-COUNTS = {"collectives": 0, "host_copies": 0, "host_bytes": 0}
+#: The collective census's kinds (the JAX package's census keys,
+#: ``analysis.spmd_rules.COLLECTIVE_KINDS``): ``psum``/``pmax`` are
+#: ``all_reduce``, ``all_gather`` is ``all_gather``, ``ppermute`` is
+#: ``ppermute``; the port issues no reduce_scatter or all_to_all.
+CENSUS_KINDS = ("all_reduce", "all_gather", "reduce_scatter", "ppermute",
+                "all_to_all")
+
+#: Collectives issued by every :class:`Axis` of this process (an axis of
+#: size 1 issues none), the host copies gloo staging made, and their
+#: bytes; and per census kind its count (``"<kind>"``) and its operand
+#: bytes (``"<kind>_bytes"``).
+COUNTS = {"collectives": 0, "host_copies": 0, "host_bytes": 0,
+          **{k: 0 for k in CENSUS_KINDS},
+          **{f"{k}_bytes": 0 for k in CENSUS_KINDS}}
 
 
 def zero_counts() -> None:
     for name in COUNTS:
         COUNTS[name] = 0
+
+
+def census() -> dict[str, dict[str, int]]:
+    """``{kind: {"count": n, "bytes": b}}`` over every census kind (zeros
+    included) from :data:`COUNTS`."""
+    return {k: {"count": COUNTS[k], "bytes": COUNTS[f"{k}_bytes"]}
+            for k in CENSUS_KINDS}
 
 
 class Axis:
@@ -62,10 +79,13 @@ class Axis:
 
     # -- staging -----------------------------------------------------------
 
-    def _host(self, x):
+    def _host(self, x, kind: str):
         """``x`` where the backend can take it: a contiguous copy, on the
-        host under gloo staging, bool as uint8."""
+        host under gloo staging, bool as uint8. Counts one collective of
+        ``kind`` on ``x``'s bytes."""
         COUNTS["collectives"] += 1
+        COUNTS[kind] += 1
+        COUNTS[f"{kind}_bytes"] += x.numel() * x.element_size()
         x = x.detach()
         if x.dtype == torch.bool:
             x = x.to(torch.uint8)
@@ -86,7 +106,7 @@ class Axis:
     def _reduce(self, x, op):
         if self.size == 1:
             return x
-        h = self._host(x)
+        h = self._host(x, "all_reduce")
         dist.all_reduce(h, op=op, group=self.group)
         return self._back(h, x)
 
@@ -116,7 +136,7 @@ class Axis:
         return self._gather(x)
 
     def _gather(self, x):
-        h = self._host(x)
+        h = self._host(x, "all_gather")
         parts = [torch.empty_like(h) for _ in range(self.size)]
         dist.all_gather(parts, h, group=self.group)
         return self._back(torch.cat(parts, dim=0), x)
@@ -135,7 +155,7 @@ class Axis:
         recv = [s for s, d in perm if d == self.index]
         if self.size == 1:
             return x.clone() if recv else torch.zeros_like(x)
-        h = self._host(x)
+        h = self._host(x, "ppermute")
         out = torch.zeros_like(h)
         ops = [dist.P2POp(dist.isend, h, self.ranks[d], self.group)
                for d in send if d != self.index]

@@ -113,6 +113,12 @@ def is_primary() -> bool:
     return world()[0] == 0
 
 
+def barrier() -> None:
+    """Wait for every rank of the world (no-op outside one)."""
+    if world()[1] > 1:
+        dist.barrier()
+
+
 def global_mesh(n_sp: int = 1, n_dp: int | None = None,
                 devices=None) -> Mesh | None:
     """(dp, sp) mesh over every process (call after :func:`initialize`)."""

@@ -27,6 +27,15 @@ sum, which reduces each segment in order: deterministic, no host read
 a graph captures it. On the CPU the sums run in another order than XLA's
 scatter, so parity with JAX is held by tolerance.
 
+The fused iteration keeps its pair-row iterates (z, y and the carried
+pair image) in the transpose's own order instead (:class:`_Slots`): each
+row sits once in every segment it is summed into, so a transpose is one
+``segment_reduce`` with no gather before it, and the pair image is
+gathered straight into that order. One iteration is then four serialized
+gather/segment passes, as the JAX package's is (the chain-depth audit,
+AUD003); the sums, their order and every iterate are bit-equal to the
+row-order form's, whose rows the solver's carry keeps.
+
 The adaptive budget (``settings.tol > 0``) is a ``lax.while_loop`` in the
 JAX package. Eagerly it is a host ``while`` that reads the residual once
 per block of ``check_every`` iterations. Inside the compiled rollout's
@@ -62,6 +71,7 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from cbf_tpu_torch.solvers import exact2d
@@ -167,25 +177,46 @@ def _segment_plan(flat_idx, total: int) -> _SegmentPlan:
     return _SegmentPlan(perm, torch.searchsorted(keys, bounds))
 
 
+def _segments(flat, offsets, E: int, n: int):
+    """Segment sums of (rows, C) values already in segment order: (E, n,
+    C), each target's rows summed in order, empty targets 0."""
+    out = torch.segment_reduce(flat, "sum", offsets=offsets, axis=0,
+                               unsafe=True, initial=0.0)
+    return out.reshape(E, n, flat.shape[-1])
+
+
 def _segment_sum(values, plan: _SegmentPlan, E: int, n: int):
-    """Scatter-add of (E, R, 2) values onto (E, n, 2) by ``plan`` — each
+    """Scatter-add of (E, R, C) values onto (E, n, C) by ``plan`` — each
     target's rows summed in row order; empty targets get 0."""
     flat = values.reshape(-1, values.shape[-1]).index_select(0, plan.perm)
-    out = torch.segment_reduce(flat, "sum", offsets=plan.offsets, axis=0,
-                               unsafe=True, initial=0.0)
-    return out.reshape(E, n, values.shape[-1])
+    return _segments(flat, plan.offsets, E, n)
+
+
+class _Slots(NamedTuple):
+    """The fused iteration's layout of the pair rows: L = 2R slots per
+    member, where the transpose reads them. Generic rows: the one-pass
+    plan's order of the I and J endpoints (every row twice, its J copy
+    with ``neg`` set). Agent-major rows (``agent_k``): the R rows in
+    order (the reshape-summed I side), then the J plan's order. Every
+    index is flattened over the E members."""
+    src: torch.Tensor      # (E * L,) the row (of E * R) each slot holds
+    Ig: torch.Tensor       # (E * L,) the slot's endpoints in the (E * N)
+    Jg: torch.Tensor       # agents
+    neg: torch.Tensor      # (E, L) bool: the slot adds -contribution
+    offsets: torch.Tensor  # segment bounds of the summed slots
+    back: torch.Tensor     # (E * R,) one slot of each row
 
 
 class _Pair(NamedTuple):
     """The pair operator's index data for one call: gathers (``Ig``,
     ``Jg`` into the flattened (E * N) agents) and the transpose's
-    segment plans (``plan_I`` None on the agent-major fast path;
-    ``plan_IJ`` the concatenated one-pass plan, else None)."""
+    segment plans (``plan_I`` None on the agent-major fast path), or the
+    fused iteration's :class:`_Slots`."""
     Ig: torch.Tensor
     Jg: torch.Tensor
     plan_I: _SegmentPlan | None
     plan_J: _SegmentPlan | None
-    plan_IJ: _SegmentPlan | None
+    slots: _Slots | None
     E: int
     n: int
     agent_k: int | None
@@ -193,11 +224,51 @@ class _Pair(NamedTuple):
     axis: Any = None      # row-partitioned mode: the axis the psum spans
 
 
+def _slot_layout(plan: _SegmentPlan, Ig, Jg, E: int, R: int,
+                 agent_k) -> _Slots:
+    """:class:`_Slots` of the fused iteration from its transpose plan:
+    the one-pass plan over the (E, 2R) concatenated endpoints, or (agent
+    rows) the J plan over (E, R)."""
+    dev = plan.perm.device
+    if agent_k is None:
+        item = plan.perm
+        member, p = item // (2 * R), item % (2 * R)
+        src = member * R + p % R
+        neg = (p >= R).reshape(E, 2 * R)
+        # Each row's I copy: the inverse permutation's first R per member.
+        back = torch.argsort(plan.perm).reshape(E, 2 * R)[:, :R]
+    else:
+        rows = torch.arange(E * R, dtype=torch.int64, device=dev)
+        src = torch.cat([rows.reshape(E, R), plan.perm.reshape(E, R)],
+                        dim=1)
+        neg = torch.zeros((E, 2 * R), dtype=torch.bool, device=dev)
+        back = (rows.reshape(E, R)
+                + R * torch.arange(E, dtype=torch.int64, device=dev)[:, None])
+    src = src.reshape(-1)
+    return _Slots(src, Ig.index_select(0, src), Jg.index_select(0, src),
+                  neg, plan.offsets, back.reshape(-1))
+
+
+def _to_slots(rows, slots: _Slots):
+    """(E, R, ...) pair-row values -> the (E, L, ...) slot layout."""
+    E = rows.shape[0]
+    flat = rows.reshape(-1, *rows.shape[2:]).index_select(0, slots.src)
+    return flat.reshape(E, -1, *rows.shape[2:])
+
+
+def _to_rows(values, slots: _Slots):
+    """(E, L) slot-layout values -> (E, R) rows (every copy of a row holds
+    the same bits)."""
+    E = values.shape[0]
+    return values.reshape(-1).index_select(0, slots.back).reshape(E, -1)
+
+
 def _pair_layout(I, J, n: int, zero_rows, *, agent_k=None,
-                 rows_start: int = 0, one_pass: bool = False,
+                 rows_start: int = 0, fused: bool = False,
                  axis=None) -> _Pair:
     """Index data of the pair operator over ``I`` (R,) shared and ``J``
-    (E, R) per member, for ``n`` agents.
+    (E, R) per member, for ``n`` agents; ``fused`` lays out the fused
+    iteration's :class:`_Slots`.
 
     The transpose's plans file each all-zero row (``zero_rows`` (E, R),
     whose contribution is 0) under agent ``row % n`` instead of its
@@ -205,7 +276,7 @@ def _pair_layout(I, J, n: int, zero_rows, *, agent_k=None,
     reports agent 0 on every empty slot), and one segment of tens of
     thousands of rows would serialise the segment sum on the card. The
     sums gain only exact zeros."""
-    E = J.shape[0]
+    E, R = J.shape
     Ie = I.to(torch.int64)[None].expand(E, -1)
     Je = J.to(torch.int64)
     Ig, Jg = _member_index(Ie, n), _member_index(Je, n)
@@ -215,17 +286,20 @@ def _pair_layout(I, J, n: int, zero_rows, *, agent_k=None,
                               device=idx.device) % n
         return _member_index(torch.where(zero, spread, idx), n)
 
-    plan_I = plan_J = plan_IJ = None
+    plan_I = plan_J = slots = None
     if agent_k is not None:
         plan_J = _segment_plan(keyed(Je, zero_rows), E * n)
-    elif one_pass:
+        if fused:
+            slots = _slot_layout(plan_J, Ig, Jg, E, R, agent_k)
+    elif fused:
         plan_IJ = _segment_plan(
             keyed(torch.cat([Ie, Je], dim=1),
                   torch.cat([zero_rows, zero_rows], dim=1)), E * n)
+        slots = _slot_layout(plan_IJ, Ig, Jg, E, R, None)
     else:
         plan_I = _segment_plan(keyed(Ie, zero_rows), E * n)
         plan_J = _segment_plan(keyed(Je, zero_rows), E * n)
-    return _Pair(Ig, Jg, plan_I, plan_J, plan_IJ, E, n, agent_k,
+    return _Pair(Ig, Jg, plan_I, plan_J, slots, E, n, agent_k,
                  int(rows_start), axis)
 
 
@@ -234,33 +308,47 @@ def _gather(v, index, E: int):
     return v.reshape(-1, 2).index_select(0, index).reshape(E, -1, 2)
 
 
-def _make_apply_K(coef_s, pair: _Pair, rho, sigma):
+def _make_apply_K(coef_s, pair: _Pair, rho, sigma, coef_T=None):
     """The x-update operator K = (1 + sigma + rho) I + rho A_pair^T A_pair
     over flattened (E, 2N) vectors — the one definition of the pair
-    operator. Returns (apply_K, A_pair, A_pair_T)."""
-    E, n = pair.E, pair.n
+    operator. Returns (apply_K, A_pair, A_pair_T). With the fused
+    iteration's slots, ``coef_s`` and the pair vectors are in the slot
+    layout and ``coef_T`` is ``coef_s`` with the ``neg`` slots negated."""
+    E, n, k = pair.E, pair.n, pair.agent_k
+    sl = pair.slots
 
-    def A_pair(v):                                   # (E, N, 2) -> (E, R)
-        return torch.sum(coef_s * (_gather(v, pair.Ig, E)
-                                   - _gather(v, pair.Jg, E)), dim=2)
+    def agent_block(contrib):
+        """The agent-major I side: each agent's k rows summed, in place."""
+        block = torch.sum(contrib.reshape(E, -1, k, 2), dim=2)
+        m = block.shape[1]
+        if m != n:
+            block = torch.nn.functional.pad(
+                block, (0, 0, pair.rows_start, n - m - pair.rows_start))
+        return block
 
-    def A_pair_T(y):                                 # (E, R) -> (E, N, 2)
-        z = _transpose(coef_s * y[..., None])
+    Ig, Jg = (pair.Ig, pair.Jg) if sl is None else (sl.Ig, sl.Jg)
+
+    def A_pair(v):                           # (E, N, 2) -> (E, R) or (E, L)
+        return torch.sum(coef_s * (_gather(v, Ig, E) - _gather(v, Jg, E)),
+                         dim=2)
+
+    def A_pair_T(y):                         # (E, R) or (E, L) -> (E, N, 2)
+        if sl is not None:
+            if k is None:
+                return _segments((coef_T * y[..., None]).reshape(-1, 2),
+                                 sl.offsets, E, n)
+            R = y.shape[1] // 2
+            return (agent_block(coef_T[:, :R] * y[:, :R, None])
+                    - _segments((coef_T[:, R:] * y[:, R:, None])
+                                .reshape(-1, 2), sl.offsets, E, n))
+        contrib = coef_s * y[..., None]
+        if k is not None:
+            z = agent_block(contrib) - _segment_sum(contrib, pair.plan_J,
+                                                    E, n)
+        else:
+            z = (_segment_sum(contrib, pair.plan_I, E, n)
+                 - _segment_sum(contrib, pair.plan_J, E, n))
         return z if pair.axis is None else pair.axis.psum(z)
-
-    def _transpose(contrib):
-        if pair.agent_k is not None:
-            block = torch.sum(contrib.reshape(E, -1, pair.agent_k, 2), dim=2)
-            m = block.shape[1]
-            if m != n:
-                block = torch.nn.functional.pad(
-                    block, (0, 0, pair.rows_start, n - m - pair.rows_start))
-            return block - _segment_sum(contrib, pair.plan_J, E, n)
-        if pair.plan_IJ is not None:
-            return _segment_sum(torch.cat([contrib, -contrib], dim=1),
-                                pair.plan_IJ, E, n)
-        return (_segment_sum(contrib, pair.plan_I, E, n)
-                - _segment_sum(contrib, pair.plan_J, E, n))
 
     def apply_K(v2):
         v = v2.reshape(E, n, 2)
@@ -342,7 +430,7 @@ class _SolveK(torch.autograd.Function):
                        shifted(lead(pair.Jg, pd.Jg), stride).reshape(-1),
                        fold_plan(pair.plan_I, pd.plan_I),
                        fold_plan(pair.plan_J, pd.plan_J),
-                       fold_plan(pair.plan_IJ, pd.plan_IJ),
+                       None,         # the fused iteration never solves here
                        B * E, pair.n, pair.agent_k, pair.rows_start,
                        pair.axis)
         x = _SolveK.apply(fold(coef_s, in_dims[0]), fold(rhs, in_dims[1]),
@@ -375,6 +463,9 @@ class _PairOps(NamedTuple):
     coef: torch.Tensor    # (E, R, 2) original rows (residual geometry)
     b_pair: torch.Tensor  # (E, R) original pair bounds
     ev_hi: torch.Tensor   # (E,) Chebyshev upper spectral bound for K
+    # The fused iteration: coef_s, b_s, d and b_pair are in the slot layout
+    # (L for R), and coef_T is coef_s signed for the transpose.
+    coef_T: torch.Tensor | None = None
 
 
 def _prepare_ops(u_nom, I, J, coef, b_pair, lo, hi, settings,
@@ -393,7 +484,7 @@ def _prepare_ops(u_nom, I, J, coef, b_pair, lo, hi, settings,
     coef_s = coef * d[..., None]
     zero_rows = torch.all(coef_s == 0.0, dim=2)
     pair = _pair_layout(I, J, N, zero_rows, agent_k=agent_k,
-                        rows_start=rows_start, one_pass=settings.fused,
+                        rows_start=rows_start, fused=settings.fused,
                         axis=axis)
     b_s = torch.where(torch.isfinite(b_pair), b_pair * d, b_pair)
     q = -u_nom.reshape(E, -1)
@@ -412,10 +503,17 @@ def _prepare_ops(u_nom, I, J, coef, b_pair, lo, hi, settings,
     else:
         ev_hi = torch.zeros((E,), dtype=dtype, device=u_nom.device)
 
+    coef_T = None
+    sl = pair.slots
+    if sl is not None:
+        coef_s, b_s, d, b_pair = (
+            _to_slots(a, sl) for a in (coef_s, b_s, d, b_pair))
+        coef_T = torch.where(sl.neg[..., None], -coef_s, coef_s)
     return _PairOps(pair=pair, coef_s=coef_s, b_s=b_s, q=q,
                     lo=torch.broadcast_to(lo, (E, N, 2)).reshape(E, -1),
                     hi=torch.broadcast_to(hi, (E, N, 2)).reshape(E, -1),
-                    d=d, coef=coef, b_pair=b_pair, ev_hi=ev_hi)
+                    d=d, coef=coef, b_pair=b_pair, ev_hi=ev_hi,
+                    coef_T=coef_T)
 
 
 def _amax0(x):
@@ -427,19 +525,20 @@ def _amax0(x):
 
 
 def _iteration_fns(N: int, settings):
-    """(step, residuals, init_carry) over (_PairOps, carry) — the solver's
-    iteration machinery, shared by the single-problem and the lockstep
-    batched drivers. Carry: (x, z_p, z_b, y_p, y_b), each (E, ...), plus
-    the pair image ``A x`` of the current x in fused mode (recomputed from
-    x every iteration, never accumulated). The external warm-state
-    contract stays the 5-tuple."""
+    """(step, residuals, init_carry, final_carry) over (_PairOps, carry) —
+    the solver's iteration machinery, shared by the single-problem and the
+    lockstep batched drivers. Carry: (x, z_p, z_b, y_p, y_b), each (E,
+    ...), plus the pair image ``A x`` of the current x in fused mode
+    (recomputed from x every iteration, never accumulated; the pair rows
+    in the slot layout). The external warm-state contract stays the
+    5-tuple in row order (``final_carry``)."""
     rho, sigma, alpha = settings.rho, settings.sigma, settings.alpha
     fused = settings.fused
     ev_lo = 1.0 + sigma + rho
 
     def step(ops, carry):
         apply_K, A_pair, A_pair_T = _make_apply_K(ops.coef_s, ops.pair,
-                                                  rho, sigma)
+                                                  rho, sigma, ops.coef_T)
         E = ops.pair.E
         if fused:
             x, z_p, z_b, y_p, y_b, Ax = carry
@@ -479,7 +578,8 @@ def _iteration_fns(N: int, settings):
         unscales it instead of paying a fresh gather."""
         x, y_p, y_b = carry[0], carry[3], carry[4]
         E = ops.pair.E
-        _, _, A_pair_T = _make_apply_K(ops.coef_s, ops.pair, rho, sigma)
+        _, _, A_pair_T = _make_apply_K(ops.coef_s, ops.pair, rho, sigma,
+                                       ops.coef_T)
         if fused:
             Ax_orig = carry[5] / ops.d
         else:
@@ -502,9 +602,13 @@ def _iteration_fns(N: int, settings):
         E = ops.pair.E
         if warm_state is not None:
             carry = tuple(warm_state)
+            if fused:
+                # The pair rows into the slot layout.
+                carry = tuple(_to_slots(a, ops.pair.slots) if i in (1, 3, 5)
+                              else a for i, a in enumerate(carry))
             if fused and len(carry) == 5:
                 _, A_pair, _ = _make_apply_K(ops.coef_s, ops.pair, rho,
-                                             sigma)
+                                             sigma, ops.coef_T)
                 carry = carry + (A_pair(carry[0].reshape(E, N, 2)),)
             return carry
         x0 = torch.zeros_like(ops.q)
@@ -514,7 +618,15 @@ def _iteration_fns(N: int, settings):
             carry = carry + (zp0,)   # A_pair(0) == 0
         return carry
 
-    return step, residuals, init_carry
+    def final_carry(ops, carry):
+        """The solver's external 5-tuple carry, pair rows in row order."""
+        carry = tuple(carry[:5])
+        if fused:
+            carry = tuple(_to_rows(a, ops.pair.slots) if i in (1, 3) else a
+                          for i, a in enumerate(carry))
+        return carry
+
+    return step, residuals, init_carry, final_carry
 
 
 def _worst_above(residuals, ops, state, tol: float):
@@ -639,12 +751,13 @@ def _solve_members(u_nom, I, J, coef, b_pair, lo, hi, settings, agent_k,
     E, N = u_nom.shape[0], u_nom.shape[1]
     ops = _prepare_ops(u_nom, I, J, coef, b_pair, lo, hi, settings,
                        agent_k=agent_k, rows_start=rows_start, axis=axis)
-    step, residuals, init_carry = _iteration_fns(N, settings)
+    step, residuals, init_carry, final_carry = _iteration_fns(N, settings)
     carry0 = init_carry(ops, warm_state)
     state, iterations = _drive(step, residuals, ops, carry0, settings)
     primal, dual = residuals(ops, state)
     return (state[0].reshape(E, N, 2),
-            SparseADMMInfo(primal, dual, iterations), tuple(state[:5]))
+            SparseADMMInfo(primal, dual, iterations),
+            final_carry(ops, state))
 
 
 def solve_pair_box_qp_admm_batched(
@@ -678,3 +791,36 @@ def solve_pair_box_qp_admm_batched(
     if with_state:
         return u, info, state
     return u, info
+
+
+def admm_iteration_spec(N: int = 64, k: int = 8,
+                        settings: SparseADMMSettings = SparseADMMSettings(),
+                        agent_k: int | None = None, device=None):
+    """(step_fn, carry0): ONE ADMM iteration as a unary function of its
+    carry, on the JAX package's deterministic synthetic agent-major pair
+    problem (same numpy construction: I = repeat(arange(N), k), J never
+    self, non-degenerate directions), one member — the hook of the
+    chain-depth audit (AUD003, :func:`cbf_tpu_torch.analysis.audits.
+    chain_profile`). ``device`` None is the card."""
+    from cbf_tpu_torch.scenarios.swarm import resolve_device
+
+    device = resolve_device(device)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    idx = np.arange(N * k)
+    I = t(np.repeat(np.arange(N), k), torch.int32)
+    J = t((np.repeat(np.arange(N), k) + 1 + idx % (N - 1)) % N, torch.int32)
+    ang = 0.1 + 0.7 * (idx % 13)
+    coef = t(np.stack([np.cos(ang), np.sin(ang)], axis=1))
+    b_pair = torch.full((N * k,), 0.5, dtype=torch.float32, device=device)
+    s = np.arange(N)
+    u_nom = t(0.1 * np.stack([np.cos(s), np.sin(s)], axis=1))
+    lo = torch.full((N, 2), -1.0, dtype=torch.float32, device=device)
+    hi = torch.full((N, 2), 1.0, dtype=torch.float32, device=device)
+    _validate_settings(settings, None)
+    ops = _prepare_ops(u_nom[None], I, J[None], coef[None], b_pair[None],
+                       lo[None], hi[None], settings, agent_k=agent_k)
+    step, _, init_carry, _ = _iteration_fns(N, settings)
+    return (lambda carry: step(ops, carry)), init_carry(ops, None)

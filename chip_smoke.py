@@ -425,7 +425,15 @@ Phases (each raises, and the script exits non-zero, on any failure):
    ``serve.engine._PROGRAM_LOCK`` witnessed) over a small drain run and a
    small continuous run: ``lockwitness.check_subgraph`` of the static
    graph of ``cbf_tpu_torch/`` is ``[]`` and nothing is inverted (files
-   under ``chiprun_out/phase23*``).
+   under ``chiprun_out/phase23*``). 23a also holds the SPMD census that
+   ``--all`` now runs (one call of each of the five sharded entry points
+   in a world of 4 gloo ranks on the card): every report equal to the
+   committed ``spmd_budget.toml`` under ``mesh_budget.compare``, every
+   rank's peak memory measured, SP003 silent; 23e the chain-depth profile
+   (AUD003) of a CUDA iteration equal to the CPU's (fused <= 4, default
+   7, the agent-major fused path too) and the fused certificate (12c's
+   config) x P23_FUSED_STEPS compiled == eager, its compiled ms per step
+   printed beside the card's name and power limit.
 
 Phases 7-13 run before phase 6, which times their kernels (``knn_fused``
 and ``knn_stream`` also at the certificate's k=16 shape) and profiles
@@ -597,7 +605,9 @@ P22_TIMEOUT_S = 600
 # P23_SERVE_REQUESTS requests of P23_SERVE_N agents x P23_SERVE_STEPS
 # steps, served in drain mode and then continuously (P23_CHUNK-step
 # chunks), max_batch P23_SERVE_BATCH.
-P23_LINT_TIMEOUT_S = 300
+P23_LINT_TIMEOUT_S = 600
+# 23e: the fused certificate (12c's config) compiled == eager, briefly.
+P23_FUSED_STEPS = 5
 P23_LANES, P23_LANE_STEPS = 8, 64
 P23_RADII = tuple(RADIUS + 0.01 * b for b in range(P23_LANES))
 P23_SERVE_N, P23_SERVE_STEPS, P23_SERVE_REQUESTS = 64, 32, 4
@@ -951,6 +961,29 @@ def drive(swarm, engine, knn, cfg, label, kernel, wrap=None, per_step=1):
     return {"state0": state0, "step": step, "final": final,
             "outs": outs, "eager_outs": eager_outs, "launches": launches,
             "wall": min(walls["compiled"]), "info": run_info}
+
+
+def fused_certificate_config(swarm, steps: int):
+    """Phase 12c's run: the fused (Chebyshev) sparse certificate with its
+    Verlet cache at N=CERT_N."""
+    return swarm.Config(n=CERT_N, steps=steps, certificate=True,
+                        certificate_backend="sparse", certificate_fused=True,
+                        certificate_rebuild_skin=CERT_SKIN)
+
+
+def fused_cert_only(engine, knn, swarm, card: str) -> int:
+    """``--fused-cert-only``: phase 12c's fused certificate x
+    CERT_FUSED_STEPS through ``drive`` (compiled == eager, timed in
+    turns), nothing else — so two checkouts (``--root``) can be compared
+    in turns within one machine."""
+    run = drive(swarm, engine, knn,
+                fused_certificate_config(swarm, CERT_FUSED_STEPS),
+                f"fused certificate N={CERT_N}", "knn_fused", per_step=2)
+    print(json.dumps({"fused_cert": {
+        k: run["info"][k] for k in ("steps", "compiled_step_ms",
+                                    "eager_step_ms", "first_call_s")},
+        "package": knn.__file__, "card": card}))
+    return 0
 
 
 def check_run(label, cfg, final, outs, floor=FLOOR, feasible=True):
@@ -5000,7 +5033,7 @@ def phase22_rank() -> dict:
     import torch.distributed as dist
 
     from cbf_tpu_torch.ops import knn
-    from cbf_tpu_torch.parallel import make_mesh, mesh as pmesh
+    from cbf_tpu_torch.parallel import make_mesh, mesh as pmesh, multihost
     from cbf_tpu_torch.rollout import engine
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5018,7 +5051,7 @@ def phase22_rank() -> dict:
            "device": f"cuda:{torch.cuda.current_device()}",
            "backend": dist.get_backend()}
     for key, shape, steps, fn in runs:
-        dist.barrier()
+        multihost.barrier()
         mesh = meshes[shape]
         if mesh is not None:
             zero_counts(engine, knn)
@@ -5042,7 +5075,7 @@ def phase22_rank() -> dict:
                 fn(mesh)
                 torch.cuda.synchronize()
                 out[key]["replay_s"] = time.perf_counter() - t1
-        dist.barrier()
+        multihost.barrier()
     return out
 
 
@@ -5251,7 +5284,7 @@ def phase23(engine, knn, swarm, t_start, root) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from cbf_tpu_torch.analysis import (concurrency, lockwitness,
-                                        program_rules, rule_ids)
+                                        mesh_budget, program_rules, rule_ids)
     from cbf_tpu_torch.parallel import ensemble
     from cbf_tpu_torch.serve import ServeEngine
     from cbf_tpu_torch.serve import engine as serve_engine
@@ -5457,6 +5490,43 @@ def phase23(engine, knn, swarm, t_start, root) -> dict:
           f"the closure of the static graph ({len(static)} edges): "
           f"check_subgraph {problems}, inversions {inverted}; "
           f"{info['23d']['wall_s']:.1f} s")
+    # 23e. the chain depth of a CUDA iteration equal to the CPU's, and the
+    # fused certificate compiled == eager.
+    from cbf_tpu_torch.analysis.audits import (FUSED_CHAIN_DEPTH_BOUND,
+                                               chain_profile)
+    from cbf_tpu_torch.solvers.sparse_admm import SparseADMMSettings
+
+    t0 = time.perf_counter()
+    fused_s = SparseADMMSettings(fused=True, ksolve="chebyshev")
+    profiles = {}
+    for label, settings, agent_k in (
+            ("fused", fused_s, None), ("default", SparseADMMSettings(), None),
+            ("fused agent_k=8", fused_s, 8)):
+        card_p = chain_profile(settings, agent_k=agent_k, device=dev)
+        cpu_p = chain_profile(settings, agent_k=agent_k, device="cpu")
+        hold(card_p == cpu_p, f"23e {label}: card {card_p} != CPU {cpu_p}")
+        profiles[label] = card_p
+    hold(profiles["fused"]["chain_depth"] <= FUSED_CHAIN_DEPTH_BOUND
+         and profiles["fused agent_k=8"]["chain_depth"]
+         <= FUSED_CHAIN_DEPTH_BOUND
+         and profiles["default"]["chain_depth"] == 7,
+         f"23e: chain depths {profiles}")
+    print("phase 23e: chain profile of one ADMM iteration on the card == "
+          "the CPU's: " + json.dumps(profiles))
+    fused_run = drive(swarm, engine, knn,
+                      fused_certificate_config(swarm, P23_FUSED_STEPS),
+                      f"phase 23e: N={CERT_N}, certificate fused (Chebyshev),"
+                      f" skin {CERT_SKIN}", "knn_fused", per_step=2)
+    card = card_line()
+    info["23e"] = {"chain_profiles": profiles, "card": card,
+                   "compiled_step_ms": fused_run["info"]["compiled_step_ms"],
+                   "eager_step_ms": fused_run["info"]["eager_step_ms"],
+                   "wall_s": time.perf_counter() - t0}
+    print(f"phase 23e: fused certificate N={CERT_N} x {P23_FUSED_STEPS} "
+          f"compiled == eager; compiled ms per step "
+          f"{fused_run['info']['compiled_step_ms']} on {card}; "
+          f"{info['23e']['wall_s']:.1f} s")
+
     try:
         stdout, stderr = lint.communicate(timeout=P23_LINT_TIMEOUT_S)
     finally:
@@ -5471,12 +5541,34 @@ def phase23(engine, knn, swarm, t_start, root) -> dict:
         rec = json.loads(stdout)
     except ValueError:
         rec = {"findings": [], "suppressed": [], "stale_suppressions": [],
-               "lock_order_graph": []}
+               "lock_order_graph": [], "spmd_census": {}}
         hold(False, f"23a: no JSON from lint: {stderr[-2000:]}")
     for f in rec["findings"]:
         print(f"  23a finding {f['rule']} {f['path']}:{f['line']} "
               f"{f['symbol']}: {f['message']}")
     hold(lint.returncode == 0, f"23a: lint --all exited {lint.returncode}")
+    census = rec.get("spmd_census", {}).get("entrypoints", {})
+    budget = mesh_budget.load()
+    hold(set(census) == set(budget.entries) and len(census) == 5,
+         f"23a: census entries {sorted(census)}")
+    for name, report in census.items():
+        found = mesh_budget.compare(name, report, budget.entries.get(name))
+        hold(found == [], f"23a {name}: {[f.message for f in found]}")
+        peaks = report.get("rank_peak_bytes") or []
+        hold(len(peaks) == report["devices"]
+             and all(isinstance(p, int) for p in peaks),
+             f"23a {name}: rank peaks {peaks}")
+        print(f"phase 23a: census {name} ({report['mesh']}): "
+              f"{ {k: c for k, c in report['collectives'].items() if c} } "
+              f"operand bytes "
+              f"{ {k: b for k, b in report['collective_bytes'].items() if b} }"
+              f", rank peaks {peaks} B (budget "
+              f"{budget.entries[name].peak_bytes} B), one-rank peak "
+              f"{report['baseline_peak_bytes']} B, shrink {report['shrink']}")
+    sp003 = [f for f in rec["findings"] + rec["suppressed"]
+             if f["rule"] == "SP003"]
+    hold(sp003 == [], f"23a: SP003 {sp003}")
+    info["23a_census"] = census
     info["23a"] = {"rules": rule_ids(), "active": len(rec["findings"]),
                    "suppressed": len(rec["suppressed"]),
                    "stale": len(rec["stale_suppressions"]),
@@ -5511,6 +5603,9 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--phase23", action="store_true",
                     help="only build the kernels and run phase 23 (static "
                     "analysis on the card; no result line)")
+    ap.add_argument("--fused-cert-only", action="store_true",
+                    help="only time phase 12c's fused certificate, compiled "
+                    "and eager (no other checks, no result line)")
     ap.add_argument("--root", default=None,
                     help="import cbf_tpu_torch from this checkout instead")
     args = ap.parse_args(argv)
@@ -5531,6 +5626,11 @@ def main(argv: list[str]) -> int:
     if args.time_only:
         knn.build_library()
         return time_only(knn, swarm, card_line())
+    if args.fused_cert_only:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        knn.build_library()
+        return fused_cert_only(engine, knn, swarm, card_line())
     if args.phase22:
         import os
 
@@ -5995,11 +6095,8 @@ def main(argv: list[str]) -> int:
         wrap=one_block)
     check(redo["info"]["redos"] == 1,
           f"phase 12b B=1: {redo['info']['redos']} redos, want 1")
-    fused = cert_run("c", swarm.Config(
-        n=CERT_N, steps=CERT_FUSED_STEPS, certificate=True,
-        certificate_backend="sparse", certificate_fused=True,
-        certificate_rebuild_skin=CERT_SKIN), per_step=2,
-        note=f", fused (Chebyshev), skin {CERT_SKIN}")
+    fused = cert_run("c", fused_certificate_config(swarm, CERT_FUSED_STEPS),
+                     per_step=2, note=f", fused (Chebyshev), skin {CERT_SKIN}")
     rebuilds = fused["info"]["eager_launches"] - CERT_FUSED_STEPS
     fused["cert"]["eager_rebuilds"] = rebuilds
     print(f"phase 12c: {rebuilds} certificate-search rebuilds in "

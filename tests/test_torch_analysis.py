@@ -20,9 +20,10 @@ package's analyser on the CPU.
   their detection of planted holes; the counterparts of
   test_platform.py's AUD007 tests and test_fleet.py's schema-audit test.
 - The CLI: ``lint --all --device cpu`` exits 0 on the repo (the standing
-  gate), exit codes 0/1/2, a malformed baseline exits 2, ``--spmd`` exits
-  2 naming Queue A12b; every registered rule is documented in the
-  README's port section.
+  gate, the SPMD census included), exit codes 0/1/2, a malformed baseline
+  exits 2, ``--spmd`` and ``--write-spmd-budget`` (with and without
+  ``--reason``) give JAX's exit codes; every registered rule is
+  documented in the README's port section.
 """
 
 import json
@@ -594,14 +595,18 @@ def test_baseline_requires_reason(tmp_path):
 
 
 def test_baseline_rejects_unknown_and_unported_rules(tmp_path):
-    """An unknown ID is refused, and so is an SPMD rule the port has not
-    registered yet (Queue A12b)."""
+    """An unknown ID is refused; the SPMD rules and the chain-depth and
+    spmd-budget audits are registered, so their entries load."""
     for rule in ("ZZ999", "SP001", "AUD003", "AUD009"):
         (tmp_path / "baseline.toml").write_text(
             f'[[suppress]]\nrule = "{rule}"\npath = "x.py"\n'
             'symbol = "f"\nreason = "typo"\n')
-        with pytest.raises(baseline.BaselineError):
-            baseline.load(str(tmp_path / "baseline.toml"))
+        if rule == "ZZ999":
+            with pytest.raises(baseline.BaselineError):
+                baseline.load(str(tmp_path / "baseline.toml"))
+        else:
+            (sup,) = baseline.load(str(tmp_path / "baseline.toml"))
+            assert sup.rule == rule
 
 
 def test_baseline_fallback_parser_matches_render():
@@ -766,7 +771,7 @@ def test_approved_host_calls_is_empty():
 # -- audits -----------------------------------------------------------------
 
 def test_audits_clean_on_repo():
-    assert audits.run_audits(_ROOT) == []
+    assert audits.run_audits(_ROOT, device="cpu") == []
 
 
 def test_aud007_green_on_shipped_registry():
@@ -887,13 +892,14 @@ def repo_lint():
     return run_lint([os.path.join(_ROOT, "cbf_tpu_torch"),
                      os.path.join(_ROOT, "chip_smoke.py")],
                     repo_root=_ROOT, jaxpr=True, audits=True,
-                    concurrency=True, device="cpu")
+                    concurrency=True, spmd=True, device="cpu")
 
 
 def test_repo_is_lint_clean(repo_lint):
     """The standing gate: AST rules over the port and chip_smoke.py, the
-    program checks on the CPU, the audits and the concurrency analyser
-    exit 0 against the port's baseline, with no stale entry."""
+    program checks on the CPU, the audits, the concurrency analyser and
+    the SPMD census exit 0 against the port's baseline, with no stale
+    entry."""
     assert repo_lint.exit_code == 0, "\n" + render_text(repo_lint)
     assert repo_lint.stale == []
     assert {f.rule for f, _ in repo_lint.suppressed} <= set(RULES)
@@ -906,6 +912,7 @@ def test_cli_lint_all_cpu_exit_zero(capsys):
     payload = json.loads(capsys.readouterr().out)
     assert payload["exit_code"] == 0 and payload["findings"] == []
     assert "lock_order_graph" in payload
+    assert len(payload["spmd_census"]["entrypoints"]) == 5
 
 
 def test_cli_lint_bad_string_exit_one(tmp_path, capsys):
@@ -943,24 +950,54 @@ def test_cli_lint_malformed_baseline_exit_two(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [["--spmd"], ["--write-spmd-budget"],
                                    ["--write-spmd-budget", "--reason", "x"]])
-def test_cli_lint_spmd_is_out_of_slice(flags, capsys):
+def test_cli_lint_spmd_is_out_of_slice(flags, tmp_path, monkeypatch,
+                                       capsys):
+    """The SPMD flags run (no out-of-slice exit): ``--spmd`` lints a clean
+    file with the census at exit 0; ``--write-spmd-budget`` over a budget
+    with no rows exits 2 asking for a reason, and with ``--reason`` writes
+    every entry point's row (into a copy, never the committed file)."""
     from cbf_tpu_torch.__main__ import main
+    from cbf_tpu_torch.analysis import mesh_budget
 
-    assert main(["lint", *flags]) == 2
-    err = capsys.readouterr().err
-    assert "Queue A12b" in err and "not ported yet" in err
+    budget = tmp_path / "spmd_budget.toml"
+    budget.write_text("schema = 1\n")
+    if "--write-spmd-budget" in flags:
+        monkeypatch.setattr(mesh_budget, "DEFAULT_PATH", str(budget))
+    empty = tmp_path / "none.toml"
+    empty.write_text("")
+    target = tmp_path / "clean.py"
+    target.write_text(CLEAN["TS001"])
+    rc = main(["lint", *flags, "--device", "cpu", "--baseline", str(empty),
+               str(target)])
+    out, err = capsys.readouterr()
+    assert "not ported yet" not in err
+    if flags == ["--spmd"]:
+        assert rc == 0, out + err
+        assert "lint: 0 findings" in out
+    elif "--reason" not in flags:
+        assert rc == 2 and "pass a reason" in err
+        assert budget.read_text() == "schema = 1\n"
+    else:
+        assert rc == 0 and "(5 entries)" in out
+        rows = mesh_budget.load(str(budget)).entries
+        assert len(rows) == 5 and {r.reason for r in rows.values()} == {"x"}
 
 
 def test_rules_documented():
     """Every registered rule ID appears in the README's port section (the
-    static-analysis table), and the SPMD half is named as waiting."""
+    static-analysis table), the SPMD rules, AUD003 and AUD009 among them,
+    and no longer marked as waiting for Queue A12b."""
     with open(os.path.join(_ROOT, "README.md")) as fh:
         readme = fh.read()
     port = readme[readme.index("## PyTorch/CUDA port"):
                   readme.index("## Testing")]
     missing = [rid for rid in RULES if f"| `{rid}` |" not in port]
     assert not missing, f"undocumented rules: {missing}"
-    for needle in ("Queue A12b", "lint --all --device cpu", "check_subgraph",
+    for needle in ("lint --all --device cpu", "lint --spmd --device cpu",
+                   "spmd_budget.toml", "check_subgraph",
                    audits.MAP_START, audits.MAP_END):
         assert needle in port, needle
-    assert not {"SP001", "AUD003", "AUD009"} & set(RULES)
+    spmd = {"SP001", "SP002", "SP003", "SP004", "SP005", "SP006", "AUD003",
+            "AUD009"}
+    assert spmd <= set(RULES)
+    assert "Queue A12b" not in port
